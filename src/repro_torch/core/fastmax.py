@@ -1,0 +1,227 @@
+"""FAST / Fastmax attention, forward only — port of `repro/core/fastmax.py`.
+
+f(x) = sum_{l<=p} x^l / l! on statistically normalized q, k factorizes
+through key/value *moments*, so causal attention is a chunked prefix scan
+with an O(D^{p+1}) carry. `_causal_scan` is the plain version of the CUDA
+prefill kernel (`repro_torch.kernels.fastmax_causal`).
+
+Shapes: q [B, Hq, N, D]; k, v [B, Hkv, N, *] with Hq % Hkv == 0. Moments
+are computed once per kv head and shared by the query group. The
+feature-sharded variants, the §2.5 custom backward and the rowwise /
+dropout schedule of the JAX module are not part of this port slice.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.ref import normalize_qk, poly_kernel
+from repro_torch.kernels.tiling import SCAN_BM_BUDGET, pick_bm
+
+__all__ = ["Moments", "compute_moments", "combine_with_queries",
+           "normalize_qk", "poly_kernel"]
+
+
+class Moments(NamedTuple):
+    """Factorized key/value moments (paper Eqs. 28-29), per batch x kv-head.
+
+      m0 [..., Dv]        sum_n w_n v_n
+      m1 [..., D, Dv]     sum_n w_n k_n v_n^T
+      m2 [..., D, D, Dv]  sum_n w_n (k_n k_n^T) v_n  (zeros at p=1)
+      g0 [...]            sum_n w_n
+      g1 [..., D]         sum_n w_n k_n
+      g2 [..., D, D]      sum_n w_n k_n k_n^T        (zeros at p=1)
+    """
+
+    m0: torch.Tensor
+    m1: torch.Tensor
+    m2: torch.Tensor
+    g0: torch.Tensor
+    g1: torch.Tensor
+    g2: torch.Tensor
+
+    def __add__(self, other: "Moments") -> "Moments":
+        return Moments(*(a + b for a, b in zip(self, other)))
+
+    def __sub__(self, other: "Moments") -> "Moments":
+        return Moments(*(a - b for a, b in zip(self, other)))
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """At-least-float32 accumulator type (bf16 -> f32; f64 stays f64)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(_acc_dtype(x))
+
+
+def _pick_bm(d: int) -> int:
+    return pick_bm(d, SCAN_BM_BUDGET)
+
+
+def compute_moments(k, v, *, p: int, kv_mask: Optional[torch.Tensor] = None,
+                    accum_dtype=None) -> Moments:
+    """Moments of (k, v) over the token axis. k [..., N, D], v [..., N, Dv].
+
+    `kv_mask` ([..., N], 1 = valid) removes padding tokens from numerator
+    and denominator alike.
+    """
+    d, dv = k.shape[-1], v.shape[-1]
+    acc = accum_dtype or _acc_dtype(k)
+    kf, vf = k.to(acc), v.to(acc)
+    if kv_mask is not None:
+        w = kv_mask.to(acc)
+        kw, vw = kf * w[..., None], vf * w[..., None]
+        g0 = w.sum(dim=-1)
+    else:
+        kw, vw = kf, vf
+        g0 = torch.full(k.shape[:-2], float(k.shape[-2]), dtype=acc,
+                        device=k.device)
+    m0 = vw.sum(dim=-2)
+    m1 = torch.einsum("...nm,...nj->...mj", kw, vf)
+    g1 = kw.sum(dim=-2)
+    if p >= 2:
+        # m-blocked: never materialize [..., N, D, D]
+        bm = _pick_bm(d)
+        parts = []
+        for s in range(0, d, bm):
+            t = (kw[..., :, s:s + bm, None] * kf[..., :, None, :]).reshape(
+                *k.shape[:-1], bm * d)
+            w2 = torch.einsum("...nf,...nj->...fj", t, vf)
+            parts.append(w2.reshape(*k.shape[:-2], bm, d, dv))
+        m2 = torch.cat(parts, dim=-3)
+        g2 = torch.einsum("...nm,...nl->...ml", kw, kf)
+    else:
+        shape = k.shape[:-2]
+        m2 = torch.zeros(shape + (d, d, dv), dtype=acc, device=k.device)
+        g2 = torch.zeros(shape + (d, d), dtype=acc, device=k.device)
+    return Moments(m0, m1, m2, g0, g1, g2)
+
+
+def combine_with_queries(q, mom: Moments, *, p: int):
+    """Per-query contraction with moments (paper Eqs. 26-27).
+
+    q [..., n, D]; moments broadcast against q's batch dims.
+    Returns (num [..., n, Dv], den [..., n]).
+    """
+    acc = torch.promote_types(_acc_dtype(q), mom.m1.dtype)
+    qf = q.to(acc)
+    m = Moments(*(x.to(acc) for x in mom))
+    num = m.m0[..., None, :] + torch.einsum("...nm,...mj->...nj", qf, m.m1)
+    den = m.g0[..., None] + torch.einsum("...nm,...m->...n", qf, m.g1)
+    if p >= 2:
+        d, dv = qf.shape[-1], m.m2.shape[-1]
+        bm = _pick_bm(d)
+        num2 = None
+        for s in range(0, d, bm):
+            y = (qf[..., :, s:s + bm, None] * qf[..., :, None, :]).reshape(
+                *qf.shape[:-1], bm * d)
+            z = m.m2[..., s:s + bm, :, :].reshape(
+                *m.m2.shape[:-3], bm * d, dv)
+            c = torch.einsum("...nf,...fj->...nj", y, z)
+            num2 = c if num2 is None else num2 + c
+        num = num + 0.5 * num2
+        t = torch.einsum("...nm,...ml->...nl", qf, m.g2)
+        den = den + 0.5 * torch.einsum("...nl,...nl->...n", t, qf)
+    return num, den
+
+
+# ---------------------------------------------------------------------------
+# GQA plumbing
+# ---------------------------------------------------------------------------
+
+
+def _group_queries(q: torch.Tensor, h_kv: int) -> torch.Tensor:
+    """[B, Hq, N, D] -> [B, Hkv, G, N, D]."""
+    b, hq, n, d = q.shape
+    if hq % h_kv != 0:
+        raise ValueError(f"Hq={hq} not divisible by Hkv={h_kv}")
+    return q.reshape(b, h_kv, hq // h_kv, n, d)
+
+
+def _ungroup(o: torch.Tensor) -> torch.Tensor:
+    """[B, Hkv, G, N, Dv] -> [B, Hq, N, Dv]."""
+    b, hkv, g, n, dv = o.shape
+    return o.reshape(b, hkv * g, n, dv)
+
+
+def _combine_grouped(qg, mom: Moments, *, p: int):
+    """combine_with_queries with the G axis folded into the token axis."""
+    b, hkv, g, n, d = qg.shape
+    num, den = combine_with_queries(qg.reshape(b, hkv, g * n, d), mom, p=p)
+    return num.reshape(b, hkv, g, n, -1), den.reshape(b, hkv, g, n)
+
+
+# ---------------------------------------------------------------------------
+# Causal chunked scan
+# ---------------------------------------------------------------------------
+
+
+def _intra_chunk(qg, kc, vc, *, p: int, wc):
+    """Exact within-chunk causal terms through the c x c score block.
+
+    qg [B,Hkv,G,c,D], kc [B,Hkv,c,D], vc [B,Hkv,c,Dv], wc [B,Hkv,c].
+    Returns (num [B,Hkv,G,c,Dv], den [B,Hkv,G,c]).
+    """
+    c = kc.shape[-2]
+    acc = _acc_dtype(qg)
+    s = torch.einsum("...gnd,...md->...gnm", qg.to(acc), kc.to(acc))
+    fs = poly_kernel(s, p) * torch.ones(c, c, dtype=acc,
+                                        device=s.device).tril()
+    if wc is not None:
+        fs = fs * wc[..., None, None, :].to(acc)
+    num = torch.einsum("...gnm,...mj->...gnj", fs, vc.to(acc))
+    return num, fs.sum(dim=-1)
+
+
+def _causal_scan(q, k, v, *, p: int, chunk_size: int,
+                 kv_mask: Optional[torch.Tensor], denom_eps: float,
+                 init: Optional[Moments] = None):
+    """Chunked causal fastmax. Returns (o [B,Hq,N,Dv], final Moments).
+
+    The carry holds the moments of all previous chunks; each chunk adds an
+    exact intra-chunk term. `init` seeds the carry (resumable prefill: the
+    queries of this call also attend to every token folded into `init`).
+    o and the moments come out in the accumulator type of k.
+    """
+    b, hq, n, d = q.shape
+    hkv, dv = k.shape[1], v.shape[-1]
+    cs = min(chunk_size, n)
+    nc = -(-n // cs)
+    pad = nc * cs - n
+    if kv_mask is None:
+        w = torch.ones(b, hkv, n, dtype=torch.float32, device=k.device)
+    else:
+        w = kv_mask.to(torch.float32)
+    qp = F.pad(q, (0, 0, 0, pad))
+    kp = F.pad(k, (0, 0, 0, pad))
+    vp = F.pad(v, (0, 0, 0, pad))
+    wp = F.pad(w, (0, pad))
+    qg = _group_queries(qp, hkv)
+    g = qg.shape[2]
+
+    acc = _acc_dtype(k)
+    if init is None:
+        carry = Moments(
+            torch.zeros(b, hkv, dv, dtype=acc, device=k.device),
+            torch.zeros(b, hkv, d, dv, dtype=acc, device=k.device),
+            torch.zeros(b, hkv, d, d, dv, dtype=acc, device=k.device),
+            torch.zeros(b, hkv, dtype=acc, device=k.device),
+            torch.zeros(b, hkv, d, dtype=acc, device=k.device),
+            torch.zeros(b, hkv, d, d, dtype=acc, device=k.device))
+    else:
+        carry = Moments(*(x.to(acc) for x in init))
+
+    outs = []
+    for c in range(nc):
+        sl = slice(c * cs, (c + 1) * cs)
+        qc, kc, vc, wc = qg[:, :, :, sl], kp[:, :, sl], vp[:, :, sl], wp[..., sl]
+        num_i, den_i = _combine_grouped(qc, carry, p=p)
+        num_a, den_a = _intra_chunk(qc, kc, vc, p=p, wc=wc)
+        outs.append((num_i + num_a) / (den_i + den_a + denom_eps)[..., None])
+        carry = carry + compute_moments(kc, vc, p=p, kv_mask=wc)
+    o = torch.cat(outs, dim=3)
+    return _ungroup(o)[:, :, :n], carry

@@ -1,0 +1,179 @@
+"""Decoder-only LM for serving — port of `repro/models/transformer.py`.
+
+This slice ports the dense `"attn:mlp"` pattern (qwen3, llama3, qwen2.5,
+granite): config, initialization, prefill and one-token decode. Layers run
+as a Python loop over the stacked `blocks_0` parameters (the reference
+scans them); the decode state is stacked the same way, [n_layers, B, ...],
+and each layer's state is a contiguous view that the attention step
+updates in place. Other mixers (MoE, MLA, Mamba, xLSTM), encoder-decoder
+models and the training forward/loss come in later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.attention import AttentionSpec, AttnState
+from repro_torch.core.fastmax import Moments
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.param import Builder
+
+__all__ = ["ModelConfig", "init_lm", "init_lm_decode_state", "lm_prefill",
+           "lm_decode_step"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int = 8
+    head_dim: int = 64
+    d_ff: int = 2048
+    pattern: Tuple[str, ...] = ("attn:mlp",)
+    first_k_dense: int = 0
+    attn: AttentionSpec = AttentionSpec()
+    chunk_size: int = 128
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    mlp_act: str = "swiglu"
+    norm_type: str = "rmsnorm"
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    param_dtype: str = "float32"
+    activ_dtype: str = "float32"
+    logits_softcap: float = 0.0
+
+    @property
+    def attn_spec(self) -> AttentionSpec:
+        """The attention spec with the model's chunk_size filled in."""
+        if self.attn.chunk_size is not None:
+            return self.attn
+        return dataclasses.replace(self.attn, chunk_size=self.chunk_size)
+
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def adtype(self) -> torch.dtype:
+        return getattr(torch, self.activ_dtype)
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if tuple(cfg.pattern) != ("attn:mlp",) or cfg.first_k_dense:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense 'attn:mlp' pattern is ported "
+            f"(got {cfg.pattern}, first_k_dense={cfg.first_k_dense})")
+    if cfg.norm_type != "rmsnorm" or cfg.mlp_act != "swiglu":
+        raise NotImplementedError(
+            f"{cfg.name}: only rmsnorm + swiglu are ported (got "
+            f"{cfg.norm_type}, {cfg.mlp_act})")
+
+
+def init_lm(cfg: ModelConfig, *, seed: int = 0,
+            generator: Optional[torch.Generator] = None, device=None) -> dict:
+    """Random parameters at the config's widths, drawn from `generator` (or
+    a fresh one seeded with `seed`) on `device` (default cuda)."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    b = Builder(generator, cfg.dtype(), dev)
+    b.add("embed", (cfg.vocab_size, cfg.d_model), scale=1.0)
+    blk = b.stacked("blocks_0", cfg.n_layers)
+    L.init_norm(blk, "norm1", cfg.d_model)
+    L.init_attention(blk, "mixer", cfg)
+    L.init_norm(blk, "norm2", cfg.d_model)
+    L.init_mlp(blk, "ffn", cfg.d_model, cfg.d_ff)
+    L.init_norm(b, "final_norm", cfg.d_model)
+    if not cfg.tie_embeddings:
+        b.add("unembed", (cfg.d_model, cfg.vocab_size))
+    return b.params
+
+
+def _layer(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _layer_state(state: AttnState, i: int) -> AttnState:
+    return AttnState(kv=None, moments=Moments(*(t[i] for t in state.moments)))
+
+
+def init_lm_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
+                         device=None) -> dict:
+    """Zero decode state for `batch` sequences: {"blocks_0": AttnState}
+    whose moments are stacked [n_layers, B, Hkv, ...]."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    one = L.init_attn_state(cfg, 1, max_len, cfg.adtype(), device="meta")
+    moments = Moments(*(
+        torch.zeros((cfg.n_layers, batch) + tuple(t.shape[1:]),
+                    dtype=t.dtype, device=dev) for t in one.moments))
+    return {"blocks_0": AttnState(kv=None, moments=moments)}
+
+
+def _logits(params, x, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        # tied head, scaled by 1/sqrt(d) (embeddings are unit-scale)
+        logits = torch.einsum("bnd,vd->bnv", x, params["embed"]) \
+            * (cfg.d_model ** -0.5)
+    else:
+        logits = torch.einsum("bnd,dv->bnv", x, params["unembed"])
+    if cfg.logits_softcap > 0:
+        c = cfg.logits_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+def _block(params_b, x, cfg: ModelConfig, attn):
+    h = L.apply_norm(params_b["norm1"], x, norm_type=cfg.norm_type,
+                     eps=cfg.norm_eps)
+    x = x + attn(params_b["mixer"], h)
+    h = L.apply_norm(params_b["norm2"], x, norm_type=cfg.norm_type,
+                     eps=cfg.norm_eps)
+    return x + L.apply_mlp(params_b["ffn"], h, act=cfg.mlp_act)
+
+
+def lm_prefill(params, tokens, cfg: ModelConfig, state, *, offset=None,
+               kv_mask=None):
+    """Prefill a prompt: returns (logits [B, N, vocab], state), the state
+    primed in place. `offset` resumes an already-primed state (tokens at
+    [offset, offset + n)); `kv_mask` [B, N] masks right-padding."""
+    _check_supported(cfg)
+    x = params["embed"][tokens].to(cfg.adtype())
+    st = state["blocks_0"]
+    for i in range(cfg.n_layers):
+        st_i = _layer_state(st, i)
+        x = _block(_layer(params["blocks_0"], i), x, cfg,
+                   lambda p, h: L.attention_prefill(
+                       p, h, st_i, cfg, kv_mask=kv_mask, offset=offset)[0])
+    x = L.apply_norm(params["final_norm"], x, norm_type=cfg.norm_type,
+                     eps=cfg.norm_eps)
+    return _logits(params, x, cfg), state
+
+
+def lm_decode_step(params, state, token_t, cfg: ModelConfig, *, position):
+    """One token for the whole model. token_t [B] int; `position` a
+    scalar or [B] (see `layers.attention_decode`; an int is moved to the
+    device once here, not once per layer). Returns (logits [B, vocab],
+    state), the state updated in place."""
+    _check_supported(cfg)
+    x = params["embed"][token_t][:, None].to(cfg.adtype())
+    position = torch.as_tensor(position, device=x.device)
+    st = state["blocks_0"]
+    for i in range(cfg.n_layers):
+        st_i = _layer_state(st, i)
+        x = _block(_layer(params["blocks_0"], i), x, cfg,
+                   lambda p, h: L.attention_decode(
+                       p, h, st_i, cfg, position=position)[0])
+    x = L.apply_norm(params["final_norm"], x, norm_type=cfg.norm_type,
+                     eps=cfg.norm_eps)
+    return _logits(params, x, cfg)[:, 0], state
