@@ -5,8 +5,9 @@
 Phases, one line each (then a JSON line of kernel numbers, the card's name
 and power limit, and the result line last):
   1. device   — needs CUDA; TF32 off for float32 products.
-  2. build    — compiles both CUDA kernels from src/repro_torch/kernels/csrc
-                with nvcc (one process per source, in parallel).
+  2. build    — compiles the three CUDA kernels from
+                src/repro_torch/kernels/csrc with nvcc (one process per
+                source, in parallel).
   3. kernels  — each kernel against its plain PyTorch version at the model's
                 widths (B=2, Hq=16, Hkv=8, D=Dv=128, p=2): prefill N=1024,
                 and N=1000 with a ragged kv_mask and an init_state, float32
@@ -24,6 +25,24 @@ and power limit, and the result line last):
                 float32 and bfloat16: prefill o and all six moments, then
                 one decode step's o and updated moments; then timed against
                 their plain versions and their bounds.
+  7. bwd      — the §2.5 backward kernel against its plain version
+                (D=Dv=128, Hq=16, Hkv=8), float32 and bfloat16: p=2 at B=2
+                N=1024, at B=2 N=1000 on a forward seeded from an
+                init_state with return_dstate (all six dstate moments), at
+                B=4 N=1024 (the training path's shapes, then timed), and
+                one p=1 case; dq, dk, dv row by row past the kernel's
+                first chunk, that chunk's rows against float64.
+  8. train    — full-width qwen3-1.7b, attn fastmax2-kernel, bfloat16,
+                remat="full", AdamW from pick_optimizer, B=4, N=1024,
+                batches from SyntheticLM: one loss and grad on the kernel
+                and the plain (fastmax2-chunked) path from the same weights
+                (loss difference, worst per-leaf relative grad difference);
+                then a warm-up step and 3 timed steps on one batch (CUDA
+                events per step; counts reset before each step: exactly
+                n_layers backward and 2 n_layers forward launches); loss
+                falling; step ms, tokens/s, peak memory.
+  9. smoke train — the smoke config in float32: kernel and plain path
+                grads agree per leaf.
 Exits non-zero, printing no result line, when any phase fails.
 """
 from __future__ import annotations
@@ -50,6 +69,34 @@ H100_F32_FLOPS = 67e12       # CUDA-core float32 peak
 TOL_O32 = 1e-4
 TOL_BF16_REL, TOL_BF16_ABS = 2.0 ** -7, 2e-5
 TOL_MOMENTS = 1e-4   # max |diff| / max(1, max |plain|), per moment
+# backward kernel against its plain version (run at the kernel's chunk c),
+# by rows (axis -2: query rows of dq, key rows of dk and dv):
+# - rows past the first chunk, and every row of a seeded forward: float32
+#   at most TOL_GRAD x max(1, max|plain|); bfloat16 per element one bf16
+#   rounding over that float32 limit, 2^-7 |plain| + TOL_GRAD x max(1,
+#   max|plain|) (both versions accumulate in float32 and round once at the
+#   end, so before rounding they differ by the float32 amount). The dstate
+#   moments are float32 and are held to the float32 limit.
+# - the first chunk's rows of an unseeded forward: the §2.5 backward
+#   rebuilds the carry before chunk 0 as final - sum of all chunks, which
+#   leaves float32 rounding of the final carry where the exact carry is
+#   zero, against small denominators. That error is of order 1e-2 of the
+#   scale in ANY implementation (the plain version at chunk 64 and at 512
+#   differ by that much), so there kernel and plain are both held against
+#   float64: the kernel's max error at most GRAD_MARGIN x the plain
+#   version's, or TOL_GRAD of the scale where that is larger
+TOL_GRAD, GRAD_MARGIN = 1e-4, 4
+# train phase, kernel vs plain path from one set of bf16 weights: the two
+# attention paths round their bf16 outputs at different places (one bf16
+# rounding is 2^-8 relative), and the difference is carried through 28
+# layers, the tied unembedding and the softmax. The loss is a forward-only
+# reading that a wrong attention output moves little at random init, so
+# it is held to a few times the 2.9e-4 measured on an H100; the per-leaf
+# grad check (2.3e-2 measured) is the kernel's check, where a layer that
+# took a wrong formula differs at order 1
+TRAIN_LOSS_TOL = 1e-3        # absolute, on a loss of ln(151936) ~ 12
+TRAIN_GRAD_TOL = 0.1         # per leaf, |g_k - g_p| / |g_p| (Frobenius)
+SMOKE_GRAD_TOL = 1e-4        # the same, float32 smoke model
 
 
 def fail(msg: str) -> None:
@@ -99,6 +146,51 @@ def moment_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item() / scale
 
 
+def grad_err(a, plain, exact, first):
+    """One backward output against its plain version and float64, by the
+    rules above; `first` rows (axis -2) are the ill-conditioned first
+    chunk (0: none). Returns (max |kernel - plain| past the first chunk,
+    kernel and plain max errors against float64 in the first chunk,
+    within the limits?)."""
+    tail_k, tail_p = a[..., first:, :].float(), plain[..., first:, :].float()
+    diff = (tail_k - tail_p).abs()
+    lim = TOL_GRAD * max(1.0, tail_p.abs().max().item())
+    if a.dtype == torch.bfloat16:
+        ok = bool((diff <= tail_p.abs() * TOL_BF16_REL + lim).all())
+    else:
+        ok = diff.max().item() <= lim
+    e_k = e_p = 0.0
+    if first:
+        head = exact[..., :first, :]
+        e_k = (a[..., :first, :].double() - head).abs().max().item()
+        e_p = (plain[..., :first, :].double() - head).abs().max().item()
+        ok = ok and e_k <= max(GRAD_MARGIN * e_p,
+                               TOL_GRAD * max(1.0, head.abs().max().item()))
+    return diff.max().item(), e_k, e_p, ok
+
+
+def loss_and_grads(params, batch, cfg):
+    from repro_torch.models import model_loss
+    from repro_torch.optim.grad_utils import leaves
+
+    named = leaves(params)
+    for _, x in named:
+        x.requires_grad_(True)
+    loss, _ = model_loss(params, batch, cfg)
+    grads = torch.autograd.grad(loss, [x for _, x in named])
+    for _, x in named:
+        x.requires_grad_(False)
+    return loss.detach().float(), dict(zip([n for n, _ in named], grads))
+
+
+def worst_leaf(gk, gp):
+    """(leaf, |g_k - g_p| / |g_p|) of the leaf that differs most."""
+    errs = {n: ((gk[n].float() - gp[n].float()).norm()
+                / gp[n].float().norm().clamp_min(1e-30)).item() for n in gp}
+    name = max(errs, key=errs.get)
+    return name, errs[name]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -110,6 +202,8 @@ def main() -> None:
     from repro_torch.kernels.fastmax_causal import (fastmax_causal_cuda,
                                                     fastmax_causal_ref,
                                                     pick_chunk)
+    from repro_torch.kernels.fastmax_causal_bwd import (
+        fastmax_causal_bwd_cuda, fastmax_causal_bwd_ref, kernel_chunk)
     from repro_torch.kernels.fastmax_decode import fastmax_decode_cuda
     from repro_torch.kernels.ref import fastmax_decode_ref
     from repro_torch.launch.serve import generate
@@ -250,7 +344,7 @@ def main() -> None:
         total_s = time.monotonic() - t0
         launches = ops.launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        want = {"fastmax_causal": cfg.n_layers,
+        want = {"fastmax_causal": cfg.n_layers, "fastmax_causal_bwd": 0,
                 "fastmax_decode": cfg.n_layers * (G - 1)}
         if launches != want:
             fail(f"launch counts {launches}, expected {want}")
@@ -346,12 +440,189 @@ def main() -> None:
                                   + 2 * (d + 1) * (d + 1))
         fd_bound = max(fd_bytes / H100_BYTES_PER_S,
                        fd_ops / H100_F32_FLOPS) * 1e3
-        print(f"  timing: prefill kernel {fc_ms:.3f} ms (plain {fc_plain:.3f}"
-              f", bound {fc_bound:.3f} bf16-peak / "
+        print(f"  timing (shapes): prefill kernel {fc_ms:.3f} ms (plain "
+              f"{fc_plain:.3f}, bound {fc_bound:.3f} bf16-peak / "
               f"{fc_ops / H100_F32_FLOPS * 1e3:.3f} f32-peak, "
               f"{fc_ops / fc_ms / 1e9:.2f} TFLOP/s); decode kernel "
               f"{fd_ms:.4f} ms (plain {fd_plain:.4f}, bound {fd_bound:.4f}, "
               f"{fd_bytes / fd_ms / 1e6:.0f} GB/s)")
+        del rc_st, kst
+        torch.cuda.empty_cache()
+
+    # ---- 7. the backward kernel against its plain version (outside
+    # inference mode: the plain version differentiates with autograd) ----
+    cb = kernel_chunk(gq, d)
+
+    def bwd_case(b, n, dtype, p, seeded):
+        # at p=1, f(s) = 1 + s is sign-indefinite at the model's scale
+        # (|s| up to D): denominators can nearly cancel, and which
+        # float32 summation order lands nearer float64 is luck; q̂/D
+        # keeps |s| <= 1 and f >= 0
+        qs = 1.0 / d if p == 1 else 1.0
+        q = (normalize_qk(randn(b, hq, n, d)) * qs).to(dtype)
+        k = normalize_qk(randn(b, hkv, n, d)).to(dtype)
+        v = randn(b, hkv, n, d).to(dtype)
+        do = randn(b, hq, n, d).to(dtype)
+        init = None
+        if seeded:
+            _, init = fastmax_causal_ref(
+                normalize_qk(randn(b, hq, 200, d)) * qs,
+                normalize_qk(randn(b, hkv, 200, d)),
+                randn(b, hkv, 200, d), p=p, chunk_size=512)
+        _, state = fastmax_causal_cuda(q, k, v, p=p, init_state=init)
+        got = fastmax_causal_bwd_cuda(q, k, v, state, do, p=p,
+                                      return_dstate=seeded)
+        ref = fastmax_causal_bwd_ref(q, k, v, state, do, p=p,
+                                     chunk_size=cb, return_dstate=seeded)
+        exact = fastmax_causal_bwd_ref(
+            q.double(), k.double(), v.double(),
+            [t.double() for t in state], do.double(), p=p, chunk_size=cb,
+            return_dstate=seeded)
+        torch.cuda.synchronize()
+
+        def flat(r):
+            return list(r[:3]) + (list(r[3]) if seeded else [])
+
+        # a seeded forward's carry before chunk 0 is the seed, not a
+        # near-zero rebuild: every row is held to the tight limit
+        first = 0 if seeded else cb
+        errs = [grad_err(a, r, e, first)
+                for a, r, e in zip(flat(got), flat(ref), flat(exact))]
+        del exact
+        tag = (f"bwd p={p} {str(dtype)[6:]} B={b} N={n}"
+               + (" seeded+dstate" if seeded else ""))
+        names = ["dq", "dk", "dv"] + (["dm0", "dm1", "dm2", "dg0", "dg1",
+                                       "dg2"] if seeded else [])
+        tight = (f"{TOL_GRAD:.0e} of scale" if dtype == torch.float32 else
+                 f"2^-7|plain| + {TOL_GRAD:.0e} of scale per element")
+        msg = (f"  {tag}: max |kernel - plain| "
+               + ("" if seeded else f"on rows >= {cb} ") + ", ".join(
+                   f"{nm} {x[0]:.2e}" for nm, x in zip(names, errs))
+               + f" (limit {tight}")
+        if not seeded:
+            msg += (f"); rows < {cb}, max error vs float64 kernel / plain: "
+                    + ", ".join(f"{nm} {x[1]:.2e}/{x[2]:.2e}"
+                                for nm, x in zip(names, errs))
+                    + f" (limit {GRAD_MARGIN}x plain or {TOL_GRAD:.0e} of "
+                    f"scale")
+        print(msg + ")")
+        if not all(x[3] for x in errs):
+            fail(f"{tag}: the backward kernel disagrees with its plain "
+                 f"version")
+        whole = max((a.float() - r.float()).abs().max().item()
+                    for a, r in zip(got[:3], ref[:3]))
+        return whole, (q, k, v, state, do)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        bwd_case(2, 1024, dtype, 2, False)
+        bwd_case(2, 1000, dtype, 2, True)
+    bwd_case(2, 1000, torch.float32, 1, True)
+    bwd_case(4, P, torch.float32, 2, False)
+    fb_err, bargs = bwd_case(4, P, torch.bfloat16, 2, False)
+    phase("bwd", "backward kernel agrees with its plain version (p=2 "
+          "f32/bf16 at B=2 N=1024, B=2 N=1000 seeded with dstate, "
+          "B=4 N=1024; p=1 seeded)")
+    bq, bk, bv, bst, bdo = bargs
+    fb_ms = sync_ms(lambda: fastmax_causal_bwd_cuda(bq, bk, bv, bst, bdo,
+                                                    p=2), reps=3)
+    fb_plain = sync_ms(lambda: fastmax_causal_bwd_ref(
+        bq, bk, bv, bst, bdo, p=2, chunk_size=512), reps=2)
+    pairs_b = (P // cb) * cb * (cb + 1) // 2 \
+        + (P % cb) * (P % cb + 1) // 2
+    # per (b, kv-head): the six degree-2 passes on the symmetric half
+    # (g2 and gg2 ride along as one more column, as in the forward's
+    # count), the degree-0/1 terms of the same six passes, and six
+    # products per causal pair inside the kernel's chunks (scores, F.v,
+    # u.v, ds.k, ds^T.q, F^T.u)
+    fb_ops = bh * ((3 * gq + 3) * P * d * (d + 1) * (d + 1)
+                   + 2 * (3 * gq + 3) * P * (d + 1) * (d + 1)
+                   + gq * pairs_b * 2 * (3 * d + 3 * d))
+    # q, k, v read and dq, dk, dv written (bf16), do read, carry read
+    fb_bytes = (2 * (bq.numel() + bk.numel() + bv.numel())
+                + bdo.numel()) * 2 + sum(t.numel() for t in bst) * 4
+    fb_bound = max(fb_bytes / H100_BYTES_PER_S,
+                   fb_ops / H100_BF16_FLOPS) * 1e3
+    print(f"  timing (bwd, bf16 B={B} N={P}): kernel {fb_ms:.3f} ms "
+          f"(plain {fb_plain:.3f}, bound {fb_bound:.3f} bf16-peak / "
+          f"{fb_ops / H100_F32_FLOPS * 1e3:.3f} f32-peak, "
+          f"{fb_ops / fb_ms / 1e9:.2f} TFLOP/s, chunk {cb})")
+    del bargs, bq, bk, bv, bst, bdo
+    torch.cuda.empty_cache()
+
+    # ---- 8. training path: full-width qwen3-1.7b, bf16 ----
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step, pick_optimizer
+
+    tcfg = dataclasses.replace(cfg, remat="full")
+    tplain = dataclasses.replace(plain_cfg, remat="full")
+    params = init_model(tcfg, seed=0, device=dev)
+    batch = SyntheticLM(tcfg.vocab_size, P, seed=0).batch(0, B)
+    tbatch = {k_: torch.as_tensor(v_, device=dev) for k_, v_ in batch.items()}
+    lk_, gk = loss_and_grads(params, tbatch, tcfg)
+    lp_, gp = loss_and_grads(params, tbatch, tplain)
+    dloss = abs(lk_.item() - lp_.item())
+    leaf, gerr = worst_leaf(gk, gp)
+    del gk, gp
+    torch.cuda.empty_cache()
+    print(f"  parity before any update: loss kernel {lk_.item():.5f} plain "
+          f"{lp_.item():.5f} |diff| {dloss:.3e} (tol {TRAIN_LOSS_TOL}); "
+          f"worst leaf {leaf} |g_k - g_p|/|g_p| {gerr:.3e} (tol "
+          f"{TRAIN_GRAD_TOL})")
+    if not (math.isfinite(lk_.item()) and dloss <= TRAIN_LOSS_TOL
+            and gerr <= TRAIN_GRAD_TOL):
+        fail("train: kernel and plain loss/grads disagree")
+
+    n_steps = 3
+    _, opt = pick_optimizer(tcfg, count_params(params), lr=3e-4,
+                            total_steps=1 + n_steps)
+    opt_state = opt[0](params)
+    train_step = make_train_step(tcfg, opt)
+    params, opt_state, m = train_step(params, opt_state, batch)   # warm-up
+    losses = [m["loss"].item()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, train_launches = [], []
+    want_t = {"fastmax_causal": 2 * tcfg.n_layers,
+              "fastmax_causal_bwd": tcfg.n_layers, "fastmax_decode": 0}
+    for _ in range(n_steps):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ops.reset_launch_counts()
+        ev0.record()
+        params, opt_state, m = train_step(params, opt_state, batch)
+        ev1.record()
+        ev1.synchronize()
+        train_launches.append(ops.launch_counts())
+        step_ms.append(ev0.elapsed_time(ev1))
+        losses.append(m["loss"].item())
+    peak_train = torch.cuda.max_memory_allocated() / 1e9
+    if any(c != want_t for c in train_launches):
+        fail(f"train launch counts {train_launches}, expected {want_t} "
+             f"per step")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        fail(f"train: loss did not fall on a fixed batch: {losses}")
+    med_ms = sorted(step_ms)[len(step_ms) // 2]
+    phase("train", f"qwen3-1.7b fastmax2-kernel bf16 remat=full AdamW B={B} "
+          f"N={P}: step ms {', '.join(f'{x:.1f}' for x in step_ms)} (CUDA "
+          f"events), {B * P / (med_ms / 1e3):.1f} tokens/s at the median, "
+          f"peak {peak_train:.2f} GB, loss {', '.join(f'{x:.4f}' for x in losses)}"
+          f", launches per step {train_launches[-1]}")
+    del params, opt_state, train_step, opt
+    torch.cuda.empty_cache()
+
+    # ---- 9. smoke config in float32: kernel and plain grads ----
+    sparams = init_model(small, seed=0, device=dev)
+    sb = SyntheticLM(small.vocab_size, 256, seed=1).batch(0, 2)
+    sb = {k_: torch.as_tensor(v_, device=dev) for k_, v_ in sb.items()}
+    slk, sgk = loss_and_grads(sparams, sb, small)
+    slp, sgp = loss_and_grads(sparams, sb, small_plain)
+    sleaf, serr = worst_leaf(sgk, sgp)
+    phase("smoke train", f"smoke config f32 N=256: loss |kernel - plain| "
+          f"{abs(slk.item() - slp.item()):.3e}, worst leaf {sleaf} "
+          f"|g_k - g_p|/|g_p| {serr:.3e} (tol {SMOKE_GRAD_TOL:.0e})")
+    if not serr <= SMOKE_GRAD_TOL:
+        fail("smoke train: kernel and plain grads disagree")
 
     kernels = [
         {"name": "fastmax_causal_prefill", "route": "cuda",
@@ -369,6 +640,15 @@ def main() -> None:
          "ms": fd_ms, "plain_ms": fd_plain, "bound_ms": fd_bound,
          "bound_by": "bytes" if fd_bytes / H100_BYTES_PER_S
          >= fd_ops / H100_F32_FLOPS else "operations",
+         "library_ms": None},
+        {"name": "fastmax_causal_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fastmax_causal_bwd.cu",
+         "replaces": "src/repro/kernels/fastmax_causal_bwd.py:280",
+         "launches": train_launches[-1]["fastmax_causal_bwd"],
+         "max_abs_err": fb_err, "ms": fb_ms, "plain_ms": fb_plain,
+         "bound_ms": fb_bound,
+         "bound_by": "operations" if fb_ops / H100_BF16_FLOPS
+         >= fb_bytes / H100_BYTES_PER_S else "bytes",
          "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
-"""Attention-operator API of the port (fastmax family): spec, registry
-and the decode-state protocol. The full-sequence `attention()` dispatcher
-comes with the training slice."""
+"""Attention-operator API of the port (fastmax family): spec, registry,
+the full-sequence `attention()` dispatcher and the decode-state
+protocol."""
+from repro_torch.attention.api import attention  # noqa: F401
 from repro_torch.attention.registry import (  # noqa: F401
     Backend,
     Capabilities,

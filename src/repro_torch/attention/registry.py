@@ -10,7 +10,7 @@ rerouted to another backend.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 from repro_torch.attention.spec import AttentionSpec
 
@@ -27,13 +27,14 @@ class Capabilities:
 
 @dataclasses.dataclass(frozen=True)
 class Backend:
-    """A registered attention implementation. (The full-sequence forward
-    function of the reference's backends joins with the `attention()`
-    dispatcher, in the training slice.)"""
+    """A registered attention implementation. `fn(q, k, v, spec, *,
+    causal, kv_mask)` computes full-sequence attention (the `attention()`
+    dispatcher's call)."""
 
     name: str
     family: str
     caps: Capabilities
+    fn: Callable
 
 
 _REGISTRY: Dict[str, Backend] = {}

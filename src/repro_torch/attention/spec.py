@@ -21,8 +21,10 @@ class AttentionSpec:
     impl: schedule within the family ("chunked" plain scan, "kernel" the
     CUDA kernels); chunk_size: scan chunk (None inherits the model's);
     normalize: paper Eqs. 5-6 q/k normalization; denom_eps: denominator
-    guard. The reference's training fields (custom_grad, dropout) and the
-    hybrid window join with their slices.
+    guard; custom_grad: the paper's §2.5 memory-reduced backward on the
+    chunked scan (the kernel backend always pairs its forward with the
+    §2.5 backward kernel). The reference's dropout fields and the hybrid
+    window join with their slices.
     """
 
     family: str = "fastmax"
@@ -31,6 +33,7 @@ class AttentionSpec:
     chunk_size: Optional[int] = None
     normalize: bool = True
     denom_eps: float = 1e-6
+    custom_grad: bool = True
 
     def __post_init__(self):
         if self.family not in FAMILIES:

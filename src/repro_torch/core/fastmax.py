@@ -1,14 +1,17 @@
-"""FAST / Fastmax attention, forward only — port of `repro/core/fastmax.py`.
+"""FAST / Fastmax attention — port of `repro/core/fastmax.py`.
 
 f(x) = sum_{l<=p} x^l / l! on statistically normalized q, k factorizes
 through key/value *moments*, so causal attention is a chunked prefix scan
 with an O(D^{p+1}) carry. `_causal_scan` is the plain version of the CUDA
-prefill kernel (`repro_torch.kernels.fastmax_causal`).
+prefill kernel (`repro_torch.kernels.fastmax_causal`); `_causal_scan_cg`
+pairs it with the paper's §2.5 reversible backward (`_causal_scan_cg_bwd`),
+the plain version of the CUDA backward kernel
+(`repro_torch.kernels.fastmax_causal_bwd`).
 
 Shapes: q [B, Hq, N, D]; k, v [B, Hkv, N, *] with Hq % Hkv == 0. Moments
 are computed once per kv head and shared by the query group. The
-feature-sharded variants, the §2.5 custom backward and the rowwise /
-dropout schedule of the JAX module are not part of this port slice.
+feature-sharded variants and the rowwise / dropout schedule of the JAX
+module are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from repro_torch.core.ref import normalize_qk, poly_kernel
 from repro_torch.kernels.tiling import SCAN_BM_BUDGET, pick_bm
 
 __all__ = ["Moments", "compute_moments", "combine_with_queries",
-           "normalize_qk", "poly_kernel"]
+           "fastmax_causal_chunked", "normalize_qk", "poly_kernel"]
 
 
 class Moments(NamedTuple):
@@ -225,3 +228,127 @@ def _causal_scan(q, k, v, *, p: int, chunk_size: int,
         carry = carry + compute_moments(kc, vc, p=p, kv_mask=wc)
     o = torch.cat(outs, dim=3)
     return _ungroup(o)[:, :, :n], carry
+
+
+def _chunk_fwd(carry: Moments, qc, kc, vc, wc, *, p: int, denom_eps: float):
+    """One chunk of the forward scan: (o, carry after the chunk)."""
+    num_i, den_i = _combine_grouped(qc, carry, p=p)
+    num_a, den_a = _intra_chunk(qc, kc, vc, p=p, wc=wc)
+    o = (num_i + num_a) / (den_i + den_a + denom_eps)[..., None]
+    return o, carry + compute_moments(kc, vc, p=p, kv_mask=wc)
+
+
+def _causal_scan_cg_bwd(p: int, chunk_size: int, denom_eps: float, res, do,
+                        *, return_dstate: bool = False):
+    """§2.5 reverse scan on the residual (q, k, v, final Moments).
+
+    Walks the chunks backwards, rebuilding each chunk's incoming carry
+    reversibly (moments are sums: carry_before = carry_after - delta) and
+    differentiating the chunk's forward (re-run under autograd) against
+    the output cotangent and the carry-cotangent of the later chunks.
+    Returns (dq, dk, dv) in the input dtypes; `return_dstate=True` appends
+    the cotangent of the scan's INITIAL carry (the seed's gradient when
+    the forward was seeded), a Moments-layout tuple in the accumulator
+    type."""
+    if torch.is_inference_mode_enabled():
+        # autograd records nothing there, and every grad would come back 0
+        raise RuntimeError("the §2.5 backward re-runs each chunk under "
+                           "autograd: call it outside torch.inference_mode()")
+    q, k, v, final = res
+    b, hq, n, d = q.shape
+    hkv, dv = k.shape[1], v.shape[-1]
+    cs = min(chunk_size, n)
+    nc = -(-n // cs)
+    pad = nc * cs - n
+    acc = _acc_dtype(k)
+    # widened once: each chunk's grads then come back in the accumulator
+    # type and are rounded to the input dtype once, at the end (as the
+    # kernel does). Differentiating the low-precision slices would round
+    # each use's contribution and their sum to bf16 inside every chunk.
+    qp = F.pad(q, (0, 0, 0, pad)).to(acc)
+    kp = F.pad(k, (0, 0, 0, pad)).to(acc)
+    vp = F.pad(v, (0, 0, 0, pad)).to(acc)
+    # the chunk forward emits accumulator-type outputs: a low-precision
+    # cotangent (the kernel path's do arrives in the input dtype) is
+    # promoted to match
+    dop = F.pad(do, (0, 0, 0, pad)).to(acc)
+    # same validity mask as the forward scan: zeros on padded tail tokens
+    wp = F.pad(torch.ones(b, hkv, n, dtype=torch.float32, device=k.device),
+               (0, pad))
+    qg = _group_queries(qp, hkv)
+    dog = _group_queries(dop, hkv)
+    g = qg.shape[2]
+
+    carry = Moments(*(x.to(acc) for x in final))
+    gcarry = Moments(*(torch.zeros_like(x) for x in carry))
+    gqs, gks, gvs = [], [], []
+    for c in reversed(range(nc)):
+        sl = slice(c * cs, (c + 1) * cs)
+        qc, kc, vc, wc = qg[:, :, :, sl], kp[:, :, sl], vp[:, :, sl], wp[..., sl]
+        with torch.no_grad():
+            carry = carry - compute_moments(kc, vc, p=p, kv_mask=wc)
+        with torch.enable_grad():
+            prim = [x.detach().requires_grad_(True)
+                    for x in (*carry, qc, kc, vc)]
+            o, new = _chunk_fwd(Moments(*prim[:6]), *prim[6:], wc, p=p,
+                                denom_eps=denom_eps)
+            outs = [o, *new]
+            cots = [dog[:, :, :, sl], *gcarry]
+            keep = [i for i, x in enumerate(outs) if x.requires_grad]
+            grads = torch.autograd.grad([outs[i] for i in keep],
+                                        prim, [cots[i] for i in keep],
+                                        allow_unused=True)
+        grads = [torch.zeros_like(x) if gr is None else gr
+                 for x, gr in zip(prim, grads)]
+        gcarry = Moments(*grads[:6])
+        gqs.append(grads[6])
+        gks.append(grads[7])
+        gvs.append(grads[8])
+    gq = torch.cat(gqs[::-1], dim=3).reshape(b, hkv * g, nc * cs, d)
+    gk = torch.cat(gks[::-1], dim=2)
+    gv = torch.cat(gvs[::-1], dim=2)
+    out = (gq[:, :, :n].to(q.dtype), gk[:, :, :n].to(k.dtype),
+           gv[:, :, :n].to(v.dtype))
+    if return_dstate:
+        return out + (tuple(gcarry),)
+    return out
+
+
+class _CausalScanCG(torch.autograd.Function):
+    """Causal fastmax with the paper §2.5 memory-reduced gradient: the
+    forward keeps only (q, k, v, final moments); the backward rebuilds the
+    carry chunk by chunk in reverse (`_causal_scan_cg_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, p, chunk_size, denom_eps):
+        o, final = _causal_scan(q, k, v, p=p, chunk_size=chunk_size,
+                                kv_mask=None, denom_eps=denom_eps)
+        ctx.save_for_backward(q, k, v, *final)
+        ctx.cfg = (p, chunk_size, denom_eps)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, *final = ctx.saved_tensors
+        dq, dk, dv = _causal_scan_cg_bwd(*ctx.cfg, (q, k, v, Moments(*final)),
+                                         do)
+        return dq, dk, dv, None, None, None
+
+
+def _causal_scan_cg(q, k, v, p: int, chunk_size: int, denom_eps: float):
+    return _CausalScanCG.apply(q, k, v, p, chunk_size, denom_eps)
+
+
+def fastmax_causal_chunked(q, k, v, *, p: int = 2, chunk_size: int = 128,
+                           kv_mask: Optional[torch.Tensor] = None,
+                           denom_eps: float = 1e-6,
+                           custom_grad: bool = True) -> torch.Tensor:
+    """Causal fastmax on pre-normalized q/k through the chunked scan, in
+    q's dtype. `custom_grad` (and no mask) pairs it with the §2.5
+    backward; otherwise autograd differentiates the plain scan."""
+    if custom_grad and kv_mask is None:
+        o = _causal_scan_cg(q, k, v, p, chunk_size, denom_eps)
+    else:
+        o, _ = _causal_scan(q, k, v, p=p, chunk_size=chunk_size,
+                            kv_mask=kv_mask, denom_eps=denom_eps)
+    return o.to(q.dtype)

@@ -1,21 +1,23 @@
-"""Kernel entry points — port of `repro/kernels/ops.py` (serving half).
+"""Kernel entry points — port of `repro/kernels/ops.py` (causal fastmax).
 
 Dispatch is by the tensors' device, with no fallback:
   * CUDA tensors launch the hand-written kernels (`csrc/*.cu`), or raise;
   * CPU tensors take the kernels' plain versions — the tests' route.
-The trainable `fastmax()` (forward + §2.5 backward kernel) and the
-autotuner lookup belong to later slices of the port.
+The trainable `fastmax()` pairs the forward kernel, which emits its final
+moment carry, with the §2.5 backward kernel; the carry is the only
+residual beyond (q, k, v).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import fastmax_causal as _fc
+from repro_torch.kernels import fastmax_causal_bwd as _fb
 from repro_torch.kernels import fastmax_decode as _fd
 from repro_torch.kernels.ref import fastmax_decode_ref
 
-__all__ = ["fastmax_prefill_kernel", "fastmax_decode", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["fastmax", "fastmax_bwd", "fastmax_prefill_kernel",
+           "fastmax_decode", "launch_counts", "reset_launch_counts"]
 
 
 def _route(x: torch.Tensor) -> str:
@@ -24,6 +26,61 @@ def _route(x: torch.Tensor) -> str:
     if x.device.type == "cpu":
         return "plain"
     raise ValueError(f"no fastmax kernel for device {x.device}")
+
+
+class _FastmaxCausal(torch.autograd.Function):
+    """Causal fastmax on pre-normalized q̂/k̂: the forward kernel (which
+    emits its final carry) paired with the §2.5 backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, p, chunk_size, denom_eps):
+        o, state = fastmax_prefill_kernel(q, k, v, p=p, chunk_size=chunk_size,
+                                          denom_eps=denom_eps)
+        if p < 2:
+            # don't hold the [B,Hkv,D,D,Dv] zeros placeholder as a residual
+            state = state[:2] + (None,) + state[3:5] + (None,)
+        ctx.save_for_backward(q, k, v, *(t for t in state if t is not None))
+        ctx.cfg = (p, chunk_size, denom_eps)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        p, chunk_size, denom_eps = ctx.cfg
+        q, k, v, *st = ctx.saved_tensors
+        if p < 2:
+            st = st[:2] + [None] + st[2:] + [None]
+        dq, dk, dv = fastmax_bwd(q, k, v, tuple(st), do, p=p,
+                                 chunk_size=chunk_size, denom_eps=denom_eps)
+        return dq, dk, dv, None, None, None
+
+
+def fastmax(q, k, v, *, p: int = 2, causal: bool = True,
+            chunk_size: int = 128, denom_eps: float = 1e-6):
+    """Trainable kernel-backed fastmax on pre-normalized q̂/k̂ (GQA-aware),
+    o in q's dtype. `chunk_size` is the plain versions' chunk; the kernels
+    pick their own."""
+    if not causal:
+        raise NotImplementedError(
+            "the noncausal fastmax kernel is not ported yet (ROADMAP queue 2 "
+            "item 4)")
+    return _FastmaxCausal.apply(q, k, v, p, chunk_size, denom_eps)
+
+
+def fastmax_bwd(q, k, v, state, do, *, p: int = 2, chunk_size: int = 128,
+                denom_eps: float = 1e-6, return_dstate: bool = False):
+    """Causal fastmax backward on the forward's final carry: (dq, dk, dv),
+    plus the initial carry's cotangent with `return_dstate`. CUDA tensors
+    launch the §2.5 backward kernel, CPU tensors take its plain version.
+    `state` may carry None for m2/g2 at p < 2."""
+    if _route(q) == "cuda":
+        return _fb.fastmax_causal_bwd_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(), state,
+            do.to(q.dtype).contiguous(), p=p, denom_eps=denom_eps,
+            return_dstate=return_dstate)
+    return _fb.fastmax_causal_bwd_ref(q, k, v, state, do, p=p,
+                                      chunk_size=chunk_size,
+                                      denom_eps=denom_eps,
+                                      return_dstate=return_dstate)
 
 
 def fastmax_prefill_kernel(q, k, v, *, p: int = 2, chunk_size: int = 128,
@@ -61,9 +118,12 @@ def fastmax_decode(q, k, v, state, *, p: int = 2, denom_eps: float = 1e-6):
 
 def launch_counts() -> dict:
     """Kernel launches so far, per kernel (CPU calls launch nothing)."""
-    return {"fastmax_causal": _fc.launches, "fastmax_decode": _fd.launches}
+    return {"fastmax_causal": _fc.launches,
+            "fastmax_causal_bwd": _fb.launches,
+            "fastmax_decode": _fd.launches}
 
 
 def reset_launch_counts() -> None:
     _fc.launches = 0
+    _fb.launches = 0
     _fd.launches = 0

@@ -2,9 +2,10 @@
 
 RMS norms (computed in float32 and cast back, as the reference does), RoPE
 in the half-split layout, the SwiGLU MLP, GQA projections with optional
-bias and qk_norm, and the attention prefill/decode steps over the
-`repro_torch.attention` state protocol. LayerNorm, GELU and the MLA
-projections come with the architectures that use them.
+bias and qk_norm, full-sequence attention (training), and the attention
+prefill/decode steps over the `repro_torch.attention` state protocol.
+LayerNorm, GELU and the MLA projections come with the architectures that
+use them.
 """
 from __future__ import annotations
 
@@ -122,6 +123,14 @@ def _project_qkv(params, x, cfg, positions):
         q = rms_norm_headwise(q) * params["q_norm_scale"]
         k = rms_norm_headwise(k) * params["k_norm_scale"]
     return q, k, v
+
+
+def apply_attention(params, x, cfg):
+    """Full-sequence causal self-attention (training forward). x [B, N, d]."""
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    o = A.attention(q, k, v, cfg.attn_spec, causal=True)
+    return torch.einsum("bhnk,hkd->bnd", o.to(x.dtype), params["wo"])
 
 
 def init_attn_state(cfg, batch: int, max_len: int, dtype,

@@ -1,12 +1,14 @@
-"""Decoder-only LM for serving — port of `repro/models/transformer.py`.
+"""Decoder-only LM — port of `repro/models/transformer.py`.
 
-This slice ports the dense `"attn:mlp"` pattern (qwen3, llama3, qwen2.5,
-granite): config, initialization, prefill and one-token decode. Layers run
-as a Python loop over the stacked `blocks_0` parameters (the reference
-scans them); the decode state is stacked the same way, [n_layers, B, ...],
-and each layer's state is a contiguous view that the attention step
-updates in place. Other mixers (MoE, MLA, Mamba, xLSTM), encoder-decoder
-models and the training forward/loss come in later slices.
+The dense `"attn:mlp"` pattern (qwen3, llama3, qwen2.5, granite) is
+ported: config, initialization, the training forward and loss, prefill and
+one-token decode. Layers run as a Python loop over the stacked `blocks_0`
+parameters (the reference scans them); under `remat="full"` each layer is
+recomputed in the backward (`torch.utils.checkpoint`), as the reference
+checkpoints each scanned group with `nothing_saveable`. The decode state is
+stacked the same way, [n_layers, B, ...], and each layer's state is a
+contiguous view that the attention step updates in place. Other mixers
+(MoE, MLA, Mamba, xLSTM) and encoder-decoder models come in later slices.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.attention import AttentionSpec, AttnState
 from repro_torch.core.fastmax import Moments
@@ -21,8 +25,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.param import Builder
 
-__all__ = ["ModelConfig", "init_lm", "init_lm_decode_state", "lm_prefill",
-           "lm_decode_step"]
+__all__ = ["ModelConfig", "init_lm", "forward_lm", "lm_loss",
+           "init_lm_decode_state", "lm_prefill", "lm_decode_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +53,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     param_dtype: str = "float32"
     activ_dtype: str = "float32"
+    remat: str = "full"             # none | full ("dots" is not ported)
     logits_softcap: float = 0.0
 
     @property
@@ -103,6 +108,14 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unbind_layers(tree, n: int) -> list:
+    """Per-layer views of a stacked parameter tree."""
+    if isinstance(tree, dict):
+        subs = {k: _unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def _layer_state(state: AttnState, i: int) -> AttnState:
     return AttnState(kv=None, moments=Moments(*(t[i] for t in state.moments)))
 
@@ -140,6 +153,52 @@ def _block(params_b, x, cfg: ModelConfig, attn):
     h = L.apply_norm(params_b["norm2"], x, norm_type=cfg.norm_type,
                      eps=cfg.norm_eps)
     return x + L.apply_mlp(params_b["ffn"], h, act=cfg.mlp_act)
+
+
+def _train_block(params_b, x, cfg: ModelConfig):
+    return _block(params_b, x, cfg, lambda p, h: L.apply_attention(p, h, cfg))
+
+
+def forward_lm(params, tokens, cfg: ModelConfig):
+    """Training forward. tokens [B, N] int. Returns (logits [B, N, vocab],
+    aux loss — a float32 zero: the dense pattern has no router)."""
+    _check_supported(cfg)
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported (ROADMAP queue 1 item 1)")
+    x = params["embed"][tokens].to(cfg.adtype())
+    # one unbind per stacked leaf: its backward stacks the 28 layer grads
+    # once, where per-layer indexing would scatter each into a full copy
+    layers = _unbind_layers(params["blocks_0"], cfg.n_layers)
+    for p_i in layers:
+        if cfg.remat == "full":
+            x = checkpoint(_train_block, p_i, x, cfg, use_reentrant=False)
+        else:
+            x = _train_block(p_i, x, cfg)
+    x = L.apply_norm(params["final_norm"], x, norm_type=cfg.norm_type,
+                     eps=cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, x, cfg), aux
+
+
+def lm_loss(params, batch, cfg: ModelConfig):
+    """Next-token cross-entropy. batch: {tokens, targets?, loss_mask?}
+    (tensors on the params' device). Returns (loss, {"nll", "aux"})."""
+    tokens = batch["tokens"]
+    targets = batch.get("targets")
+    if targets is None:
+        targets = F.pad(tokens[:, 1:], (0, 1))
+    logits, aux = forward_lm(params, tokens, cfg)
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = logz - gold
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+        mask[:, -1] = 0.0
+    nll = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 def lm_prefill(params, tokens, cfg: ModelConfig, state, *, offset=None,

@@ -116,7 +116,9 @@ def test_kernel_backend_resumes_through_the_prefill_kernel(monkeypatch):
                offset=CUT)
     assert seen[0] is None
     assert seen[1] is ts.moments
-    assert ops.launch_counts() == {"fastmax_causal": 0, "fastmax_decode": 0}
+    assert ops.launch_counts() == {"fastmax_causal": 0,
+                                   "fastmax_causal_bwd": 0,
+                                   "fastmax_decode": 0}
 
 
 @pytest.mark.parametrize("name, backend, decode_kernel", [

@@ -5,6 +5,8 @@ taken inside the `cuda_device` fixture, never while the module imports.
 This file imports no JAX, so it runs on the machine with the card:
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import pytest
 import torch
 
@@ -129,3 +131,159 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, p, heads):
     for a, r in zip(st, ref_state):
         scale = max(1.0, r.abs().max().item())
         torch.testing.assert_close(a / scale, r / scale, rtol=0, atol=1e-5)
+
+
+def _bwd_inputs(dev, gen, b, hq, hkv, n, d, dv, p, seeded, dtype):
+    """Backward inputs in `dtype` and the forward's final carry on them.
+    At p=1, f(s) = 1 + s is sign-indefinite at the model's scale (|s| up to
+    D), so row denominators can nearly cancel and which float32 summation
+    order lands closer to float64 is luck (two chunkings of the plain
+    version differ by 100x there); q̂/D keeps |s| <= 1 and f >= 0."""
+    def rn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    qs = 1.0 / d if p == 1 else 1.0
+    q, k = normalize_qk(rn(b, hq, n, d)) * qs, normalize_qk(rn(b, hkv, n, d))
+    v, do = rn(b, hkv, n, dv), rn(b, hq, n, dv)
+    init = None
+    if seeded:
+        _, init = fastmax_causal_ref(normalize_qk(rn(b, hq, 40, d)) * qs,
+                                     normalize_qk(rn(b, hkv, 40, d)),
+                                     rn(b, hkv, 40, dv), p=p, chunk_size=16)
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    _, st = fastmax_causal_ref(q, k, v, p=p, chunk_size=64, init_state=init)
+    return q, k, v, do, st
+
+
+def _assert_bwd_close(a, plain, exact, first):
+    """One backward output against its plain version, by rows (axis -2).
+    Rows from `first` on: float32 within 1e-4 x max(1, max|plain|);
+    bfloat16 per element within one bf16 rounding over that, 2^-7 |plain|
+    + 1e-4 x max(1, max|plain|) (both accumulate in float32 and round
+    once). Rows before `first`, the first chunk of an unseeded forward: the
+    §2.5 backward rebuilds the carry before chunk 0 by subtraction, which
+    leaves float32 rounding where the exact carry is zero, in any
+    implementation; there the kernel is as close to float64 as the plain
+    version is (4x margin), or within 1e-4 of the scale."""
+    tail = plain[..., first:, :].float()
+    lim = 1e-4 * max(1.0, tail.abs().max().item())
+    if a.dtype == torch.bfloat16:
+        lim = lim + tail.abs() * 2.0 ** -7
+    diff = (a[..., first:, :].float() - tail).abs()
+    assert bool((diff <= lim).all()), (diff.max().item(), first)
+    if first:
+        _assert_as_close_as_plain(a[..., :first, :], plain[..., :first, :],
+                                  exact[..., :first, :], 1e-4)
+
+
+def _check_bwd_on_card(dev, seed, heads, n, p, dtype, seeded, d=64):
+    from repro_torch.kernels.fastmax_causal_bwd import (
+        fastmax_causal_bwd_cuda, fastmax_causal_bwd_ref, kernel_chunk)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do, st = _bwd_inputs(dev, gen, 2, *heads, n, d, d, p, seeded,
+                                  dtype)
+    c = kernel_chunk(heads[0] // heads[1], d)
+    before = [x.clone() for x in st]
+    got = fastmax_causal_bwd_cuda(q, k, v, st, do, p=p,
+                                  return_dstate=seeded)
+    plain = fastmax_causal_bwd_ref(q, k, v, st, do, p=p, chunk_size=c,
+                                   return_dstate=seeded)
+    exact = fastmax_causal_bwd_ref(
+        q.double(), k.double(), v.double(), [x.double() for x in st],
+        do.double(), p=p, chunk_size=c, return_dstate=seeded)
+    torch.cuda.synchronize()
+    # a seeded forward's carry before chunk 0 is the seed: all rows tight
+    first = 0 if seeded else c
+    for a, r, e in zip(got[:3], plain[:3], exact[:3]):
+        assert a.dtype == dtype
+        _assert_bwd_close(a, r, e, first)
+    if seeded:
+        for a, r in zip(got[3], plain[3]):    # dstate: float32
+            scale = max(1.0, r.abs().max().item())
+            assert (a - r).abs().max().item() <= 1e-4 * scale
+    for a, b in zip(st, before):       # the residual is never written
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, seeded", [(256, False), (1000, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [1, 2])
+def test_bwd_kernel_matches_plain_on_card(cuda_device, p, dtype, n, seeded):
+    """dq, dk, dv against the plain §2.5 scan over many chunks; ragged N on
+    a forward seeded from an init_state, with the six dstate moments."""
+    _check_bwd_on_card(cuda_device, 20 + p, (4, 2), n, p, dtype, seeded)
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_odd_group_on_card(cuda_device):
+    """G = 5: the forward's chunk 128 // 5 = 25 is odd; the backward rounds
+    its own chunk down to an even one (any chunking is exact)."""
+    _check_bwd_on_card(cuda_device, 7, (10, 2), 300, 2, torch.float32, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 96])
+def test_bwd_kernel_other_head_dims_on_card(cuda_device, d):
+    """One Dv column block (D = 32: the kernel's g2 workspace must still be
+    a copy, not the residual) and three (D = 96)."""
+    _check_bwd_on_card(cuda_device, 8, (4, 2), 200, 2, torch.float32, True,
+                       d=d)
+
+
+@pytest.mark.cuda
+def test_trainable_op_backward_twice_on_card(cuda_device):
+    """Two backward calls through the kernels (retain_graph) give equal
+    grads: the saved carry is left intact."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v, do, _ = _bwd_inputs(cuda_device, gen, 1, 8, 4, 300, 64, 64, 2,
+                                 False, torch.float32)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    ops.reset_launch_counts()
+    o = ops.fastmax(q, k, v, p=2)
+    g1 = torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+    g2 = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fastmax_causal_bwd"] == 2
+    for a, b in zip(g1, g2):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_train_step_launches_the_bwd_kernel_per_layer(cuda_device):
+    import dataclasses
+
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step, pick_optimizer
+    from repro_torch.models import init_model
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                              attn=AttentionSpec.parse("fastmax2-kernel"))
+    params = init_model(cfg, seed=0, device=cuda_device)
+    _, opt = pick_optimizer(cfg, 1, lr=1e-3, total_steps=10)
+    state = opt[0](params)
+    step = make_train_step(cfg, opt)
+    batch = SyntheticLM(cfg.vocab_size, 100, seed=0).batch(0, 2)
+    ops.reset_launch_counts()
+    params, state, m = step(params, state, batch)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"fastmax_causal": 2 * cfg.n_layers,
+                                   "fastmax_causal_bwd": cfg.n_layers,
+                                   "fastmax_decode": 0}
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["gnorm"])
+
+
+@pytest.mark.cuda
+def test_train_main_runs_smoke_steps_on_card(cuda_device):
+    from repro_torch.launch import train
+
+    _, losses = train.main(["--device", "cuda", "--smoke", "--attn",
+                            "fastmax2-kernel", "--steps", "4", "--batch",
+                            "2", "--seq", "64", "--log-every", "1"])
+    assert len(losses) == 4 and all(math.isfinite(x) for x in losses)
