@@ -5,14 +5,17 @@
 Phases, one line each (then a JSON line of kernel numbers, the card's name
 and power limit, and the result line last):
   1. device   — needs CUDA; TF32 off for float32 products.
-  2. build    — compiles the three CUDA kernels from
+  2. build    — compiles the four CUDA kernels from
                 src/repro_torch/kernels/csrc with nvcc (one process per
                 source, in parallel).
-  3. kernels  — each kernel against its plain PyTorch version at the model's
-                widths (B=2, Hq=16, Hkv=8, D=Dv=128, p=2): prefill N=1024,
-                and N=1000 with a ragged kv_mask and an init_state, float32
-                and bfloat16 inputs, o and all six final moments; then 64
-                chained decode steps from that state.
+  3. kernels  — each kernel against its plain PyTorch version, float32 and
+                bfloat16 inputs, o and all six final moments, p=2: at
+                qwen3's widths (B=2, Hq=16, Hkv=8, D=Dv=128) prefill
+                N=1024, and N=1000 with a ragged kv_mask and an init_state,
+                then 64 chained decode steps from that state; at whisper's
+                decoder widths (B=4, Hq=Hkv=12, D=Dv=64) prefill N=128 and
+                N=120 with mask and init_state, each followed by 31 chained
+                decode steps.
   4. small    — the smoke config in float32: kernel path and plain path give
                 the same greedy tokens and close prefill logits.
   5. main     — full-width qwen3-1.7b, attn fastmax2-kernel, bfloat16,
@@ -43,6 +46,24 @@ and power limit, and the result line last):
                 falling; step ms, tokens/s, peak memory.
   9. smoke train — the smoke config in float32: kernel and plain path
                 grads agree per leaf.
+ 10. nc kernels — the noncausal kernel's two launches (moments, combine)
+                against their plain versions, float32 and bfloat16, o and
+                all six moments: at whisper's widths (B=4, Hq=Hkv=12,
+                D=Dv=64, M=1500 keys, N = 1500, 128 and 1 queries), at
+                qwen3's (B=2, Hq=16, Hkv=8, D=Dv=128, N=M=1024) and one p=1
+                case on q̂/D.
+ 11. whisper small — the whisper smoke config in float32: kernel and plain
+                path give the same greedy tokens and close prefill logits.
+ 12. whisper    — full-width whisper-small, attn fastmax2-kernel, bfloat16,
+                random weights from a seeded generator: encode() of B=4 x
+                1500 frames (a warm-up, then timed on CUDA events), then
+                generate(enc_out=) at prompt 128 and 32 new tokens (a
+                warm-up call, then a timed call); launch counts of each
+                exact, peak memory, and the prefill's last logit row
+                against the plain path (absolute limit). Then the
+                noncausal launches timed at this path's shapes against
+                their plain versions and bounds (moments at M=1500;
+                combine at N=1500 and N=1).
 Exits non-zero, printing no result line, when any phase fails.
 """
 from __future__ import annotations
@@ -97,6 +118,12 @@ TOL_GRAD, GRAD_MARGIN = 1e-4, 4
 TRAIN_LOSS_TOL = 1e-3        # absolute, on a loss of ln(151936) ~ 12
 TRAIN_GRAD_TOL = 0.1         # per leaf, |g_k - g_p| / |g_p| (Frobenius)
 SMOKE_GRAD_TOL = 1e-4        # the same, float32 smoke model
+# whisper phase, the prefill's last logit row on the kernel and the plain
+# (fastmax2-chunked) path from one set of bf16 weights and frames: the two
+# paths round their bf16 attention outputs at different places through 12
+# encoder and 12 decoder layers. Measured on an H100: 4.69e-2 and 4.30e-2
+# (two draws of frames and prompts); the limit is about four times that
+WHISPER_LOGIT_TOL = 0.2      # absolute, max over the last row's logits
 
 
 def fail(msg: str) -> None:
@@ -253,51 +280,72 @@ def main() -> None:
         return eo, ok, pst
 
     # ---- 3. kernels against their plain versions ----
+    # at qwen3-1.7b's widths (G=2, D=Dv=128) and at whisper-small's decoder
+    # self-attention (G=1, D=Dv=64: B=4, a 128-token prompt, then the 31
+    # decode steps of a 32-token generate()). Each case is (N, keys masked
+    # off the second sequence, chained decode steps after the prefill); a
+    # masked case also starts from an init_state
+    wcfg = dataclasses.replace(get_config("whisper-small"),
+                               attn=AttentionSpec.parse("fastmax2-kernel"))
+    wh, wd = wcfg.n_heads, wcfg.head_dim
+    widths = (("qwen3", 2, 16, 8, 128, ((1024, 0, 0), (1000, 137, 64))),
+              ("whisper", 4, wh, wh, wd, ((128, 0, 31), (120, 37, 31))))
+    p = 2
     with torch.inference_mode():
-        b, hq, hkv, d, dv, p = 2, 16, 8, 128, 128, 2
-        for dtype in (torch.float32, torch.bfloat16):
-            for n, ragged in ((1024, False), (1000, True)):
-                q = normalize_qk(randn(b, hq, n, d)).to(dtype)
-                k = normalize_qk(randn(b, hkv, n, d)).to(dtype)
-                v = randn(b, hkv, n, dv).to(dtype)
-                mask, init = None, None
-                if ragged:
-                    lens = torch.tensor([n, n - 137], device=dev)
-                    mask = (torch.arange(n, device=dev)[None, None, :]
-                            < lens[:, None, None]).float().expand(b, hkv, n)
-                    _, init = fastmax_causal_ref(
-                        normalize_qk(randn(b, hq, 200, d)),
-                        normalize_qk(randn(b, hkv, 200, d)),
-                        randn(b, hkv, 200, dv), p=p, chunk_size=512)
-                o, st = fastmax_causal_cuda(q, k, v, mask, p=p,
-                                            init_state=init)
-                ro, rst = fastmax_causal_ref(q, k, v, mask, p=p,
-                                             chunk_size=512, init_state=init)
-                torch.cuda.synchronize()
-                eo, o_ok = o_err(o, ro)
-                em = max(moment_err(a, r) for a, r in zip(st, rst))
-                tag = f"prefill {str(dtype)[6:]} N={n}" + (
-                    " mask+init" if ragged else "")
-                print(f"  {tag}: o max abs err {eo:.3e} (tol {o_tol(dtype)}"
-                      f"), moments max rel err {em:.3e} (tol "
-                      f"{TOL_MOMENTS:.0e})")
-                if not (o_ok and em <= TOL_MOMENTS):
-                    fail(f"{tag} kernel disagrees with its plain version")
-                if ragged:
-                    # 64 chained decode steps from this state, in lockstep
-                    kst = tuple(t.clone() for t in st)
-                    eo_d, ok_d, pst = decode_lockstep(
-                        b, hq, hkv, d, dv, dtype, kst,
-                        tuple(t.clone() for t in rst), 64)
-                    em_d = max(moment_err(a, r) for a, r in zip(kst, pst))
-                    print(f"  decode {str(dtype)[6:]} 64 steps: o max abs err "
-                          f"{eo_d:.3e} (tol {o_tol(dtype)}), state max rel "
-                          f"err {em_d:.3e} (tol {TOL_MOMENTS:.0e})")
-                    if not (ok_d and em_d <= TOL_MOMENTS):
-                        fail(f"decode {dtype}: kernel disagrees with its "
-                             f"plain version")
-        phase("kernels", "prefill (f32, bf16; plain and mask+init) and 64 "
-              "decode steps agree with their plain versions")
+        for name, b, hq, hkv, d, cases in widths:
+            dv = d
+            for dtype in (torch.float32, torch.bfloat16):
+                for n, cut, steps in cases:
+                    q = normalize_qk(randn(b, hq, n, d)).to(dtype)
+                    k = normalize_qk(randn(b, hkv, n, d)).to(dtype)
+                    v = randn(b, hkv, n, dv).to(dtype)
+                    mask, init = None, None
+                    if cut:
+                        lens = torch.tensor([n, n - cut] * (b // 2),
+                                            device=dev)
+                        mask = (torch.arange(n, device=dev)[None, None, :]
+                                < lens[:, None, None]).float().expand(
+                                    b, hkv, n)
+                        _, init = fastmax_causal_ref(
+                            normalize_qk(randn(b, hq, 200, d)),
+                            normalize_qk(randn(b, hkv, 200, d)),
+                            randn(b, hkv, 200, dv), p=p, chunk_size=512)
+                    o, st = fastmax_causal_cuda(q, k, v, mask, p=p,
+                                                init_state=init)
+                    ro, rst = fastmax_causal_ref(q, k, v, mask, p=p,
+                                                 chunk_size=512,
+                                                 init_state=init)
+                    torch.cuda.synchronize()
+                    eo, o_ok = o_err(o, ro)
+                    em = max(moment_err(a, r) for a, r in zip(st, rst))
+                    tag = (f"{name} prefill {str(dtype)[6:]} B={b} Hq={hq} "
+                           f"Hkv={hkv} D={d} N={n}"
+                           + (" mask+init" if cut else ""))
+                    print(f"  {tag}: o max abs err {eo:.3e} (tol "
+                          f"{o_tol(dtype)}), moments max rel err {em:.3e} "
+                          f"(tol {TOL_MOMENTS:.0e})")
+                    if not (o_ok and em <= TOL_MOMENTS):
+                        fail(f"{tag} kernel disagrees with its plain version")
+                    if steps:
+                        # chained decode steps from this state, in lockstep
+                        kst = tuple(t.clone() for t in st)
+                        eo_d, ok_d, pst = decode_lockstep(
+                            b, hq, hkv, d, dv, dtype, kst,
+                            tuple(t.clone() for t in rst), steps)
+                        em_d = max(moment_err(a, r)
+                                   for a, r in zip(kst, pst))
+                        dtag = (f"{name} decode {str(dtype)[6:]} {steps} "
+                                f"steps after N={n}"
+                                + (" mask+init" if cut else ""))
+                        print(f"  {dtag}: o max abs err {eo_d:.3e} (tol "
+                              f"{o_tol(dtype)}), state max rel err "
+                              f"{em_d:.3e} (tol {TOL_MOMENTS:.0e})")
+                        if not (ok_d and em_d <= TOL_MOMENTS):
+                            fail(f"{dtag}: kernel disagrees with its plain "
+                                 f"version")
+        phase("kernels", "prefill (f32, bf16; plain and mask+init) and "
+              "chained decode steps agree with their plain versions at "
+              "qwen3's and whisper's widths")
 
         # ---- 4. small model: kernel path vs plain path ----
         small = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
@@ -345,7 +393,9 @@ def main() -> None:
         launches = ops.launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = {"fastmax_causal": cfg.n_layers, "fastmax_causal_bwd": 0,
-                "fastmax_decode": cfg.n_layers * (G - 1)}
+                "fastmax_decode": cfg.n_layers * (G - 1),
+                "fastmax_noncausal_moments": 0,
+                "fastmax_noncausal_combine": 0}
         if launches != want:
             fail(f"launch counts {launches}, expected {want}")
         if tuple(toks.shape) != (B, G) or not bool(
@@ -583,7 +633,8 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     step_ms, train_launches = [], []
     want_t = {"fastmax_causal": 2 * tcfg.n_layers,
-              "fastmax_causal_bwd": tcfg.n_layers, "fastmax_decode": 0}
+              "fastmax_causal_bwd": tcfg.n_layers, "fastmax_decode": 0,
+              "fastmax_noncausal_moments": 0, "fastmax_noncausal_combine": 0}
     for _ in range(n_steps):
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
@@ -624,6 +675,212 @@ def main() -> None:
     if not serr <= SMOKE_GRAD_TOL:
         fail("smoke train: kernel and plain grads disagree")
 
+    # ---- 10. the noncausal kernel against its plain version ----
+    from repro_torch.kernels.fastmax_noncausal import (
+        noncausal_combine_cuda, noncausal_combine_ref, noncausal_moments_cuda,
+        noncausal_moments_ref)
+    from repro_torch.models.encdec import encode
+
+    def nc_case(b, hq, hkv, n, m, d, dtype, p=2):
+        """Both launches against their plain versions on one input: (o max
+        abs error, the moments' max abs error, the inputs, the kernel's and
+        the plain moments)."""
+        # at p=1 the queries are q̂/D (|s| <= 1, f >= 0; see bwd_case)
+        qs = 1.0 / d if p == 1 else 1.0
+        q = (normalize_qk(randn(b, hq, n, d)) * qs).to(dtype)
+        k = normalize_qk(randn(b, hkv, m, d)).to(dtype)
+        v = randn(b, hkv, m, d).to(dtype)
+        mom = noncausal_moments_cuda(k, v, p=p)
+        rmom = noncausal_moments_ref(k, v, p=p)
+        o = noncausal_combine_cuda(q, mom, p=p)
+        ro = noncausal_combine_ref(q, rmom, p=p)
+        torch.cuda.synchronize()
+        eo, o_ok = o_err(o, ro)
+        em = max(moment_err(a, r) for a, r in zip(mom, rmom))
+        em_abs = max((a - r).abs().max().item() for a, r in zip(mom, rmom))
+        tag = (f"nc p={p} {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} D={d} "
+               f"N={n} M={m}")
+        print(f"  {tag}: o max abs err {eo:.3e} (tol {o_tol(dtype)}), "
+              f"moments max rel err {em:.3e} (tol {TOL_MOMENTS:.0e}; max "
+              f"abs err {em_abs:.3e})")
+        if not (o_ok and em <= TOL_MOMENTS):
+            fail(f"{tag}: the noncausal kernel disagrees with its plain "
+                 f"version")
+        return eo, em_abs, (q, k, v, mom, rmom)
+
+    WM = wcfg.encoder_seq
+    nc_err = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            for n in (WM, 128, 1):
+                nc_err[(dtype, n)] = nc_case(B, wh, wh, n, WM, wd,
+                                             dtype)[:2]
+            nc_case(2, hq, hkv, P, P, d, dtype)
+        nc_case(B, wh, wh, WM, WM, wd, torch.float32, p=1)
+    torch.cuda.empty_cache()
+    phase("nc kernels", "moments and combine agree with their plain versions "
+          f"(f32, bf16; whisper widths N={WM}, 128, 1 against M={WM}; qwen3 "
+          f"widths N=M={P}; p=1)")
+
+    # ---- 11. whisper smoke config: kernel path vs plain path ----
+    wsmall = dataclasses.replace(get_smoke_config("whisper-small"),
+                                 attn=AttentionSpec.parse("fastmax2-kernel"))
+    wsmall_plain = dataclasses.replace(
+        wsmall, attn=AttentionSpec.parse("fastmax2-chunked"))
+    with torch.inference_mode():
+        wsp = init_model(wsmall, seed=0, device=dev)
+        frames = randn(2, wsmall.encoder_seq, wsmall.d_model)
+        prompts = torch.randint(0, wsmall.vocab_size, (2, 40), generator=gen,
+                                device=dev)
+        enc_k = encode(wsp, frames, wsmall)
+        enc_p = encode(wsp, frames, wsmall_plain)
+        tk = generate(wsp, wsmall, prompts, 8, enc_out=enc_k, device=dev)
+        tp = generate(wsp, wsmall_plain, prompts, 8, enc_out=enc_p,
+                      device=dev)
+        lk, _ = lm_prefill(wsp["decoder"], prompts, wsmall,
+                           init_decode_state(wsmall, 2, 48, device=dev),
+                           enc_out=enc_k)
+        lp, _ = lm_prefill(wsp["decoder"], prompts, wsmall_plain,
+                           init_decode_state(wsmall, 2, 48, device=dev),
+                           enc_out=enc_p)
+    de = (enc_k - enc_p).abs().max().item()
+    dl = (lk - lp).abs().max().item()
+    same = bool((tk == tp).all())
+    phase("whisper small", f"smoke config f32: tokens equal={same}, encoder "
+          f"output max diff {de:.3e}, prefill logits max diff {dl:.3e} (tol "
+          f"1e-4)")
+    if not (same and de <= 1e-4 and dl <= 1e-4):
+        fail("whisper smoke model: kernel path disagrees with the plain path")
+
+    # ---- 12. whisper-small at full width, bf16 ----
+    wplain = dataclasses.replace(
+        wcfg, attn=AttentionSpec.parse("fastmax2-chunked"))
+    WP, WG, WL = 128, 32, wcfg.n_layers
+    with torch.inference_mode():
+        t0 = time.monotonic()
+        wparams = init_model(wcfg, seed=0, device=dev)
+        frames = randn(B, WM, wcfg.d_model).to(wcfg.adtype())
+        prompts = torch.randint(0, wcfg.vocab_size, (B, WP), generator=gen,
+                                device=dev)
+        torch.cuda.synchronize()
+        print(f"  weights: {count_params(wparams) / 1e9:.3f} B params bf16 "
+              f"in {time.monotonic() - t0:.1f}s")
+        enc_out = encode(wparams, frames, wcfg)                  # warm-up
+        generate(wparams, wcfg, prompts, WG, enc_out=enc_out, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        enc_out = encode(wparams, frames, wcfg)
+        ev1.record()
+        ev1.synchronize()
+        encode_ms = ev0.elapsed_time(ev1)
+        enc_launches = ops.launch_counts()
+        ops.reset_launch_counts()
+        wtimings = {}
+        t0 = time.monotonic()
+        wtoks = generate(wparams, wcfg, prompts, WG, enc_out=enc_out,
+                         device=dev, timings=wtimings)
+        torch.cuda.synchronize()
+        wtotal_s = time.monotonic() - t0
+        gen_launches = ops.launch_counts()
+        wpeak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want_e = {"fastmax_causal": 0, "fastmax_causal_bwd": 0,
+                  "fastmax_decode": 0,
+                  "fastmax_noncausal_moments": wcfg.encoder_layers,
+                  "fastmax_noncausal_combine": wcfg.encoder_layers}
+        want_g = {"fastmax_causal": WL, "fastmax_causal_bwd": 0,
+                  "fastmax_decode": WL * (WG - 1),
+                  "fastmax_noncausal_moments": WL * WG,
+                  "fastmax_noncausal_combine": WL * WG}
+        if enc_launches != want_e:
+            fail(f"encode launch counts {enc_launches}, expected {want_e}")
+        if gen_launches != want_g:
+            fail(f"generate launch counts {gen_launches}, expected {want_g}")
+        if not (tuple(enc_out.shape) == (B, WM, wcfg.d_model)
+                and bool(torch.isfinite(enc_out).all())):
+            fail("non-finite or misshapen encoder output")
+        if tuple(wtoks.shape) != (B, WG) or not bool(
+                ((wtoks >= 0) & (wtoks < wcfg.vocab_size)).all()):
+            fail(f"bad whisper tokens {tuple(wtoks.shape)}")
+        print(f"  first tokens: {wtoks[0, :8].tolist()} "
+              f"{wtoks[1, :8].tolist()}")
+        st = init_decode_state(wcfg, B, WP, device=dev)
+        lk, _ = lm_prefill(wparams["decoder"], prompts, wcfg, st,
+                           enc_out=enc_out)
+        last_k = lk[:, -1].float()
+        enc_plain = encode(wparams, frames, wplain)
+        lp, _ = lm_prefill(wparams["decoder"], prompts, wplain, st,
+                           enc_out=enc_plain)
+        last_p = lp[:, -1].float()
+        del lk, lp, st
+    wdlog = (last_k - last_p).abs().max().item()
+    wagree = (last_k.argmax(-1) == last_p.argmax(-1)).float().mean().item()
+    wscale = last_p.abs().max().item()
+    if not (math.isfinite(wdlog) and bool(torch.isfinite(last_k).all())):
+        fail("non-finite logits on the whisper path")
+    wprefill_ms = wtimings["prefill_ms"]
+    wdecode_ms = wtimings["decode_ms"] / wtimings["decode_steps"]
+    phase("whisper", f"whisper-small fastmax2-kernel bf16 B={B} frames={WM} "
+          f"P={WP} G={WG}: encode {encode_ms:.1f} ms, generate "
+          f"{wtotal_s:.3f}s total, prefill {wprefill_ms:.1f} ms, decode "
+          f"{wdecode_ms:.2f} ms/token (CUDA events inside the call), "
+          f"{B * WG / wtotal_s:.1f} tok/s, peak {wpeak_gb:.2f} GB; launches "
+          f"per encode {enc_launches}, per generate {gen_launches}; last-row "
+          f"logit max |kernel - plain| {wdlog:.3e} (tol "
+          f"{WHISPER_LOGIT_TOL}; max |plain| {wscale:.3f}; argmax agree "
+          f"{wagree:.2f})")
+    if not wdlog <= WHISPER_LOGIT_TOL:
+        fail("whisper: the kernel path's logits disagree with the plain "
+             "path's")
+    del wparams, enc_out, enc_plain
+    torch.cuda.empty_cache()
+
+    # the noncausal launches timed at the whisper path's shapes, bf16
+    bhw = B * wh
+    rows = 1 + wd + wd * (wd + 1) // 2       # feature rows, symmetric m2
+    with torch.inference_mode():
+        _, _, (q, k, v, mom, rmom) = nc_case(B, wh, wh, WM, WM, wd,
+                                             torch.bfloat16)
+        q1 = q[:, :, :1].contiguous()
+        nm_ms = sync_ms(lambda: noncausal_moments_cuda(k, v, p=2), reps=10)
+        nm_plain = sync_ms(lambda: noncausal_moments_ref(k, v, p=2), reps=5)
+        nc_ms = sync_ms(lambda: noncausal_combine_cuda(q, mom, p=2), reps=10)
+        nc_plain = sync_ms(lambda: noncausal_combine_ref(q, rmom, p=2),
+                           reps=5)
+        n1_ms = sync_ms(lambda: noncausal_combine_cuda(q1, mom, p=2),
+                        reps=50)
+        n1_plain = sync_ms(lambda: noncausal_combine_ref(q1, rmom, p=2),
+                           reps=20)
+    # per (b, head): each feature row (the constant, the linear ones, the
+    # pairs a <= b) is one FMA per value column and one for the g column;
+    # bytes: k, v read and the moments written; q read, the feature rows
+    # of the moments read and o written
+    nm_ops = bhw * WM * rows * 2 * (wd + 1)
+    nm_bytes = (k.numel() + v.numel()) * 2 + sum(t.numel() for t in mom) * 4
+
+    def combine_bound(n):
+        ops_ = bhw * n * rows * 2 * (wd + 1)
+        bytes_ = 2 * bhw * n * wd * 2 + bhw * rows * (wd + 1) * 4
+        return ops_, bytes_, max(ops_ / H100_BF16_FLOPS,
+                                 bytes_ / H100_BYTES_PER_S) * 1e3
+
+    nm_bound = max(nm_ops / H100_BF16_FLOPS,
+                   nm_bytes / H100_BYTES_PER_S) * 1e3
+    nc_ops, nc_bytes, nc_bound = combine_bound(WM)
+    n1_ops, n1_bytes, n1_bound = combine_bound(1)
+    print(f"  timing (nc, bf16 B={B} H={wh} D={wd} M={WM}): moments "
+          f"{nm_ms:.3f} ms (plain {nm_plain:.3f}, bound {nm_bound:.4f}, "
+          f"{nm_ops / nm_ms / 1e9:.2f} TFLOP/s); combine N={WM} {nc_ms:.3f} "
+          f"ms (plain {nc_plain:.3f}, bound {nc_bound:.4f}, "
+          f"{nc_ops / nc_ms / 1e9:.2f} TFLOP/s); combine N=1 {n1_ms:.4f} ms "
+          f"(plain {n1_plain:.4f}, bound {n1_bound:.4f}, "
+          f"{n1_bytes / n1_ms / 1e6:.0f} GB/s)")
+    del q, k, v, q1, mom, rmom
+    torch.cuda.empty_cache()
+
     kernels = [
         {"name": "fastmax_causal_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_causal.cu",
@@ -650,6 +907,32 @@ def main() -> None:
          "bound_by": "operations" if fb_ops / H100_BF16_FLOPS
          >= fb_bytes / H100_BYTES_PER_S else "bytes",
          "library_ms": None},
+        {"name": "fastmax_noncausal_moments", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fastmax_noncausal.cu",
+         "replaces": "src/repro/kernels/fastmax_noncausal.py:160",
+         "launches": enc_launches["fastmax_noncausal_moments"]
+         + gen_launches["fastmax_noncausal_moments"],
+         # the six moments' max |kernel - plain| (M=1500, bf16 inputs)
+         "max_abs_err": nc_err[(torch.bfloat16, WM)][1], "ms": nm_ms,
+         "plain_ms": nm_plain, "bound_ms": nm_bound,
+         "bound_by": "operations" if nm_ops / H100_BF16_FLOPS
+         >= nm_bytes / H100_BYTES_PER_S else "bytes",
+         "library_ms": None},
+        # timed at N=1500 (encoder); the *_n1 keys are the decode steps'
+        {"name": "fastmax_noncausal_combine", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fastmax_noncausal.cu",
+         "replaces": "src/repro/kernels/fastmax_noncausal.py:192",
+         "launches": enc_launches["fastmax_noncausal_combine"]
+         + gen_launches["fastmax_noncausal_combine"],
+         "max_abs_err": max(nc_err[(torch.bfloat16, n)][0]
+                            for n in (WM, 1)),
+         "ms": nc_ms, "plain_ms": nc_plain, "bound_ms": nc_bound,
+         "bound_by": "operations" if nc_ops / H100_BF16_FLOPS
+         >= nc_bytes / H100_BYTES_PER_S else "bytes",
+         "library_ms": None,
+         "ms_n1": n1_ms, "plain_ms_n1": n1_plain, "bound_ms_n1": n1_bound,
+         "bound_by_n1": "operations" if n1_ops / H100_BF16_FLOPS
+         >= n1_bytes / H100_BYTES_PER_S else "bytes"},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

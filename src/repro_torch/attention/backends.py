@@ -1,18 +1,19 @@
 """Built-in attention backends of the port — port of
 `repro/attention/backends.py`.
 
-  fastmax-chunked — the plain chunked prefix scan (core.fastmax); exact
-                    kv masking; the §2.5 custom backward; decode through
-                    the plain moment step.
+  fastmax-chunked — the plain chunked prefix scan (core.fastmax), or the
+                    global moment path when noncausal; exact kv masking;
+                    the §2.5 custom backward; decode through the plain
+                    moment step.
   fastmax-kernel  — the hand-written CUDA kernels (training forward and
-                    §2.5 backward, prefill, decode) on the native moment
-                    carry; CPU tensors take the kernels' plain versions
-                    inside the wrappers.
+                    §2.5 backward, prefill, decode, noncausal moments and
+                    combine) on the native moment carry; CPU tensors take
+                    the kernels' plain versions inside the wrappers.
 
 Both fns share one signature: fn(q, k, v, spec, *, causal, kv_mask) -> o,
-with q [B,Hq,N,D], k/v [B,Hkv,N,*], Hq % Hkv == 0. The decode-state
-protocol (`attention.state`) routes on the capabilities. softmax, oracle,
-rowwise and hybrid backends are not ported yet.
+with q [B,Hq,N,D], k/v [B,Hkv,M,*], Hq % Hkv == 0 (M = N when causal).
+The decode-state protocol (`attention.state`) routes on the capabilities.
+softmax, oracle, rowwise and hybrid backends are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,18 +24,19 @@ __all__ = []
 
 
 def _chunked_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):
-    from repro_torch.core.fastmax import fastmax_causal_chunked, normalize_qk
+    from repro_torch.core.fastmax import (fastmax_causal_chunked,
+                                          fastmax_noncausal, normalize_qk)
 
-    if not causal:
-        raise NotImplementedError(
-            "noncausal fastmax (fastmax_noncausal) is not ported yet "
-            "(ROADMAP queue 1 item 4)")
     spec = spec.resolved()
     qh = normalize_qk(q) if spec.normalize else q
     kh = normalize_qk(k) if spec.normalize else k
-    return fastmax_causal_chunked(
-        qh, kh, v, p=spec.p, chunk_size=spec.chunk_size, kv_mask=kv_mask,
-        denom_eps=spec.denom_eps, custom_grad=spec.custom_grad)
+    if causal:
+        return fastmax_causal_chunked(
+            qh, kh, v, p=spec.p, chunk_size=spec.chunk_size, kv_mask=kv_mask,
+            denom_eps=spec.denom_eps, custom_grad=spec.custom_grad)
+    return fastmax_noncausal(
+        qh, kh, v, p=spec.p, kv_mask=kv_mask, denom_eps=spec.denom_eps,
+        chunk_size=max(spec.chunk_size, 512))
 
 
 def _kernel_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):
@@ -42,12 +44,13 @@ def _kernel_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):
     from repro_torch.kernels import ops as kernel_ops
 
     if kv_mask is not None:
-        # the reference reroutes a masked call to its chunked backend; the
-        # port has no fallback chain, so the caller picks that backend
+        # the reference reroutes a masked causal call to its chunked backend
+        # and drops the mask of a noncausal one; the port has no fallback
+        # chain and drops nothing, so the caller picks that backend
         raise ValueError(
-            "fastmax-kernel's trainable path takes no kv_mask (its §2.5 "
-            "backward assumes none); use fastmax2-chunked for masked "
-            "full-sequence attention")
+            "fastmax-kernel's full-sequence path takes no kv_mask (neither "
+            "the §2.5 backward nor the noncausal kernel reads one); use "
+            "fastmax2-chunked for masked full-sequence attention")
     spec = spec.resolved()
     qh = normalize_qk(q) if spec.normalize else q
     kh = normalize_qk(k) if spec.normalize else k

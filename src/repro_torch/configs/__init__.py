@@ -13,6 +13,7 @@ __all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]
 # public ids used on the CLI (--arch) mapped to module names
 ARCH_IDS = {
     "qwen3-1.7b": "qwen3_1_7b",
+    "whisper-small": "whisper_small",
 }
 
 

@@ -6,12 +6,14 @@ with an O(D^{p+1}) carry. `_causal_scan` is the plain version of the CUDA
 prefill kernel (`repro_torch.kernels.fastmax_causal`); `_causal_scan_cg`
 pairs it with the paper's §2.5 reversible backward (`_causal_scan_cg_bwd`),
 the plain version of the CUDA backward kernel
-(`repro_torch.kernels.fastmax_causal_bwd`).
+(`repro_torch.kernels.fastmax_causal_bwd`). `fastmax_noncausal` (global
+moments over all keys, then one combine) is the plain version of the
+noncausal kernel (`repro_torch.kernels.fastmax_noncausal`).
 
-Shapes: q [B, Hq, N, D]; k, v [B, Hkv, N, *] with Hq % Hkv == 0. Moments
-are computed once per kv head and shared by the query group. The
-feature-sharded variants and the rowwise / dropout schedule of the JAX
-module are not ported yet.
+Shapes: q [B, Hq, N, D]; k, v [B, Hkv, M, *] with Hq % Hkv == 0 (M = N
+for causal attention). Moments are computed once per kv head and shared by
+the query group. The port has no mesh, so the reference's feature-sharded
+variants are left out; its rowwise / dropout schedule is not ported yet.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import torch.nn.functional as F
 from repro_torch.core.ref import normalize_qk, poly_kernel
 from repro_torch.kernels.tiling import SCAN_BM_BUDGET, pick_bm
 
-__all__ = ["Moments", "compute_moments", "combine_with_queries",
+__all__ = ["Moments", "compute_moments", "compute_moments_chunked",
+           "combine_with_queries", "fastmax_noncausal",
            "fastmax_causal_chunked", "normalize_qk", "poly_kernel"]
 
 
@@ -156,6 +159,53 @@ def _combine_grouped(qg, mom: Moments, *, p: int):
     b, hkv, g, n, d = qg.shape
     num, den = combine_with_queries(qg.reshape(b, hkv, g * n, d), mom, p=p)
     return num.reshape(b, hkv, g, n, -1), den.reshape(b, hkv, g, n)
+
+
+# ---------------------------------------------------------------------------
+# Noncausal factorized path
+# ---------------------------------------------------------------------------
+
+
+def compute_moments_chunked(k, v, *, p: int,
+                            kv_mask: Optional[torch.Tensor] = None,
+                            chunk_size: int = 512) -> Moments:
+    """Full-sequence moments summed over chunks of `chunk_size` keys —
+    peak memory O(chunk * bm * D) instead of O(M * bm * D). The last chunk
+    is zero-padded and masked out. k [B,Hkv,M,D], v [B,Hkv,M,Dv]."""
+    b, hkv, m, _ = k.shape
+    if m <= chunk_size:
+        return compute_moments(k, v, p=p, kv_mask=kv_mask)
+    nc = -(-m // chunk_size)
+    pad = nc * chunk_size - m
+    kp = F.pad(k, (0, 0, 0, pad))
+    vp = F.pad(v, (0, 0, 0, pad))
+    if kv_mask is None:
+        mask = torch.ones(b, hkv, m, dtype=torch.float32, device=k.device)
+    else:
+        mask = kv_mask.to(torch.float32)
+    maskp = F.pad(mask, (0, pad))
+    mom = None
+    for c in range(nc):
+        sl = slice(c * chunk_size, (c + 1) * chunk_size)
+        part = compute_moments(kp[:, :, sl], vp[:, :, sl], p=p,
+                               kv_mask=maskp[..., sl])
+        mom = part if mom is None else mom + part
+    return mom
+
+
+def fastmax_noncausal(q, k, v, *, p: int = 2,
+                      kv_mask: Optional[torch.Tensor] = None,
+                      denom_eps: float = 1e-6,
+                      chunk_size: int = 512) -> torch.Tensor:
+    """Bidirectional fastmax on pre-normalized q/k, in q's dtype.
+    q [B,Hq,N,D]; k, v [B,Hkv,M,*] (N != M for cross-attention);
+    O(N D^{p+1})."""
+    hkv = k.shape[1]
+    mom = compute_moments_chunked(k, v, p=p, kv_mask=kv_mask,
+                                  chunk_size=chunk_size)
+    num, den = _combine_grouped(_group_queries(q, hkv), mom, p=p)
+    o = num / (den + denom_eps)[..., None]
+    return _ungroup(o).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
-"""Kernel entry points — port of `repro/kernels/ops.py` (causal fastmax).
+"""Kernel entry points — port of `repro/kernels/ops.py` (fastmax).
 
 Dispatch is by the tensors' device, with no fallback:
   * CUDA tensors launch the hand-written kernels (`csrc/*.cu`), or raise;
   * CPU tensors take the kernels' plain versions — the tests' route.
-The trainable `fastmax()` pairs the forward kernel, which emits its final
-moment carry, with the §2.5 backward kernel; the carry is the only
-residual beyond (q, k, v).
+The trainable causal `fastmax()` pairs the forward kernel, which emits its
+final moment carry, with the §2.5 backward kernel; the carry is the only
+residual beyond (q, k, v). The noncausal one pairs the two-launch noncausal
+kernel with autograd of the plain `core.fastmax.fastmax_noncausal`, as the
+reference does (it has no noncausal backward kernel).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 from repro_torch.kernels import fastmax_causal as _fc
 from repro_torch.kernels import fastmax_causal_bwd as _fb
 from repro_torch.kernels import fastmax_decode as _fd
+from repro_torch.kernels import fastmax_noncausal as _fn
 from repro_torch.kernels.ref import fastmax_decode_ref
 
 __all__ = ["fastmax", "fastmax_bwd", "fastmax_prefill_kernel",
@@ -54,15 +57,46 @@ class _FastmaxCausal(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+class _FastmaxNoncausal(torch.autograd.Function):
+    """Noncausal fastmax on pre-normalized q̂/k̂ (k, v may hold M != N
+    keys): the moment + combine kernel forward; the backward is autograd
+    of the plain moment path (one global moment sum, so no O(N M) scores),
+    as the reference's `_fnc_bwd` is."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, p, chunk_size, denom_eps):
+        if _route(q) == "cuda":
+            o = _fn.fastmax_noncausal_cuda(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), p=p,
+                                           denom_eps=denom_eps)
+        else:
+            o = _fn.fastmax_noncausal_ref(q, k, v, p=p,
+                                          chunk_size=chunk_size,
+                                          denom_eps=denom_eps)
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = (p, chunk_size, denom_eps)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        p, chunk_size, denom_eps = ctx.cfg
+        prim = [x.detach().requires_grad_(True) for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            o = _fn.fastmax_noncausal_ref(*prim, p=p,
+                                          chunk_size=max(chunk_size, 512),
+                                          denom_eps=denom_eps)
+            dq, dk, dv = torch.autograd.grad(o, prim, do)
+        return dq, dk, dv, None, None, None
+
+
 def fastmax(q, k, v, *, p: int = 2, causal: bool = True,
             chunk_size: int = 128, denom_eps: float = 1e-6):
     """Trainable kernel-backed fastmax on pre-normalized q̂/k̂ (GQA-aware),
-    o in q's dtype. `chunk_size` is the plain versions' chunk; the kernels
-    pick their own."""
+    o in q's dtype. Noncausal k, v may hold M != N keys (cross-attention).
+    `chunk_size` is the plain versions' chunk; the kernels pick their
+    own."""
     if not causal:
-        raise NotImplementedError(
-            "the noncausal fastmax kernel is not ported yet (ROADMAP queue 2 "
-            "item 4)")
+        return _FastmaxNoncausal.apply(q, k, v, p, chunk_size, denom_eps)
     return _FastmaxCausal.apply(q, k, v, p, chunk_size, denom_eps)
 
 
@@ -120,10 +154,14 @@ def launch_counts() -> dict:
     """Kernel launches so far, per kernel (CPU calls launch nothing)."""
     return {"fastmax_causal": _fc.launches,
             "fastmax_causal_bwd": _fb.launches,
-            "fastmax_decode": _fd.launches}
+            "fastmax_decode": _fd.launches,
+            "fastmax_noncausal_moments": _fn.moment_launches,
+            "fastmax_noncausal_combine": _fn.combine_launches}
 
 
 def reset_launch_counts() -> None:
     _fc.launches = 0
     _fb.launches = 0
     _fd.launches = 0
+    _fn.moment_launches = 0
+    _fn.combine_launches = 0

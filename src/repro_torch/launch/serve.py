@@ -2,9 +2,15 @@
 state — port of `repro/launch/serve.py` (the static-batch `generate()`
 path; the continuous-batching engine comes in a later slice).
 
+An encoder-decoder arch (whisper-small) first encodes stub frames drawn
+from the same numpy generator as the prompts, then decodes against the
+encoder's output.
+
 Usage (on the card; `--device cpu` runs the plain versions on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --attn fastmax2-kernel --batch 4 --prompt-len 1024 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+      --attn fastmax2-kernel --batch 4 --prompt-len 128 --gen 32
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ from repro_torch.attention import AttentionSpec
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
-from repro_torch.models import init_decode_state, init_model
+from repro_torch.models import decoder_params, init_decode_state, init_model
+from repro_torch.models.encdec import encode
 
 __all__ = ["generate", "main"]
 
@@ -51,10 +58,13 @@ class _Marks:
 
 @torch.inference_mode()
 def generate(params, cfg, prompts, n_gen: int, max_len: int | None = None,
-             eos_id: int | None = None, device=None,
+             enc_out=None, eos_id: int | None = None, device=None,
              timings: dict | None = None):
     """prompts [B, P] int. Greedy decode of `n_gen` tokens on `device`
     (default cuda; `params` must live there). Returns [B, n_gen] int32.
+    An encoder-decoder model takes its encoder's output `enc_out`
+    [B, M, d] (from `models.encdec.encode`), which every prefill and
+    decode step attends to.
 
     With `eos_id`, a sequence that emits it is frozen: its remaining
     positions are filled with `eos_id`, and the loop exits early once every
@@ -65,8 +75,9 @@ def generate(params, cfg, prompts, n_gen: int, max_len: int | None = None,
     device's clock, and waits for the device before it returns.
     """
     dev = resolve_device(device)
-    if params["embed"].device != dev:
-        raise ValueError(f"params live on {params['embed'].device}, "
+    dec = decoder_params(params, cfg)
+    if dec["embed"].device != dev:
+        raise ValueError(f"params live on {dec['embed'].device}, "
                          f"generate() asked to run on {dev}")
     marks = _Marks(dev) if timings is not None else None
     if marks is not None:
@@ -78,7 +89,7 @@ def generate(params, cfg, prompts, n_gen: int, max_len: int | None = None,
     # decode positions live on the device: a Python int would be copied
     # there at every step, and such a copy waits for the card to drain
     positions = plen + torch.arange(max(n_gen - 1, 0), device=dev)
-    tok, state = prefill(params, state, prompts)
+    tok, state = prefill(params, state, prompts, enc_out)
     if marks is not None:
         marks.mark()
     done = (tok == eos_id) if eos_id is not None else None
@@ -88,7 +99,7 @@ def generate(params, cfg, prompts, n_gen: int, max_len: int | None = None,
         if done is not None and bool(done.all()):
             out.extend([torch.full_like(tok, eos_id)] * (n_gen - 1 - i))
             break
-        tok, state = step(params, state, tok, positions[i])
+        tok, state = step(params, state, tok, positions[i], enc_out)
         steps += 1
         if done is not None:
             tok = torch.where(done, torch.full_like(tok, eos_id), tok)
@@ -128,13 +139,27 @@ def main(argv=None):
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
         dtype=torch.int64, device=dev)
+    enc_out = None
+    if cfg.encoder_layers > 0:
+        frames = torch.as_tensor(
+            rng.normal(size=(args.batch, cfg.encoder_seq, cfg.d_model)),
+            device=dev).to(cfg.adtype())
+        with torch.inference_mode():
+            encode(params, frames, cfg)   # warm-up
+            _sync(dev)
+            t0 = time.monotonic()
+            enc_out = encode(params, frames, cfg)
+            _sync(dev)
+        print(f"encoded {tuple(frames.shape)} frames in "
+              f"{(time.monotonic() - t0) * 1e3:.1f} ms")
 
     # warm-up (kernel build, allocator) outside the timed region
-    generate(params, cfg, prompts, args.gen, eos_id=args.eos_id, device=dev)
+    generate(params, cfg, prompts, args.gen, enc_out=enc_out,
+             eos_id=args.eos_id, device=dev)
     _sync(dev)
     t0 = time.monotonic()
-    toks = generate(params, cfg, prompts, args.gen, eos_id=args.eos_id,
-                    device=dev)
+    toks = generate(params, cfg, prompts, args.gen, enc_out=enc_out,
+                    eos_id=args.eos_id, device=dev)
     _sync(dev)
     dt = time.monotonic() - t0
     print(f"generated {tuple(toks.shape)} in {dt:.2f}s "

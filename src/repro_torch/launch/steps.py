@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import decode_step, model_loss
+from repro_torch.models import decode_step, decoder_params, model_loss
 from repro_torch.models.transformer import ModelConfig, lm_prefill
 from repro_torch.optim import clip_by_global_norm, make_optimizer, \
     warmup_cosine
@@ -61,21 +61,26 @@ def make_train_step(cfg: ModelConfig, optimizer, *, clip_norm: float = 1.0):
 
 
 def make_serve_step(cfg: ModelConfig):
-    """step(params, state, token [B], position) -> (next token [B], state)."""
+    """step(params, state, token [B], position, enc_out=None) -> (next
+    token [B], state). An encoder-decoder model decodes with its
+    "decoder" parameters against `enc_out`."""
 
-    def serve_step(params, state, token, position):
-        logits, state = decode_step(params, state, token, cfg,
-                                    position=position)
+    def serve_step(params, state, token, position, enc_out=None):
+        logits, state = decode_step(decoder_params(params, cfg), state,
+                                    token, cfg, position=position,
+                                    enc_out=enc_out)
         return torch.argmax(logits, dim=-1).to(torch.int32), state
 
     return serve_step
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """prefill(params, state, tokens [B, P]) -> (first token [B], state)."""
+    """prefill(params, state, tokens [B, P], enc_out=None) -> (first token
+    [B], state)."""
 
-    def prefill_step(params, state, tokens):
-        logits, state = lm_prefill(params, tokens, cfg, state)
+    def prefill_step(params, state, tokens, enc_out=None):
+        logits, state = lm_prefill(decoder_params(params, cfg), tokens, cfg,
+                                   state, enc_out=enc_out)
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), state
 
     return prefill_step

@@ -1,14 +1,17 @@
 """Trace the serving loop on the card with `torch.profiler`.
 
   PYTHONPATH=src python -m repro_torch.launch.trace_decode [--out DIR]
+      [--arch whisper-small --prompt-len 128]
 
-Builds full-width qwen3-1.7b (attn fastmax2-kernel, bf16, random weights
-from seed 0) and prints one JSON line.
+Builds the full-width arch (default qwen3-1.7b; attn fastmax2-kernel,
+bf16, random weights from seed 0) and prints one JSON line. An
+encoder-decoder arch first encodes seeded stub frames (batch 4, untraced)
+and every `generate()` call below decodes against that encoder output.
 
 `untraced`: the median host-clock time of `generate()` at the main path's
-shape (batch 4, prompt 1024, 32 new tokens), of the same call cut to its
-first token, and the decode time per token as their difference over the
-other 31 tokens.
+shape (batch 4, prompt `--prompt-len`, default 1024, 32 new tokens), of
+the same call cut to its first token, and the decode time per token as
+their difference over the other 31 tokens.
 
 Then one traced `generate()` call with a short prompt (a decode step's cost
 does not depend on the context): its host wall time and CUDA-event time;
@@ -36,8 +39,9 @@ from repro_torch.attention import AttentionSpec
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import generate
 from repro_torch.models import init_model
+from repro_torch.models.encdec import encode
 
-BATCH, PROMPT, GEN = 4, 1024, 32          # the untraced calls
+BATCH, GEN = 4, 32                        # the untraced calls
 TRACE_PROMPT, TRACE_GEN = 64, 17          # the traced call
 REPS = 3
 
@@ -79,35 +83,45 @@ def _union_us(spans) -> float:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
+    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--prompt-len", type=int, default=1024)
     args = ap.parse_args(argv)
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+    cfg = dataclasses.replace(get_config(args.arch),
                               attn=AttentionSpec.parse("fastmax2-kernel"))
     params = init_model(cfg, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     short = torch.randint(0, cfg.vocab_size, (BATCH, TRACE_PROMPT),
                           generator=gen, device=dev)
-    long = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
-                         device=dev)
+    long = torch.randint(0, cfg.vocab_size, (BATCH, args.prompt_len),
+                         generator=gen, device=dev)
+    enc_out = None
+    if cfg.encoder_layers > 0:
+        frames = torch.randn(BATCH, cfg.encoder_seq, cfg.d_model,
+                             generator=gen, device=dev).to(cfg.adtype())
+        with torch.inference_mode():
+            enc_out = encode(params, frames, cfg)
 
     def wall_ms(n_gen):
         times = []
         for _ in range(REPS + 1):          # the first call warms up
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            generate(params, cfg, long, n_gen, device=dev)
+            generate(params, cfg, long, n_gen, enc_out=enc_out, device=dev)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         return sorted(times[1:])[REPS // 2]
 
     full_ms, first_ms = wall_ms(GEN), wall_ms(1)
-    untraced = {"batch": BATCH, "prompt_len": PROMPT, "gen": GEN,
+    untraced = {"arch": args.arch, "batch": BATCH,
+                "prompt_len": args.prompt_len, "gen": GEN,
                 "median_of": REPS, "call_ms": full_ms,
                 "first_token_ms": first_ms,
                 "decode_ms_per_token": (full_ms - first_ms) / (GEN - 1)}
 
-    generate(params, cfg, short, TRACE_GEN, device=dev)   # warm-up
+    generate(params, cfg, short, TRACE_GEN, enc_out=enc_out,
+             device=dev)                                    # warm-up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -115,7 +129,7 @@ def main(argv=None):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         start.record()
-        generate(params, cfg, short, TRACE_GEN, device=dev)
+        generate(params, cfg, short, TRACE_GEN, enc_out=enc_out, device=dev)
         end.record()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3

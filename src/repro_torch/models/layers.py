@@ -1,11 +1,12 @@
-"""Model layers for the dense GQA decoder — port of `repro/models/layers.py`.
+"""Model layers of the dense GQA transformer — port of
+`repro/models/layers.py`.
 
-RMS norms (computed in float32 and cast back, as the reference does), RoPE
-in the half-split layout, the SwiGLU MLP, GQA projections with optional
-bias and qk_norm, full-sequence attention (training), and the attention
-prefill/decode steps over the `repro_torch.attention` state protocol.
-LayerNorm, GELU and the MLA projections come with the architectures that
-use them.
+RMS norms and LayerNorm (computed in float32 and cast back, as the
+reference does), RoPE in the half-split layout, the SwiGLU and GELU MLPs,
+GQA projections with optional bias and qk_norm, full-sequence attention
+(causal or not, and cross-attention to another sequence), and the attention
+prefill/decode steps over the `repro_torch.attention` state protocol. The
+MLA projections come with the architectures that use them.
 """
 from __future__ import annotations
 
@@ -23,16 +24,25 @@ _F32 = torch.float32
 # ---------------------------------------------------------------------------
 
 
-def init_norm(b: Builder, name: str, dim: int):
-    b.sub(name).add("scale", (dim,), init="ones")
+def init_norm(b: Builder, name: str, dim: int, norm_type: str = "rmsnorm"):
+    sub = b.sub(name)
+    sub.add("scale", (dim,), init="ones")
+    if norm_type == "layernorm":
+        sub.add("bias", (dim,), init="zeros")
 
 
 def apply_norm(params, x, *, norm_type: str = "rmsnorm", eps: float = 1e-5):
-    if norm_type != "rmsnorm":
-        raise NotImplementedError(f"norm_type={norm_type!r} is not ported")
     xf = x.to(_F32)
-    var = xf.square().mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * params["scale"].to(_F32)
+    if norm_type == "rmsnorm":
+        var = xf.square().mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * params["scale"].to(_F32)
+    elif norm_type == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)   # biased, as jnp
+        out = (xf - mu) * torch.rsqrt(var + eps)
+        out = out * params["scale"].to(_F32) + params["bias"].to(_F32)
+    else:
+        raise ValueError(norm_type)
     return out.to(x.dtype)
 
 
@@ -71,19 +81,28 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(b: Builder, name: str, d_model: int, d_ff: int):
+def init_mlp(b: Builder, name: str, d_model: int, d_ff: int,
+             act: str = "swiglu"):
     sub = b.sub(name)
-    sub.add("wi_gate", (d_model, d_ff))
-    sub.add("wi_up", (d_model, d_ff))
+    if act == "swiglu":
+        sub.add("wi_gate", (d_model, d_ff))
+        sub.add("wi_up", (d_model, d_ff))
+    else:
+        sub.add("wi", (d_model, d_ff))
     sub.add("wo", (d_ff, d_model))
 
 
 def apply_mlp(params, x, *, act: str = "swiglu"):
-    if act != "swiglu":
-        raise NotImplementedError(f"mlp_act={act!r} is not ported")
-    g = torch.einsum("bnd,df->bnf", x, params["wi_gate"])
-    u = torch.einsum("bnd,df->bnf", x, params["wi_up"])
-    return torch.einsum("bnf,fd->bnd", F.silu(g) * u, params["wo"])
+    if act == "swiglu":
+        g = torch.einsum("bnd,df->bnf", x, params["wi_gate"])
+        u = torch.einsum("bnd,df->bnf", x, params["wi_up"])
+        h = F.silu(g) * u
+    else:
+        # the reference's jax.nn.gelu defaults to the tanh approximation;
+        # this follows it, not OpenAI whisper's exact (erf) GELU
+        h = F.gelu(torch.einsum("bnd,df->bnf", x, params["wi"]),
+                   approximate="tanh")
+    return torch.einsum("bnf,fd->bnd", h, params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -107,29 +126,52 @@ def init_attention(b: Builder, name: str, cfg) -> None:
         sub.add("k_norm_scale", (hd,), init="ones")
 
 
-def _project_qkv(params, x, cfg, positions):
-    """q [B,Hq,N,D], k [B,Hkv,N,D], v [B,Hkv,N,Dv]."""
+def _project_q(params, x, cfg, positions):
+    """q [B,Hq,N,D]."""
     q = torch.einsum("bnd,dhk->bhnk", x, params["wq"])
+    if cfg.qkv_bias:
+        q = q + params["bq"][None, :, None, :]
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+    if cfg.qk_norm:
+        q = rms_norm_headwise(q) * params["q_norm_scale"]
+    return q
+
+
+def _project_kv(params, x, cfg, positions):
+    """k [B,Hkv,N,D], v [B,Hkv,N,Dv]."""
     k = torch.einsum("bnd,dhk->bhnk", x, params["wk"])
     v = torch.einsum("bnd,dhk->bhnk", x, params["wv"])
     if cfg.qkv_bias:
-        q = q + params["bq"][None, :, None, :]
         k = k + params["bk"][None, :, None, :]
         v = v + params["bv"][None, :, None, :]
     if cfg.rope_theta > 0:
-        q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if cfg.qk_norm:
-        q = rms_norm_headwise(q) * params["q_norm_scale"]
         k = rms_norm_headwise(k) * params["k_norm_scale"]
-    return q, k, v
+    return k, v
 
 
-def apply_attention(params, x, cfg):
-    """Full-sequence causal self-attention (training forward). x [B, N, d]."""
+def _project_qkv(params, x, cfg, positions):
+    """q [B,Hq,N,D], k [B,Hkv,N,D], v [B,Hkv,N,Dv]."""
+    return (_project_q(params, x, cfg, positions),
+            *_project_kv(params, x, cfg, positions))
+
+
+def apply_attention(params, x, cfg, *, causal=True, kv_mask=None,
+                    kv_x=None):
+    """Full-sequence attention. x [B, N, d]; `kv_x` [B, M, d] makes it
+    cross-attention: q from x, k/v from kv_x at positions arange(M)."""
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    o = A.attention(q, k, v, cfg.attn_spec, causal=True)
+    if kv_x is None:
+        q, k, v = _project_qkv(params, x, cfg, positions)
+    else:
+        # the reference projects q from kv_x too and drops it
+        q = _project_q(params, x, cfg, positions)
+        kv_pos = torch.arange(kv_x.shape[1], dtype=torch.int32,
+                              device=x.device)
+        k, v = _project_kv(params, kv_x, cfg, kv_pos)
+    o = A.attention(q, k, v, cfg.attn_spec, causal=causal, kv_mask=kv_mask)
     return torch.einsum("bhnk,hkd->bnd", o.to(x.dtype), params["wo"])
 
 

@@ -64,10 +64,11 @@ class Builder:
 
 
 def from_jax_params(tree, cfg, device) -> dict:
-    """Convert a JAX `init_lm` params tree whose leaves were turned into
-    numpy arrays into the port's parameters: same nested layout (the
-    stacked `blocks_0` keeps its leading layer axis), cast to the config's
-    param dtype on `device`."""
+    """Convert a JAX `init_model` params tree (an `init_lm` tree, or the
+    `{"encoder", "decoder"}` tree of an encoder-decoder model) whose leaves
+    were turned into numpy arrays into the port's parameters: same nested
+    layout (the stacked `blocks_0` keeps its leading layer axis), cast to
+    the config's param dtype on `device`."""
     dtype = getattr(torch, cfg.param_dtype)
 
     def conv(x):

@@ -118,7 +118,9 @@ def test_kernel_backend_resumes_through_the_prefill_kernel(monkeypatch):
     assert seen[1] is ts.moments
     assert ops.launch_counts() == {"fastmax_causal": 0,
                                    "fastmax_causal_bwd": 0,
-                                   "fastmax_decode": 0}
+                                   "fastmax_decode": 0,
+                                   "fastmax_noncausal_moments": 0,
+                                   "fastmax_noncausal_combine": 0}
 
 
 @pytest.mark.parametrize("name, backend, decode_kernel", [

@@ -24,6 +24,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.fastmax_causal import fastmax_causal_ref  # noqa: E402
 from repro_torch.kernels.fastmax_causal_bwd import (  # noqa: E402
     fastmax_causal_bwd_cuda, fastmax_causal_bwd_ref)
+from repro_torch.kernels.fastmax_noncausal import (  # noqa: E402
+    fastmax_noncausal_cuda, fastmax_noncausal_ref)
 
 TOL = 1e-10
 
@@ -179,15 +181,26 @@ def test_plain_bwd_does_not_write_the_state():
 
 
 def test_ops_on_cpu_launch_nothing_and_noncausal_raises():
+    """Causal and noncausal, forward and backward, CPU tensors launch no
+    kernel (the noncausal op equals its plain version there); the
+    noncausal kernel's wrapper raises on CPU tensors."""
     (q, k, v), do = _leaves(8)
     ops.reset_launch_counts()
     o = ops.fastmax(q, k, v, p=2, chunk_size=16)
     torch.autograd.grad(o, (q, k, v), do)
+    onc = ops.fastmax(q, k, v, p=2, causal=False, chunk_size=16)
+    torch.autograd.grad(onc, (q, k, v), do)
     assert ops.launch_counts() == {"fastmax_causal": 0,
                                    "fastmax_causal_bwd": 0,
-                                   "fastmax_decode": 0}
-    with pytest.raises(NotImplementedError, match="queue 2 item 4"):
-        ops.fastmax(q, k, v, p=2, causal=False)
+                                   "fastmax_decode": 0,
+                                   "fastmax_noncausal_moments": 0,
+                                   "fastmax_noncausal_combine": 0}
+    torch.testing.assert_close(
+        onc, fastmax_noncausal_ref(q, k, v, p=2, chunk_size=16), rtol=0,
+        atol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        fastmax_noncausal_cuda(q.detach().float(), k.detach().float(),
+                               v.detach().float(), p=2)
 
 
 def test_bwd_cuda_wrapper_refuses_cpu_tensors():

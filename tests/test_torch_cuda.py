@@ -40,7 +40,8 @@ def _assert_as_close_as_plain(o, plain, exact, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads", [(4, 2), (32, 1)])   # G = 2 and G = 32
+# G = 1 (whisper-small), 2 and 32
+@pytest.mark.parametrize("heads", [(12, 12), (4, 2), (32, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [1, 2])
 def test_prefill_kernel_matches_plain_on_card(cuda_device, p, dtype, heads):
@@ -105,7 +106,8 @@ def test_resumed_prefill_launches_the_kernel_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads", [(8, 2), (16, 1)])   # G = 4 and G = 16
+# G = 1 (whisper-small), 4 and 16
+@pytest.mark.parametrize("heads", [(12, 12), (8, 2), (16, 1)])
 @pytest.mark.parametrize("p", [1, 2])
 def test_decode_kernel_matches_plain_on_card(cuda_device, p, heads):
     gen = torch.Generator(device=cuda_device).manual_seed(10 + p)
@@ -275,7 +277,9 @@ def test_kernel_train_step_launches_the_bwd_kernel_per_layer(cuda_device):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"fastmax_causal": 2 * cfg.n_layers,
                                    "fastmax_causal_bwd": cfg.n_layers,
-                                   "fastmax_decode": 0}
+                                   "fastmax_decode": 0,
+                                   "fastmax_noncausal_moments": 0,
+                                   "fastmax_noncausal_combine": 0}
     assert torch.isfinite(m["loss"]) and torch.isfinite(m["gnorm"])
 
 
@@ -287,3 +291,153 @@ def test_train_main_runs_smoke_steps_on_card(cuda_device):
                             "fastmax2-kernel", "--steps", "4", "--batch",
                             "2", "--seq", "64", "--log-every", "1"])
     assert len(losses) == 4 and all(math.isfinite(x) for x in losses)
+
+
+def _check_noncausal_on_card(dev, seed, d, n, m, dtype, p=2, heads=(4, 2)):
+    """The noncausal kernel's two launches against their plain versions:
+    the six moments within 1e-5 of their scale (float32 both ways, only
+    the summation order differs), and o as close to float64 as the plain
+    version is (float32; 4x margin or 1e-4 of the scale) or within one
+    bf16 rounding of the plain o plus 2e-5 (bf16: both round once). At p=1
+    the queries are q̂/D (|s| <= 1, f >= 0; see `_bwd_inputs`)."""
+    from repro_torch.kernels.fastmax_noncausal import (
+        noncausal_combine_cuda, noncausal_combine_ref, noncausal_moments_cuda,
+        noncausal_moments_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    (hq, hkv), b = heads, 2
+    qs = 1.0 / d if p == 1 else 1.0
+    q = (normalize_qk(rn(b, hq, n, d)) * qs).to(dtype)
+    k = normalize_qk(rn(b, hkv, m, d)).to(dtype)
+    v = rn(b, hkv, m, d).to(dtype)
+    mom = noncausal_moments_cuda(k, v, p=p)
+    rmom = noncausal_moments_ref(k, v, p=p)
+    o = noncausal_combine_cuda(q, mom, p=p)
+    ro = noncausal_combine_ref(q, rmom, p=p)
+    o64 = noncausal_combine_ref(q.double(), noncausal_moments_ref(
+        k.double(), v.double(), p=p), p=p)
+    torch.cuda.synchronize()
+    for a, r in zip(mom, rmom):
+        scale = max(1.0, r.abs().max().item())
+        torch.testing.assert_close(a / scale, r / scale, rtol=0, atol=1e-5)
+    assert o.dtype == dtype and o.shape == (b, hq, n, d)
+    if dtype == torch.float32:
+        _assert_as_close_as_plain(o, ro, o64, 1e-4)
+    else:
+        diff = (o.float() - ro.float()).abs()
+        assert bool((diff <= ro.float().abs() * 2.0 ** -7 + 2e-5).all()), \
+            diff.max().item()
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 200])      # split and row combines
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_noncausal_kernel_matches_plain_on_card(cuda_device, d, dtype, n):
+    # M = 333: the last key chunk of the moment kernel is ragged
+    _check_noncausal_on_card(cuda_device, d + n, d, n, 333, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(4, 2), (12, 12), (32, 2)])
+def test_noncausal_kernel_p1_and_groups_on_card(cuda_device, heads):
+    """p=1 on q̂/D, and groups G = 2, 1, 16 (G*N = 16 is the split
+    combine's widest case at N = 1)."""
+    _check_noncausal_on_card(cuda_device, 7, 64, 1, 300, torch.float32, p=1,
+                             heads=heads)
+    _check_noncausal_on_card(cuda_device, 8, 64, 1, 300, torch.float32,
+                             heads=heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 200])
+def test_noncausal_kernel_is_deterministic_on_card(cuda_device, n):
+    """Partials are summed in a fixed order: a repeated call gives the
+    same bits."""
+    from repro_torch.kernels.fastmax_noncausal import fastmax_noncausal_cuda
+
+    q, k, v = _check_noncausal_on_card(cuda_device, 11, 64, n, 1500,
+                                       torch.bfloat16, heads=(12, 12))
+    a = fastmax_noncausal_cuda(q, k, v, p=2)
+    b = fastmax_noncausal_cuda(q, k, v, p=2)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_noncausal_trainable_op_on_card(cuda_device):
+    """`ops.fastmax(causal=False)`: the kernel forward, and grads from
+    autograd of the plain moment path, against autograd of the plain
+    path on the same tensors."""
+    from repro_torch.core.fastmax import fastmax_noncausal
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    q = normalize_qk(torch.randn(2, 4, 50, 64, generator=gen,
+                                 device=cuda_device)).requires_grad_(True)
+    k = normalize_qk(torch.randn(2, 2, 90, 64, generator=gen,
+                                 device=cuda_device)).requires_grad_(True)
+    v = torch.randn(2, 2, 90, 64, generator=gen, device=cuda_device,
+                    requires_grad=True)
+    do = torch.randn(2, 4, 50, 64, generator=gen, device=cuda_device)
+    ops.reset_launch_counts()
+    o = ops.fastmax(q, k, v, p=2, causal=False, chunk_size=64)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    counts = ops.launch_counts()
+    assert (counts["fastmax_noncausal_moments"],
+            counts["fastmax_noncausal_combine"]) == (1, 1)
+    ro = fastmax_noncausal(q, k, v, p=2, chunk_size=512)
+    want = torch.autograd.grad(ro, (q, k, v), do)
+    torch.testing.assert_close(o, ro, rtol=0, atol=1e-4)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_whisper_smoke_kernel_path_on_card(cuda_device):
+    """The whisper smoke config in float32: the kernel and plain paths give
+    the same greedy tokens, and a generate() call launches exactly the
+    kernels the path runs."""
+    import dataclasses
+
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_model
+    from repro_torch.models.encdec import encode
+
+    cfg = dataclasses.replace(get_smoke_config("whisper-small"),
+                              attn=AttentionSpec.parse("fastmax2-kernel"))
+    plain = dataclasses.replace(cfg,
+                                attn=AttentionSpec.parse("fastmax2-chunked"))
+    params = init_model(cfg, seed=0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    frames = torch.randn(2, cfg.encoder_seq, cfg.d_model, generator=gen,
+                         device=cuda_device)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen,
+                            device=cuda_device)
+    n_gen, L = 6, cfg.n_layers
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        enc = encode(params, frames, cfg)
+        assert ops.launch_counts()["fastmax_noncausal_moments"] == \
+            cfg.encoder_layers
+        enc_p = encode(params, frames, plain)
+    torch.testing.assert_close(enc, enc_p, rtol=0, atol=1e-4)
+    ops.reset_launch_counts()
+    tk = generate(params, cfg, prompts, n_gen, enc_out=enc,
+                  device=cuda_device)
+    counts = ops.launch_counts()
+    tp = generate(params, plain, prompts, n_gen, enc_out=enc,
+                  device=cuda_device)
+    assert torch.equal(tk, tp)
+    assert counts == {"fastmax_causal": L, "fastmax_causal_bwd": 0,
+                      "fastmax_decode": L * (n_gen - 1),
+                      "fastmax_noncausal_moments": L * n_gen,
+                      "fastmax_noncausal_combine": L * n_gen}

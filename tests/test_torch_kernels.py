@@ -114,7 +114,9 @@ def test_ops_on_cpu_take_plain_versions_and_launch_nothing():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert ops.launch_counts() == {"fastmax_causal": 0,
                                    "fastmax_causal_bwd": 0,
-                                   "fastmax_decode": 0}
+                                   "fastmax_decode": 0,
+                                   "fastmax_noncausal_moments": 0,
+                                   "fastmax_noncausal_combine": 0}
 
 
 def test_ops_decode_on_cpu_updates_state_in_place():

@@ -100,13 +100,22 @@ def test_attention_matches_jax_forward_and_grads(attn):
 
 
 def test_kernel_backend_refuses_a_mask_and_noncausal():
+    """The kernel backend refuses a kv_mask, causal or noncausal (the
+    reference drops a noncausal one silently); unmasked noncausal
+    attention runs there, on CPU tensors through the plain version, and
+    launches nothing."""
     q = torch.randn(1, 2, 8, 8)
     spec = TA.AttentionSpec.parse("fastmax2-kernel")
-    with pytest.raises(ValueError, match="fastmax2-chunked"):
-        TA.attention(q, q, q, spec, causal=True,
-                     kv_mask=torch.ones(1, 2, 8))
-    with pytest.raises(NotImplementedError, match="queue 2 item 4"):
-        TA.attention(q, q, q, spec, causal=False)
+    for causal in (True, False):
+        with pytest.raises(ValueError, match="fastmax2-chunked"):
+            TA.attention(q, q, q, spec, causal=causal,
+                         kv_mask=torch.ones(1, 2, 8))
+    ops.reset_launch_counts()
+    o = TA.attention(q, q, q, spec, causal=False)
+    assert o.shape == q.shape and not any(ops.launch_counts().values())
+    torch.testing.assert_close(
+        o, TA.attention(q, q, q, TA.AttentionSpec.parse("fastmax2-chunked"),
+                        causal=False), rtol=1e-6, atol=1e-6)
     # the chunked backend takes the mask (autograd through the plain scan)
     o = TA.attention(q, q, q, TA.AttentionSpec.parse("fastmax2-chunked"),
                      causal=True, kv_mask=torch.ones(1, 2, 8))
