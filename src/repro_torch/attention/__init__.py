@@ -1,5 +1,5 @@
-"""Attention-operator API of the port (fastmax family): spec, registry,
-the full-sequence `attention()` dispatcher and the decode-state
+"""Attention-operator API of the port (fastmax and hybrid families): spec,
+registry, the full-sequence `attention()` dispatcher and the decode-state
 protocol."""
 from repro_torch.attention.api import attention  # noqa: F401
 from repro_torch.attention.registry import (  # noqa: F401
@@ -13,6 +13,7 @@ from repro_torch.attention.registry import (  # noqa: F401
 from repro_torch.attention.spec import AttentionSpec  # noqa: F401
 from repro_torch.attention.state import (  # noqa: F401
     AttnState,
+    KVCache,
     init_state,
     prefill,
     step,

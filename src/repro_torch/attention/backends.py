@@ -9,11 +9,18 @@
                     §2.5 backward, prefill, decode, noncausal moments and
                     combine) on the native moment carry; CPU tensors take
                     the kernels' plain versions inside the wrappers.
+  hybrid-chunked  — the plain hybrid scan (core.hybrid): the exact softmax
+                    band plus the fastmax moments; exact kv masking; the
+                    band-extended §2.5 backward. Causal only.
+  hybrid-kernel   — the hybrid CUDA kernel forward with that backward
+                    (kernels.ops.hybrid). Causal only; no kv_mask.
 
 Both fns share one signature: fn(q, k, v, spec, *, causal, kv_mask) -> o,
 with q [B,Hq,N,D], k/v [B,Hkv,M,*], Hq % Hkv == 0 (M = N when causal).
-The decode-state protocol (`attention.state`) routes on the capabilities.
-softmax, oracle, rowwise and hybrid backends are not ported yet.
+The decode-state protocol (`attention.state`) routes on the capabilities;
+both hybrid backends decode through the plain two-leg state, as in the
+reference (neither declares `decode_kernel`). softmax, oracle and rowwise
+backends are not ported yet.
 """
 from __future__ import annotations
 
@@ -71,4 +78,59 @@ register(Backend(
     family="fastmax",
     caps=Capabilities(decode=True, decode_kernel=True),
     fn=_kernel_fn,
+))
+
+
+def _hybrid_chunked_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):
+    from repro_torch.core.fastmax import normalize_qk
+    from repro_torch.core.hybrid import hybrid_causal_chunked
+
+    if not causal:
+        raise ValueError("hybrid attention is causal-only")
+    spec = spec.resolved()
+    qh = normalize_qk(q) if spec.normalize else q
+    kh = normalize_qk(k) if spec.normalize else k
+    # w_eff = 0 goes (inside hybrid_causal_chunked) to the fastmax scan
+    return hybrid_causal_chunked(
+        qh, kh, v, p=spec.p, window=spec.window, chunk_size=spec.chunk_size,
+        kv_mask=kv_mask, denom_eps=spec.denom_eps,
+        custom_grad=spec.custom_grad)
+
+
+def _hybrid_kernel_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):
+    from repro_torch.core.fastmax import normalize_qk
+    from repro_torch.kernels import ops as kernel_ops
+
+    if not causal:
+        raise ValueError("hybrid attention is causal-only")
+    if kv_mask is not None:
+        # the reference drops the mask here and reroutes through its
+        # fallback chain; the port has neither, so the caller picks the
+        # backend that removes masked keys exactly
+        raise ValueError(
+            "hybrid-kernel takes no kv_mask (its §2.5 backward reads none); "
+            "use hybrid2-chunked for masked attention")
+    spec = spec.resolved()
+    qh = normalize_qk(q) if spec.normalize else q
+    kh = normalize_qk(k) if spec.normalize else k
+    return kernel_ops.hybrid(qh, kh, v, p=spec.p, window=spec.window,
+                             causal=causal, chunk_size=spec.chunk_size,
+                             denom_eps=spec.denom_eps)
+
+
+register(Backend(
+    name="hybrid-chunked",
+    family="hybrid",
+    caps=Capabilities(decode=True),
+    fn=_hybrid_chunked_fn,
+))
+
+# decode_kernel stays False, as in the reference: the hybrid decode state
+# carries a rolling window beside the moments, which the decode kernel does
+# not model, so prefill and step run the plain two-leg protocol
+register(Backend(
+    name="hybrid-kernel",
+    family="hybrid",
+    caps=Capabilities(decode=True, decode_kernel=False),
+    fn=_hybrid_kernel_fn,
 ))

@@ -23,14 +23,17 @@ class AttentionSpec:
     normalize: paper Eqs. 5-6 q/k normalization; denom_eps: denominator
     guard; custom_grad: the paper's §2.5 memory-reduced backward on the
     chunked scan (the kernel backend always pairs its forward with the
-    §2.5 backward kernel). The reference's dropout fields and the hybrid
-    window join with their slices.
+    §2.5 backward kernel); window: hybrid only, the width of the exact
+    near-field band including the diagonal, clamped to one chunk
+    (w_eff = min(window, chunk_size)); 0 is fastmax. The reference's
+    dropout fields join with their slice.
     """
 
     family: str = "fastmax"
     p: int = 2
     impl: str = "chunked"
     chunk_size: Optional[int] = None
+    window: int = 64
     normalize: bool = True
     denom_eps: float = 1e-6
     custom_grad: bool = True
@@ -51,6 +54,9 @@ class AttentionSpec:
                                  f"expected one of {HYBRID_IMPLS}")
             if self.p not in (1, 2):
                 raise ValueError(f"hybrid p must be 1 or 2, got {self.p}")
+            if self.window < 0:
+                raise ValueError(
+                    f"hybrid window must be >= 0, got {self.window}")
 
     @property
     def backend_name(self) -> str:
@@ -62,7 +68,7 @@ class AttentionSpec:
         if self.family == "softmax":
             return "softmax"
         if self.family == "hybrid":
-            return f"hybrid{self.p}/{self.impl}"
+            return f"hybrid{self.p}/{self.impl}/w{self.window}"
         return f"fastmax{self.p}/{self.impl}"
 
     @classmethod

@@ -3,9 +3,10 @@
 Each source under `csrc/` is compiled on its own into a plain-C shared
 library (`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC`) in the repository's `build/kernels/` directory. The
-library name carries a hash of the source, so an edited source is rebuilt
-and a stale library is never loaded. `build_all()` starts one `nvcc` per
-source at once and waits for all of them. A failed build raises with the
+library name carries a hash of the source and of the headers beside it
+(`csrc/*.cuh`, which the sources include), so an edited source or header
+is rebuilt and a stale library is never loaded. `build_all()` starts one
+`nvcc` per source at once and waits for all of them. A failed build raises with the
 compiler's output; nothing falls back.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("fastmax_causal", "fastmax_causal_bwd", "fastmax_decode",
-           "fastmax_noncausal")
+           "fastmax_noncausal", "hybrid_causal")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +47,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

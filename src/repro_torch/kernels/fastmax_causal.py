@@ -16,7 +16,7 @@ import torch
 from repro_torch.core.fastmax import Moments, _causal_scan
 
 __all__ = ["fastmax_causal_cuda", "fastmax_causal_ref", "pick_chunk",
-           "launches"]
+           "check_kernel_inputs", "launches"]
 
 # kernel launches made by `fastmax_causal_cuda` (one per call)
 launches = 0
@@ -74,6 +74,41 @@ def _check_inputs(q, k, v):
         raise ValueError(f"Hq={hq} % Hkv={hkv} != 0")
 
 
+def check_kernel_inputs(q, k, v, kv_mask, p: int, fn: str):
+    """Check the inputs of a causal scan kernel (`fn`, for the messages):
+    q [B,Hq,N,D], k [B,Hkv,N,D], v [B,Hkv,N,Dv], float32 or bfloat16,
+    contiguous, on one CUDA device, D and Dv divisible by 4, p 1 or 2, and
+    `kv_mask` [B, Hkv|1, N] or None. Returns the kernel's key weights, a
+    contiguous float32 [B, Hkv, N] (ones without a mask)."""
+    _check_inputs(q, k, v)
+    if p not in (1, 2):
+        raise ValueError(f"p must be 1 or 2, got {p}")
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{fn} needs CUDA tensors, got {dev}")
+    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q/k/v must share float32 or bfloat16, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, _, n, d = q.shape
+    hkv, dv = k.shape[1], v.shape[-1]
+    if d % 4 or dv % 4:
+        raise ValueError(f"the kernel needs D and Dv divisible by 4, got "
+                         f"D={d}, Dv={dv}")
+    if kv_mask is None:
+        return torch.ones(b, hkv, n, dtype=torch.float32, device=dev)
+    if kv_mask.dim() != 3 or kv_mask.shape[0] != b \
+            or kv_mask.shape[1] not in (1, hkv) or kv_mask.shape[2] != n:
+        raise ValueError(f"kv_mask must be [B, Hkv|1, N], got "
+                         f"{tuple(kv_mask.shape)}")
+    return kv_mask.to(device=dev, dtype=torch.float32).expand(
+        b, hkv, n).contiguous()
+
+
 def fastmax_causal_cuda(q, k, v, kv_mask=None, *, p: int = 2,
                         denom_eps: float = 1e-6, init_state=None):
     """Launch the CUDA prefill kernel on pre-normalized q̂ [B,Hq,N,D],
@@ -87,36 +122,10 @@ def fastmax_causal_cuda(q, k, v, kv_mask=None, *, p: int = 2,
     and on a failed build or launch.
     """
     global launches
-    _check_inputs(q, k, v)
-    if p not in (1, 2):
-        raise ValueError(f"p must be 1 or 2, got {p}")
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"fastmax_causal_cuda needs CUDA tensors, got {dev}")
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q/k/v must share float32 or bfloat16, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, q on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    w = check_kernel_inputs(q, k, v, kv_mask, p, "fastmax_causal_cuda")
     b, hq, n, d = q.shape
     hkv, dv = k.shape[1], v.shape[-1]
-    if d % 4 or dv % 4:
-        raise ValueError(f"the kernel needs D and Dv divisible by 4, got "
-                         f"D={d}, Dv={dv}")
-    g = hq // hkv
-    f32 = torch.float32
-
-    if kv_mask is None:
-        w = torch.ones(b, hkv, n, dtype=f32, device=dev)
-    else:
-        if kv_mask.dim() != 3 or kv_mask.shape[0] != b \
-                or kv_mask.shape[1] not in (1, hkv) or kv_mask.shape[2] != n:
-            raise ValueError(f"kv_mask must be [B, Hkv|1, N], got "
-                             f"{tuple(kv_mask.shape)}")
-        w = kv_mask.to(device=dev, dtype=f32).expand(b, hkv, n).contiguous()
+    dev, g, f32 = q.device, hq // hkv, torch.float32
     shapes = _state_shapes(b, hkv, d, dv)
     if init_state is not None:
         init = []

@@ -1,4 +1,4 @@
-"""Kernel entry points — port of `repro/kernels/ops.py` (fastmax).
+"""Kernel entry points — port of `repro/kernels/ops.py` (fastmax, hybrid).
 
 Dispatch is by the tensors' device, with no fallback:
   * CUDA tensors launch the hand-written kernels (`csrc/*.cu`), or raise;
@@ -7,20 +7,28 @@ The trainable causal `fastmax()` pairs the forward kernel, which emits its
 final moment carry, with the §2.5 backward kernel; the carry is the only
 residual beyond (q, k, v). The noncausal one pairs the two-launch noncausal
 kernel with autograd of the plain `core.fastmax.fastmax_noncausal`, as the
-reference does (it has no noncausal backward kernel).
+reference does (it has no noncausal backward kernel). The trainable
+`hybrid()` pairs the hybrid kernel, which also emits its final moment
+carry, with the plain band-extended §2.5 reverse scan
+(`core.hybrid.hybrid_bwd_scan`) seeded by that carry, as the reference
+does (it has no hybrid backward kernel).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import hybrid as _hy
+from repro_torch.core.fastmax import Moments
 from repro_torch.kernels import fastmax_causal as _fc
 from repro_torch.kernels import fastmax_causal_bwd as _fb
 from repro_torch.kernels import fastmax_decode as _fd
 from repro_torch.kernels import fastmax_noncausal as _fn
+from repro_torch.kernels import hybrid_causal as _hc
 from repro_torch.kernels.ref import fastmax_decode_ref
 
 __all__ = ["fastmax", "fastmax_bwd", "fastmax_prefill_kernel",
-           "fastmax_decode", "launch_counts", "reset_launch_counts"]
+           "fastmax_decode", "hybrid", "launch_counts",
+           "reset_launch_counts"]
 
 
 def _route(x: torch.Tensor) -> str:
@@ -100,6 +108,55 @@ def fastmax(q, k, v, *, p: int = 2, causal: bool = True,
     return _FastmaxCausal.apply(q, k, v, p, chunk_size, denom_eps)
 
 
+class _HybridCausal(torch.autograd.Function):
+    """Hybrid attention on pre-normalized q̂/k̂: the hybrid kernel (which
+    emits its final moment carry) paired with the plain band-extended §2.5
+    reverse scan, seeded by that carry and re-chunked at the model's
+    `chunk_size` (the band w_eff depends on it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, p, window, chunk_size, denom_eps):
+        kw = dict(p=p, window=window, chunk_size=chunk_size,
+                  denom_eps=denom_eps, return_state=True)
+        if _route(q) == "cuda":
+            o, state = _hc.hybrid_causal_cuda(q.contiguous(), k.contiguous(),
+                                              v.contiguous(), **kw)
+        else:
+            o, state = _hc.hybrid_causal_ref(q, k, v, **kw)
+        if p < 2:
+            # don't hold the [B,Hkv,D,D,Dv] zeros placeholder as a residual
+            state = state[:2] + state[3:5]
+        ctx.save_for_backward(q, k, v, *state)
+        ctx.cfg = dict(p=p, window=window, chunk_size=chunk_size,
+                       denom_eps=denom_eps)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, *st = ctx.saved_tensors
+        if ctx.cfg["p"] < 2:
+            m0, m1, g0, g1 = st
+            d, dv = q.shape[-1], v.shape[-1]
+            st = [m0, m1, m1.new_zeros(m1.shape[:2] + (d, d, dv)), g0, g1,
+                  g1.new_zeros(g1.shape[:2] + (d, d))]
+        dq, dk, dv = _hy.hybrid_bwd_scan(q, k, v, Moments(*st), do,
+                                         **ctx.cfg)
+        return dq, dk, dv, None, None, None, None
+
+
+def hybrid(q, k, v, *, p: int = 2, window: int = 64, causal: bool = True,
+           chunk_size: int = 128, denom_eps: float = 1e-6):
+    """Trainable kernel-backed hybrid attention on pre-normalized q̂/k̂
+    (causal only), o in q's dtype. The band is w_eff = min(window,
+    chunk_size); at w_eff = 0 this is `fastmax()`."""
+    if not causal:
+        raise ValueError("hybrid kernels are causal-only")
+    if _hy.effective_window(window, chunk_size) == 0:
+        return fastmax(q, k, v, p=p, causal=True, chunk_size=chunk_size,
+                       denom_eps=denom_eps)
+    return _HybridCausal.apply(q, k, v, p, window, chunk_size, denom_eps)
+
+
 def fastmax_bwd(q, k, v, state, do, *, p: int = 2, chunk_size: int = 128,
                 denom_eps: float = 1e-6, return_dstate: bool = False):
     """Causal fastmax backward on the forward's final carry: (dq, dk, dv),
@@ -156,7 +213,8 @@ def launch_counts() -> dict:
             "fastmax_causal_bwd": _fb.launches,
             "fastmax_decode": _fd.launches,
             "fastmax_noncausal_moments": _fn.moment_launches,
-            "fastmax_noncausal_combine": _fn.combine_launches}
+            "fastmax_noncausal_combine": _fn.combine_launches,
+            "hybrid_causal": _hc.launches}
 
 
 def reset_launch_counts() -> None:
@@ -165,3 +223,4 @@ def reset_launch_counts() -> None:
     _fd.launches = 0
     _fn.moment_launches = 0
     _fn.combine_launches = 0
+    _hc.launches = 0

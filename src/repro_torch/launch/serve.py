@@ -122,7 +122,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--attn", default=None)
+    ap.add_argument("--attn", default=None,
+                    help="attention operator (AttentionSpec.parse name, "
+                         "e.g. fastmax2-kernel, hybrid2-kernel)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)

@@ -4,6 +4,7 @@
       --steps 6 --batch 4 --seq 32
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --attn fastmax2-kernel --steps 20 --batch 4 --seq 1024
+  (or --attn hybrid2-kernel: hybrid near/far-field attention)
 
 Composes the model registry, the optimizer policy (`pick_optimizer`), the
 synthetic data stream and the train step. Checkpointing (`--ckpt-dir`,
@@ -43,7 +44,7 @@ def main(argv=None):
                     help="reduced same-family config (CPU-runnable)")
     ap.add_argument("--attn", default=None,
                     help="attention operator (AttentionSpec.parse name, "
-                         "e.g. fastmax2, fastmax2-kernel)")
+                         "e.g. fastmax2, fastmax2-kernel, hybrid2-kernel)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)

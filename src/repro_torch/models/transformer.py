@@ -10,9 +10,9 @@ Layers run as a Python loop over the stacked `blocks_0` parameters (the
 reference scans them); under `remat="full"` each layer is recomputed in
 the backward (`torch.utils.checkpoint`), as the reference checkpoints each
 scanned group with `nothing_saveable`. The decode state is stacked the same
-way, [n_layers, B, ...], and each layer's state is a contiguous view that
-the attention step updates in place. Other mixers (MoE, MLA, Mamba, xLSTM)
-come in later slices.
+way, [n_layers, B, ...] (moments, and a hybrid spec's window), and each
+layer's state is a contiguous view that the attention step updates in
+place. Other mixers (MoE, MLA, Mamba, xLSTM) come in later slices.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.attention import AttentionSpec, AttnState
+from repro_torch.attention import AttentionSpec, AttnState, KVCache
 from repro_torch.core.fastmax import Moments
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -144,20 +144,31 @@ def _unbind_layers(tree, n: int) -> list:
 
 
 def _layer_state(state: AttnState, i: int) -> AttnState:
-    return AttnState(kv=None, moments=Moments(*(t[i] for t in state.moments)))
+    kv = None if state.kv is None else KVCache(*(t[i] for t in state.kv))
+    return AttnState(kv=kv, moments=Moments(*(t[i] for t in state.moments)))
 
 
 def init_lm_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                          device=None) -> dict:
     """Zero decode state for `batch` sequences: {"blocks_0": AttnState}
-    whose moments are stacked [n_layers, B, Hkv, ...]."""
+    whose moments (and a hybrid spec's window) are stacked
+    [n_layers, B, Hkv, ...], the window's length [n_layers]."""
     _check_supported(cfg)
     dev = resolve_device(device)
     one = L.init_attn_state(cfg, 1, max_len, cfg.adtype(), device="meta")
-    moments = Moments(*(
-        torch.zeros((cfg.n_layers, batch) + tuple(t.shape[1:]),
-                    dtype=t.dtype, device=dev) for t in one.moments))
-    return {"blocks_0": AttnState(kv=None, moments=moments)}
+
+    def stack(t):
+        # a fresh state is all zeros, the window's mask included
+        return torch.zeros((cfg.n_layers, batch) + tuple(t.shape[1:]),
+                           dtype=t.dtype, device=dev)
+
+    moments = Moments(*(stack(t) for t in one.moments))
+    kv = None
+    if one.kv is not None:
+        kv = KVCache(stack(one.kv.k), stack(one.kv.v),
+                     torch.zeros(cfg.n_layers, dtype=one.kv.length.dtype,
+                                 device=dev), stack(one.kv.mask))
+    return {"blocks_0": AttnState(kv=kv, moments=moments)}
 
 
 def _logits(params, x, cfg: ModelConfig):

@@ -120,7 +120,8 @@ def test_kernel_backend_resumes_through_the_prefill_kernel(monkeypatch):
                                    "fastmax_causal_bwd": 0,
                                    "fastmax_decode": 0,
                                    "fastmax_noncausal_moments": 0,
-                                   "fastmax_noncausal_combine": 0}
+                                   "fastmax_noncausal_combine": 0,
+                                   "hybrid_causal": 0}
 
 
 @pytest.mark.parametrize("name, backend, decode_kernel", [

@@ -194,7 +194,8 @@ def test_ops_on_cpu_launch_nothing_and_noncausal_raises():
                                    "fastmax_causal_bwd": 0,
                                    "fastmax_decode": 0,
                                    "fastmax_noncausal_moments": 0,
-                                   "fastmax_noncausal_combine": 0}
+                                   "fastmax_noncausal_combine": 0,
+                                   "hybrid_causal": 0}
     torch.testing.assert_close(
         onc, fastmax_noncausal_ref(q, k, v, p=2, chunk_size=16), rtol=0,
         atol=0)

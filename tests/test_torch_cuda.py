@@ -279,7 +279,8 @@ def test_kernel_train_step_launches_the_bwd_kernel_per_layer(cuda_device):
                                    "fastmax_causal_bwd": cfg.n_layers,
                                    "fastmax_decode": 0,
                                    "fastmax_noncausal_moments": 0,
-                                   "fastmax_noncausal_combine": 0}
+                                   "fastmax_noncausal_combine": 0,
+                                   "hybrid_causal": 0}
     assert torch.isfinite(m["loss"]) and torch.isfinite(m["gnorm"])
 
 
@@ -440,4 +441,140 @@ def test_whisper_smoke_kernel_path_on_card(cuda_device):
     assert counts == {"fastmax_causal": L, "fastmax_causal_bwd": 0,
                       "fastmax_decode": L * (n_gen - 1),
                       "fastmax_noncausal_moments": L * n_gen,
-                      "fastmax_noncausal_combine": L * n_gen}
+                      "fastmax_noncausal_combine": L * n_gen,
+                      "hybrid_causal": 0}
+
+
+def _hybrid_inputs(dev, seed, heads, n, d, dtype, p=2, cut=0):
+    """Normalized q̂ (q̂/D at p=1, see `_bwd_inputs`), k̂, v on the card,
+    and with `cut` a kv_mask [B, Hkv, N] taking the last `cut` keys of the
+    second sequence off (trailing padding)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    (hq, hkv), b = heads, 2
+    qs = 1.0 / d if p == 1 else 1.0
+    q = (normalize_qk(rn(b, hq, n, d)) * qs).to(dtype)
+    k = normalize_qk(rn(b, hkv, n, d)).to(dtype)
+    v = rn(b, hkv, n, d).to(dtype)
+    mask = None
+    if cut:
+        mask = torch.ones(b, hkv, n, device=dev)
+        mask[1, :, n - cut:] = 0.0
+    return q, k, v, mask
+
+
+def _assert_hybrid_close(o, plain):
+    """The hybrid kernel's o against its plain version: within 1e-4 of the
+    scale (float32), or one bf16 rounding plus 2e-5 (bfloat16: both round
+    once from float32)."""
+    diff = (o.float() - plain.float()).abs()
+    if o.dtype == torch.float32:
+        scale = max(1.0, plain.abs().max().item())
+        assert diff.max().item() <= 1e-4 * scale, diff.max().item()
+    else:
+        lim = plain.float().abs() * 2.0 ** -7 + 2e-5
+        assert bool((diff <= lim).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+# (heads, D, N, window, chunk_size): qwen3's group (G=2, the kernel's
+# chunk C=64) with the band one tile back (w 64) and over four tiles
+# (w 200 at chunk 256); G=1 (C=64) with a band shorter than a tile; G=4
+# (C=32) with the band over several tiles and a ragged last chunk
+@pytest.mark.parametrize("case", [((4, 2), 64, 300, 64, 512),
+                                  ((4, 2), 64, 300, 200, 256),
+                                  ((3, 3), 32, 150, 5, 16),
+                                  ((8, 2), 32, 201, 100, 128)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [1, 2])
+def test_hybrid_kernel_matches_plain_on_card(cuda_device, p, dtype, case):
+    """o (`_assert_hybrid_close`) and the emitted carry against the plain
+    version, with trailing padding: every moment within 1e-5 of its scale
+    (float32 both ways, only the summation order differs)."""
+    from repro_torch.kernels.hybrid_causal import (hybrid_causal_cuda,
+                                                   hybrid_causal_ref)
+
+    heads, d, n, window, cs = case
+    q, k, v, mask = _hybrid_inputs(cuda_device, n + window + p, heads, n, d,
+                                   dtype, p=p, cut=n // 5)
+    kw = dict(p=p, window=window, chunk_size=cs, return_state=True)
+    o, st = hybrid_causal_cuda(q, k, v, mask, **kw)
+    ro, rst = hybrid_causal_ref(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    _assert_hybrid_close(o, ro)
+    for a, r in zip(st, rst):
+        scale = max(1.0, r.abs().max().item())
+        torch.testing.assert_close(a / scale, r / scale, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_hybrid_op_routes_through_the_hybrid_kernel_on_card(cuda_device):
+    """One `ops.hybrid` forward launches the hybrid kernel once and no
+    fastmax kernel, and its plain backward launches none; its o and grads
+    agree with the chunked hybrid backend's on the same tensors. A band of
+    0 runs the fastmax pair only."""
+    from repro_torch.core.hybrid import hybrid_causal_chunked
+    from repro_torch.kernels import ops
+
+    q, k, v, _ = _hybrid_inputs(cuda_device, 31, (4, 2), 200, 64,
+                                torch.float32)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    do = torch.randn_like(q)
+    ops.reset_launch_counts()
+    o = ops.hybrid(q, k, v, window=64, chunk_size=128)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["hybrid_causal"] == 1
+    assert sum(counts.values()) == 1
+    ro = hybrid_causal_chunked(q, k, v, window=64, chunk_size=128)
+    want = torch.autograd.grad(ro, (q, k, v), do)
+    _assert_hybrid_close(o.detach(), ro.detach())
+    # the same plain backward on both sides, seeded by carries that differ
+    # by the kernel's rounding
+    for a, b in zip(got, want):
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a / scale, b / scale, rtol=0, atol=1e-4)
+
+    ops.reset_launch_counts()
+    o0 = ops.hybrid(q, k, v, window=0, chunk_size=128)
+    torch.autograd.grad(o0, (q, k, v), do)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["hybrid_causal"] == 0
+    assert (counts["fastmax_causal"], counts["fastmax_causal_bwd"]) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_hybrid_generate_on_card_matches_cpu(cuda_device):
+    """The float32 hybrid smoke model's greedy tokens on the card equal
+    the CPU's from the same weights; hybrid serving launches no kernel
+    (the reference decodes hybrid through its plain two-leg state)."""
+    import dataclasses
+
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_model
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                              attn=AttentionSpec.parse("hybrid2-kernel"))
+    cpu = init_model(cfg, seed=0, device="cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(cuda_device)
+
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40),
+                            generator=torch.Generator().manual_seed(6))
+    want = generate(cpu, cfg, prompts, 6, device="cpu")
+    ops.reset_launch_counts()
+    got = generate(to_card(cpu), cfg, prompts.to(cuda_device), 6,
+                   device=cuda_device)
+    assert not any(ops.launch_counts().values())
+    assert torch.equal(got.cpu(), want)

@@ -116,7 +116,8 @@ def test_ops_on_cpu_take_plain_versions_and_launch_nothing():
                                    "fastmax_causal_bwd": 0,
                                    "fastmax_decode": 0,
                                    "fastmax_noncausal_moments": 0,
-                                   "fastmax_noncausal_combine": 0}
+                                   "fastmax_noncausal_combine": 0,
+                                   "hybrid_causal": 0}
 
 
 def test_ops_decode_on_cpu_updates_state_in_place():

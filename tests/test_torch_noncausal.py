@@ -31,7 +31,7 @@ from repro_torch.kernels.fastmax_noncausal import (  # noqa: E402
 TOL = 1e-10
 ZERO_LAUNCHES = {"fastmax_causal": 0, "fastmax_causal_bwd": 0,
                  "fastmax_decode": 0, "fastmax_noncausal_moments": 0,
-                 "fastmax_noncausal_combine": 0}
+                 "fastmax_noncausal_combine": 0, "hybrid_causal": 0}
 
 
 def _t(x, grad=False):
