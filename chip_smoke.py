@@ -15,7 +15,10 @@ and power limit, and the result line last):
                 then 64 chained decode steps from that state; at whisper's
                 decoder widths (B=4, Hq=Hkv=12, D=Dv=64) prefill N=128 and
                 N=120 with mask and init_state, each followed by 31 chained
-                decode steps.
+                decode steps; then the prefill kernel's edges: N=1 resumed
+                from an init_state, N=37 (below its chunk L), G=1 at D=64
+                over N=1000 with mask and init_state, p=1 on q̂/D, and
+                N=4096 (B=2) in two segments of its two launches.
   4. small    — the smoke config in float32: kernel path and plain path give
                 the same greedy tokens and close prefill logits.
   5. main     — full-width qwen3-1.7b, attn fastmax2-kernel, bfloat16,
@@ -27,7 +30,10 @@ and power limit, and the result line last):
   6. shapes   — both kernels at the main path's shapes (B=4, N=1024), in
                 float32 and bfloat16: prefill o and all six moments, then
                 one decode step's o and updated moments; then timed against
-                their plain versions and their bounds.
+                their plain versions and their bounds. For the prefill also
+                its two launches timed apart (prefix moments, combine), its
+                chunk L, workspace bytes and one call's peak memory, and
+                two calls compared bit for bit (o and state).
   7. bwd      — the §2.5 backward kernel against its plain version
                 (D=Dv=128, Hq=16, Hkv=8), float32 and bfloat16: p=2 at B=2
                 N=1024, at B=2 N=1000 on a forward seeded from an
@@ -101,6 +107,10 @@ import torch
 H100_BYTES_PER_S = 3.35e12   # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak
 H100_F32_FLOPS = 67e12       # CUDA-core float32 peak
+# the causal prefill's bound counts its exact in-chunk pairs at chunks of
+# this many tokens, a fixed count (the function needs none of them: the
+# feature-row combine covers every key), so no kernel's chunk moves it
+BOUND_CHUNK = 64
 
 # kernel vs plain version on the card: both accumulate in float32 but sum
 # in different orders and chunk lengths (the fold is associative), so only
@@ -257,7 +267,8 @@ def main() -> None:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.fastmax_causal import (fastmax_causal_cuda,
                                                     fastmax_causal_ref,
-                                                    pick_chunk)
+                                                    pick_chunk, prefill_call,
+                                                    segment_tokens, CHUNK)
     from repro_torch.kernels.fastmax_causal_bwd import (
         fastmax_causal_bwd_cuda, fastmax_causal_bwd_ref, kernel_chunk)
     from repro_torch.kernels.fastmax_decode import fastmax_decode_cuda
@@ -372,9 +383,52 @@ def main() -> None:
                         if not (ok_d and em_d <= TOL_MOMENTS):
                             fail(f"{dtag}: kernel disagrees with its plain "
                                  f"version")
+        # the prefill kernel's edges (its chunk L is 128): one token
+        # resumed from an init_state, N below L, G=1 at D=64 over several
+        # chunks with a ragged end, p=1 on q̂/D (f = 1 + s stays positive),
+        # and a prompt long enough for two segments of the two launches
+        edges = (("N=1 resumed", 2, 16, 8, 128, 1, 2, False, True),
+                 ("N=37 < L", 2, 16, 8, 128, 37, 2, True, False),
+                 ("G=1 D=64", 2, wh, wh, wd, 1000, 2, True, True),
+                 ("p=1 q/D", 2, 16, 8, 128, 1000, 1, True, True),
+                 ("N=4096", 2, 16, 8, 128, 4096, 2, True, True))
+        for tag, b, hq, hkv, d, n, pe, masked, seeded in edges:
+            qs = 1.0 / d if pe == 1 else 1.0
+            for dtype in (torch.float32, torch.bfloat16):
+                q = (normalize_qk(randn(b, hq, n, d)) * qs).to(dtype)
+                k = normalize_qk(randn(b, hkv, n, d)).to(dtype)
+                v = randn(b, hkv, n, d).to(dtype)
+                mask = init = None
+                if masked:
+                    mask = (torch.rand(b, hkv, n, generator=gen, device=dev)
+                            > 0.2).float()
+                if seeded:
+                    _, init = fastmax_causal_ref(
+                        normalize_qk(randn(b, hq, 200, d)) * qs,
+                        normalize_qk(randn(b, hkv, 200, d)),
+                        randn(b, hkv, 200, d), p=pe, chunk_size=512)
+                o, st = fastmax_causal_cuda(q, k, v, mask, p=pe,
+                                            init_state=init)
+                ro, rst = fastmax_causal_ref(q, k, v, mask, p=pe,
+                                             chunk_size=512, init_state=init)
+                torch.cuda.synchronize()
+                eo, o_ok = o_err(o, ro)
+                em = max(moment_err(a, r) for a, r in zip(st, rst))
+                nseg = -(-n // segment_tokens(b * hkv, d, d, pe))
+                etag = (f"prefill {tag} {str(dtype)[6:]} B={b} Hq={hq} "
+                        f"Hkv={hkv} D={d} N={n} p={pe}"
+                        + (" mask" if masked else "")
+                        + (" init" if seeded else "")
+                        + f", {nseg} segment(s)")
+                print(f"  {etag}: o max abs err {eo:.3e} (tol "
+                      f"{o_tol(dtype)}), moments max rel err {em:.3e} "
+                      f"(tol {TOL_MOMENTS:.0e})")
+                if not (o_ok and em <= TOL_MOMENTS):
+                    fail(f"{etag} kernel disagrees with its plain version")
         phase("kernels", "prefill (f32, bf16; plain and mask+init) and "
               "chained decode steps agree with their plain versions at "
-              "qwen3's and whisper's widths")
+              "qwen3's and whisper's widths; the prefill's edges (N=1 "
+              "resumed, N < L, G=1 D=64, p=1, N=4096 in 2 segments) too")
 
         # ---- 4. small model: kernel path vs plain path ----
         small = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
@@ -481,19 +535,52 @@ def main() -> None:
         phase("shapes", "both kernels agree with their plain versions at "
               "B=4, N=1024 in f32 and bf16 (o and all six moments)")
 
-        # timed in bf16, the main path's dtype (the last loop's inputs)
+        # timed in bf16, the main path's dtype (the last loop's inputs):
+        # the call (both launches, with its allocations), then each launch
+        # on its own on one call's buffers
         fc_ms = sync_ms(lambda: fastmax_causal_cuda(q, k, v, p=2), reps=5)
         fc_plain = sync_ms(lambda: fastmax_causal_ref(q, k, v, p=2,
                                                       chunk_size=512), reps=3)
         del rc_o
+        call = prefill_call(q, k, v, p=2)
+        call.run()
+        fc_prefix_ms = sync_ms(call.prefix, reps=5)
+        fc_combine_ms = sync_ms(call.combine, reps=5)
+        ws_bytes, nseg = call.workspace_bytes, len(call.segments)
+        del call
+        # one call's peak memory above what was allocated before it, and
+        # two calls' bits
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        o1, s1 = fastmax_causal_cuda(q, k, v, p=2)
+        torch.cuda.synchronize()
+        call_peak = torch.cuda.max_memory_allocated() - before
+        o2, s2 = fastmax_causal_cuda(q, k, v, p=2)
+        torch.cuda.synchronize()
+        same_bits = bool(torch.equal(o1, o2)) and all(
+            torch.equal(a, b) for a, b in zip(s1, s2))
+        del o1, o2, s1, s2
+        print(f"  prefill kernel at B={B} N={P} bf16: chunk L={CHUNK}, "
+              f"{nseg} segment(s), workspace "
+              f"{ws_bytes / 1e9:.3f} GB, one call's peak {call_peak / 1e9:.3f}"
+              f" GB above what was allocated before it; prefix-moments launch "
+              f"{fc_prefix_ms:.3f} ms, combine launch {fc_combine_ms:.3f} ms, "
+              f"the call {fc_ms:.3f} ms; two calls bitwise equal (o and "
+              f"state): {same_bits}")
+        if not same_bits:
+            fail("two prefill calls on the same inputs differ")
+        if nseg != 1:
+            fail(f"the prefill at the main path's shapes ran in {nseg} "
+                 f"segments (the launch times above are one segment's)")
         gq = hq // hkv
-        c = pick_chunk(gq, d, build.load("fastmax_causal")
-                       .fastmax_causal_smem_bytes)
         bh = B * hkv
         # operations the function needs, per (b, kv-head): m2 and g2 are
         # symmetric in (a, b), as is q_a q_b, so the degree-2 combine and
         # fold need D(D+1)/2 rows, not D^2; plus the degree-0/1 terms and
-        # the causal intra-chunk block at the kernel's chunk c
+        # the causal intra-chunk block, counted at chunks of BOUND_CHUNK
+        # whatever chunk a kernel takes
+        c = BOUND_CHUNK
         pairs = (P // c) * c * (c + 1) // 2 + (P % c) * (P % c + 1) // 2
         fc_ops = bh * ((gq + 1) * P * d * (d + 1) * (d + 1)   # m2, g2
                        + 2 * (gq + 1) * P * (d + 1) * (d + 1)  # m1 g1 m0 g0
@@ -1139,7 +1226,10 @@ def main() -> None:
          "ms": fc_ms, "plain_ms": fc_plain, "bound_ms": fc_bound,
          "bound_by": "operations" if fc_ops / H100_BF16_FLOPS
          >= fc_bytes / H100_BYTES_PER_S else "bytes",
-         "library_ms": None},
+         "library_ms": None, "prefix_ms": fc_prefix_ms,
+         "combine_ms": fc_combine_ms, "chunk": CHUNK,
+         "workspace_bytes": ws_bytes,
+         "call_peak_bytes": call_peak},
         {"name": "fastmax_decode_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_decode.cu",
          "replaces": "src/repro/kernels/fastmax_decode.py:81",

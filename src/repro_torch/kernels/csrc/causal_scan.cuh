@@ -1,6 +1,6 @@
-// The chunked causal scan shared by two kernels for Hopper (sm_90a):
-//   fastmax_causal.cu — causal fastmax prefill (w_eff = 0);
-//   hybrid_causal.cu  — hybrid near/far-field attention (w_eff > 0).
+// The chunked causal scan of the hybrid near/far-field kernel for Hopper
+// (sm_90a), hybrid_causal.cu (w_eff > 0). The causal fastmax prefill,
+// fastmax_causal.cu, no longer uses it.
 //
 // What it computes, per (batch, kv-head) bh with G grouped query heads,
 // walking the sequence in chunks of C tokens with the moment carry of all

@@ -4,52 +4,707 @@
 // (src/repro/kernels/fastmax_causal.py, body `_causal_kernel`), in its
 // prefill form (`return_state=True`, optional `init_state`, `kv_mask`).
 //
-// What it computes, per (batch, kv-head) bh with G grouped query heads,
-// walking the sequence in chunks of C tokens with the moment carry of all
-// previous chunks (m0, m1, m2, g0, g1, g2 as in core/fastmax.py):
-//   inter:  num = m0 + q.m1 + 1/2 sum_ab q_a q_b m2[ab, :]
-//           den = g0 + q.g1 + 1/2 q^T g2 q
-//   intra:  s = q k^T (C x C), f = (1 + s [+ s^2/2]) * causal * w,
-//           num += f v, den += sum f
-//   o = num / (den + eps); then the chunk (weighted by w) is folded into
-//   the carry. The final carry is the kernel's state output, m2 in the
-//   m-major [D*D, Dv] layout the decode kernel reads.
+// What it computes, per (batch, kv-head) bh with G grouped query heads, on
+// pre-normalized q [N, D] per query head, k [N, D], v [N, Dv] and key
+// weights w [N] (the kv_mask), for every query position i:
+//   num_i = sum_{j <= i} f(q_i.k_j) w_j v_j,  den_i = sum_{j <= i} f w_j,
+//   f(s) = 1 + s + s^2/2 (p = 2) or 1 + s (p = 1), o_i = num_i/(den_i+eps),
+// plus the moments of tokens folded before the call (`init_state`), and
+// the final carry (m0, m1, m2, g0, g1, g2 as in core/fastmax.py) as the
+// state output, m2 in the m-major [D*D, Dv] layout the decode kernel reads.
 //
-// What bounds it on an H100: arithmetic. Per bh the m2 terms cost
-// (2G + 2) * N * D^2 * Dv operations (combine + fold), far above the bytes
-// it must move. This version runs them in f32 on the CUDA cores (tensor
-// cores, wgmma and TMA are later work).
+// What bounds it on an H100: arithmetic. Factorized over feature rows, the
+// function needs about 2(G+1) * N * R * (Dv+1) operations per bh (the
+// moments and the queries' contraction, R = D(D+1)/2 + D + 1 rows since
+// m2, g2 and q_a q_b are symmetric) plus the causal pairs inside chunks
+// of 64 tokens (a fixed count, not this kernel's L): 2.14e11 at qwen3's
+// shapes (B=4, Hq=16, Hkv=8, N=1024, D=Dv=128), 0.216 ms at the bf16
+// tensor-core peak and 3.19 ms at the f32 CUDA-core peak, against
+// ~0.07 ms for its bytes. This version runs
+// it as f32 FMAs on the CUDA cores (tensor cores, wgmma and TMA are later
+// work), so the f32 figure is its practical floor.
 //
-// Design: the chunked scan in causal_scan.cuh (shared with the hybrid
-// kernel, hybrid_causal.cu), run with no band (w_eff = 0). One block per
-// (Dv column block of 32, bh) walks the chunks in order; the m2 carry is
-// streamed from device memory once per chunk in tiles of 32 rows, and both
-// m2 products are register-tiled (4 x 4 outputs per thread, float4).
-// The chunk length C is chosen by the wrapper (G*C <= 128); it need not
-// equal the model's chunk_size, since the moment fold is associative.
-// Requires D % 4 == 0 and Dv % 4 == 0 (checked by the wrapper).
-#include "causal_scan.cuh"
+// Design: the moment scan is a prefix sum, so its sequential chunk loop
+// splits into two launches that run in parallel across the card, the
+// noncausal kernel's pair (fastmax_noncausal.cu) with a chunk boundary.
+// Both work on one table of feature rows: row 0 the constant 1 (m0, g0),
+// rows 1..D the linear features x_a (m1, g1), then at p = 2 one row per
+// pair a <= b, x_a x_b (m2, g2); R = 1 + D + D(D+1)/2 rows, 8385 at
+// D = 128. The g column (the key weights' sum) rides beside v.
+//   * Launch A, `prefix_moments_kernel`: one block per (64 feature rows x
+//     64 value columns tile, bh): 132 x 2 x 32 = 8448 blocks at qwen3's
+//     shapes. It seeds its register tile from init_state (the pair rows
+//     with the symmetric half, (init[ab] + init[ba]) / 2) and streams the
+//     keys 32 at a time through shared memory, weighted by w (thread
+//     (ty, tx) owns rows 4ty..4ty+3 and columns 4tx..4tx+3: 16 FMAs per two
+//     float4 shared-memory loads). At every chunk boundary of L = 128 keys
+//     it writes the tile, before folding that chunk, to slot c of a
+//     workspace (m [n/L, BH, R, Dv] f32 and g [n/L, BH, R] f64): slot c is
+//     the carry before chunk c. After the last key it writes the final
+//     carry into the state outputs, rows a*D+b and b*D+a of m2 (each adding
+//     back its own half of init[ab] - init[ba], so a non-symmetric
+//     init_state comes out as the sequential scan emits it) and both halves
+//     of g2, and the g column in f64 into `gout`.
+//   * Launch B, `causal_combine_kernel`: one block per (64 query rows of
+//     chunk c's G*len rows, c, bh). It walks slot c's R rows in tiles of
+//     32 from L2, builds the queries' features (pair rows weighted 1, the
+//     diagonal 1/2) and accumulates the 64 x 128 output tile in registers
+//     (4 x 8 a thread; 64 x 64 at Dv <= 64), so the features are built
+//     once for all of Dv = 128; then it adds the chunk's own keys exactly,
+//     32 at a time: s = q.k, f(s) w_j where key j <= the query's position,
+//     as the same tiled product against the chunk's v. A wider Dv loops
+//     over column blocks; the denominator is summed in the first, in a
+//     fixed order.
+// Nothing is carried between blocks, the m2 work is on the D(D+1)/2
+// symmetric rows only, and every sum runs in a fixed order (no float
+// atomics): two calls give the same bits. The ragged edges (N not a
+// multiple of L or 32, N < L, N = 1) are masked in the kernels, with no
+// padded copy. Requires D % 4 == 0, Dv % 4 == 0, D <= 255 (checked by the
+// wrapper and here).
+//
+// The denominator at p = 1 is summed in float64 (the accumulator type A):
+// the g column's moments (from exact products of the f32 keys), the
+// queries' features against them and the chunk's own scores. There
+// f(s) = 1 + s is sign-indefinite and a row's denominator can cancel to
+// near 0, where any f32 order leaves an error of eps * sum |terms| that
+// 1 / den amplifies; in f64 the f32 numerator's own rounding is what
+// remains. At p = 2, f(s) = (1 + s)^2 / 2 + 1/2 >= 1/2 cannot cancel, and
+// A = float: there f64 is not needed, and its registers (111 a thread in
+// the prefix launch against 63) would cost occupancy. The g slots and the
+// g carry are f64 at either p.
+//
+// Segments: the wrapper bounds the workspace by running the two launches
+// over segments [t_begin, t_begin + n) of the N tokens, each seeded with
+// the last one's final carry (its state outputs, read and rewritten in
+// place, every element by the thread that owns it, and `gin`/`gout`, the
+// g column in f64, so the p = 1 denominator is not rounded between
+// segments).
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 64;    // feature rows (launch A) / query rows (B)
+constexpr int kCols = 64;    // value columns per tile
+constexpr int kChunk = 32;   // keys (A) / feature rows and keys (B) a step
+constexpr int kPS = 72;      // padded row stride of the combine's features
+constexpr int kL = 128;      // the chunk L: keys per workspace slot
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__host__ __device__ inline int n_rows(int D, int p) {
+  return 1 + D + (p >= 2 ? D * (D + 1) / 2 : 0);
+}
+
+// Feature row r as a code: (ia + 1) | (ib + 1) << 8, ia = -1 for the
+// constant row, ib = -1 for a linear row; -1 past the last row.
+__device__ inline int row_code(int r, int D, int R) {
+  if (r >= R) return -1;
+  if (r == 0) return 0;
+  if (r <= D) return r;
+  const int idx = r - 1 - D;
+  // pairs a <= b in row-major order: row a starts at a*D - a(a-1)/2
+  const float t = (float)(2 * D + 1);
+  int a = (int)((t - sqrtf(t * t - 8.f * (float)idx)) * 0.5f);
+  a = max(0, min(a, D - 1));
+  while (a > 0 && a * D - a * (a - 1) / 2 > idx) --a;
+  while (a + 1 < D && (a + 1) * D - (a + 1) * a / 2 <= idx) ++a;
+  const int b = a + idx - (a * D - a * (a - 1) / 2);
+  return (a + 1) | ((b + 1) << 8);
+}
+
+__device__ __forceinline__ int code_a(int c) { return (c & 255) - 1; }
+__device__ __forceinline__ int code_b(int c) { return (c >> 8) - 1; }
+
+// The feature of row `c` for the vector x (in shared memory).
+__device__ __forceinline__ float feature(int c, const float* x) {
+  const int a = code_a(c), b = code_b(c);
+  float f = a < 0 ? 1.f : x[a];
+  if (b >= 0) f *= x[b];
+  return f;
+}
+
+// The same in f64, exact for f32 entries (the p = 1 denominator's terms).
+__device__ __forceinline__ double feature64(int c, const float* x) {
+  const int a = code_a(c), b = code_b(c);
+  double f = a < 0 ? 1.0 : (double)x[a];
+  if (b >= 0) f *= (double)x[b];
+  return f;
+}
+
+// The combine's weight of row `c`: 1/2 on the diagonal pairs (a == b).
+__device__ __forceinline__ float row_weight(int c) {
+  const int b = code_b(c);
+  return (b >= 0 && b == code_a(c)) ? 0.5f : 1.f;
+}
+
+// Offsets of row `c` of bh in the state layout: its m row (times Dv) and
+// its g entry; `*mt`, `*gt` the transposed pair's (b*D+a), else -1.
+__device__ __forceinline__ void state_offsets(int c, int bh, int D, int Dv,
+                                              size_t* m, size_t* g,
+                                              long* mt, long* gt) {
+  const int a = code_a(c), b = code_b(c);
+  *mt = *gt = -1;
+  if (a < 0) {
+    *m = (size_t)bh * Dv;
+    *g = bh;
+  } else if (b < 0) {
+    *m = ((size_t)bh * D + a) * Dv;
+    *g = (size_t)bh * D + a;
+  } else {
+    *m = ((size_t)bh * D * D + a * D + b) * Dv;
+    *g = (size_t)bh * D * D + a * D + b;
+    if (a != b) {
+      *mt = (long)(((size_t)bh * D * D + b * D + a) * Dv);
+      *gt = (long)((size_t)bh * D * D + b * D + a);
+    }
+  }
+}
+
+// The state arrays of one side (init or output), by feature row kind.
+struct State {
+  float *m0, *m1, *m2, *g0, *g1, *g2;
+  __device__ __forceinline__ float* m(int c) const {
+    return code_a(c) < 0 ? m0 : (code_b(c) < 0 ? m1 : m2);
+  }
+  __device__ __forceinline__ float* g(int c) const {
+    return code_a(c) < 0 ? g0 : (code_b(c) < 0 ? g1 : g2);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Launch A, over tokens [t0, t0 + n) of N. k [BH, N, D], v [BH, N, Dv],
+// w [BH, N] (f32); init (m0 null: a zero carry) and out in the state
+// layout: m0 [BH, Dv], m1 [BH, D, Dv], m2 [BH, D*D, Dv], g0 [BH],
+// g1 [BH, D], g2 [BH, D, D] (f32); init may be out (a segment's seed).
+// gin (null: the g seed from init) and gout: the g column, [BH, R] f64.
+// wsm [nc, BH, R, Dv] f32, wsg [nc, BH, R] f64, nc = ceil(n / L).
+// A: the g column's accumulator. grid (row tiles * column blocks, BH).
+// ---------------------------------------------------------------------------
+template <typename T, typename A>
+__global__ void __launch_bounds__(kThreads)
+prefix_moments_kernel(const T* __restrict__ k, const T* __restrict__ v,
+                      const float* __restrict__ w, State init, State out,
+                      const double* gin, double* gout,
+                      float* __restrict__ wsm, double* __restrict__ wsg,
+                      int N, int t_begin, int n, int D, int Dv, int p) {
+  __shared__ __align__(16) float sT[kChunk * kTile];   // features x w
+  __shared__ __align__(16) float sV[kChunk * kCols];
+  __shared__ A sG[kThreads];                           // g partials
+  __shared__ float sW[kChunk];
+  __shared__ int sCode[kTile];
+  extern __shared__ float sK[];                        // [kChunk, D + 1]
+  const int KS = D + 1;  // padded: conflict-free reads of one key's entries
+  const int R = n_rows(D, p);
+  const int ncb = (Dv + kCols - 1) / kCols;
+  const int tile = blockIdx.x / ncb, cb = blockIdx.x - tile * ncb;
+  const int r0 = tile * kTile, c0 = cb * kCols;
+  const int bh = blockIdx.y, BH = gridDim.y;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int myrow = tid & (kTile - 1);   // the row this thread builds
+  const int cq = c0 + 4 * tx;            // this thread's 4 columns
+  const bool has_init = init.m0 != nullptr;
+  if (tid < kTile) sCode[tid] = row_code(r0 + tid, D, R);
+  __syncthreads();
+  const int mycode = sCode[myrow];
+
+  // seed: the init carry, pair rows with the symmetric half
+  float acc[4][4];
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri) {
+    const int c = sCode[4 * ty + ri];
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (has_init && c >= 0 && cq < Dv) {
+      size_t mo, go;
+      long mt, gt;
+      state_offsets(c, bh, D, Dv, &mo, &go, &mt, &gt);
+      x = ld4(init.m(c) + mo + cq);
+      if (mt >= 0) {
+        const float4 y = ld4(init.m2 + mt + cq);
+        x = make_float4(0.5f * (x.x + y.x), 0.5f * (x.y + y.y),
+                        0.5f * (x.z + y.z), 0.5f * (x.w + y.w));
+      }
+    }
+    acc[ri][0] = x.x; acc[ri][1] = x.y; acc[ri][2] = x.z; acc[ri][3] = x.w;
+  }
+  constexpr bool kF64 = std::is_same<A, double>::value;
+  A gseed = A(0);   // the g seed of row `tid` (tid < kTile, cb == 0)
+  if (cb == 0 && tid < kTile && mycode >= 0) {
+    if (gin != nullptr) {
+      gseed = (A)gin[(size_t)bh * R + r0 + tid];
+    } else if (has_init) {
+      size_t mo, go;
+      long mt, gt;
+      state_offsets(mycode, bh, D, Dv, &mo, &go, &mt, &gt);
+      gseed = (A)init.g(mycode)[go];
+      if (gt >= 0) gseed = A(0.5) * (gseed + (A)init.g2[gt]);
+    }
+  }
+  A gp = A(0);
+  const T* kb = k + ((size_t)bh * N + t_begin) * D;
+  const T* vb = v + ((size_t)bh * N + t_begin) * Dv;
+  const float* wb = w + (size_t)bh * N + t_begin;
+
+  // the g column of the tile (cb == 0 only): the 4 partials in order
+  auto g_total = [&]() -> A {
+    sG[tid] = gp;
+    __syncthreads();
+    A s = gseed;
+    if (tid < kTile)
+      for (int l = 0; l < kThreads / kTile; ++l) s += sG[l * kTile + tid];
+    return s;
+  };
+
+  for (int t0 = 0; t0 < n; t0 += kChunk) {
+    if (t0 % kL == 0) {
+      // slot t0 / L: the carry before this chunk
+      const size_t slot = (size_t)(t0 / kL) * BH + bh;
+      if (cq < Dv) {
+#pragma unroll
+        for (int ri = 0; ri < 4; ++ri) {
+          const int r = r0 + 4 * ty + ri;
+          if (r < R)
+            *reinterpret_cast<float4*>(wsm + (slot * R + r) * Dv + cq) =
+                make_float4(acc[ri][0], acc[ri][1], acc[ri][2], acc[ri][3]);
+        }
+      }
+      if (cb == 0) {
+        const A s = g_total();
+        if (tid < kTile && r0 + tid < R) wsg[slot * R + r0 + tid] = s;
+      }
+    }
+    const int len = min(kChunk, n - t0);
+    for (int e = tid; e < kChunk * D; e += kThreads) {
+      const int t = e / D, a = e - t * D;
+      sK[t * KS + a] = t < len ? ld(kb + (size_t)(t0 + t) * D + a) : 0.f;
+    }
+    for (int e = tid; e < kChunk * kCols; e += kThreads) {
+      const int t = e / kCols, c = e - t * kCols, cc = c0 + c;
+      sV[e] = (t < len && cc < Dv) ? ld(vb + (size_t)(t0 + t) * Dv + cc)
+                                   : 0.f;
+    }
+    if (tid < kChunk) sW[tid] = tid < len ? wb[t0 + tid] : 0.f;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kChunk / (kThreads / kTile); ++i) {
+      const int t = (tid / kTile) + (kThreads / kTile) * i;
+      const bool on = t < len && mycode >= 0;
+      const float f = on ? feature(mycode, sK + t * KS) * sW[t] : 0.f;
+      sT[t * kTile + myrow] = f;
+      if constexpr (kF64) {
+        if (cb == 0 && on)
+          gp += feature64(mycode, sK + t * KS) * (double)sW[t];
+      } else {
+        gp += f;
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int t = 0; t < len; ++t) {
+      const float4 fv = ld4(sT + t * kTile + 4 * ty);
+      const float4 vv = ld4(sV + t * kCols + 4 * tx);
+      const float fr[4] = {fv.x, fv.y, fv.z, fv.w};
+      const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+      for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+        for (int ci = 0; ci < 4; ++ci) acc[ri][ci] += fr[ri] * vc[ci];
+    }
+    __syncthreads();
+  }
+
+  // the final carry: m rows (both halves of a pair), then the g column
+  if (cq < Dv) {
+#pragma unroll
+    for (int ri = 0; ri < 4; ++ri) {
+      const int c = sCode[4 * ty + ri];
+      if (c < 0) continue;
+      size_t mo, go;
+      long mt, gt;
+      state_offsets(c, bh, D, Dv, &mo, &go, &mt, &gt);
+      float4 x = make_float4(acc[ri][0], acc[ri][1], acc[ri][2], acc[ri][3]);
+      if (mt < 0) {
+        *reinterpret_cast<float4*>(out.m(c) + mo + cq) = x;
+        continue;
+      }
+      float4 hd = make_float4(0.f, 0.f, 0.f, 0.f);  // (init[ab]-init[ba])/2
+      if (has_init) {
+        const float4 ia = ld4(init.m2 + mo + cq), ib = ld4(init.m2 + mt + cq);
+        hd = make_float4(0.5f * (ia.x - ib.x), 0.5f * (ia.y - ib.y),
+                         0.5f * (ia.z - ib.z), 0.5f * (ia.w - ib.w));
+      }
+      *reinterpret_cast<float4*>(out.m2 + mo + cq) =
+          make_float4(x.x + hd.x, x.y + hd.y, x.z + hd.z, x.w + hd.w);
+      *reinterpret_cast<float4*>(out.m2 + mt + cq) =
+          make_float4(x.x - hd.x, x.y - hd.y, x.z - hd.z, x.w - hd.w);
+    }
+  }
+  if (cb == 0) {
+    const double s = g_total();   // f64 from here: the carry and the state
+    if (tid < kTile && mycode >= 0) {
+      size_t mo, go;
+      long mt, gt;
+      state_offsets(mycode, bh, D, Dv, &mo, &go, &mt, &gt);
+      if (gt < 0) {
+        out.g(mycode)[go] = (float)s;
+      } else {
+        const double hd =
+            has_init ? 0.5 * ((double)init.g2[go] - (double)init.g2[gt])
+                     : 0.0;
+        out.g2[go] = (float)(s + hd);
+        out.g2[gt] = (float)(s - hd);
+      }
+      gout[(size_t)bh * R + r0 + tid] = s;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch B, over tokens [t_begin, t_begin + n) of N. q [BH*G, N, D], k, v,
+// w as launch A; o [BH*G, N, Dv]. grid (ceil(G*L / 64), nc, BH). A pass
+// takes NCG groups of 64 value columns: thread (ty, tx) owns columns
+// c0 + 64 j + 4tx..4tx+3 of group j. A: the denominator's accumulator.
+// ---------------------------------------------------------------------------
+__host__ __device__ inline int combine_smem_floats(int D, int ncg) {
+  return kChunk * kCols * ncg + kChunk * kPS + kTile * (D + 1) + kTile +
+         kChunk * (D + 1) + kChunk;
+}
+
+template <typename T, int NCG, typename A>
+__global__ void __launch_bounds__(kThreads)
+causal_combine_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const float* __restrict__ w,
+                      const float* __restrict__ wsm,
+                      const double* __restrict__ wsg, T* __restrict__ o,
+                      int G, int N, int t_begin, int n, int D, int Dv, int p,
+                      float eps) {
+  constexpr int BC = kCols * NCG;     // block's columns per pass
+  constexpr bool kF64 = std::is_same<A, double>::value;
+  // the den partials reuse sM and sP (contiguous) once both are consumed
+  static_assert(kChunk * (BC + kPS) * sizeof(float) >=
+                kChunk * kTile * sizeof(A), "den partials overflow");
+  extern __shared__ __align__(16) float smem[];
+  float* sM = smem;                   // [32, BC] moment rows, then v rows
+  float* sP = sM + kChunk * BC;       // [32, kPS] query features / f(s) w
+  float* sQ = sP + kChunk * kPS;      // [64, D + 1] queries
+  float* sDen = sQ + kTile * (D + 1); // [64]
+  float* sK = sDen + kTile;           // [32, D + 1] the chunk's keys
+  float* sW = sK + kChunk * (D + 1);  // [32]
+  A* sRed = reinterpret_cast<A*>(sM);  // [32, 64] den partials
+  __shared__ int sPos[kTile];         // query position in the chunk, or -1
+  const int QS = D + 1;
+  const int R = n_rows(D, p);
+  const int c = blockIdx.y, bh = blockIdx.z, BH = gridDim.z;
+  const int t0 = t_begin + c * kL, len = min(kL, n - c * kL), GL = G * len;
+  const int qr0 = blockIdx.x * kTile;
+  if (qr0 >= GL) return;              // the last chunk's spare blocks
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int rl = tid >> 3;            // the moment row / key this thread loads
+  const int l8 = tid & 7;
+  const size_t slot = (size_t)c * BH + bh;
+  const float* ms = wsm + slot * R * Dv;
+  const double* gs = wsg + slot * R;
+  const T* kb = k + ((size_t)bh * N + t0) * D;
+  const T* vb = v + ((size_t)bh * N + t0) * Dv;
+  const float* wb = w + (size_t)bh * N + t0;
+
+  for (int e = tid; e < kTile * D; e += kThreads) {
+    const int r = e / D, a = e - r * D, qr = qr0 + r;
+    float x = 0.f;
+    if (qr < GL) {
+      const int g = qr / len, i = qr - g * len;
+      x = ld(q + (((size_t)bh * G + g) * N + t0 + i) * D + a);
+    }
+    sQ[r * QS + a] = x;
+  }
+  if (tid < kTile) {
+    const int qr = qr0 + tid;
+    sPos[tid] = qr < GL ? qr % len : -1;
+  }
+  __syncthreads();
+
+  const int ncb = (Dv + BC - 1) / BC;
+  for (int cb = 0; cb < ncb; ++cb) {
+    const int c0 = cb * BC;
+    float acc[4][4 * NCG];
+#pragma unroll
+    for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+      for (int ci = 0; ci < 4 * NCG; ++ci) acc[ri][ci] = 0.f;
+    A dp[kTile / 8];   // den partials (cb == 0)
+#pragma unroll
+    for (int i = 0; i < kTile / 8; ++i) dp[i] = A(0);
+
+    // the 32 x BC tile product shared by both terms
+    auto accumulate = [&]() {
+#pragma unroll 4
+      for (int r = 0; r < kChunk; ++r) {
+        const float4 fv = ld4(sP + r * kPS + 4 * ty);
+        const float fr[4] = {fv.x, fv.y, fv.z, fv.w};
+#pragma unroll
+        for (int j = 0; j < NCG; ++j) {
+          const float4 mv = ld4(sM + r * BC + kCols * j + 4 * tx);
+          const float mc[4] = {mv.x, mv.y, mv.z, mv.w};
+#pragma unroll
+          for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+            for (int ci = 0; ci < 4; ++ci)
+              acc[ri][4 * j + ci] += fr[ri] * mc[ci];
+        }
+      }
+    };
+
+    // inter: the carry before chunk c (slot c), feature row by row
+    for (int r0 = 0; r0 < R; r0 += kChunk) {
+      const int r = r0 + rl;
+      const int code = row_code(r, D, R);
+#pragma unroll
+      for (int j = 0; j < BC / 32; ++j) {
+        const int cc = 4 * l8 + 32 * j;
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (code >= 0 && c0 + cc < Dv) x = ld4(ms + (size_t)r * Dv + c0 + cc);
+        *reinterpret_cast<float4*>(sM + rl * BC + cc) = x;
+      }
+      const float wr = code >= 0 ? row_weight(code) : 0.f;
+      const A gv = (cb == 0 && code >= 0) ? (A)gs[r] : A(0);
+#pragma unroll
+      for (int i = 0; i < kTile / 8; ++i) {
+        const int qi = l8 + 8 * i;
+        const float f = code >= 0 ? wr * feature(code, sQ + qi * QS) : 0.f;
+        sP[rl * kPS + qi] = f;
+        if constexpr (kF64) {
+          if (cb == 0 && code >= 0)
+            dp[i] += (double)wr * feature64(code, sQ + qi * QS) *
+                     gv;
+        } else {
+          dp[i] += f * gv;
+        }
+      }
+      __syncthreads();
+      accumulate();
+      __syncthreads();
+    }
+
+    // intra: the chunk's own keys j <= the query's position, exactly
+    for (int j0 = 0; j0 < len; j0 += kChunk) {
+      const int jn = min(kChunk, len - j0);
+      for (int e = tid; e < kChunk * D; e += kThreads) {
+        const int t = e / D, a = e - t * D;
+        sK[t * QS + a] = t < jn ? ld(kb + (size_t)(j0 + t) * D + a) : 0.f;
+      }
+      for (int e = tid; e < kChunk * BC; e += kThreads) {
+        const int t = e / BC, cc = c0 + e - t * BC;
+        sM[e] = (t < jn && cc < Dv) ? ld(vb + (size_t)(j0 + t) * Dv + cc)
+                                    : 0.f;
+      }
+      if (tid < kChunk) sW[tid] = tid < jn ? wb[j0 + tid] : 0.f;
+      __syncthreads();
+      const int j = j0 + rl;
+      A s[kTile / 8];   // the scores (the den's terms) in A
+#pragma unroll
+      for (int i = 0; i < kTile / 8; ++i) s[i] = A(0);
+      for (int a = 0; a < D; ++a) {
+        const A ka = sK[rl * QS + a];
+#pragma unroll
+        for (int i = 0; i < kTile / 8; ++i)
+          s[i] += (A)sQ[(l8 + 8 * i) * QS + a] * ka;
+      }
+#pragma unroll
+      for (int i = 0; i < kTile / 8; ++i) {
+        const int qi = l8 + 8 * i;
+        A f = A(0);
+        if (rl < jn && j <= sPos[qi]) {
+          f = A(1) + s[i];
+          if (p >= 2) f += A(0.5) * s[i] * s[i];
+          f *= (A)sW[rl];
+        }
+        sP[rl * kPS + qi] = (float)f;
+        if (cb == 0) dp[i] += f;
+      }
+      __syncthreads();
+      accumulate();
+      __syncthreads();
+    }
+
+    if (cb == 0) {
+      // den per query row: the 32 row-lanes' partials in a fixed order
+#pragma unroll
+      for (int i = 0; i < kTile / 8; ++i)
+        sRed[rl * kTile + l8 + 8 * i] = dp[i];
+      __syncthreads();
+      if (tid < kTile) {
+        A sum = A(0);
+        for (int l = 0; l < kChunk; ++l) sum += sRed[l * kTile + tid];
+        sDen[tid] = (float)(sum + (A)eps);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int ri = 0; ri < 4; ++ri) {
+      const int r = 4 * ty + ri, qr = qr0 + r;
+      if (qr >= GL) continue;
+      const int g = qr / len, i = qr - g * len;
+      T* orow = o + (((size_t)bh * G + g) * N + t0 + i) * Dv;
+      const float den = sDen[r];
+#pragma unroll
+      for (int j = 0; j < NCG; ++j) {
+        const int cq = c0 + kCols * j + 4 * tx;
+        if (cq < Dv)
+#pragma unroll
+          for (int ci = 0; ci < 4; ++ci)
+            st(orow + cq + ci, acc[ri][4 * j + ci] / den);
+      }
+    }
+    __syncthreads();   // sM, sP (and sRed in them) are reused next pass
+  }
+}
+
+// Column groups of a combine pass: two (128 columns, one pass across
+// Dv = 128: the query features are built once, not twice) above 64 value
+// columns, else one. Launch A keeps one: at two its 128 registers a thread
+// halve the blocks an SM holds, and on an H100 it ran 5.9 against 5.3 ms.
+inline int column_groups(int Dv) { return Dv > kCols ? 2 : 1; }
+
+template <typename T, typename A>
+int launch_prefix(const void* k, const void* v, const void* w,
+                  const State& init, const State& out, const void* gin,
+                  void* gout, void* wsm, void* wsg, int bh, int N,
+                  int t_begin, int n, int D, int Dv, int p, cudaStream_t s) {
+  const int R = n_rows(D, p);
+  const dim3 grid(((R + kTile - 1) / kTile) * ((Dv + kCols - 1) / kCols), bh);
+  const size_t sm = sizeof(float) * kChunk * (D + 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      prefix_moments_kernel<T, A>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+  if (err != cudaSuccess) return (int)err;
+  prefix_moments_kernel<T, A><<<grid, kThreads, sm, s>>>(
+      (const T*)k, (const T*)v, (const float*)w, init, out,
+      (const double*)gin, (double*)gout, (float*)wsm, (double*)wsg, N,
+      t_begin, n, D, Dv, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NCG, typename A>
+int launch_combine(const void* q, const void* k, const void* v,
+                   const void* w, const void* wsm, const void* wsg, void* o,
+                   int bh, int G, int N, int t_begin, int n, int D, int Dv,
+                   int p, float eps, cudaStream_t s) {
+  const size_t sm = sizeof(float) * combine_smem_floats(D, NCG);
+  cudaError_t err = cudaFuncSetAttribute(
+      causal_combine_kernel<T, NCG, A>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+  if (err != cudaSuccess) return (int)err;
+  const int nc = (n + kL - 1) / kL;
+  const dim3 grid((G * kL + kTile - 1) / kTile, nc, bh);
+  causal_combine_kernel<T, NCG, A><<<grid, kThreads, sm, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)w,
+      (const float*)wsm, (const double*)wsg, (T*)o, G, N, t_begin, n, D, Dv,
+      p, eps);
+  return (int)cudaGetLastError();
+}
+
+// Launch B's instantiation by the column groups of a pass.
+template <typename T, typename A>
+int combine_of(const void* q, const void* k, const void* v, const void* w,
+               const void* wsm, const void* wsg, void* o, int bh, int G,
+               int N, int t_begin, int n, int D, int Dv, int p, float eps,
+               cudaStream_t s) {
+  if (column_groups(Dv) == 2)
+    return launch_combine<T, 2, A>(q, k, v, w, wsm, wsg, o, bh, G, N,
+                                   t_begin, n, D, Dv, p, eps, s);
+  return launch_combine<T, 1, A>(q, k, v, w, wsm, wsg, o, bh, G, N, t_begin,
+                                 n, D, Dv, p, eps, s);
+}
+
+bool dims_ok(int bh, int G, int N, int t_begin, int n, int D, int Dv,
+             int p) {
+  return bh >= 1 && G >= 1 && n >= 1 && t_begin >= 0 && t_begin <= N - n &&
+         D >= 4 && D % 4 == 0 && D <= 255 && Dv >= 4 && Dv % 4 == 0 &&
+         (p == 1 || p == 2) && (n + kL - 1) / kL <= 65535 && bh <= 65535;
+}
+
+State state_of(const void* m0, const void* m1, const void* m2,
+               const void* g0, const void* g1, const void* g2) {
+  return State{(float*)m0, (float*)m1, (float*)m2,
+               (float*)g0, (float*)g1, (float*)g2};
+}
+
+}  // namespace
 
 extern "C" {
 
-// Shared-memory bytes the kernel needs at (G, C, D); the wrapper picks C.
-long fastmax_causal_smem_bytes(int G, int C, int D) {
-  (void)G;
-  return (long)sizeof(float) * causal_scan::smem_floats(C, D);
+// Launch A alone, over tokens [t_begin, t_begin + n) of N. dtype: 0 =
+// float32 k/v, 1 = bfloat16. w, init and the state outputs are f32; null
+// init pointers give a zero carry, and init may be the outputs (the last
+// segment's carry). gin (null: the g seed from init) and gout: the g
+// column [bh, R] in f64. wsm: [ceil(n/L), bh, R, Dv] f32, wsg:
+// [ceil(n/L), bh, R] f64. At p = 1 the m2 and g2 outputs are not written
+// (the wrapper zeroes them).
+int fastmax_causal_prefix(int dtype, const void* k, const void* v,
+                          const void* w, const void* i0, const void* i1,
+                          const void* i2, const void* j0, const void* j1,
+                          const void* j2, void* m0o, void* m1o, void* m2o,
+                          void* g0o, void* g1o, void* g2o, const void* gin,
+                          void* gout, void* wsm, void* wsg, int bh, int N,
+                          int t_begin, int n, int D, int Dv, int p,
+                          void* stream) {
+  if (!dims_ok(bh, 1, N, t_begin, n, D, Dv, p))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const State init = state_of(i0, i1, i2, j0, j1, j2);
+  const State out = state_of(m0o, m1o, m2o, g0o, g1o, g2o);
+  // the g column in f64 at p = 1 (see the header), f32 at p = 2
+  if (dtype == 0)
+    return p == 1 ? launch_prefix<float, double>(k, v, w, init, out, gin,
+                                                 gout, wsm, wsg, bh, N,
+                                                 t_begin, n, D, Dv, p, s)
+                  : launch_prefix<float, float>(k, v, w, init, out, gin,
+                                                gout, wsm, wsg, bh, N,
+                                                t_begin, n, D, Dv, p, s);
+  return p == 1 ? launch_prefix<__nv_bfloat16, double>(
+                      k, v, w, init, out, gin, gout, wsm, wsg, bh, N,
+                      t_begin, n, D, Dv, p, s)
+                : launch_prefix<__nv_bfloat16, float>(
+                      k, v, w, init, out, gin, gout, wsm, wsg, bh, N,
+                      t_begin, n, D, Dv, p, s);
 }
 
-// dtype: 0 = float32 q/k/v/o, 1 = bfloat16. Mask, init and state are f32.
-// Pass null init pointers for a zero carry.
-int fastmax_causal_prefill(int dtype, const void* q, const void* k,
-                           const void* v, const void* w, const void* i0,
-                           const void* i1, const void* i2, const void* j0,
-                           const void* j1, const void* j2, void* o,
-                           void* m0o, void* m1o, void* m2o, void* g0o,
-                           void* g1o, void* g2o, int bh, int G, int N, int D,
-                           int Dv, int p, int C, float eps, void* stream) {
-  return causal_scan::dispatch(dtype, q, k, v, w, i0, i1, i2, j0, j1, j2, o,
-                               m0o, m1o, m2o, g0o, g1o, g2o, bh, G, N, D, Dv,
-                               p, C, /*w_eff=*/0, eps, stream);
+// Launch B alone, on the workspace launch A wrote for the same tokens
+// [t_begin, t_begin + n) of N. dtype as above (q, k, v and o).
+int fastmax_causal_combine(int dtype, const void* q, const void* k,
+                           const void* v, const void* w, const void* wsm,
+                           const void* wsg, void* o, int bh, int G, int N,
+                           int t_begin, int n, int D, int Dv, int p,
+                           float eps, void* stream) {
+  if (!dims_ok(bh, G, N, t_begin, n, D, Dv, p))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the denominator in f64 at p = 1 (see the header), f32 at p = 2
+  if (dtype == 0)
+    return p == 1 ? combine_of<float, double>(q, k, v, w, wsm, wsg, o, bh, G,
+                                              N, t_begin, n, D, Dv, p, eps, s)
+                  : combine_of<float, float>(q, k, v, w, wsm, wsg, o, bh, G,
+                                             N, t_begin, n, D, Dv, p, eps, s);
+  return p == 1 ? combine_of<__nv_bfloat16, double>(q, k, v, w, wsm, wsg, o,
+                                                    bh, G, N, t_begin, n, D,
+                                                    Dv, p, eps, s)
+                : combine_of<__nv_bfloat16, float>(q, k, v, w, wsm, wsg, o,
+                                                   bh, G, N, t_begin, n, D,
+                                                   Dv, p, eps, s);
 }
 
 }  // extern "C"

@@ -2,7 +2,11 @@
 
 Port of `repro/kernels/fastmax_causal.py::fastmax_causal_pallas` in its
 prefill form (final carry emitted, optional `init_state` and `kv_mask`).
-The kernel is `csrc/fastmax_causal.cu` (design notes there);
+The kernel is `csrc/fastmax_causal.cu` (design notes there): two CUDA
+launches, the prefix moments of every chunk of L = 128 keys into a
+per-call workspace, then each chunk's queries against them plus the
+chunk's own keys, over segments of the tokens that keep the workspace
+within `_WORKSPACE_BUDGET`; `prefill_call` exposes the launches one by one;
 `fastmax_causal_ref` is the plain PyTorch version with the same signature,
 built on `core.fastmax._causal_scan`. `kernels.ops.fastmax_prefill_kernel`
 picks between them by the tensors' device.
@@ -15,14 +19,23 @@ import torch
 
 from repro_torch.core.fastmax import Moments, _causal_scan
 
-__all__ = ["fastmax_causal_cuda", "fastmax_causal_ref", "pick_chunk",
-           "check_kernel_inputs", "launches"]
+__all__ = ["fastmax_causal_cuda", "fastmax_causal_ref", "prefill_call",
+           "CHUNK", "feature_rows", "segment_tokens", "workspace_bytes",
+           "pick_chunk", "check_kernel_inputs", "launches"]
 
-# kernel launches made by `fastmax_causal_cuda` (one per call)
+# calls of `fastmax_causal_cuda` that launched the kernel (one per call,
+# though each call makes two CUDA launches: prefix moments, then combine)
 launches = 0
 
+# pick_chunk: the chunk of the sequential scan kernels (hybrid, backward)
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _MAX_ROWS = 128       # G * C query rows per chunk (4 per thread)
+
+# the prefill kernel's chunk L: keys per workspace slot (kL in the source)
+CHUNK = 128
+# bytes of workspace slots one call may hold: longer prompts run the two
+# launches over segments of the tokens, each seeded with the last's carry
+_WORKSPACE_BUDGET = 2 << 30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -32,19 +45,48 @@ def _lib():
 
     lib = build.load("fastmax_causal")
     if not getattr(lib, "_typed", False):
-        lib.fastmax_causal_prefill.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 17
-            + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-        lib.fastmax_causal_prefill.restype = ctypes.c_int
-        lib.fastmax_causal_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.fastmax_causal_smem_bytes.restype = ctypes.c_long
+        lib.fastmax_causal_prefix.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7
+            + [ctypes.c_void_p])
+        lib.fastmax_causal_prefix.restype = ctypes.c_int
+        lib.fastmax_causal_combine.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.fastmax_causal_combine.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
+def feature_rows(d: int, p: int) -> int:
+    """Rows of the kernel's feature table: the constant, D linear, and at
+    p=2 the D(D+1)/2 pairs a <= b."""
+    return 1 + d + (d * (d + 1) // 2 if p >= 2 else 0)
+
+
+def _slot_bytes(bh: int, d: int, dv: int, p: int) -> int:
+    """Bytes of one workspace slot: BH x R rows of Dv float32 m entries
+    and one float64 g entry."""
+    return bh * feature_rows(d, p) * (4 * dv + 8)
+
+
+def segment_tokens(bh: int, d: int, dv: int, p: int) -> int:
+    """Tokens per segment (per pair of launches): as many chunks of L as
+    keep the slots within `_WORKSPACE_BUDGET`, at least one."""
+    return CHUNK * max(1, _WORKSPACE_BUDGET // _slot_bytes(bh, d, dv, p))
+
+
+def workspace_bytes(bh: int, n: int, d: int, dv: int, p: int) -> int:
+    """Bytes of one call's workspace: the slots of its longest segment,
+    one carry per chunk of L, plus the float64 g column carried between
+    segments (BH x R)."""
+    chunks = -(-min(n, segment_tokens(bh, d, dv, p)) // CHUNK)
+    return chunks * _slot_bytes(bh, d, dv, p) + 8 * bh * feature_rows(d, p)
+
+
 def pick_chunk(g: int, d: int, smem_bytes) -> int:
-    """Chunk length of the kernel: at most 64 tokens and 128 query rows
-    (G * C <= 128), halved until the block's shared memory fits the card."""
+    """Chunk length of a sequential scan kernel (hybrid, backward): at most
+    64 tokens and 128 query rows (G * C <= 128), halved until the block's
+    shared memory fits the card."""
     if g > _MAX_ROWS:
         raise ValueError(f"G={g} query heads per kv head exceeds "
                          f"{_MAX_ROWS}")
@@ -109,6 +151,104 @@ def check_kernel_inputs(q, k, v, kv_mask, p: int, fn: str):
         b, hkv, n).contiguous()
 
 
+def _aligned(t):
+    """`t`, or a copy of it if it does not start on 16 bytes (the kernel
+    reads the init_state rows as float4)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+class _Prefill:
+    """One call of the prefill kernel with its inputs checked and its
+    outputs and workspace allocated: `prefix(i)` and `combine(i)` make the
+    two CUDA launches of segment i (timed apart by `chip_smoke.py`),
+    `run()` every segment's in order."""
+
+    def __init__(self, q, k, v, kv_mask, p, denom_eps, init_state):
+        self.w = check_kernel_inputs(q, k, v, kv_mask, p,
+                                     "fastmax_causal_cuda")
+        b, hq, n, d = q.shape
+        hkv, dv = k.shape[1], v.shape[-1]
+        dev, f32 = q.device, torch.float32
+        shapes = _state_shapes(b, hkv, d, dv)
+        self.init = [None] * 6
+        if init_state is not None:
+            self.init = []
+            for t, shp in zip(init_state, shapes):
+                if tuple(t.shape) != shp or t.device != dev:
+                    raise ValueError(f"init_state leaf {tuple(t.shape)} on "
+                                     f"{t.device}, expected {shp} on {dev}")
+                self.init.append(_aligned(t.to(f32).contiguous()))
+        self.q, self.k, self.v = q, k, v
+        self.p, self.eps = p, float(denom_eps)
+        self.bh, self.g, self.n, self.d, self.dv = b * hkv, hq // hkv, n, d, dv
+        seg = segment_tokens(self.bh, d, dv, p)
+        self.segments = [(t, min(seg, n - t)) for t in range(0, n, seg)]
+        self.workspace_bytes = workspace_bytes(self.bh, n, d, dv, p)
+        r = self.bh * feature_rows(d, p)
+        rows = -(-min(n, seg) // CHUNK) * r
+        self.wsm = torch.empty(rows * dv, dtype=f32, device=dev)
+        self.wsg = torch.empty(rows, dtype=torch.float64, device=dev)
+        self.gcarry = torch.empty(r, dtype=torch.float64, device=dev)
+        self.o = torch.empty(b, hq, n, dv, dtype=q.dtype, device=dev)
+        # at p=1 the kernel writes no m2, g2
+        alloc = torch.empty if p >= 2 else torch.zeros
+        self.state = tuple(alloc(s, dtype=f32, device=dev) for s in shapes)
+        self.dtype = _KERNEL_DTYPES[q.dtype]
+        self.lib = _lib()
+
+    def _check(self, err, what):
+        if err != 0:
+            raise RuntimeError(f"fastmax_causal {what} launch failed: CUDA "
+                               f"error {err}")
+
+    def prefix(self, i: int = 0):
+        """Launch A of segment i: the carry before each of its chunks into
+        the workspace, its final carry into `state` (and the g column,
+        in float64, into `gcarry`). Segment 0 starts from `init_state`,
+        a later one from the carry in `state` and `gcarry`."""
+        t0, n = self.segments[i]
+        init, gin = self.init, None
+        if i > 0:
+            init, gin = self.state, self.gcarry.data_ptr()
+        with torch.cuda.device(self.q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            self._check(self.lib.fastmax_causal_prefix(
+                self.dtype, self.k.data_ptr(), self.v.data_ptr(),
+                self.w.data_ptr(),
+                *[None if t is None else t.data_ptr() for t in init],
+                *[t.data_ptr() for t in self.state], gin,
+                self.gcarry.data_ptr(), self.wsm.data_ptr(),
+                self.wsg.data_ptr(), self.bh, self.n, t0, n, self.d, self.dv,
+                self.p, stream), "prefix")
+
+    def combine(self, i: int = 0):
+        """Launch B of segment i: its o from the workspace and each chunk's
+        own keys."""
+        t0, n = self.segments[i]
+        with torch.cuda.device(self.q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            self._check(self.lib.fastmax_causal_combine(
+                self.dtype, self.q.data_ptr(), self.k.data_ptr(),
+                self.v.data_ptr(), self.w.data_ptr(), self.wsm.data_ptr(),
+                self.wsg.data_ptr(), self.o.data_ptr(), self.bh, self.g,
+                self.n, t0, n, self.d, self.dv, self.p, self.eps, stream),
+                "combine")
+
+    def run(self):
+        for i in range(len(self.segments)):
+            self.prefix(i)
+            self.combine(i)
+        return self.o, self.state
+
+
+def prefill_call(q, k, v, kv_mask=None, *, p: int = 2,
+                 denom_eps: float = 1e-6, init_state=None) -> _Prefill:
+    """The prefill kernel's call on these inputs, checked and allocated but
+    not launched (its `prefix(i)`, `combine(i)` and `run()` launch; none of
+    them counts in `launches`). Arguments as `fastmax_causal_cuda`."""
+    return _Prefill(q, k, v, kv_mask, p, denom_eps, init_state)
+
+
 def fastmax_causal_cuda(q, k, v, kv_mask=None, *, p: int = 2,
                         denom_eps: float = 1e-6, init_state=None):
     """Launch the CUDA prefill kernel on pre-normalized q̂ [B,Hq,N,D],
@@ -119,41 +259,16 @@ def fastmax_causal_cuda(q, k, v, kv_mask=None, *, p: int = 2,
     Returns (o [B,Hq,N,Dv] in q's dtype, state): the final carry
     (m0, m1, m2, g0, g1, g2) in float32, m2 m-major [B,Hkv,D,D,Dv]; at
     p=1, m2 and g2 are zeros. Raises on any input the kernel does not take
-    and on a failed build or launch.
+    and on a failed build or launch. Each call adds one to `launches`: the
+    kernel is its two CUDA launches (prefix moments into a workspace of
+    `workspace_bytes`, freed on return, then the combine), once per
+    segment of `segment_tokens` (one at qwen3's prefill shapes).
     """
     global launches
-    w = check_kernel_inputs(q, k, v, kv_mask, p, "fastmax_causal_cuda")
-    b, hq, n, d = q.shape
-    hkv, dv = k.shape[1], v.shape[-1]
-    dev, g, f32 = q.device, hq // hkv, torch.float32
-    shapes = _state_shapes(b, hkv, d, dv)
-    if init_state is not None:
-        init = []
-        for t, shp in zip(init_state, shapes):
-            if tuple(t.shape) != shp or t.device != dev:
-                raise ValueError(f"init_state leaf {tuple(t.shape)} on "
-                                 f"{t.device}, expected {shp} on {dev}")
-            init.append(t.to(f32).contiguous())
-        init_ptrs = [t.data_ptr() for t in init]
-    else:
-        init, init_ptrs = None, [None] * 6
-
-    lib = _lib()
-    c = pick_chunk(g, d, lib.fastmax_causal_smem_bytes)
-    o = torch.empty(b, hq, n, dv, dtype=q.dtype, device=dev)
-    state = tuple(torch.empty(s, dtype=f32, device=dev) for s in shapes)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.fastmax_causal_prefill(
-            _KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            w.data_ptr(), *init_ptrs, o.data_ptr(),
-            *[t.data_ptr() for t in state],
-            b * hkv, g, n, d, dv, p, c, float(denom_eps), stream)
-    if err != 0:
-        raise RuntimeError(f"fastmax_causal_prefill launch failed: CUDA "
-                           f"error {err}")
+    out = prefill_call(q, k, v, kv_mask, p=p, denom_eps=denom_eps,
+                       init_state=init_state).run()
     launches += 1
-    return o, state
+    return out
 
 
 def fastmax_causal_ref(q, k, v, kv_mask=None, *, p: int = 2,

@@ -3,7 +3,7 @@ its plain version.
 
 Port of `repro/kernels/hybrid_causal.py::hybrid_causal_pallas` (with
 `kv_mask` and `return_state`). The kernel is `csrc/hybrid_causal.cu` (the
-causal prefill's scan, `csrc/causal_scan.cuh`, with the near-field band);
+sequential chunk scan `csrc/causal_scan.cuh` with the near-field band);
 `hybrid_causal_ref` is the plain PyTorch version with the same signature,
 built on `core.hybrid._hybrid_scan`. Both realize the band of the
 reference's rule, cs = min(chunk_size, max(8, N)) and

@@ -52,7 +52,8 @@ WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
          "aten::_local_scalar_dense")
 LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
             "cudaLaunchKernelExC")
-PREFILL_KERNEL = "causal_kernel"   # csrc/fastmax_causal.cu
+# the prefill's last launch (csrc/fastmax_causal.cu)
+PREFILL_KERNEL = "causal_combine_kernel"
 
 
 def _device_spans(prof):

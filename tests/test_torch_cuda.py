@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.core.ref import normalize_qk
 from repro_torch.kernels.fastmax_causal import (fastmax_causal_cuda,
-                                                fastmax_causal_ref)
+                                                fastmax_causal_ref,
+                                                workspace_bytes)
 from repro_torch.kernels.fastmax_decode import fastmax_decode_cuda
 from repro_torch.kernels.ref import fastmax_decode_ref
 
@@ -40,17 +41,20 @@ def _assert_as_close_as_plain(o, plain, exact, tol):
 
 
 @pytest.mark.cuda
-# G = 1 (whisper-small), 2 and 32
-@pytest.mark.parametrize("heads", [(12, 12), (4, 2), (32, 1)])
+# N: one token, below the kernel's chunk L = 128, exactly L, ragged over
+# several chunks; G = 1 (whisper-small), 2, 3 and 32
+@pytest.mark.parametrize("n", [1, 37, 64, 128, 200, 1000])
+@pytest.mark.parametrize("heads", [(12, 12), (4, 2), (6, 2), (32, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [1, 2])
-def test_prefill_kernel_matches_plain_on_card(cuda_device, p, dtype, heads):
+def test_prefill_kernel_matches_plain_on_card(cuda_device, p, dtype, heads,
+                                              n):
     gen = torch.Generator(device=cuda_device).manual_seed(p)
 
     def rn(*s):
         return torch.randn(s, generator=gen, device=cuda_device)
 
-    (hq, hkv), b, n, d, dv = heads, 2, 200, 64, 64
+    (hq, hkv), b, d, dv = heads, 2, 64, 64
     q, k = normalize_qk(rn(b, hq, n, d)), normalize_qk(rn(b, hkv, n, d))
     v = rn(b, hkv, n, dv)
     mask = (torch.rand(b, hkv, n, generator=gen, device=cuda_device) > 0.2
@@ -70,6 +74,146 @@ def test_prefill_kernel_matches_plain_on_card(cuda_device, p, dtype, heads):
     for a, r in zip(st, rst):
         scale = max(1.0, r.abs().max().item())
         torch.testing.assert_close(a / scale, r / scale, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(16))
+def test_prefill_kernel_p1_unscaled_is_as_accurate_as_plain_on_card(
+        cuda_device, seed):
+    """p=1 on unscaled q̂ (|s| up to D), where rows whose denominator
+    nearly cancels amplify its rounding: the kernel sums the denominator
+    in float64, so on every seed it is as close to float64 as the plain
+    float32 version (4x margin) or within 1e-4 of the output scale."""
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+
+    def rn(*s):
+        return torch.randn(s, generator=gen, device=cuda_device)
+
+    b, hq, hkv, n, d = 2, 4, 2, 200, 64
+    q, k = normalize_qk(rn(b, hq, n, d)), normalize_qk(rn(b, hkv, n, d))
+    v = rn(b, hkv, n, d)
+    mask = (torch.rand(b, hkv, n, generator=gen, device=cuda_device)
+            > 0.2).float()
+    _, init = fastmax_causal_ref(q[:, :, :30], k[:, :, :30], v[:, :, :30],
+                                 p=1, chunk_size=32)
+    o, _ = fastmax_causal_cuda(q, k, v, mask, p=1, init_state=init)
+    ro, _ = fastmax_causal_ref(q, k, v, mask, p=1, chunk_size=64,
+                               init_state=init)
+    o64, _ = fastmax_causal_ref(q.double(), k.double(), v.double(), mask,
+                                p=1, chunk_size=64,
+                                init_state=[t.double() for t in init])
+    torch.cuda.synchronize()
+    _assert_as_close_as_plain(o, ro, o64, 1e-4)
+
+
+def _qwen3_like(dev, seed, n=300):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, hq, hkv, d = 2, 16, 8, 128
+    q = normalize_qk(torch.randn(b, hq, n, d, generator=gen, device=dev))
+    k = normalize_qk(torch.randn(b, hkv, n, d, generator=gen, device=dev))
+    v = torch.randn(b, hkv, n, d, generator=gen, device=dev)
+    return q.bfloat16(), k.bfloat16(), v.bfloat16()
+
+
+@pytest.mark.cuda
+def test_prefill_kernel_is_deterministic_on_card(cuda_device):
+    """Two calls on the same inputs give the same bits, o and state: every
+    sum runs in a fixed order (no float atomics)."""
+    q, k, v = _qwen3_like(cuda_device, 7)
+    o1, s1 = fastmax_causal_cuda(q, k, v, p=2)
+    o2, s2 = fastmax_causal_cuda(q, k, v, p=2)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+    for a, b in zip(s1, s2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_prefill_kernel_in_segments_on_card(cuda_device, monkeypatch):
+    """With a workspace budget of one slot the call runs its two launches
+    over segments of one chunk (N = 300: three), each seeded with the last
+    one's carry (m in float32, the g column in float64): o and state as
+    in one segment, up to rounding, and as the plain version's."""
+    import repro_torch.kernels.fastmax_causal as fc
+
+    q, k, v = (t.float() for t in _qwen3_like(cuda_device, 9))
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    mask = (torch.rand(k.shape[:3], generator=gen, device=cuda_device)
+            > 0.2).float()
+    _, init = fastmax_causal_ref(q[:, :, :40], k[:, :, :40], v[:, :, :40],
+                                 p=2, chunk_size=64)
+    whole = fc.prefill_call(q, k, v, mask, p=2, init_state=init)
+    o1, st1 = whole.run()
+    monkeypatch.setattr(fc, "_WORKSPACE_BUDGET", 1)
+    call = fc.prefill_call(q, k, v, mask, p=2, init_state=init)
+    assert call.segments == [(0, 128), (128, 128), (256, 44)]
+    assert call.workspace_bytes < whole.workspace_bytes
+    o, st = call.run()
+    ro, rst = fastmax_causal_ref(q, k, v, mask, p=2, chunk_size=64,
+                                 init_state=init)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, o1, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(o, ro, rtol=0, atol=1e-4)
+    for a, a1, r in zip(st, st1, rst):
+        scale = max(1.0, r.abs().max().item())
+        torch.testing.assert_close(a / scale, a1 / scale, rtol=0, atol=1e-6)
+        torch.testing.assert_close(a / scale, r / scale, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_prefill_long_prompt_workspace_is_bounded_on_card(cuda_device):
+    """A 16k-token prompt at qwen3's widths (B=1, Hq=16, Hkv=8): its slots
+    in one segment would take 4.5 GB; in segments the call's peak memory
+    stays within the workspace budget plus its inputs' weights and its
+    outputs, and o and the state agree with the plain version."""
+    import repro_torch.kernels.fastmax_causal as fc
+
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    b, hq, hkv, n, d = 1, 16, 8, 16384, 128
+    q = normalize_qk(torch.randn(b, hq, n, d, generator=gen,
+                                 device=cuda_device)).bfloat16()
+    k = normalize_qk(torch.randn(b, hkv, n, d, generator=gen,
+                                 device=cuda_device)).bfloat16()
+    v = torch.randn(b, hkv, n, d, generator=gen,
+                    device=cuda_device).bfloat16()
+    seg = fc.segment_tokens(b * hkv, d, d, 2)
+    assert seg < n
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    o, st = fastmax_causal_cuda(q, k, v, p=2)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    kept = o.numel() * o.element_size() + sum(t.numel() * 4 for t in st)
+    weights = b * hkv * n * 4   # the float32 key weights (ones)
+    assert peak <= fc._WORKSPACE_BUDGET + 8 * b * hkv * 8385 + kept \
+        + weights, peak
+    ro, rst = fastmax_causal_ref(q, k, v, p=2, chunk_size=512)
+    torch.cuda.synchronize()
+    scale = max(1.0, ro.float().abs().max().item())
+    assert (o.float() - ro.float()).abs().max().item() <= 3e-2 * scale
+    for a, r in zip(st, rst):
+        scale = max(1.0, r.abs().max().item())
+        torch.testing.assert_close(a / scale, r / scale, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_prefill_workspace_is_released_on_card(cuda_device):
+    """The call's prefix-moment workspace is allocated per call and freed
+    on return: only o and the state stay allocated."""
+    q, k, v = _qwen3_like(cuda_device, 8)
+    b, hkv, n, d = k.shape
+    ws = workspace_bytes(b * hkv, n, d, d, 2)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    o, st = fastmax_causal_cuda(q, k, v, p=2)
+    torch.cuda.synchronize()
+    kept = o.numel() * o.element_size() + sum(t.numel() * 4 for t in st)
+    assert torch.cuda.max_memory_allocated() - before >= ws + kept
+    assert kept <= torch.cuda.memory_allocated() - before < kept + ws // 2
+    del o, st
+    assert torch.cuda.memory_allocated() == before
 
 
 @pytest.mark.cuda

@@ -18,7 +18,7 @@ from repro.kernels.fastmax_decode import fastmax_decode_pallas  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.fastmax_causal import (  # noqa: E402
-    fastmax_causal_cuda, fastmax_causal_ref, pick_chunk)
+    fastmax_causal_cuda, fastmax_causal_ref, pick_chunk, prefill_call)
 from repro_torch.kernels.fastmax_decode import fastmax_decode_cuda  # noqa: E402
 from repro_torch.kernels.ref import fastmax_decode_ref  # noqa: E402
 
@@ -140,6 +140,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     q32, k32, v32 = (_t(x, torch.float32) for x in (q, k, v))
     with pytest.raises(ValueError, match="CUDA"):
         fastmax_causal_cuda(q32, k32, v32)
+    with pytest.raises(ValueError, match="CUDA"):
+        prefill_call(q32, k32, v32)
     st = tuple(torch.zeros(s) for s in
                [(1, 2, 8), (1, 2, 8, 8), (1, 2, 8, 8, 8), (1, 2), (1, 2, 8),
                 (1, 2, 8, 8)])
