@@ -38,9 +38,12 @@ and power limit, and the result line last):
                 (D=Dv=128, Hq=16, Hkv=8), float32 and bfloat16: p=2 at B=2
                 N=1024, at B=2 N=1000 on a forward seeded from an
                 init_state with return_dstate (all six dstate moments), at
-                B=4 N=1024 (the training path's shapes, then timed), and
-                one p=1 case; dq, dk, dv row by row past the kernel's
-                first chunk, that chunk's rows against float64.
+                B=4 N=1024 (the training path's shapes, then timed: the
+                call, its four launches apart, one call's peak memory, two
+                calls compared bit for bit), one p=1 case, G=48 (Hq=48,
+                Hkv=1) and B=2 N=4096 in two segments; dq, dk, dv row by
+                row past the kernel's first chunk, that chunk's rows
+                against float64.
   8. train    — full-width qwen3-1.7b, attn fastmax2-kernel, bfloat16,
                 remat="full", AdamW from pick_optimizer, B=4, N=1024,
                 batches from SyntheticLM: one loss and grad on the kernel
@@ -270,7 +273,7 @@ def main() -> None:
                                                     pick_chunk, prefill_call,
                                                     segment_tokens, CHUNK)
     from repro_torch.kernels.fastmax_causal_bwd import (
-        fastmax_causal_bwd_cuda, fastmax_causal_bwd_ref, kernel_chunk)
+        bwd_call, fastmax_causal_bwd_cuda, fastmax_causal_bwd_ref)
     from repro_torch.kernels.fastmax_decode import fastmax_decode_cuda
     from repro_torch.kernels.ref import fastmax_decode_ref
     from repro_torch.launch.serve import generate
@@ -617,33 +620,35 @@ def main() -> None:
 
     # ---- 7. the backward kernel against its plain version (outside
     # inference mode: the plain version differentiates with autograd) ----
-    cb = kernel_chunk(gq, d)
+    cb = CHUNK   # the backward's chunk, as the prefill's
 
-    def bwd_case(b, n, dtype, p, seeded):
+    def bwd_case(b, n, dtype, p, seeded, heads=(hq, hkv)):
+        bhq, bhkv = heads
         # at p=1, f(s) = 1 + s is sign-indefinite at the model's scale
         # (|s| up to D): denominators can nearly cancel, and which
         # float32 summation order lands nearer float64 is luck; q̂/D
         # keeps |s| <= 1 and f >= 0
         qs = 1.0 / d if p == 1 else 1.0
-        q = (normalize_qk(randn(b, hq, n, d)) * qs).to(dtype)
-        k = normalize_qk(randn(b, hkv, n, d)).to(dtype)
-        v = randn(b, hkv, n, d).to(dtype)
-        do = randn(b, hq, n, d).to(dtype)
+        q = (normalize_qk(randn(b, bhq, n, d)) * qs).to(dtype)
+        k = normalize_qk(randn(b, bhkv, n, d)).to(dtype)
+        v = randn(b, bhkv, n, d).to(dtype)
+        do = randn(b, bhq, n, d).to(dtype)
         init = None
         if seeded:
             _, init = fastmax_causal_ref(
-                normalize_qk(randn(b, hq, 200, d)) * qs,
-                normalize_qk(randn(b, hkv, 200, d)),
-                randn(b, hkv, 200, d), p=p, chunk_size=512)
+                normalize_qk(randn(b, bhq, 200, d)) * qs,
+                normalize_qk(randn(b, bhkv, 200, d)),
+                randn(b, bhkv, 200, d), p=p, chunk_size=512)
         _, state = fastmax_causal_cuda(q, k, v, p=p, init_state=init)
+        nseg = len(bwd_call(q, k, v, state, do, p=p).segments)
         got = fastmax_causal_bwd_cuda(q, k, v, state, do, p=p,
                                       return_dstate=seeded)
         ref = fastmax_causal_bwd_ref(q, k, v, state, do, p=p,
                                      chunk_size=cb, return_dstate=seeded)
-        exact = fastmax_causal_bwd_ref(
+        # float64, for the first chunk's rows of an unseeded forward only
+        exact = None if seeded else fastmax_causal_bwd_ref(
             q.double(), k.double(), v.double(),
-            [t.double() for t in state], do.double(), p=p, chunk_size=cb,
-            return_dstate=seeded)
+            [t.double() for t in state], do.double(), p=p, chunk_size=cb)
         torch.cuda.synchronize()
 
         def flat(r):
@@ -652,10 +657,13 @@ def main() -> None:
         # a seeded forward's carry before chunk 0 is the seed, not a
         # near-zero rebuild: every row is held to the tight limit
         first = 0 if seeded else cb
-        errs = [grad_err(a, r, e, first)
-                for a, r, e in zip(flat(got), flat(ref), flat(exact))]
+        errs = [grad_err(a, r, e, first) for a, r, e in
+                zip(flat(got), flat(ref), flat(exact) if exact else
+                    [None] * len(flat(ref)))]
         del exact
         tag = (f"bwd p={p} {str(dtype)[6:]} B={b} N={n}"
+               + (f" G={bhq // bhkv}" if heads != (hq, hkv) else "")
+               + (f" {nseg} segments" if nseg > 1 else "")
                + (" seeded+dstate" if seeded else ""))
         names = ["dq", "dk", "dv"] + (["dm0", "dm1", "dm2", "dg0", "dg1",
                                        "dg2"] if seeded else [])
@@ -677,28 +685,60 @@ def main() -> None:
                  f"version")
         whole = max((a.float() - r.float()).abs().max().item()
                     for a, r in zip(got[:3], ref[:3]))
-        return whole, (q, k, v, state, do)
+        return whole, nseg, (q, k, v, state, do)
 
     for dtype in (torch.float32, torch.bfloat16):
         bwd_case(2, 1024, dtype, 2, False)
         bwd_case(2, 1000, dtype, 2, True)
     bwd_case(2, 1000, torch.float32, 1, True)
+    # granite's grouping: 48 query heads on one kv head
+    bwd_case(1, 512, torch.float32, 2, False, heads=(48, 1))
+    # past one segment (3840 tokens at B=2): two, the last seeding the first
+    _, nseg, _ = bwd_case(2, 4096, torch.float32, 2, True)
+    if nseg != 2:
+        fail(f"the backward at B=2 N=4096 ran in {nseg} segments, not 2")
     bwd_case(4, P, torch.float32, 2, False)
-    fb_err, bargs = bwd_case(4, P, torch.bfloat16, 2, False)
+    fb_err, nseg, bargs = bwd_case(4, P, torch.bfloat16, 2, False)
+    if nseg != 1:
+        fail(f"the backward at the train path's shapes ran in {nseg} "
+             f"segments (the launch times below are one segment's)")
+    bq, bk, bv, bst, bdo = bargs
+    # two calls' bits, and one call's peak memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    g1 = fastmax_causal_bwd_cuda(bq, bk, bv, bst, bdo, p=2,
+                                 return_dstate=True)
+    torch.cuda.synchronize()
+    bwd_peak = torch.cuda.max_memory_allocated() - before
+    g2 = fastmax_causal_bwd_cuda(bq, bk, bv, bst, bdo, p=2,
+                                 return_dstate=True)
+    torch.cuda.synchronize()
+    bwd_same = all(torch.equal(a, b_) for a, b_ in
+                   zip(list(g1[:3]) + list(g1[3]), list(g2[:3]) + list(g2[3])))
+    del g1, g2
+    if not bwd_same:
+        fail("two backward calls on the same inputs differ")
     phase("bwd", "backward kernel agrees with its plain version (p=2 "
           "f32/bf16 at B=2 N=1024, B=2 N=1000 seeded with dstate, "
-          "B=4 N=1024; p=1 seeded)")
-    bq, bk, bv, bst, bdo = bargs
+          "B=4 N=1024; p=1 seeded; G=48 at B=1 N=512; B=2 N=4096 in two "
+          "segments, seeded with dstate); two calls equal bit for bit")
     fb_ms = sync_ms(lambda: fastmax_causal_bwd_cuda(bq, bk, bv, bst, bdo,
                                                     p=2), reps=3)
     fb_plain = sync_ms(lambda: fastmax_causal_bwd_ref(
         bq, bk, bv, bst, bdo, p=2, chunk_size=512), reps=2)
-    pairs_b = (P // cb) * cb * (cb + 1) // 2 \
-        + (P % cb) * (P % cb + 1) // 2
+    call = bwd_call(bq, bk, bv, bst, bdo, p=2)
+    call.run()
+    fb_parts = {f: sync_ms(getattr(call, f), reps=3)
+                for f in ("slots", "queries", "cot", "keys")}
+    bws_bytes = call.workspace_bytes
+    del call
+    c = BOUND_CHUNK
+    pairs_b = (P // c) * c * (c + 1) // 2 + (P % c) * (P % c + 1) // 2
     # per (b, kv-head): the six degree-2 passes on the symmetric half
     # (g2 and gg2 ride along as one more column, as in the forward's
     # count), the degree-0/1 terms of the same six passes, and six
-    # products per causal pair inside the kernel's chunks (scores, F.v,
+    # products per causal pair inside chunks of BOUND_CHUNK (scores, F.v,
     # u.v, ds.k, ds^T.q, F^T.u)
     fb_ops = bh * ((3 * gq + 3) * P * d * (d + 1) * (d + 1)
                    + 2 * (3 * gq + 3) * P * (d + 1) * (d + 1)
@@ -709,9 +749,14 @@ def main() -> None:
     fb_bound = max(fb_bytes / H100_BYTES_PER_S,
                    fb_ops / H100_BF16_FLOPS) * 1e3
     print(f"  timing (bwd, bf16 B={B} N={P}): kernel {fb_ms:.3f} ms "
-          f"(plain {fb_plain:.3f}, bound {fb_bound:.3f} bf16-peak / "
+          f"(launches A' carry slots {fb_parts['slots']:.3f}, B' queries "
+          f"{fb_parts['queries']:.3f}, C cotangent slots "
+          f"{fb_parts['cot']:.3f}, D keys {fb_parts['keys']:.3f}; plain "
+          f"{fb_plain:.3f}, bound {fb_bound:.3f} bf16-peak / "
           f"{fb_ops / H100_F32_FLOPS * 1e3:.3f} f32-peak, "
-          f"{fb_ops / fb_ms / 1e9:.2f} TFLOP/s, chunk {cb})")
+          f"{fb_ops / fb_ms / 1e9:.2f} TFLOP/s, chunk {cb}, 1 segment, "
+          f"workspace {bws_bytes / 1e9:.3f} GB, one call's peak "
+          f"{bwd_peak / 1e9:.3f} GB above what was allocated before it)")
     del bargs, bq, bk, bv, bst, bdo
     torch.cuda.empty_cache()
 
@@ -1246,7 +1291,10 @@ def main() -> None:
          "bound_ms": fb_bound,
          "bound_by": "operations" if fb_ops / H100_BF16_FLOPS
          >= fb_bytes / H100_BYTES_PER_S else "bytes",
-         "library_ms": None},
+         "library_ms": None, "slots_ms": fb_parts["slots"],
+         "queries_ms": fb_parts["queries"], "cot_ms": fb_parts["cot"],
+         "keys_ms": fb_parts["keys"], "chunk": cb,
+         "workspace_bytes": bws_bytes, "call_peak_bytes": bwd_peak},
         {"name": "fastmax_noncausal_moments", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_noncausal.cu",
          "replaces": "src/repro/kernels/fastmax_noncausal.py:160",

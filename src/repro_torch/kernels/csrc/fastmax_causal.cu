@@ -85,106 +85,11 @@
 
 #include <type_traits>
 
+#include "feature_table.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;    // feature rows (launch A) / query rows (B)
-constexpr int kCols = 64;    // value columns per tile
-constexpr int kChunk = 32;   // keys (A) / feature rows and keys (B) a step
-constexpr int kPS = 72;      // padded row stride of the combine's features
 constexpr int kL = 128;      // the chunk L: keys per workspace slot
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__host__ __device__ inline int n_rows(int D, int p) {
-  return 1 + D + (p >= 2 ? D * (D + 1) / 2 : 0);
-}
-
-// Feature row r as a code: (ia + 1) | (ib + 1) << 8, ia = -1 for the
-// constant row, ib = -1 for a linear row; -1 past the last row.
-__device__ inline int row_code(int r, int D, int R) {
-  if (r >= R) return -1;
-  if (r == 0) return 0;
-  if (r <= D) return r;
-  const int idx = r - 1 - D;
-  // pairs a <= b in row-major order: row a starts at a*D - a(a-1)/2
-  const float t = (float)(2 * D + 1);
-  int a = (int)((t - sqrtf(t * t - 8.f * (float)idx)) * 0.5f);
-  a = max(0, min(a, D - 1));
-  while (a > 0 && a * D - a * (a - 1) / 2 > idx) --a;
-  while (a + 1 < D && (a + 1) * D - (a + 1) * a / 2 <= idx) ++a;
-  const int b = a + idx - (a * D - a * (a - 1) / 2);
-  return (a + 1) | ((b + 1) << 8);
-}
-
-__device__ __forceinline__ int code_a(int c) { return (c & 255) - 1; }
-__device__ __forceinline__ int code_b(int c) { return (c >> 8) - 1; }
-
-// The feature of row `c` for the vector x (in shared memory).
-__device__ __forceinline__ float feature(int c, const float* x) {
-  const int a = code_a(c), b = code_b(c);
-  float f = a < 0 ? 1.f : x[a];
-  if (b >= 0) f *= x[b];
-  return f;
-}
-
-// The same in f64, exact for f32 entries (the p = 1 denominator's terms).
-__device__ __forceinline__ double feature64(int c, const float* x) {
-  const int a = code_a(c), b = code_b(c);
-  double f = a < 0 ? 1.0 : (double)x[a];
-  if (b >= 0) f *= (double)x[b];
-  return f;
-}
-
-// The combine's weight of row `c`: 1/2 on the diagonal pairs (a == b).
-__device__ __forceinline__ float row_weight(int c) {
-  const int b = code_b(c);
-  return (b >= 0 && b == code_a(c)) ? 0.5f : 1.f;
-}
-
-// Offsets of row `c` of bh in the state layout: its m row (times Dv) and
-// its g entry; `*mt`, `*gt` the transposed pair's (b*D+a), else -1.
-__device__ __forceinline__ void state_offsets(int c, int bh, int D, int Dv,
-                                              size_t* m, size_t* g,
-                                              long* mt, long* gt) {
-  const int a = code_a(c), b = code_b(c);
-  *mt = *gt = -1;
-  if (a < 0) {
-    *m = (size_t)bh * Dv;
-    *g = bh;
-  } else if (b < 0) {
-    *m = ((size_t)bh * D + a) * Dv;
-    *g = (size_t)bh * D + a;
-  } else {
-    *m = ((size_t)bh * D * D + a * D + b) * Dv;
-    *g = (size_t)bh * D * D + a * D + b;
-    if (a != b) {
-      *mt = (long)(((size_t)bh * D * D + b * D + a) * Dv);
-      *gt = (long)((size_t)bh * D * D + b * D + a);
-    }
-  }
-}
-
-// The state arrays of one side (init or output), by feature row kind.
-struct State {
-  float *m0, *m1, *m2, *g0, *g1, *g2;
-  __device__ __forceinline__ float* m(int c) const {
-    return code_a(c) < 0 ? m0 : (code_b(c) < 0 ? m1 : m2);
-  }
-  __device__ __forceinline__ float* g(int c) const {
-    return code_a(c) < 0 ? g0 : (code_b(c) < 0 ? g1 : g2);
-  }
-};
 
 // ---------------------------------------------------------------------------
 // Launch A, over tokens [t0, t0 + n) of N. k [BH, N, D], v [BH, N, Dv],
@@ -313,17 +218,7 @@ prefix_moments_kernel(const T* __restrict__ k, const T* __restrict__ v,
       }
     }
     __syncthreads();
-#pragma unroll 4
-    for (int t = 0; t < len; ++t) {
-      const float4 fv = ld4(sT + t * kTile + 4 * ty);
-      const float4 vv = ld4(sV + t * kCols + 4 * tx);
-      const float fr[4] = {fv.x, fv.y, fv.z, fv.w};
-      const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-      for (int ri = 0; ri < 4; ++ri)
-#pragma unroll
-        for (int ci = 0; ci < 4; ++ci) acc[ri][ci] += fr[ri] * vc[ci];
-    }
+    moment_tile(acc, sT, sV, len, ty, tx);
     __syncthreads();
   }
 
@@ -450,23 +345,7 @@ causal_combine_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < kTile / 8; ++i) dp[i] = A(0);
 
     // the 32 x BC tile product shared by both terms
-    auto accumulate = [&]() {
-#pragma unroll 4
-      for (int r = 0; r < kChunk; ++r) {
-        const float4 fv = ld4(sP + r * kPS + 4 * ty);
-        const float fr[4] = {fv.x, fv.y, fv.z, fv.w};
-#pragma unroll
-        for (int j = 0; j < NCG; ++j) {
-          const float4 mv = ld4(sM + r * BC + kCols * j + 4 * tx);
-          const float mc[4] = {mv.x, mv.y, mv.z, mv.w};
-#pragma unroll
-          for (int ri = 0; ri < 4; ++ri)
-#pragma unroll
-            for (int ci = 0; ci < 4; ++ci)
-              acc[ri][4 * j + ci] += fr[ri] * mc[ci];
-        }
-      }
-    };
+    auto accumulate = [&]() { tile_product<NCG>(acc, sP, sM, BC, ty, tx); };
 
     // inter: the carry before chunk c (slot c), feature row by row
     for (int r0 = 0; r0 < R; r0 += kChunk) {

@@ -4,713 +4,1196 @@
 // Replaces the Pallas TPU kernel `fastmax_causal_bwd_pallas`
 // (src/repro/kernels/fastmax_causal_bwd.py, body `_causal_bwd_kernel`).
 //
-// What it computes, per (batch, kv-head) bh with G grouped query heads,
-// from the residual (q, k, v, final moment carry) and the output cotangent
-// do: the chunks are walked in REVERSE, and for each chunk
-//   1. carry_before = carry_after - delta(chunk)    (moments are sums);
-//   2. den = g0 + q.g1 + 1/2 q^T g2 q + sum_t f(q.k_t) w_t  (carry_before);
-//   3. u = do / (den + eps); num is recomputed and sden = -sum_j o_j u_j;
-//   4. dq: intra-chunk ds.k plus u.m1^T, sden (g1 + g2 q) and the m2 term
-//      sum_b q_b sum_j u_j m2[ab, j];
-//   5. dk, dv: intra-chunk terms plus the chain through this chunk's
-//      moment delta against the carry-cotangent of the LATER chunks
-//      (gm0, gm1, gm2, gg1, gg2 before step 6 touches them);
-//   6. fold this chunk into the carry-cotangent:
-//      gm0 += sum u, gm1 += q^T u, gm2 += 1/2 (q q)^T u,
-//      gg0 += sum sden, gg1 += sden^T q, gg2 += 1/2 q^T (sden q).
-// After chunk 0 the carry-cotangent is the cotangent of the scan's initial
-// carry (the seed's gradient when the forward was seeded): the dstate
-// outputs.
+// What it computes, per (batch, kv-head) bh with G grouped query heads, from
+// the residual (q, k, v, the forward's FINAL moment carry) and the output
+// cotangent do, on the feature table of feature_table.cuh (R rows φ_r, the
+// combine's weights wt_r: 1, 1/2 on the diagonal pairs), in chunks of L =
+// 128 tokens:
+//   M_c = the carry before chunk c (R x (Dv + 1): m rows beside the g
+//         column), rebuilt reversibly as final - sum_{chunks >= c} delta_k
+//         (core/fastmax.py's carry_before = carry_after - delta);
+//   per query i of chunk c: num_i, den_i against M_c plus the chunk's own
+//         keys exactly, u_i = do_i / (den_i + eps), sden_i = -o_i . u_i;
+//   dq_i = J_φ(q_i)^T (wt . M_c [u_i; sden_i])
+//          + sum_{j <= i in the chunk} f'(s_ij) (u_i.v_j + sden_i) k_j;
+//   Z_c = sum over queries i of chunks > c of φ(q_i) [u_i | sden_i] (the
+//         cotangent of the carry after chunk c);
+//   per key j of chunk c:
+//     dv_j = (wt . φ(k_j))^T Z_c[:, :Dv] + sum_{i >= j, all G heads}
+//            f(s_ij) u_i,
+//     dk_j = J_φ(k_j)^T (wt . Z_c [v_j; 1])
+//            + sum_{i >= j} f'(s_ij) (u_i.v_j + sden_i) q_i;
+//   and, with the cotangent of the initial carry asked for (dstate), Z
+//   before chunk 0 plus chunk 0's queries, expanded to the moment layout
+//   (m0, m1 its rows; m2[ab] = m2[ba] = Z[ab] / 2, likewise g2).
+// J_φ(x)^T y for a table column y: y_a on linear row a; y_ab x_b to
+// column a and y_ab x_a to column b on a pair row (wt 1), y_aa x_a on a
+// diagonal pair (wt 1/2 times the derivative 2 x_a).
 //
-// What bounds it on an H100: arithmetic. Per bh the six degree-2 passes
-// (subtract, combine, dq through m2, dv and dk through gm2, the gm2 fold)
-// cost (3G + 3) * N * D^2 * Dv multiply-adds with the full D^2 rows, half
-// that on the symmetric half the bound counts: 6.4e11 operations, 0.65 ms
-// at the bf16 tensor-core peak for B=4, Hkv=8, G=2, N=1024, D=Dv=128, far
-// above the bytes moved. This version runs them in f32 on the CUDA cores
-// with all D^2 rows (tensor cores, wgmma and TMA are later work).
+// What bounds it on an H100: arithmetic. Per bh, in units of N * R * (Dv+1)
+// multiply-adds: the slots (1 unit), the queries' two passes over the
+// slots (2G), the cotangent slots (G), the keys' pass over them (2 products,
+// 2); (3G + 3) units in all, 6.4e11 operations with the in-chunk pairs at
+// qwen3's shapes (B=4, Hq=16, Hkv=8, N=1024, D=Dv=128): 0.65 ms at the bf16
+// tensor-core peak, 9.6 ms at the f32 CUDA-core peak, against ~0.1 ms for
+// its bytes. This version runs it as f32 FMAs on the CUDA cores (tensor
+// cores, wgmma and TMA are later work).
 //
-// Design.
-//   * One block per (Dv column block of 32, bh), 256 threads, walking the
-//     chunks backwards; 4 x 32 = 128 blocks at B=4, Hkv=8, Dv=128 (64 at
-//     B=2, half the card). Every backward term is linear in the block's
-//     (u, sden) columns, so each block owns its dv columns exactly and
-//     emits dq, dk (and the g-parts of dstate) as per-block f32 partials;
-//     the wrapper sums them over blocks in a fixed order (no atomics, so
-//     grads repeat bit for bit from run to run).
-//   * The carry and the carry-cotangent do not fit on chip (m2 and gm2
-//     are 2 MB per block each at D = Dv = 128). Both live in device
-//     memory: m2 is a workspace COPY of the forward's final carry (the
-//     autograd residual is never written), gm2 is the zeroed dstate m2
-//     output itself; g2 (a per-block copy) and gg2 (the per-block dstate
-//     g2 partial) likewise. The small carries (m0, m1, g0, g1, gm0, gm1,
-//     gg0, gg1) stay in shared memory.
-//   * Ordering. u needs only den, which is Dv-independent and comes from
-//     the g-carries, so u is known before m2 is touched and m2 and gm2 are
-//     streamed ONCE per chunk, in tiles of 32 rows (a, b0..b0+31): each
-//     tile is subtracted (carry_before) and written back, contracted with
-//     q_a q_b (num) and with u (dq), while the OLD gm2 tile feeds dv and
-//     dk and its folded value goes back to device memory — the fold of a
-//     tile never precedes that tile's use. sden (which needs num) enters
-//     only the intra-chunk and the small g terms, computed after the pass.
-//   * The tile products are register-tiled as in the forward kernel:
-//     thread (ty, tx) owns 4 query rows x 4 columns (num, dq) or 2 keys x
-//     4 columns (dv, dk) and reads float4 / float2 fragments.
-//   * Ragged N: tokens past N get weight 0 and rows past N are never
-//     written; the chunk length C is the wrapper's (G*C <= 128, C even,
-//     shared memory <= 227 KB); any chunking is exact, since the carry is
-//     a plain sum.
-//   * Inputs f32 or bf16, widened on load; all sums in f32.
-// Requires D % 4 == 0, Dv % 4 == 0 and C even (checked here and by the
-// wrapper).
+// Design: the TPU kernel walks the chunks in reverse on a sequential grid
+// axis with the carry and its cotangent in VMEM; here both are prefix (or
+// suffix) sums, so the walk splits into four launches that run in parallel
+// across the card, on the prefill's design (fastmax_causal.cu), with
+// nothing carried between blocks:
+//   * A', `carry_slots_kernel`: one block per (64 table rows x 64 value
+//     columns tile, bh). It seeds the tile from the final carry (pair rows
+//     (final[ab] + final[ba]) / 2) and walks the chunks from the last down,
+//     32 keys at a time: it sums chunk c's moments on their own, subtracts
+//     them from the carry (one rounding of the large value per chunk, as
+//     the plain version) and writes slot c, the carry before chunk c, to a
+//     workspace, m [nc, BH, R, Dv] f32 and g [nc, BH, R] f64.
+//   * B', `query_kernel`: one block per (64 query rows of chunk c's G*len
+//     rows, c, bh). Pass 1 is the prefill's combine against slot c plus
+//     the chunk's keys (den in f64 at p = 1, as there); from it u and sden,
+//     kept in shared memory and written to an f32 workspace [B*Hq, N, Dv]
+//     and [B*Hq, N]. Pass 2 walks slot c again, 64 rows a tile: the
+//     tile times [u | sden]^T gives y (64 rows x 64 queries), which the
+//     block scatters through J_φ(q) into its dq rows in shared memory
+//     (thread (i, part) adds to query i's columns a with a % 4 == part
+//     only, so no two threads add to one element). Then the chunk's keys'
+//     ds = f'(s)(u.v + sden) and the tiled product ds^T k. The block owns
+//     its dq rows whole: no partials.
+//   * C, `cot_slots_kernel`: launch A''s loop over the queries (their
+//     features against [u | sden]) from the last chunk down: slot c of a
+//     second workspace is Z_c; after chunk 0 the total is dstate (expanded
+//     to the moment layout) or the next segment's seed.
+//   * D, `key_kernel`: one block per (64 keys of chunk c, c, bh). One walk
+//     over Z_c's tiles gives both the dv product (the combine's tiled
+//     product with the keys' weighted features) and y = tile [v | 1]^T,
+//     scattered through J_φ(k) into dk rows in shared memory; then the
+//     chunk's queries (all G heads), 32 at a time: f(s) u and ds q.
+// Segments: the wrapper bounds each workspace by running the four launches
+// over segments of the tokens, LAST to first: slot 0 of one segment's
+// carry slots seeds the next (earlier) segment's launch A' in place, and
+// launch C's total, kept in a table [BH, R, Dv + 1] f32, seeds its C.
+// Every sum runs in a fixed order (no float atomics): two calls give the
+// same bits. Ragged chunks (N not a multiple of L, N = 1) are masked in the
+// kernels. Requires D % 4 == 0, Dv % 4 == 0, 4 <= D <= 128, 4 <= Dv <= 128
+// (checked by the wrapper and here).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "feature_table.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCols = 32;      // Dv column block
-constexpr int kRT = 32;        // m2 rows per tile (b0 .. b0+31 of one a)
-constexpr int kRows = 128;     // query rows per chunk (G * C <= kRows)
-constexpr int kSS = kRows + 1; // row stride of the score block
-// row strides of the per-tile staging: 4 tile rows are read at once by a
-// warp; a stride that is a multiple of 32 floats would put them in one
-// bank, +4 keeps float4 / float2 alignment
-constexpr int kYS = kRows + 4;
-__host__ __device__ inline int t_stride(int C) { return C + 4; }
+constexpr int kL = 128;      // the chunk L: tokens per slot
+constexpr int kRT = 64;      // table rows a tile of the y products
+constexpr int kYS = 68;      // padded row stride of y [kRT, 64]
+constexpr int kMaxW = 128;   // D, Dv at most
+// blocks an SM holds of the two slot launches (A', C): the registers a
+// thread may use are capped to fit them
+constexpr int kMomentBlocks = 3;
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float lane8_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  return x;
-}
-
-__host__ __device__ inline int scratch_floats(int C) {
-  int pass = kRT * kYS + 4 * kRT * kCols + kRT * t_stride(C);
-  int score = C * kSS;
-  return pass > score ? pass : score;
-}
-
-__host__ __device__ inline int smem_floats(int C, int D) {
-  return D * kRows + 2 * kRows * kCols + 2 * D * kCols + C * kCols +
-         2 * kCols + scratch_floats(C) + kCols * C + C * (D + 1) + C +
-         2 * D + 2 * kRows + 4;
-}
-
-// q [BH*G, N, D], k [BH, N, D], v [BH, N, Dv], do [BH*G, N, Dv] (T).
-// m0 [BH, Dv], m1 [BH, D, Dv], g0 [BH], g1 [BH, D]: the final carry (f32,
-// read only). m2w [BH, D*D, Dv]: workspace copy of the final m2 (p >= 2).
-// g2w [nb, BH, D, D]: per-block workspace copies of the final g2.
-// dqp [nb, BH*G, N, D], dkp [nb, BH, N, D] (f32, zeroed; accumulated).
-// dv [BH, N, Dv] (T). gm2 [BH, D*D, Dv], gg2 [nb, BH, D, D] (zeroed; the
-// dstate m2 / g2 partials). dsm0 [BH, Dv], dsm1 [BH, D, Dv],
-// dsg0 [nb, BH], dsg1 [nb, BH, D] (written at the end).
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-causal_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ m0, const float* __restrict__ m1,
-                  const float* __restrict__ g0, const float* __restrict__ g1,
-                  float* m2w, float* g2w, float* dqp, float* dkp,
-                  T* __restrict__ dv, float* gm2, float* gg2, float* dsm0,
-                  float* dsm1, float* dsg0, float* dsg1, int G, int N,
-                  int D, int Dv, int p, int C, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  const int GC = G * C;
-  const int KS = D + 1;
-  const int TS = t_stride(C);
-  // float4-read arrays first (offsets multiples of 4 floats), then the
-  // float2 and scalar ones
-  float* sQT = smem;                    // [D, 128]  queries, transposed
-  float* sU = sQT + D * kRows;          // [128, 32] do, then u
-  float* sUT = sU + kRows * kCols;      // [32, 128] u, transposed
-  float* sM1 = sUT + kRows * kCols;     // [D, 32]   m1 carry slice
-  float* sGM1 = sM1 + D * kCols;        // [D, 32]   gm1 slice
-  float* sV = sGM1 + D * kCols;         // [C, 32]   v (raw)
-  float* sM0 = sV + C * kCols;          // [32]
-  float* sGM0 = sM0 + kCols;            // [32]
-  float* scr = sGM0 + kCols;            // scratch (m2 pass / scores)
-  float* sY = scr;                      // [RT, kYS] q_a q_b per query row
-  float* sMt = sY + kRT * kYS;          // [RT, 32]  m2 tile (carry_before)
-  float* sMtT = sMt + kRT * kCols;      // [32, RT]  same, transposed
-  float* sGt = sMtT + kRT * kCols;      // [RT, 32]  old gm2 tile
-  float* sGtT = sGt + kRT * kCols;      // [32, RT]  same, transposed
-  float* sT = sGtT + kRT * kCols;       // [RT, TS]  w k_a k_b per token
-  float* sS = scr;                      // [C, 129]  scores, then ds
-  float* sVWT = scr + scratch_floats(C);  // [32, C] w v, transposed
-  float* sK = sVWT + kCols * C;         // [C, KS]
-  float* sW = sK + C * KS;              // [C]
-  float* sG1 = sW + C;                  // [D]
-  float* sGG1 = sG1 + D;                // [D]
-  float* sDen = sGG1 + D;               // [128]
-  float* sSden = sDen + kRows;          // [128]
-  float* sScal = sSden + kRows;         // g0, gg0
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 7, ty = tid >> 3;
-  const int blk = blockIdx.x;
-  const int bh = blockIdx.y, BH = gridDim.y;
-  const int cbase = blk * kCols;
-  const int col = cbase + lane;
-  const bool col_ok = col < Dv;
-  const int c4 = 4 * tx;
-  const bool cq_ok = cbase + c4 < Dv;     // Dv % 4 == 0: all 4 or none
-  const int DD = D * D;
-  const bool deg2 = p >= 2;
-  float* m2b = deg2 ? m2w + (size_t)bh * DD * Dv : nullptr;
-  float* gm2b = deg2 ? gm2 + (size_t)bh * DD * Dv : nullptr;
-  float* g2b = g2w + ((size_t)blk * BH + bh) * DD;
-  float* gg2b = gg2 + ((size_t)blk * BH + bh) * DD;
-  float* dqb = dqp + (size_t)blk * BH * G * N * D;
-  float* dkb = dkp + ((size_t)blk * BH + bh) * N * D;
-
-  // ---- the final carry (small parts) and a zero carry-cotangent ----
-  if (warp == 0) {
-    sM0[lane] = col_ok ? m0[(size_t)bh * Dv + col] : 0.f;
-    sGM0[lane] = 0.f;
-  }
-  for (int a = warp; a < D; a += kThreads / 32) {
-    sM1[a * kCols + lane] = col_ok ? m1[((size_t)bh * D + a) * Dv + col] : 0.f;
-    sGM1[a * kCols + lane] = 0.f;
-  }
-  for (int a = tid; a < D; a += kThreads) {
-    sG1[a] = g1[(size_t)bh * D + a];
-    sGG1[a] = 0.f;
-  }
-  if (tid == 0) {
-    sScal[0] = g0[bh];
-    sScal[1] = 0.f;
-  }
-  __syncthreads();
-
-  const int nc = (N + C - 1) / C;
-  for (int c = nc - 1; c >= 0; --c) {
-    const int c0 = c * C;
-    const int len = min(C, N - c0);
-    // ---- load the chunk (queries transposed; do into sU) ----
-    for (int e = tid; e < kRows * D; e += kThreads) {
-      const int r = e / D, a = e - r * D;
-      const int g = r / C, i = r - g * C;
-      sQT[a * kRows + r] =
-          (r < GC && i < len)
-              ? ld(q + (((size_t)bh * G + g) * N + c0 + i) * D + a) : 0.f;
+// y[64 rows x 64 columns] = sT [64, ts] x sXT [kt, 64] over the first kt
+// (a multiple of 4) columns of sT: thread (tr, tq) = (tid >> 4, tid & 15)
+// rows 4tr..4tr+3 and columns 4tq..4tq+3 (16 FMAs per two float4 loads);
+// written to sY [64, kYS].
+__device__ __forceinline__ void rows_times(const float* sT, int ts, int kt,
+                                           const float* sXT, float* sY,
+                                           int tid) {
+  const int tr = tid >> 4, tq = tid & 15;
+  float y[4][4];
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+    for (int ci = 0; ci < 4; ++ci) y[ri][ci] = 0.f;
+  const float* t0 = sT + (4 * tr) * ts;
+  for (int cc = 0; cc < kt; cc += 4) {
+    float ar[4][4];
+#pragma unroll
+    for (int ri = 0; ri < 4; ++ri) {
+      const float4 a = ld4(t0 + ri * ts + cc);
+      ar[ri][0] = a.x; ar[ri][1] = a.y; ar[ri][2] = a.z; ar[ri][3] = a.w;
     }
-    for (int e = tid; e < kRows * kCols; e += kThreads) {
-      const int r = e / kCols, cc = e - r * kCols;
-      const int g = r / C, i = r - g * C;
-      sU[e] = (r < GC && i < len && cbase + cc < Dv)
-                  ? ld(dout + (((size_t)bh * G + g) * N + c0 + i) * Dv +
-                       cbase + cc)
-                  : 0.f;
-    }
-    for (int e = tid; e < C * D; e += kThreads) {
-      const int t = e / D, a = e - t * D;
-      sK[t * KS + a] = t < len ? ld(k + ((size_t)bh * N + c0 + t) * D + a)
-                               : 0.f;
-    }
-    for (int t = tid; t < C; t += kThreads) sW[t] = t < len ? 1.f : 0.f;
-    for (int e = tid; e < C * kCols; e += kThreads) {
-      const int t = e / kCols, cc = e - t * kCols;
-      const float x = (t < len && cbase + cc < Dv)
-                          ? ld(v + ((size_t)bh * N + c0 + t) * Dv + cbase + cc)
-                          : 0.f;
-      sV[e] = x;
-      sVWT[cc * C + t] = x;   // w = 1 on real tokens, x = 0 on padding
-    }
-    __syncthreads();
-
-    // ---- 1. carry_before = carry_after - delta (small carries, g2) ----
-    if (warp == 0) {
-      float x = 0.f;
-      for (int t = 0; t < len; ++t) x += sW[t] * sV[t * kCols + lane];
-      sM0[lane] -= x;
-    }
-    for (int a = warp; a < D; a += kThreads / 32) {
-      float x = 0.f;
-      for (int t = 0; t < len; ++t)
-        x += sK[t * KS + a] * sW[t] * sV[t * kCols + lane];
-      sM1[a * kCols + lane] -= x;
-    }
-    if (tid == 0) {
-      float x = 0.f;
-      for (int t = 0; t < len; ++t) x += sW[t];
-      sScal[0] -= x;
-    }
-    for (int a = tid; a < D; a += kThreads) {
-      float x = 0.f;
-      for (int t = 0; t < len; ++t) x += sW[t] * sK[t * KS + a];
-      sG1[a] -= x;
-    }
-    if (deg2) {
-      for (int e = tid; e < DD; e += kThreads) {
-        const int a = e / D, b = e - a * D;
-        float x = 0.f;
-        for (int t = 0; t < len; ++t)
-          x += sK[t * KS + a] * sW[t] * sK[t * KS + b];
-        g2b[e] -= x;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 x = ld4(sXT + (cc + kk) * kTile + 4 * tq);
+#pragma unroll
+      for (int ri = 0; ri < 4; ++ri) {
+        y[ri][0] += ar[ri][kk] * x.x; y[ri][1] += ar[ri][kk] * x.y;
+        y[ri][2] += ar[ri][kk] * x.z; y[ri][3] += ar[ri][kk] * x.w;
       }
     }
-    __syncthreads();
+  }
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri)
+    *reinterpret_cast<float4*>(sY + (4 * tr + ri) * kYS + 4 * tq) =
+        make_float4(y[ri][0], y[ri][1], y[ri][2], y[ri][3]);
+}
 
-    // ---- 2. den per query row (two threads per row) ----
-    {
-      const int r = tid >> 1, h = tid & 1;
-      const int i = r % C;
-      float part = 0.f;
-      for (int a = h; a < D; a += 2) {
-        const float qa = sQT[a * kRows + r];
-        float x = sG1[a];
-        if (deg2) {
-          float y = 0.f;
-          for (int b = 0; b < D; ++b) y += g2b[a * D + b] * sQT[b * kRows + r];
-          x += 0.5f * y;
+// sG [64, D + 1] += J_φ(x)^T y for the 64 table rows of sCode, with y in
+// sY [64, kYS] and x the 64 vectors of sX [64, D + 1]: thread (i, part) =
+// (tid & 63, tid >> 6) adds only to columns c of row i with c % 4 == part.
+// Rows go 8 at a time. Most groups are pairs (a, b..) of one first index
+// a: column a's eight terms are summed in a register and added once, and
+// the columns b, all different, are read together and then written
+// together, so the shared-memory round trips overlap. Other groups (the
+// linear rows, a change of a) add row by row.
+__device__ __forceinline__ void jacobian_scatter(float* sG, const float* sX,
+                                                 const float* sY,
+                                                 const int* sCode, int XS,
+                                                 int tid) {
+  constexpr int kU = 8;
+  const int i = tid & (kTile - 1), part = tid >> 6;
+  float* g = sG + i * XS;
+  const float* x = sX + i * XS;
+  for (int r0 = 0; r0 < kRT; r0 += kU) {
+    int a[kU], b[kU];
+    float y[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int c = sCode[r0 + u];   // 0: the constant row; < 0: none
+      a[u] = c > 0 ? code_a(c) : -1;
+      b[u] = c > 0 ? code_b(c) : -1;
+      y[u] = sY[(r0 + u) * kYS + i];
+    }
+    bool run = b[0] >= 0;
+#pragma unroll
+    for (int u = 1; u < kU; ++u) run = run && a[u] == a[0] && b[u] >= 0;
+    if (run) {
+      const int a0 = a[0];
+      float s = 0.f;
+#pragma unroll
+      for (int u = 0; u < kU; ++u) s += x[b[u]] * y[u];
+      if ((a0 & 3) == part) g[a0] += s;
+      const float xa = x[a0];
+      float gb[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        gb[u] = (b[u] != a0 && (b[u] & 3) == part) ? g[b[u]] : 0.f;
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        if (b[u] != a0 && (b[u] & 3) == part) g[b[u]] = gb[u] + xa * y[u];
+    } else {
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (a[u] < 0) continue;
+        if (b[u] < 0) {
+          if ((a[u] & 3) == part) g[a[u]] += y[u];
+        } else {
+          if ((a[u] & 3) == part) g[a[u]] += x[b[u]] * y[u];
+          if (b[u] != a[u] && (b[u] & 3) == part) g[b[u]] += x[a[u]] * y[u];
         }
-        part += qa * x;
       }
-      for (int t = h; t <= i && t < len; t += 2) {
-        float s = 0.f;
-        for (int a = 0; a < D; ++a) s += sQT[a * kRows + r] * sK[t * KS + a];
-        float f = 1.f + s;
-        if (deg2) f += 0.5f * s * s;
-        part += f * sW[t];
+    }
+  }
+}
+
+// Row r of a slot table (m [R, Dv] f32 beside its g column gs, null: none)
+// into x: the float4s at columns 4 l8 + 32 j < width, column Dv the g entry,
+// the rest 0. Returns the row's code. Loaded a tile ahead, so that the
+// loads are in flight while the block works on the tile before.
+template <int J, typename G>
+__device__ __forceinline__ int fetch_row(float4 (&x)[J], const float* ms,
+                                         const G* gs, int r, int D, int R,
+                                         int Dv, int width, int l8) {
+  const int code = row_code(r, D, R);
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int cc = 4 * l8 + 32 * j;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (code >= 0 && cc < width) {
+      if (cc < Dv) v = ld4(ms + (size_t)r * Dv + cc);
+      else if (cc == Dv && gs != nullptr) v.x = (float)gs[r];
+    }
+    x[j] = v;
+  }
+  return code;
+}
+
+template <int J>
+__device__ __forceinline__ void store_row(const float4 (&x)[J], float* dst,
+                                          int width, int l8) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int cc = 4 * l8 + 32 * j;
+    if (cc < width) *reinterpret_cast<float4*>(dst + cc) = x[j];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch A', over tokens [t_begin, t_begin + n) of N. k [BH, N, D],
+// v [BH, N, Dv]; fin the final carry in the state layout (f32; m2, g2 may
+// be null at p = 1), read when `from_slot` is 0; with `from_slot` the seed
+// is slot 0 of the workspace (the last segment's, read and rewritten in
+// place). wsm [nc, BH, R, Dv] f32, wsg [nc, BH, R] f64. A: the g column's
+// accumulator. grid (row tiles * column blocks, BH).
+// ---------------------------------------------------------------------------
+template <typename T, typename A>
+__global__ void __launch_bounds__(kThreads, kMomentBlocks)
+carry_slots_kernel(const T* __restrict__ k, const T* __restrict__ v,
+                   State fin, int from_slot, float* __restrict__ wsm,
+                   double* __restrict__ wsg, int N, int t_begin, int n,
+                   int D, int Dv, int p) {
+  __shared__ __align__(16) float sT[kChunk * kTile];   // features
+  __shared__ __align__(16) float sV[kChunk * kCols];
+  __shared__ A sG[kThreads];                           // g partials
+  __shared__ int sCode[kTile];
+  extern __shared__ float sK[];                        // [kChunk, D + 1]
+  constexpr bool kF64 = std::is_same<A, double>::value;
+  const int KS = D + 1;
+  const int R = n_rows(D, p);
+  const int ncb = (Dv + kCols - 1) / kCols;
+  const int tile = blockIdx.x / ncb, cb = blockIdx.x - tile * ncb;
+  const int r0 = tile * kTile, c0 = cb * kCols;
+  const int bh = blockIdx.y, BH = gridDim.y;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int myrow = tid & (kTile - 1);
+  const int cq = c0 + 4 * tx;
+  const int nc = (n + kL - 1) / kL;
+  if (tid < kTile) sCode[tid] = row_code(r0 + tid, D, R);
+  __syncthreads();
+  const int mycode = sCode[myrow];
+
+  // the carry, seeded with the one at the segment's end (pair rows with the
+  // symmetric half); every chunk's delta is summed on its own and then
+  // subtracted, one rounding of the large value per chunk, as the plain
+  // version's carry_before = carry_after - delta
+  float carry[4][4];
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri) {
+    const int c = sCode[4 * ty + ri], r = r0 + 4 * ty + ri;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c >= 0 && cq < Dv) {
+      if (from_slot) {
+        x = ld4(wsm + ((size_t)bh * R + r) * Dv + cq);
+      } else {
+        size_t mo, go;
+        long mt, gt;
+        state_offsets(c, bh, D, Dv, &mo, &go, &mt, &gt);
+        x = ld4(fin.m(c) + mo + cq);
+        if (mt >= 0) {
+          const float4 y = ld4(fin.m2 + mt + cq);
+          x = make_float4(0.5f * (x.x + y.x), 0.5f * (x.y + y.y),
+                          0.5f * (x.z + y.z), 0.5f * (x.w + y.w));
+        }
       }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      if (h == 0) sDen[r] = sScal[0] + part;
     }
-    __syncthreads();
-
-    // ---- 3. u = do / (den + eps) ----
-    for (int e = tid; e < kRows * kCols; e += kThreads) {
-      const int r = e / kCols, cc = e - r * kCols;
-      const int i = r % C;
-      const float u = (r < GC && i < len) ? sU[e] / (sDen[r] + eps) : 0.f;
-      sU[e] = u;
-      sUT[cc * kRows + r] = u;
+    carry[ri][0] = x.x; carry[ri][1] = x.y; carry[ri][2] = x.z;
+    carry[ri][3] = x.w;
+  }
+  A gcarry = A(0);   // the g carry of row `tid` (tid < kTile, cb == 0)
+  if (cb == 0 && tid < kTile && mycode >= 0) {
+    if (from_slot) {
+      gcarry = (A)wsg[(size_t)bh * R + r0 + tid];
+    } else {
+      size_t mo, go;
+      long mt, gt;
+      state_offsets(mycode, bh, D, Dv, &mo, &go, &mt, &gt);
+      gcarry = (A)fin.g(mycode)[go];
+      if (gt >= 0) gcarry = A(0.5) * (gcarry + (A)fin.g2[gt]);
     }
-    __syncthreads();
+  }
+  const T* kb = k + ((size_t)bh * N + t_begin) * D;
+  const T* vb = v + ((size_t)bh * N + t_begin) * Dv;
 
-    // ---- 4. one pass over m2 and gm2 in tiles of 32 rows ----
-    float acc2[4][4], dv2[2][4];
+  for (int c = nc - 1; c >= 0; --c) {
+    float dl[4][4];   // chunk c's delta
 #pragma unroll
     for (int ri = 0; ri < 4; ++ri)
 #pragma unroll
-      for (int ci = 0; ci < 4; ++ci) acc2[ri][ci] = 0.f;
+      for (int ci = 0; ci < 4; ++ci) dl[ri][ci] = 0.f;
+    A gp = A(0);
+    const int cl = min(kL, n - c * kL);
+    for (int j0 = 0; j0 < cl; j0 += kChunk) {
+      const int t0 = c * kL + j0, len = min(kChunk, cl - j0);
+      // a warp a row, 32 consecutive entries a step
+      for (int t = warp; t < kChunk; t += kThreads / 32) {
+        const T* kr = kb + (size_t)(t0 + t) * D;
+        const T* vr = vb + (size_t)(t0 + t) * Dv + c0;
+        for (int a = lane; a < D; a += 32)
+          sK[t * KS + a] = t < len ? ld(kr + a) : 0.f;
+        for (int cc = lane; cc < kCols; cc += 32)
+          sV[t * kCols + cc] = (t < len && c0 + cc < Dv) ? ld(vr + cc) : 0.f;
+      }
+      __syncthreads();
 #pragma unroll
-    for (int ti = 0; ti < 2; ++ti)
-#pragma unroll
-      for (int ci = 0; ci < 4; ++ci) dv2[ti][ci] = 0.f;
-    const bool t_ok = 2 * ty < C;       // this thread's two keys exist
-    if (deg2) {
-      for (int a = 0; a < D; ++a) {
-        float dqa[4] = {0.f, 0.f, 0.f, 0.f};
-        float dka[2] = {0.f, 0.f};
-        for (int b0 = 0; b0 < D; b0 += kRT) {
-          const int nv = min(kRT, D - b0);
-          const int rl = ty;            // this thread's tile row
-          const bool row_ok = rl < nv && cq_ok;
-          const size_t grow = (size_t)(a * D + b0 + rl) * Dv + cbase + c4;
-          float4 mv = make_float4(0.f, 0.f, 0.f, 0.f), gv = mv;
-          if (row_ok) {
-            mv = ld4(m2b + grow);
-            gv = ld4(gm2b + grow);
-          }
-          for (int e = tid; e < kRT * kRows; e += kThreads) {
-            const int bl = e >> 7, r = e & (kRows - 1);
-            sY[bl * kYS + r] = bl < nv
-                        ? sQT[a * kRows + r] * sQT[(b0 + bl) * kRows + r] : 0.f;
-          }
-          for (int e = tid; e < kRT * C; e += kThreads) {
-            const int bl = e / C, t = e - bl * C;
-            sT[bl * TS + t] = bl < nv
-                        ? sK[t * KS + a] * sW[t] * sK[t * KS + b0 + bl] : 0.f;
-          }
-          __syncthreads();
-          // subtract this chunk from the m2 tile; fold the chunk into gm2
-          // (written back) while the old gm2 tile stays for dv / dk
-          if (row_ok) {
-            // the chunk's delta first, then one subtraction from the
-            // carry (one rounding of the large value per chunk, not per
-            // token, as the plain version)
-            float4 dm = make_float4(0.f, 0.f, 0.f, 0.f);
-            for (int t = 0; t < len; ++t) {
-              const float s = sT[rl * TS + t];
-              const float4 vv = ld4(sV + t * kCols + c4);
-              dm.x += s * vv.x; dm.y += s * vv.y;
-              dm.z += s * vv.z; dm.w += s * vv.w;
-            }
-            mv.x -= dm.x; mv.y -= dm.y; mv.z -= dm.z; mv.w -= dm.w;
-            *reinterpret_cast<float4*>(m2b + grow) = mv;
-            float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-            for (int r = 0; r < kRows; ++r) {
-              const float y = sY[rl * kYS + r];
-              const float4 uu = ld4(sU + r * kCols + c4);
-              f.x += y * uu.x; f.y += y * uu.y; f.z += y * uu.z; f.w += y * uu.w;
-            }
-            *reinterpret_cast<float4*>(gm2b + grow) = make_float4(
-                gv.x + 0.5f * f.x, gv.y + 0.5f * f.y, gv.z + 0.5f * f.z,
-                gv.w + 0.5f * f.w);
-          }
-          *reinterpret_cast<float4*>(sMt + rl * kCols + c4) = mv;
-          *reinterpret_cast<float4*>(sGt + rl * kCols + c4) = gv;
-          sMtT[(c4 + 0) * kRT + rl] = mv.x; sMtT[(c4 + 1) * kRT + rl] = mv.y;
-          sMtT[(c4 + 2) * kRT + rl] = mv.z; sMtT[(c4 + 3) * kRT + rl] = mv.w;
-          sGtT[(c4 + 0) * kRT + rl] = gv.x; sGtT[(c4 + 1) * kRT + rl] = gv.y;
-          sGtT[(c4 + 2) * kRT + rl] = gv.z; sGtT[(c4 + 3) * kRT + rl] = gv.w;
-          __syncthreads();
-
-          // num: acc2 += (q_a q_b) . m2 tile
-#pragma unroll 4
-          for (int bl = 0; bl < kRT; ++bl) {
-            const float4 yv = ld4(sY + bl * kYS + 4 * ty);
-            const float4 m = ld4(sMt + bl * kCols + c4);
-            const float yr[4] = {yv.x, yv.y, yv.z, yv.w};
-            const float mc[4] = {m.x, m.y, m.z, m.w};
-#pragma unroll
-            for (int ri = 0; ri < 4; ++ri)
-#pragma unroll
-              for (int ci = 0; ci < 4; ++ci) acc2[ri][ci] += yr[ri] * mc[ci];
-          }
-          // dq column a: sum_b q_b sum_j u_j m2[ab, j]
-          {
-            float w[4][4];
-#pragma unroll
-            for (int ri = 0; ri < 4; ++ri)
-#pragma unroll
-              for (int kk = 0; kk < 4; ++kk) w[ri][kk] = 0.f;
-#pragma unroll 4
-            for (int j = 0; j < kCols; ++j) {
-              const float4 uv = ld4(sUT + j * kRows + 4 * ty);
-              const float4 m = ld4(sMtT + j * kRT + c4);
-              const float ur[4] = {uv.x, uv.y, uv.z, uv.w};
-              const float mc[4] = {m.x, m.y, m.z, m.w};
-#pragma unroll
-              for (int ri = 0; ri < 4; ++ri)
-#pragma unroll
-                for (int kk = 0; kk < 4; ++kk) w[ri][kk] += ur[ri] * mc[kk];
-            }
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-              const int b = b0 + c4 + kk;
-              if (b < D) {
-                const float4 qb = ld4(sQT + b * kRows + 4 * ty);
-                dqa[0] += w[0][kk] * qb.x; dqa[1] += w[1][kk] * qb.y;
-                dqa[2] += w[2][kk] * qb.z; dqa[3] += w[3][kk] * qb.w;
-              }
-            }
-          }
-          if (t_ok) {
-            // dv: w k_a k_b . old gm2 tile
-#pragma unroll 4
-            for (int bl = 0; bl < kRT; ++bl) {
-              const float2 kk = ld2(sT + bl * TS + 2 * ty);
-              const float4 gg = ld4(sGt + bl * kCols + c4);
-              dv2[0][0] += kk.x * gg.x; dv2[0][1] += kk.x * gg.y;
-              dv2[0][2] += kk.x * gg.z; dv2[0][3] += kk.x * gg.w;
-              dv2[1][0] += kk.y * gg.x; dv2[1][1] += kk.y * gg.y;
-              dv2[1][2] += kk.y * gg.z; dv2[1][3] += kk.y * gg.w;
-            }
-            // dk column a: 2 sum_b k_b sum_j w v_j gm2[ab, j]
-            float qq[2][4];
-#pragma unroll
-            for (int ti = 0; ti < 2; ++ti)
-#pragma unroll
-              for (int kk = 0; kk < 4; ++kk) qq[ti][kk] = 0.f;
-#pragma unroll 4
-            for (int j = 0; j < kCols; ++j) {
-              const float2 vw = ld2(sVWT + j * C + 2 * ty);
-              const float4 gg = ld4(sGtT + j * kRT + c4);
-              qq[0][0] += vw.x * gg.x; qq[0][1] += vw.x * gg.y;
-              qq[0][2] += vw.x * gg.z; qq[0][3] += vw.x * gg.w;
-              qq[1][0] += vw.y * gg.x; qq[1][1] += vw.y * gg.y;
-              qq[1][2] += vw.y * gg.z; qq[1][3] += vw.y * gg.w;
-            }
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-              const int b = b0 + c4 + kk;
-              if (b < D) {
-                dka[0] += qq[0][kk] * sK[(2 * ty) * KS + b];
-                dka[1] += qq[1][kk] * sK[(2 * ty + 1) * KS + b];
-              }
-            }
-          }
-          __syncthreads();
-        }
-        // the 8 threads of a row group (lanes differing in bits 0..2)
-#pragma unroll
-        for (int ri = 0; ri < 4; ++ri) dqa[ri] = lane8_sum(dqa[ri]);
-        dka[0] = lane8_sum(dka[0]);
-        dka[1] = lane8_sum(dka[1]);
-        if (tx == 0) {
-#pragma unroll
-          for (int ri = 0; ri < 4; ++ri) {
-            const int r = 4 * ty + ri, g = r / C, i = r - g * C;
-            if (r < GC && i < len)
-              dqb[(((size_t)bh * G + g) * N + c0 + i) * D + a] += dqa[ri];
-          }
-#pragma unroll
-          for (int ti = 0; ti < 2; ++ti) {
-            const int t = 2 * ty + ti;
-            if (t < len) dkb[(size_t)(c0 + t) * D + a] += 2.f * dka[ti];
-          }
+      for (int i = 0; i < kChunk / (kThreads / kTile); ++i) {
+        const int t = (tid / kTile) + (kThreads / kTile) * i;
+        const bool on = t < len && mycode >= 0;
+        const float f = on ? feature(mycode, sK + t * KS) : 0.f;
+        sT[t * kTile + myrow] = f;
+        if constexpr (kF64) {
+          if (cb == 0 && on) gp += feature64(mycode, sK + t * KS);
+        } else {
+          gp += f;
         }
       }
+      __syncthreads();
+      moment_tile(dl, sT, sV, len, ty, tx);
+      __syncthreads();
     }
-
-    // ---- 5. scores, num, o and the block's partial sden ----
-    for (int e = tid; e < C * kRows; e += kThreads) {
-      const int t = e / kRows, r = e - t * kRows;
-      float s = 0.f;
-      for (int a = 0; a < D; ++a) s += sQT[a * kRows + r] * sK[t * KS + a];
-      sS[t * kSS + r] = s;
-    }
-    __syncthreads();
-    {
-      float acc[4][4];
-      const float4 m0v = ld4(sM0 + c4);
+    // slot c: the carry before chunk c
+    const size_t slot = (size_t)c * BH + bh;
+#pragma unroll
+    for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+      for (int ci = 0; ci < 4; ++ci) carry[ri][ci] -= dl[ri][ci];
+    if (cq < Dv) {
 #pragma unroll
       for (int ri = 0; ri < 4; ++ri) {
-        acc[ri][0] = m0v.x + 0.5f * acc2[ri][0];
-        acc[ri][1] = m0v.y + 0.5f * acc2[ri][1];
-        acc[ri][2] = m0v.z + 0.5f * acc2[ri][2];
-        acc[ri][3] = m0v.w + 0.5f * acc2[ri][3];
+        const int r = r0 + 4 * ty + ri;
+        if (r < R)
+          *reinterpret_cast<float4*>(wsm + (slot * R + r) * Dv + cq) =
+              make_float4(carry[ri][0], carry[ri][1], carry[ri][2],
+                          carry[ri][3]);
       }
-      for (int a = 0; a < D; ++a) {
-        const float4 qv = ld4(sQT + a * kRows + 4 * ty);
-        const float4 mv = ld4(sM1 + a * kCols + c4);
-        const float qr[4] = {qv.x, qv.y, qv.z, qv.w};
-        const float mc[4] = {mv.x, mv.y, mv.z, mv.w};
-#pragma unroll
-        for (int ri = 0; ri < 4; ++ri)
-#pragma unroll
-          for (int ci = 0; ci < 4; ++ci) acc[ri][ci] += qr[ri] * mc[ci];
+    }
+    if (cb == 0) {
+      sG[tid] = gp;
+      __syncthreads();
+      if (tid < kTile && r0 + tid < R) {
+        A s = A(0);
+        for (int l = 0; l < kThreads / kTile; ++l) s += sG[l * kTile + tid];
+        gcarry -= s;
+        wsg[slot * R + r0 + tid] = (double)gcarry;
       }
-      for (int t = 0; t < len; ++t) {
-        const float4 vv = ld4(sV + t * kCols + c4);
-        const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
+      __syncthreads();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch B', over tokens [t_begin, t_begin + n) of N. q [BH*G, N, D], k, v
+// as launch A', do [BH*G, N, Dv]; wsm, wsg the carry slots; dq [BH*G, N, D];
+// uws [BH*G, N, Dv], sws [BH*G, N] (f32): u and sden. grid (ceil(G*L / 64),
+// nc, BH). NCG column groups of 64 cover D and Dv. A: the denominator's
+// accumulator.
+// ---------------------------------------------------------------------------
+__host__ __device__ inline int query_smem_floats(int D, int Dv, int ncg) {
+  const int QS = D + 1, BC = kCols * ncg;
+  const int pass1 = kChunk * (BC + kPS + QS);
+  const int pass2 = kRT * (Dv + 4 + kYS);
+  const int intra = kChunk * (QS + BC + Dv + 1 + kPS);
+  int x = pass1 > pass2 ? pass1 : pass2;
+  x = x > intra ? x : intra;
+  return 2 * kTile * QS + (Dv + 4) * kTile + kTile + x;
+}
+
+template <typename T, int NCG, typename A>
+__global__ void __launch_bounds__(kThreads)
+query_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
+             const float* __restrict__ wsm, const double* __restrict__ wsg,
+             T* __restrict__ dq, float* __restrict__ uws,
+             float* __restrict__ sws, int G, int N, int t_begin, int n,
+             int D, int Dv, int p, float eps) {
+  constexpr int BC = kCols * NCG;
+  constexpr bool kF64 = std::is_same<A, double>::value;
+  static_assert(kChunk * (BC + kPS) * sizeof(float) >=
+                kChunk * kTile * sizeof(A), "den partials overflow");
+  extern __shared__ __align__(16) float smem[];
+  const int QS = D + 1, TS = Dv + 4;
+  float* sQ = smem;                     // [64, D + 1] queries
+  float* sDQ = sQ + kTile * QS;         // [64, D + 1] dq
+  float* sUT = sDQ + kTile * QS;        // [Dv + 4, 64] u^T, then sden, 0
+  float* sDen = sUT + TS * kTile;       // [64] den + eps
+  float* sX = sDen + kTile;             // per phase:
+  float* sM = sX;                       //  1: [32, BC] slot rows, then v
+  float* sP = sM + kChunk * BC;         //     [32, kPS] features / f(s)
+  float* sK = sP + kChunk * kPS;        //     [32, D + 1] the chunk's keys
+  A* sRed = reinterpret_cast<A*>(sM);   //     [32, 64] den partials
+  float* sMt = sX;                      //  2: [64, Dv + 4] slot rows | g
+  float* sY = sMt + kRT * TS;           //     [64, kYS] y
+  float* sKs = sX;                      //  3: [32, D + 1] keys (scores)
+  float* sKB = sKs + kChunk * QS;       //     [32, BC] keys (product)
+  float* sVs = sKB + kChunk * BC;       //     [32, Dv + 1] values
+  float* sDS = sVs + kChunk * (Dv + 1); //     [32, kPS] ds
+  __shared__ int sPos[kTile];           // query position in the chunk, or -1
+  __shared__ int sCode[kRT];
+  const int R = n_rows(D, p);
+  const int c = blockIdx.y, bh = blockIdx.z, BH = gridDim.z;
+  const int t0 = t_begin + c * kL, len = min(kL, n - c * kL), GL = G * len;
+  const int qr0 = blockIdx.x * kTile;
+  if (qr0 >= GL) return;                // the last chunk's spare blocks
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int rl = tid >> 3, l8 = tid & 7;
+  const size_t slot = (size_t)c * BH + bh;
+  const float* ms = wsm + slot * R * Dv;
+  const double* gs = wsg + slot * R;
+  const T* kb = k + ((size_t)bh * N + t0) * D;
+  const T* vb = v + ((size_t)bh * N + t0) * Dv;
+  auto row_of = [&](int qr) -> size_t {   // q / do row of chunk row qr
+    const int g = qr / len, i = qr - g * len;
+    return ((size_t)bh * G + g) * N + t0 + i;
+  };
+
+  for (int e = tid; e < kTile * D; e += kThreads) {
+    const int r = e / D, a = e - r * D, qr = qr0 + r;
+    sQ[r * QS + a] = qr < GL ? ld(q + row_of(qr) * D + a) : 0.f;
+    sDQ[r * QS + a] = 0.f;
+  }
+  if (tid < kTile) {
+    const int qr = qr0 + tid;
+    sPos[tid] = qr < GL ? qr % len : -1;
+  }
+  __syncthreads();
+
+  // ---- pass 1: num and den, as the prefill's combine ----
+  float acc[4][4 * NCG];
 #pragma unroll
-        for (int ri = 0; ri < 4; ++ri) {
-          const int r = 4 * ty + ri;
-          if (t <= r % C) {
-            const float s = sS[t * kSS + r];
-            float f = 1.f + s;
-            if (deg2) f += 0.5f * s * s;
-            f *= sW[t];
+  for (int ri = 0; ri < 4; ++ri)
 #pragma unroll
-            for (int ci = 0; ci < 4; ++ci) acc[ri][ci] += f * vc[ci];
-          }
-        }
-      }
+    for (int ci = 0; ci < 4 * NCG; ++ci) acc[ri][ci] = 0.f;
+  A dp[kTile / 8];
 #pragma unroll
-      for (int ri = 0; ri < 4; ++ri) {
-        const int r = 4 * ty + ri;
-        const bool ok = r < GC && r % C < len;
-        const float4 uu = ld4(sU + r * kCols + c4);
-        float x = ok ? -(acc[ri][0] * uu.x + acc[ri][1] * uu.y +
-                         acc[ri][2] * uu.z + acc[ri][3] * uu.w) /
-                           (sDen[r] + eps)
-                     : 0.f;
-        x = lane8_sum(x);
-        if (tx == 0) sSden[r] = x;
+  for (int i = 0; i < kTile / 8; ++i) dp[i] = A(0);
+  float4 pm[BC / 32];   // the next tile's row, in flight
+  int ncode = fetch_row(pm, ms, (const double*)nullptr, rl, D, R, Dv, BC, l8);
+  A ng = ncode >= 0 ? (A)gs[rl] : A(0);
+  for (int r0 = 0; r0 < R; r0 += kChunk) {
+    const int code = ncode;
+    const A gv = ng;
+    store_row(pm, sM + rl * BC, BC, l8);
+    const float wr = code >= 0 ? row_weight(code) : 0.f;
+#pragma unroll
+    for (int i = 0; i < kTile / 8; ++i) {
+      const int qi = l8 + 8 * i;
+      const float f = code >= 0 ? wr * feature(code, sQ + qi * QS) : 0.f;
+      sP[rl * kPS + qi] = f;
+      if constexpr (kF64) {
+        if (code >= 0)
+          dp[i] += (double)wr * feature64(code, sQ + qi * QS) * gv;
+      } else {
+        dp[i] += f * gv;
       }
     }
     __syncthreads();
-
-    // ---- 6a. dv: intra F^T u, plus the chain through this chunk's delta
-    //      (old gm0, gm1; the gm2 part dv2 came from the pass) ----
-    if (t_ok && cq_ok) {
-#pragma unroll
-      for (int ti = 0; ti < 2; ++ti) {
-        const int t = 2 * ty + ti;
-        if (t < len) {
-          const float w = sW[t];
-          float x[4] = {dv2[ti][0], dv2[ti][1], dv2[ti][2], dv2[ti][3]};
-          const float4 gm0v = ld4(sGM0 + c4);
-          x[0] += w * gm0v.x; x[1] += w * gm0v.y;
-          x[2] += w * gm0v.z; x[3] += w * gm0v.w;
-          for (int a = 0; a < D; ++a) {
-            const float ka = w * sK[t * KS + a];
-            const float4 g = ld4(sGM1 + a * kCols + c4);
-            x[0] += ka * g.x; x[1] += ka * g.y; x[2] += ka * g.z; x[3] += ka * g.w;
-          }
-          for (int r = 0; r < GC; ++r) {
-            if (t > r % C) continue;
-            const float s = sS[t * kSS + r];
-            float f = 1.f + s;
-            if (deg2) f += 0.5f * s * s;
-            f *= w;
-            const float4 uu = ld4(sU + r * kCols + c4);
-            x[0] += f * uu.x; x[1] += f * uu.y; x[2] += f * uu.z; x[3] += f * uu.w;
-          }
-          T* row = dv + ((size_t)bh * N + c0 + t) * Dv + cbase + c4;
-#pragma unroll
-          for (int ci = 0; ci < 4; ++ci) st(row + ci, x[ci]);
-        }
-      }
+    if (r0 + kChunk < R) {
+      const int r = r0 + kChunk + rl;
+      ncode = fetch_row(pm, ms, (const double*)nullptr, r, D, R, Dv, BC, l8);
+      ng = ncode >= 0 ? (A)gs[r] : A(0);
     }
+    tile_product<NCG>(acc, sP, sM, BC, ty, tx);
     __syncthreads();
-
-    // ---- 6b. scores -> ds = (u.v + sden) f'(s) mask ----
-    for (int e = tid; e < C * kRows; e += kThreads) {
-      const int t = e / kRows, r = e - t * kRows;
-      const int i = r % C;
-      float ds = 0.f;
-      if (r < GC && i < len && t <= i) {
-        float uv = 0.f;
-        for (int cc = 0; cc < kCols; ++cc)
-          uv += sU[r * kCols + cc] * sV[t * kCols + cc];
-        const float fp = deg2 ? 1.f + sS[t * kSS + r] : 1.f;
-        ds = (uv + sSden[r]) * fp * sW[t];
-      }
-      sS[t * kSS + r] = ds;
-    }
-    __syncthreads();
-
-    // ---- 6c. dq and dk partials (small and intra terms) ----
-    for (int e = tid; e < kRows * D; e += kThreads) {
-      const int r = e / D, a = e - r * D;
-      const int g = r / C, i = r - g * C;
-      if (r >= GC || i >= len) continue;
-      float x = 0.f;
-      for (int t = 0; t <= i; ++t) x += sS[t * kSS + r] * sK[t * KS + a];
-      for (int cc = 0; cc < kCols; ++cc)
-        x += sU[r * kCols + cc] * sM1[a * kCols + cc];
-      float gq = sG1[a];
-      if (deg2)
-        for (int b = 0; b < D; ++b) gq += g2b[a * D + b] * sQT[b * kRows + r];
-      x += sSden[r] * gq;
-      dqb[(((size_t)bh * G + g) * N + c0 + i) * D + a] += x;
-    }
-    for (int e = tid; e < C * D; e += kThreads) {
+  }
+  for (int j0 = 0; j0 < len; j0 += kChunk) {
+    const int jn = min(kChunk, len - j0);
+    for (int e = tid; e < kChunk * D; e += kThreads) {
       const int t = e / D, a = e - t * D;
-      if (t >= len) continue;
-      float x = 0.f;
-      for (int r = 0; r < GC; ++r) x += sS[t * kSS + r] * sQT[a * kRows + r];
-      float y = sGG1[a];
-      for (int cc = 0; cc < kCols; ++cc)
-        y += sV[t * kCols + cc] * sGM1[a * kCols + cc];
-      if (deg2) {
-        float z = 0.f;
-        for (int b = 0; b < D; ++b) z += gg2b[a * D + b] * sK[t * KS + b];
-        y += 2.f * z;
-      }
-      x += sW[t] * y;
-      dkb[(size_t)(c0 + t) * D + a] += x;
+      sK[t * QS + a] = t < jn ? ld(kb + (size_t)(j0 + t) * D + a) : 0.f;
+    }
+    for (int e = tid; e < kChunk * BC; e += kThreads) {
+      const int t = e / BC, cc = e - t * BC;
+      sM[e] = (t < jn && cc < Dv) ? ld(vb + (size_t)(j0 + t) * Dv + cc) : 0.f;
     }
     __syncthreads();
+    const int j = j0 + rl;
+    A s[kTile / 8];
+#pragma unroll
+    for (int i = 0; i < kTile / 8; ++i) s[i] = A(0);
+    for (int a = 0; a < D; ++a) {
+      const A ka = sK[rl * QS + a];
+#pragma unroll
+      for (int i = 0; i < kTile / 8; ++i)
+        s[i] += (A)sQ[(l8 + 8 * i) * QS + a] * ka;
+    }
+#pragma unroll
+    for (int i = 0; i < kTile / 8; ++i) {
+      const int qi = l8 + 8 * i;
+      A f = A(0);
+      if (rl < jn && j <= sPos[qi]) {
+        f = A(1) + s[i];
+        if (p >= 2) f += A(0.5) * s[i] * s[i];
+      }
+      sP[rl * kPS + qi] = (float)f;
+      dp[i] += f;
+    }
+    __syncthreads();
+    tile_product<NCG>(acc, sP, sM, BC, ty, tx);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < kTile / 8; ++i) sRed[rl * kTile + l8 + 8 * i] = dp[i];
+  __syncthreads();
+  if (tid < kTile) {
+    A sum = A(0);
+    for (int l = 0; l < kChunk; ++l) sum += sRed[l * kTile + tid];
+    sDen[tid] = (float)(sum + (A)eps);
+  }
+  __syncthreads();
 
-    // ---- 7. fold this chunk into the carry-cotangent ----
-    if (warp == 0) {
-      float x = 0.f;
-      for (int r = 0; r < GC; ++r) x += sU[r * kCols + lane];
-      sGM0[lane] += x;
-    }
-    for (int a = warp; a < D; a += kThreads / 32) {
-      float x = 0.f;
-      for (int r = 0; r < GC; ++r)
-        x += sQT[a * kRows + r] * sU[r * kCols + lane];
-      sGM1[a * kCols + lane] += x;
-    }
-    if (tid == 0) {
-      float x = 0.f;
-      for (int r = 0; r < GC; ++r) x += sSden[r];
-      sScal[1] += x;
-    }
-    for (int a = tid; a < D; a += kThreads) {
-      float x = 0.f;
-      for (int r = 0; r < GC; ++r) x += sSden[r] * sQT[a * kRows + r];
-      sGG1[a] += x;
-    }
-    if (deg2) {
-      for (int e = tid; e < DD; e += kThreads) {
-        const int a = e / D, b = e - a * D;
-        float x = 0.f;
-        for (int r = 0; r < GC; ++r)
-          x += sQT[a * kRows + r] * sSden[r] * sQT[b * kRows + r];
-        gg2b[e] += 0.5f * x;
+  // ---- u = do / (den + eps), sden = -o.u (the 16 lanes of a row) ----
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri) {
+    const int r = 4 * ty + ri, qr = qr0 + r;
+    const bool ok = qr < GL;
+    const size_t row = ok ? row_of(qr) : 0;
+    const float deni = 1.f / sDen[r];
+    float part = 0.f;
+#pragma unroll
+    for (int j = 0; j < NCG; ++j) {
+      const int cq = kCols * j + 4 * tx;
+      if (cq >= Dv) continue;
+#pragma unroll
+      for (int ci = 0; ci < 4; ++ci) {
+        const float u = ok ? ld(dout + row * Dv + cq + ci) * deni : 0.f;
+        part -= acc[ri][4 * j + ci] * deni * u;
+        sUT[(cq + ci) * kTile + r] = u;
+        if (ok) uws[row * Dv + cq + ci] = u;
       }
     }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    part += __shfl_xor_sync(0xffffffffu, part, 4);
+    part += __shfl_xor_sync(0xffffffffu, part, 8);
+    if (tx == 0) {
+      sUT[Dv * kTile + r] = ok ? part : 0.f;
+      if (ok) sws[row] = part;
+    }
+  }
+  for (int e = tid; e < 3 * kTile; e += kThreads)
+    sUT[(Dv + 1) * kTile + e] = 0.f;
+  __syncthreads();
+
+  // ---- pass 2: dq through slot c, tile by tile ----
+  // the next tile's rows rl and rl + 32, in flight
+  float4 pt[2][(kMaxW + 4 + 31) / 32];
+  ncode = fetch_row(pt[0], ms, gs, rl, D, R, Dv, TS, l8);
+  int ncode1 = fetch_row(pt[1], ms, gs, rl + kChunk, D, R, Dv, TS, l8);
+  for (int r0 = 0; r0 < R; r0 += kRT) {
+    if (l8 == 0) {
+      sCode[rl] = ncode;
+      sCode[rl + kChunk] = ncode1;
+    }
+    store_row(pt[0], sMt + rl * TS, TS, l8);
+    store_row(pt[1], sMt + (rl + kChunk) * TS, TS, l8);
+    __syncthreads();
+    if (r0 + kRT < R) {
+      const int r = r0 + kRT + rl;
+      ncode = fetch_row(pt[0], ms, gs, r, D, R, Dv, TS, l8);
+      ncode1 = fetch_row(pt[1], ms, gs, r + kChunk, D, R, Dv, TS, l8);
+    }
+    rows_times(sMt, TS, TS, sUT, sY, tid);
+    __syncthreads();
+    jacobian_scatter(sDQ, sQ, sY, sCode, QS, tid);
     __syncthreads();
   }
 
-  // ---- the cotangent of the initial carry (gm2, gg2 are in place) ----
-  if (warp == 0 && col_ok) dsm0[(size_t)bh * Dv + col] = sGM0[lane];
-  if (col_ok)
-    for (int a = warp; a < D; a += kThreads / 32)
-      dsm1[((size_t)bh * D + a) * Dv + col] = sGM1[a * kCols + lane];
-  if (tid == 0) dsg0[(size_t)blk * BH + bh] = sScal[1];
-  for (int a = tid; a < D; a += kThreads)
-    dsg1[((size_t)blk * BH + bh) * D + a] = sGG1[a];
+  // ---- the chunk's own keys: dq += ds k, ds = f'(s)(u.v + sden) ----
+  float acc2[4][4 * NCG];
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+    for (int ci = 0; ci < 4 * NCG; ++ci) acc2[ri][ci] = 0.f;
+  const int VS = Dv + 1;
+  for (int j0 = 0; j0 < len; j0 += kChunk) {
+    const int jn = min(kChunk, len - j0);
+    for (int e = tid; e < kChunk * BC; e += kThreads) {
+      const int t = e / BC, a = e - t * BC;
+      const float x =
+          (t < jn && a < D) ? ld(kb + (size_t)(j0 + t) * D + a) : 0.f;
+      sKB[e] = x;
+      if (a < D) sKs[t * QS + a] = x;
+    }
+    for (int t = tid >> 5; t < kChunk; t += kThreads / 32)
+      for (int cc = tid & 31; cc < Dv; cc += 32)
+        sVs[t * VS + cc] = t < jn ? ld(vb + (size_t)(j0 + t) * Dv + cc) : 0.f;
+    __syncthreads();
+    const int j = j0 + rl;
+    float s[kTile / 8], uv[kTile / 8];
+#pragma unroll
+    for (int i = 0; i < kTile / 8; ++i) s[i] = uv[i] = 0.f;
+    if (p >= 2) {
+      for (int a = 0; a < D; ++a) {
+        const float ka = sKs[rl * QS + a];
+#pragma unroll
+        for (int i = 0; i < kTile / 8; ++i)
+          s[i] += sQ[(l8 + 8 * i) * QS + a] * ka;
+      }
+    }
+    for (int cc = 0; cc < Dv; ++cc) {
+      const float vc = sVs[rl * VS + cc];
+#pragma unroll
+      for (int i = 0; i < kTile / 8; ++i)
+        uv[i] += sUT[cc * kTile + l8 + 8 * i] * vc;
+    }
+#pragma unroll
+    for (int i = 0; i < kTile / 8; ++i) {
+      const int qi = l8 + 8 * i;
+      float ds = 0.f;
+      if (rl < jn && j <= sPos[qi]) {
+        const float fp = p >= 2 ? 1.f + s[i] : 1.f;
+        ds = fp * (uv[i] + sUT[Dv * kTile + qi]);
+      }
+      sDS[rl * kPS + qi] = ds;
+    }
+    __syncthreads();
+    tile_product<NCG>(acc2, sDS, sKB, BC, ty, tx);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+    for (int j = 0; j < NCG; ++j)
+#pragma unroll
+      for (int ci = 0; ci < 4; ++ci) {
+        const int a = kCols * j + 4 * tx + ci;
+        if (a < D) sDQ[(4 * ty + ri) * QS + a] += acc2[ri][4 * j + ci];
+      }
+  __syncthreads();
+  for (int e = tid; e < kTile * D; e += kThreads) {
+    const int r = e / D, a = e - r * D, qr = qr0 + r;
+    if (qr < GL) st(dq + row_of(qr) * D + a, sDQ[r * QS + a]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch C, over tokens [t_begin, t_begin + n) of N. q [BH*G, N, D]; uws,
+// sws as launch B' writes them. zcm [BH, R, Dv], zcg [BH, R] (f32, null for
+// a single segment): the cotangent carried between segments, read when
+// `seeded` and written after chunk 0. ds: the dstate outputs in the state
+// layout (m0 null: not asked for), written after chunk 0. wzm [nc, BH, R,
+// Dv], wzg [nc, BH, R] f32: Z_c. grid (row tiles * column blocks, BH).
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMomentBlocks)
+cot_slots_kernel(const T* __restrict__ q, const float* __restrict__ uws,
+                 const float* __restrict__ sws, float* zcm, float* zcg,
+                 int seeded, State ds, float* __restrict__ wzm,
+                 float* __restrict__ wzg, int G, int N, int t_begin, int n,
+                 int D, int Dv, int p) {
+  __shared__ __align__(16) float sT[kChunk * kTile];   // features
+  __shared__ __align__(16) float sV[kChunk * kCols];   // u
+  __shared__ float sG[kThreads];                       // g partials
+  __shared__ float sW[kChunk];                         // sden
+  __shared__ int sCode[kTile];
+  extern __shared__ float sK[];                        // [kChunk, D + 1]
+  const int KS = D + 1;
+  const int R = n_rows(D, p);
+  const int ncb = (Dv + kCols - 1) / kCols;
+  const int tile = blockIdx.x / ncb, cb = blockIdx.x - tile * ncb;
+  const int r0 = tile * kTile, c0 = cb * kCols;
+  const int bh = blockIdx.y, BH = gridDim.y;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int myrow = tid & (kTile - 1);
+  const int cq = c0 + 4 * tx;
+  const int nc = (n + kL - 1) / kL;
+  if (tid < kTile) sCode[tid] = row_code(r0 + tid, D, R);
+  __syncthreads();
+  const int mycode = sCode[myrow];
+
+  float acc[4][4];
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri) {
+    const int r = r0 + 4 * ty + ri;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (seeded && r < R && cq < Dv)
+      x = ld4(zcm + ((size_t)bh * R + r) * Dv + cq);
+    acc[ri][0] = x.x; acc[ri][1] = x.y; acc[ri][2] = x.z; acc[ri][3] = x.w;
+  }
+  const float gseed = (seeded && cb == 0 && tid < kTile && mycode >= 0)
+                          ? zcg[(size_t)bh * R + r0 + tid] : 0.f;
+  float gp = 0.f;
+  auto g_total = [&]() -> float {   // cb == 0 only
+    sG[tid] = gp;
+    __syncthreads();
+    float s = gseed;
+    if (tid < kTile)
+      for (int l = 0; l < kThreads / kTile; ++l) s += sG[l * kTile + tid];
+    __syncthreads();
+    return s;
+  };
+
+  for (int c = nc - 1; c >= 0; --c) {
+    // slot c: the cotangent of the carry after chunk c
+    const size_t slot = (size_t)c * BH + bh;
+    if (cq < Dv) {
+#pragma unroll
+      for (int ri = 0; ri < 4; ++ri) {
+        const int r = r0 + 4 * ty + ri;
+        if (r < R)
+          *reinterpret_cast<float4*>(wzm + (slot * R + r) * Dv + cq) =
+              make_float4(acc[ri][0], acc[ri][1], acc[ri][2], acc[ri][3]);
+      }
+    }
+    if (cb == 0) {
+      const float s = g_total();
+      if (tid < kTile && r0 + tid < R) wzg[slot * R + r0 + tid] = s;
+    }
+    // fold chunk c's G*len query rows
+    const int cl = min(kL, n - c * kL), GL = G * cl;
+    const size_t row0 = (size_t)t_begin + c * kL;
+    for (int j0 = 0; j0 < GL; j0 += kChunk) {
+      const int len = min(kChunk, GL - j0);
+      // a warp a query row, 32 consecutive entries a step
+      for (int t = warp; t < kChunk; t += kThreads / 32) {
+        size_t row = 0;
+        if (t < len) {
+          const int qr = j0 + t, g = qr / cl, i = qr - g * cl;
+          row = ((size_t)bh * G + g) * N + row0 + i;
+        }
+        for (int a = lane; a < D; a += 32)
+          sK[t * KS + a] = t < len ? ld(q + row * D + a) : 0.f;
+        for (int cc = lane; cc < kCols; cc += 32)
+          sV[t * kCols + cc] =
+              (t < len && c0 + cc < Dv) ? uws[row * Dv + c0 + cc] : 0.f;
+        if (lane == 0) sW[t] = t < len ? sws[row] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kChunk / (kThreads / kTile); ++i) {
+        const int t = (tid / kTile) + (kThreads / kTile) * i;
+        const float f = (t < len && mycode >= 0)
+                            ? feature(mycode, sK + t * KS) : 0.f;
+        sT[t * kTile + myrow] = f;
+        gp += f * sW[t];
+      }
+      __syncthreads();
+      moment_tile(acc, sT, sV, len, ty, tx);
+      __syncthreads();
+    }
+  }
+
+  // the total: the next segment's seed, and dstate
+  const float gs = cb == 0 ? g_total() : 0.f;
+  if (zcm != nullptr) {
+    if (cq < Dv) {
+#pragma unroll
+      for (int ri = 0; ri < 4; ++ri) {
+        const int r = r0 + 4 * ty + ri;
+        if (r < R)
+          *reinterpret_cast<float4*>(zcm + ((size_t)bh * R + r) * Dv + cq) =
+              make_float4(acc[ri][0], acc[ri][1], acc[ri][2], acc[ri][3]);
+      }
+    }
+    if (cb == 0 && tid < kTile && mycode >= 0)
+      zcg[(size_t)bh * R + r0 + tid] = gs;
+  }
+  if (ds.m0 == nullptr) return;
+  if (cq < Dv) {
+#pragma unroll
+    for (int ri = 0; ri < 4; ++ri) {
+      const int c = sCode[4 * ty + ri];
+      if (c < 0) continue;
+      size_t mo, go;
+      long mt, gt;
+      state_offsets(c, bh, D, Dv, &mo, &go, &mt, &gt);
+      const float h = code_b(c) >= 0 ? 0.5f : 1.f;   // m2[ab] = Z[ab] / 2
+      const float4 x = make_float4(h * acc[ri][0], h * acc[ri][1],
+                                   h * acc[ri][2], h * acc[ri][3]);
+      *reinterpret_cast<float4*>(ds.m(c) + mo + cq) = x;
+      if (mt >= 0) *reinterpret_cast<float4*>(ds.m2 + mt + cq) = x;
+    }
+  }
+  if (cb == 0 && tid < kTile && mycode >= 0) {
+    size_t mo, go;
+    long mt, gt;
+    state_offsets(mycode, bh, D, Dv, &mo, &go, &mt, &gt);
+    const float x = code_b(mycode) >= 0 ? 0.5f * gs : gs;
+    ds.g(mycode)[go] = x;
+    if (gt >= 0) ds.g2[gt] = x;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch D, over tokens [t_begin, t_begin + n) of N. q, k, v as launch B';
+// uws, sws as it writes them; wzm, wzg the cotangent slots; dk [BH, N, D],
+// dv [BH, N, Dv]. grid (ceil(L / 64), nc, BH).
+// ---------------------------------------------------------------------------
+__host__ __device__ inline int key_smem_floats(int D, int Dv, int ncg) {
+  const int QS = D + 1, BC = kCols * ncg;
+  const int ZS = BC > Dv + 4 ? BC : Dv + 4;
+  const int zpass = kRT * (ZS + kPS + kYS);
+  const int intra = kChunk * (QS + 2 * BC + Dv + 1 + 2 * kPS) + kChunk;
+  return 2 * kTile * QS + (Dv + 4) * kTile + (zpass > intra ? zpass : intra);
+}
+
+template <typename T, int NCG>
+__global__ void __launch_bounds__(kThreads)
+key_kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, const float* __restrict__ uws,
+           const float* __restrict__ sws, const float* __restrict__ wzm,
+           const float* __restrict__ wzg, T* __restrict__ dk,
+           T* __restrict__ dv, int G, int N, int t_begin, int n, int D,
+           int Dv, int p) {
+  constexpr int BC = kCols * NCG;
+  extern __shared__ __align__(16) float smem[];
+  const int QS = D + 1, TS = Dv + 4, VS = Dv + 1;
+  const int ZS = BC > TS ? BC : TS;
+  float* sKq = smem;                    // [64, D + 1] keys
+  float* sDK = sKq + kTile * QS;        // [64, D + 1] dk
+  float* sVT = sDK + kTile * QS;        // [Dv + 4, 64] v^T, then 1, 0
+  float* sX = sVT + TS * kTile;         // per phase:
+  float* sZ = sX;                       //  1: [64, ZS] slot rows | g
+  float* sP = sZ + kRT * ZS;            //     [64, kPS] weighted features
+  float* sY = sP + kRT * kPS;           //     [64, kYS] y
+  float* sQs = sX;                      //  2: [32, D + 1] queries (scores)
+  float* sQB = sQs + kChunk * QS;       //     [32, BC] queries (product)
+  float* sUB = sQB + kChunk * BC;       //     [32, BC] u (product)
+  float* sUs = sUB + kChunk * BC;       //     [32, Dv + 1] u (dots)
+  float* sF = sUs + kChunk * VS;        //     [32, kPS] f(s)
+  float* sDS = sF + kChunk * kPS;       //     [32, kPS] ds
+  float* sSd = sDS + kChunk * kPS;      //     [32] sden
+  __shared__ int sPos[kTile];           // key position in the chunk, or -1
+  __shared__ int sQpos[kChunk];         // query position, or -1
+  __shared__ int sCode[kRT];
+  const int R = n_rows(D, p);
+  const int c = blockIdx.y, bh = blockIdx.z, BH = gridDim.z;
+  const int t0 = t_begin + c * kL, len = min(kL, n - c * kL), GL = G * len;
+  const int k0 = blockIdx.x * kTile;
+  if (k0 >= len) return;                // the last chunk's spare blocks
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int rl = tid >> 3, l8 = tid & 7;
+  const int warp = tid >> 5, lane = tid & 31;
+  const size_t slot = (size_t)c * BH + bh;
+  const float* zs = wzm + slot * R * Dv;
+  const float* zg = wzg + slot * R;
+
+  for (int e = tid; e < kTile * D; e += kThreads) {
+    const int r = e / D, a = e - r * D, j = k0 + r;
+    sKq[r * QS + a] =
+        j < len ? ld(k + ((size_t)bh * N + t0 + j) * D + a) : 0.f;
+    sDK[r * QS + a] = 0.f;
+  }
+  for (int e = tid; e < TS * kTile; e += kThreads) {
+    const int cc = e / kTile, r = e - cc * kTile, j = k0 + r;
+    float x = 0.f;
+    if (j < len) {
+      if (cc < Dv) x = ld(v + ((size_t)bh * N + t0 + j) * Dv + cc);
+      else if (cc == Dv) x = 1.f;
+    }
+    sVT[e] = x;
+  }
+  if (tid < kTile) sPos[tid] = k0 + tid < len ? k0 + tid : -1;
+  __syncthreads();
+
+  // ---- one walk over Z_c: dv's product and dk's scatter ----
+  float acc[4][4 * NCG];
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+    for (int ci = 0; ci < 4 * NCG; ++ci) acc[ri][ci] = 0.f;
+  // the next tile's rows rl and rl + 32, in flight
+  float4 pz[2][(kMaxW + 4 + 31) / 32];
+  int ncode[2] = {fetch_row(pz[0], zs, zg, rl, D, R, Dv, ZS, l8),
+                  fetch_row(pz[1], zs, zg, rl + kChunk, D, R, Dv, ZS, l8)};
+  for (int r0 = 0; r0 < R; r0 += kRT) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int code = ncode[h], row = rl + kChunk * h;
+      if (l8 == 0) sCode[row] = code;
+      store_row(pz[h], sZ + row * ZS, ZS, l8);
+      const float wr = code >= 0 ? row_weight(code) : 0.f;
+#pragma unroll
+      for (int i = 0; i < kTile / 8; ++i) {
+        const int ki = l8 + 8 * i;
+        sP[row * kPS + ki] =
+            code >= 0 ? wr * feature(code, sKq + ki * QS) : 0.f;
+      }
+    }
+    __syncthreads();
+    if (r0 + kRT < R) {
+      const int r = r0 + kRT + rl;
+      ncode[0] = fetch_row(pz[0], zs, zg, r, D, R, Dv, ZS, l8);
+      ncode[1] = fetch_row(pz[1], zs, zg, r + kChunk, D, R, Dv, ZS, l8);
+    }
+    tile_product<NCG>(acc, sP, sZ, ZS, ty, tx);
+    tile_product<NCG>(acc, sP + kChunk * kPS, sZ + kChunk * ZS, ZS, ty, tx);
+    rows_times(sZ, ZS, TS, sVT, sY, tid);
+    __syncthreads();
+    jacobian_scatter(sDK, sKq, sY, sCode, QS, tid);
+    __syncthreads();
+  }
+
+  // ---- the chunk's queries i >= j (all G heads): f(s) u and ds q ----
+  float acc2[4][4 * NCG];
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri)
+#pragma unroll
+    for (int ci = 0; ci < 4 * NCG; ++ci) acc2[ri][ci] = 0.f;
+  for (int q0 = 0; q0 < GL; q0 += kChunk) {
+    const int qn = min(kChunk, GL - q0);
+    // rows whose position is below the block's first key add nothing
+    if ((q0 + qn - 1) / len == q0 / len && (q0 + qn - 1) % len < k0) continue;
+    // a warp a query row, 32 consecutive entries a step
+    for (int t = warp; t < kChunk; t += kThreads / 32) {
+      size_t row = 0;
+      int pos = -1;
+      if (t < qn) {
+        const int qr = q0 + t, g = qr / len;
+        pos = qr - g * len;
+        row = ((size_t)bh * G + g) * N + t0 + pos;
+      }
+      for (int a = lane; a < BC; a += 32) {
+        const float xq = (pos >= 0 && a < D) ? ld(q + row * D + a) : 0.f;
+        const float xu = (pos >= 0 && a < Dv) ? uws[row * Dv + a] : 0.f;
+        sQB[t * BC + a] = xq;
+        sUB[t * BC + a] = xu;
+        if (a < D) sQs[t * QS + a] = xq;
+        if (a < Dv) sUs[t * VS + a] = xu;
+      }
+      if (lane == 0) {
+        sSd[t] = pos >= 0 ? sws[row] : 0.f;
+        sQpos[t] = pos;
+      }
+    }
+    __syncthreads();
+    float s[kTile / 8], uv[kTile / 8];
+#pragma unroll
+    for (int i = 0; i < kTile / 8; ++i) s[i] = uv[i] = 0.f;
+    for (int a = 0; a < D; ++a) {
+      const float qa = sQs[rl * QS + a];
+#pragma unroll
+      for (int i = 0; i < kTile / 8; ++i)
+        s[i] += qa * sKq[(l8 + 8 * i) * QS + a];
+    }
+    for (int cc = 0; cc < Dv; ++cc) {
+      const float ua = sUs[rl * VS + cc];
+#pragma unroll
+      for (int i = 0; i < kTile / 8; ++i)
+        uv[i] += ua * sVT[cc * kTile + l8 + 8 * i];
+    }
+    const int qpos = sQpos[rl];
+#pragma unroll
+    for (int i = 0; i < kTile / 8; ++i) {
+      const int ki = l8 + 8 * i;
+      float f = 0.f, ds = 0.f;
+      if (qpos >= 0 && sPos[ki] >= 0 && sPos[ki] <= qpos) {
+        f = 1.f + s[i];
+        if (p >= 2) f += 0.5f * s[i] * s[i];
+        const float fp = p >= 2 ? 1.f + s[i] : 1.f;
+        ds = fp * (uv[i] + sSd[rl]);
+      }
+      sF[rl * kPS + ki] = f;
+      sDS[rl * kPS + ki] = ds;
+    }
+    __syncthreads();
+    tile_product<NCG>(acc, sF, sUB, BC, ty, tx);
+    tile_product<NCG>(acc2, sDS, sQB, BC, ty, tx);
+    __syncthreads();
+  }
+
+  // ---- dv from the registers; dk from sDK plus the intra term ----
+#pragma unroll
+  for (int ri = 0; ri < 4; ++ri) {
+    const int r = 4 * ty + ri, j = k0 + r;
+#pragma unroll
+    for (int jj = 0; jj < NCG; ++jj)
+#pragma unroll
+      for (int ci = 0; ci < 4; ++ci) {
+        const int cc = kCols * jj + 4 * tx + ci;
+        if (j < len && cc < Dv)
+          st(dv + ((size_t)bh * N + t0 + j) * Dv + cc, acc[ri][4 * jj + ci]);
+        if (cc < D) sDK[r * QS + cc] += acc2[ri][4 * jj + ci];
+      }
+  }
+  __syncthreads();
+  for (int e = tid; e < kTile * D; e += kThreads) {
+    const int r = e / D, a = e - r * D, j = k0 + r;
+    if (j < len) st(dk + ((size_t)bh * N + t0 + j) * D + a, sDK[r * QS + a]);
+  }
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, typename A>
+int launch_slots(const void* k, const void* v, const State& fin,
+                 int from_slot, void* wsm, void* wsg, int bh, int N,
+                 int t_begin, int n, int D, int Dv, int p, cudaStream_t s) {
+  const int R = n_rows(D, p);
+  const dim3 grid(((R + kTile - 1) / kTile) * ((Dv + kCols - 1) / kCols), bh);
+  const size_t sm = sizeof(float) * kChunk * (D + 1);
+  int err = set_smem(carry_slots_kernel<T, A>, sm);
+  if (err) return err;
+  carry_slots_kernel<T, A><<<grid, kThreads, sm, s>>>(
+      (const T*)k, (const T*)v, fin, from_slot, (float*)wsm, (double*)wsg, N,
+      t_begin, n, D, Dv, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NCG, typename A>
+int launch_queries(const void* q, const void* k, const void* v,
+                   const void* dout, const void* wsm, const void* wsg,
+                   void* dq, void* uws, void* sws, int bh, int G, int N,
+                   int t_begin, int n, int D, int Dv, int p, float eps,
+                   cudaStream_t s) {
+  const size_t sm = sizeof(float) * query_smem_floats(D, Dv, NCG);
+  int err = set_smem(query_kernel<T, NCG, A>, sm);
+  if (err) return err;
+  const dim3 grid((G * kL + kTile - 1) / kTile, (n + kL - 1) / kL, bh);
+  query_kernel<T, NCG, A><<<grid, kThreads, sm, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)wsm, (const double*)wsg, (T*)dq, (float*)uws,
+      (float*)sws, G, N, t_begin, n, D, Dv, p, eps);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           const void* m0, const void* m1, const void* g0, const void* g1,
-           void* m2w, void* g2w, void* dqp, void* dkp, void* dv, void* gm2,
-           void* gg2, void* dsm0, void* dsm1, void* dsg0, void* dsg1, int bh,
-           int G, int N, int D, int Dv, int p, int C, float eps,
-           void* stream) {
-  const size_t bytes = sizeof(float) * (size_t)smem_floats(C, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      causal_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Dv + kCols - 1) / kCols, bh);
-  causal_bwd_kernel<T><<<grid, kThreads, bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)m0, (const float*)m1, (const float*)g0, (const float*)g1,
-      (float*)m2w, (float*)g2w, (float*)dqp, (float*)dkp, (T*)dv,
-      (float*)gm2, (float*)gg2, (float*)dsm0, (float*)dsm1, (float*)dsg0,
-      (float*)dsg1, G, N, D, Dv, p, C, eps);
+int launch_cot(const void* q, const void* uws, const void* sws, void* zcm,
+               void* zcg, int seeded, const State& ds, void* wzm, void* wzg,
+               int bh, int G, int N, int t_begin, int n, int D, int Dv,
+               int p, cudaStream_t s) {
+  const int R = n_rows(D, p);
+  const dim3 grid(((R + kTile - 1) / kTile) * ((Dv + kCols - 1) / kCols), bh);
+  const size_t sm = sizeof(float) * kChunk * (D + 1);
+  int err = set_smem(cot_slots_kernel<T>, sm);
+  if (err) return err;
+  cot_slots_kernel<T><<<grid, kThreads, sm, s>>>(
+      (const T*)q, (const float*)uws, (const float*)sws, (float*)zcm,
+      (float*)zcg, seeded, ds, (float*)wzm, (float*)wzg, G, N, t_begin, n, D,
+      Dv, p);
   return (int)cudaGetLastError();
 }
+
+template <typename T, int NCG>
+int launch_keys(const void* q, const void* k, const void* v, const void* uws,
+                const void* sws, const void* wzm, const void* wzg, void* dk,
+                void* dv, int bh, int G, int N, int t_begin, int n, int D,
+                int Dv, int p, cudaStream_t s) {
+  const size_t sm = sizeof(float) * key_smem_floats(D, Dv, NCG);
+  int err = set_smem(key_kernel<T, NCG>, sm);
+  if (err) return err;
+  const dim3 grid((kL + kTile - 1) / kTile, (n + kL - 1) / kL, bh);
+  key_kernel<T, NCG><<<grid, kThreads, sm, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)uws,
+      (const float*)sws, (const float*)wzm, (const float*)wzg, (T*)dk,
+      (T*)dv, G, N, t_begin, n, D, Dv, p);
+  return (int)cudaGetLastError();
+}
+
+bool dims_ok(int bh, int G, int N, int t_begin, int n, int D, int Dv,
+             int p) {
+  return bh >= 1 && bh <= 65535 && G >= 1 && n >= 1 && t_begin >= 0 &&
+         t_begin <= N - n && D >= 4 && D % 4 == 0 && D <= kMaxW && Dv >= 4 &&
+         Dv % 4 == 0 && Dv <= kMaxW && (p == 1 || p == 2) &&
+         (n + kL - 1) / kL <= 65535 && (long)G * kL / kTile < (1L << 31);
+}
+
+State state_of(const void* m0, const void* m1, const void* m2,
+               const void* g0, const void* g1, const void* g2) {
+  return State{(float*)m0, (float*)m1, (float*)m2,
+               (float*)g0, (float*)g1, (float*)g2};
+}
+
+int groups_of(int D, int Dv) { return (D > kCols || Dv > kCols) ? 2 : 1; }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes the kernel needs at (G, C, D); the wrapper picks C.
-long fastmax_causal_bwd_smem_bytes(int G, int C, int D) {
-  (void)G;
-  return (long)sizeof(float) * smem_floats(C, D);
+// Every entry: one launch over tokens [t_begin, t_begin + n) of N, on the
+// caller's stream; dtype 0 = float32 q/k/v/do/dq/dk/dv, 1 = bfloat16;
+// returns cudaGetLastError() after the launch.
+
+// Launch A': the carry slots. f0..f5 the final carry (m2, g2 may be null
+// at p = 1), read when from_slot is 0. wsm [ceil(n/L), bh, R, Dv] f32,
+// wsg [ceil(n/L), bh, R] f64.
+int fastmax_causal_bwd_slots(int dtype, const void* k, const void* v,
+                             const void* f0, const void* f1, const void* f2,
+                             const void* f3, const void* f4, const void* f5,
+                             int from_slot, void* wsm, void* wsg, int bh,
+                             int N, int t_begin, int n, int D, int Dv, int p,
+                             void* stream) {
+  if (!dims_ok(bh, 1, N, t_begin, n, D, Dv, p))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const State fin = state_of(f0, f1, f2, f3, f4, f5);
+  if (dtype == 0)
+    return p == 1 ? launch_slots<float, double>(k, v, fin, from_slot, wsm,
+                                                wsg, bh, N, t_begin, n, D,
+                                                Dv, p, s)
+                  : launch_slots<float, float>(k, v, fin, from_slot, wsm, wsg,
+                                               bh, N, t_begin, n, D, Dv, p,
+                                               s);
+  return p == 1 ? launch_slots<__nv_bfloat16, double>(
+                      k, v, fin, from_slot, wsm, wsg, bh, N, t_begin, n, D,
+                      Dv, p, s)
+                : launch_slots<__nv_bfloat16, float>(
+                      k, v, fin, from_slot, wsm, wsg, bh, N, t_begin, n, D,
+                      Dv, p, s);
 }
 
-// dtype: 0 = float32 q/k/v/do/dv, 1 = bfloat16. Everything else is f32.
-// m2w and gm2 may be null at p = 1.
-int fastmax_causal_bwd(int dtype, const void* q, const void* k,
-                       const void* v, const void* dout, const void* m0,
-                       const void* m1, const void* g0, const void* g1,
-                       void* m2w, void* g2w, void* dqp, void* dkp, void* dv,
-                       void* gm2, void* gg2, void* dsm0, void* dsm1,
-                       void* dsg0, void* dsg1, int bh, int G, int N, int D,
-                       int Dv, int p, int C, float eps, void* stream) {
-  if (G * C > kRows || C < 2 || C % 2 || D % 4 || Dv % 4 ||
-      (p >= 2 && (m2w == nullptr || gm2 == nullptr)))
+// Launch B': the queries. dq [bh*G, N, D]; uws [bh*G, N, Dv] and
+// sws [bh*G, N] f32 receive u and sden.
+int fastmax_causal_bwd_queries(int dtype, const void* q, const void* k,
+                               const void* v, const void* dout,
+                               const void* wsm, const void* wsg, void* dq,
+                               void* uws, void* sws, int bh, int G, int N,
+                               int t_begin, int n, int D, int Dv, int p,
+                               float eps, void* stream) {
+  if (!dims_ok(bh, G, N, t_begin, n, D, Dv, p))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define QUERIES(T, NCG, A)                                                   \
+  launch_queries<T, NCG, A>(q, k, v, dout, wsm, wsg, dq, uws, sws, bh, G, N, \
+                            t_begin, n, D, Dv, p, eps, s)
+  const bool two = groups_of(D, Dv) == 2;
+  // the denominator in f64 at p = 1 (as the prefill's combine)
+  if (dtype == 0) {
+    if (p == 1) return two ? QUERIES(float, 2, double)
+                           : QUERIES(float, 1, double);
+    return two ? QUERIES(float, 2, float) : QUERIES(float, 1, float);
+  }
+  if (p == 1) return two ? QUERIES(__nv_bfloat16, 2, double)
+                         : QUERIES(__nv_bfloat16, 1, double);
+  return two ? QUERIES(__nv_bfloat16, 2, float)
+             : QUERIES(__nv_bfloat16, 1, float);
+#undef QUERIES
+}
+
+// Launch C: the cotangent slots. zcm [bh, R, Dv], zcg [bh, R] f32 (null:
+// one segment), read when seeded, written after chunk 0; d0..d5 the dstate
+// outputs (d0 null: none; m2, g2 not written at p = 1). wzm [ceil(n/L),
+// bh, R, Dv], wzg [ceil(n/L), bh, R] f32.
+int fastmax_causal_bwd_cot(int dtype, const void* q, const void* uws,
+                           const void* sws, void* zcm, void* zcg, int seeded,
+                           void* d0, void* d1, void* d2, void* d3, void* d4,
+                           void* d5, void* wzm, void* wzg, int bh, int G,
+                           int N, int t_begin, int n, int D, int Dv, int p,
+                           void* stream) {
+  if (!dims_ok(bh, G, N, t_begin, n, D, Dv, p) ||
+      (seeded && zcm == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const State ds = state_of(d0, d1, d2, d3, d4, d5);
   if (dtype == 0)
-    return launch<float>(q, k, v, dout, m0, m1, g0, g1, m2w, g2w, dqp, dkp,
-                         dv, gm2, gg2, dsm0, dsm1, dsg0, dsg1, bh, G, N, D,
-                         Dv, p, C, eps, stream);
-  return launch<__nv_bfloat16>(q, k, v, dout, m0, m1, g0, g1, m2w, g2w, dqp,
-                               dkp, dv, gm2, gg2, dsm0, dsm1, dsg0, dsg1, bh,
-                               G, N, D, Dv, p, C, eps, stream);
+    return launch_cot<float>(q, uws, sws, zcm, zcg, seeded, ds, wzm, wzg, bh,
+                             G, N, t_begin, n, D, Dv, p, s);
+  return launch_cot<__nv_bfloat16>(q, uws, sws, zcm, zcg, seeded, ds, wzm,
+                                   wzg, bh, G, N, t_begin, n, D, Dv, p, s);
+}
+
+// Launch D: the keys. dk [bh, N, D], dv [bh, N, Dv].
+int fastmax_causal_bwd_keys(int dtype, const void* q, const void* k,
+                            const void* v, const void* uws, const void* sws,
+                            const void* wzm, const void* wzg, void* dk,
+                            void* dv, int bh, int G, int N, int t_begin,
+                            int n, int D, int Dv, int p, void* stream) {
+  if (!dims_ok(bh, G, N, t_begin, n, D, Dv, p))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool two = groups_of(D, Dv) == 2;
+  if (dtype == 0)
+    return two ? launch_keys<float, 2>(q, k, v, uws, sws, wzm, wzg, dk, dv,
+                                       bh, G, N, t_begin, n, D, Dv, p, s)
+               : launch_keys<float, 1>(q, k, v, uws, sws, wzm, wzg, dk, dv,
+                                       bh, G, N, t_begin, n, D, Dv, p, s);
+  return two ? launch_keys<__nv_bfloat16, 2>(q, k, v, uws, sws, wzm, wzg, dk,
+                                             dv, bh, G, N, t_begin, n, D, Dv,
+                                             p, s)
+             : launch_keys<__nv_bfloat16, 1>(q, k, v, uws, sws, wzm, wzg, dk,
+                                             dv, bh, G, N, t_begin, n, D, Dv,
+                                             p, s);
 }
 
 }  // extern "C"

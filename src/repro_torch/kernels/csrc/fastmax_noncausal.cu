@@ -62,64 +62,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "feature_table.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;    // feature rows (moments) / query rows (combine)
-constexpr int kCols = 64;    // value columns per tile
-constexpr int kChunk = 32;   // keys (moments) / feature rows (combine) a step
-constexpr int kPS = 72;      // padded row stride of the combine's features
 constexpr int kMaxQ = 16;    // query rows per bh of the split combine
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__host__ __device__ inline int n_rows(int D, int p) {
-  return 1 + D + (p >= 2 ? D * (D + 1) / 2 : 0);
-}
-
-// Feature row r as a code: (ia + 1) | (ib + 1) << 8, ia = -1 for the
-// constant row, ib = -1 for a linear row; -1 past the last row.
-__device__ inline int row_code(int r, int D, int R) {
-  if (r >= R) return -1;
-  if (r == 0) return 0;
-  if (r <= D) return r;
-  const int idx = r - 1 - D;
-  // pairs a <= b in row-major order: row a starts at a*D - a(a-1)/2
-  const float t = (float)(2 * D + 1);
-  int a = (int)((t - sqrtf(t * t - 8.f * (float)idx)) * 0.5f);
-  a = max(0, min(a, D - 1));
-  while (a > 0 && a * D - a * (a - 1) / 2 > idx) --a;
-  while (a + 1 < D && (a + 1) * D - (a + 1) * a / 2 <= idx) ++a;
-  const int b = a + idx - (a * D - a * (a - 1) / 2);
-  return (a + 1) | ((b + 1) << 8);
-}
-
-__device__ __forceinline__ int code_a(int c) { return (c & 255) - 1; }
-__device__ __forceinline__ int code_b(int c) { return (c >> 8) - 1; }
-
-// The feature of row `c` for the vector x (in shared memory).
-__device__ __forceinline__ float feature(int c, const float* x) {
-  const int a = code_a(c), b = code_b(c);
-  float f = a < 0 ? 1.f : x[a];
-  if (b >= 0) f *= x[b];
-  return f;
-}
-
-// The combine's weight of row `c`: 1/2 on the diagonal pairs (a == b).
-__device__ __forceinline__ float row_weight(int c) {
-  const int b = code_b(c);
-  return (b >= 0 && b == code_a(c)) ? 0.5f : 1.f;
-}
 
 // Row `c` of the moments of bh: its m row (Dv floats) and its g entry.
 __device__ __forceinline__ const float* m_row(int c, const float* m0,
@@ -199,17 +146,7 @@ moments_kernel(const T* __restrict__ k, const T* __restrict__ v,
       gp += f;
     }
     __syncthreads();
-#pragma unroll 4
-    for (int t = 0; t < len; ++t) {
-      const float4 fv = ld4(sT + t * kTile + 4 * ty);
-      const float4 vv = ld4(sV + t * kCols + 4 * tx);
-      const float fr[4] = {fv.x, fv.y, fv.z, fv.w};
-      const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-      for (int ri = 0; ri < 4; ++ri)
-#pragma unroll
-        for (int ci = 0; ci < 4; ++ci) acc[ri][ci] += fr[ri] * vc[ci];
-    }
+    moment_tile(acc, sT, sV, len, ty, tx);
     __syncthreads();
   }
 
@@ -331,17 +268,7 @@ combine_rows_kernel(const T* __restrict__ q, const float* __restrict__ m0,
         dp[i] += f * gv;
       }
       __syncthreads();
-#pragma unroll 4
-      for (int r = 0; r < kChunk; ++r) {
-        const float4 fv = ld4(sP + r * kPS + 4 * ty);
-        const float4 mv = ld4(sM + r * kCols + 4 * tx);
-        const float fr[4] = {fv.x, fv.y, fv.z, fv.w};
-        const float mc[4] = {mv.x, mv.y, mv.z, mv.w};
-#pragma unroll
-        for (int ri = 0; ri < 4; ++ri)
-#pragma unroll
-          for (int ci = 0; ci < 4; ++ci) acc[ri][ci] += fr[ri] * mc[ci];
-      }
+      tile_product<1>(acc, sP, sM, kCols, ty, tx);
       __syncthreads();
     }
     if (cb == 0) {

@@ -27,7 +27,7 @@ __all__ = ["fastmax_causal_cuda", "fastmax_causal_ref", "prefill_call",
 # though each call makes two CUDA launches: prefix moments, then combine)
 launches = 0
 
-# pick_chunk: the chunk of the sequential scan kernels (hybrid, backward)
+# pick_chunk: the chunk of the sequential scan kernel (hybrid)
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _MAX_ROWS = 128       # G * C query rows per chunk (4 per thread)
 
@@ -84,7 +84,7 @@ def workspace_bytes(bh: int, n: int, d: int, dv: int, p: int) -> int:
 
 
 def pick_chunk(g: int, d: int, smem_bytes) -> int:
-    """Chunk length of a sequential scan kernel (hybrid, backward): at most
+    """Chunk length of the sequential scan kernel (hybrid): at most
     64 tokens and 128 query rows (G * C <= 128), halved until the block's
     shared memory fits the card."""
     if g > _MAX_ROWS:

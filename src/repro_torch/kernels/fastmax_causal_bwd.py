@@ -2,10 +2,15 @@
 plain version.
 
 Port of `repro/kernels/fastmax_causal_bwd.py::fastmax_causal_bwd_pallas`.
-The kernel is `csrc/fastmax_causal_bwd.cu` (design notes there);
-`fastmax_causal_bwd_ref` is the plain PyTorch version with the same
-results, built on `core.fastmax._causal_scan_cg_bwd`. `kernels.ops`
-picks between them by the tensors' device.
+The kernel is `csrc/fastmax_causal_bwd.cu` (design notes there): four CUDA
+launches per segment of the tokens, run last segment first — the carry
+before each chunk of L = 128 tokens rebuilt from the final carry into a
+workspace, the queries (dq, and u and sden into a second workspace), the
+cotangent of the carry after each chunk into a third, then the keys (dk,
+dv); `bwd_call` exposes them one by one. `fastmax_causal_bwd_ref` is the
+plain PyTorch version with the same results, built on
+`core.fastmax._causal_scan_cg_bwd`. `kernels.ops` picks between them by
+the tensors' device.
 """
 from __future__ import annotations
 
@@ -14,17 +19,19 @@ import ctypes
 import torch
 
 from repro_torch.core.fastmax import Moments, _causal_scan_cg_bwd
-from repro_torch.kernels.fastmax_causal import (_KERNEL_DTYPES, _check_inputs,
-                                                _state_shapes, pick_chunk)
+from repro_torch.kernels.fastmax_causal import (CHUNK, _KERNEL_DTYPES,
+                                                _aligned, _check_inputs,
+                                                _state_shapes, feature_rows,
+                                                segment_tokens)
 
-__all__ = ["fastmax_causal_bwd_cuda", "fastmax_causal_bwd_ref", "kernel_chunk",
-           "launches"]
+__all__ = ["fastmax_causal_bwd_cuda", "fastmax_causal_bwd_ref", "bwd_call",
+           "bwd_workspace_bytes", "launches"]
 
-# kernel launches made by `fastmax_causal_bwd_cuda` (one per call)
+# calls of `fastmax_causal_bwd_cuda` that launched the kernel (one per call,
+# though each call makes four CUDA launches per segment)
 launches = 0
 
-_COLS = 32           # Dv column block of the kernel
-_MAX_GROUP = 64      # the kernel's chunk must hold an even number of keys
+_MAX_WIDTH = 128     # D and Dv the kernel takes at most
 
 
 def _lib():
@@ -32,25 +39,33 @@ def _lib():
 
     lib = build.load("fastmax_causal_bwd")
     if not getattr(lib, "_typed", False):
-        lib.fastmax_causal_bwd.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 19
-            + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-        lib.fastmax_causal_bwd.restype = ctypes.c_int
-        lib.fastmax_causal_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.fastmax_causal_bwd_smem_bytes.restype = ctypes.c_long
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.fastmax_causal_bwd_slots.argtypes = (
+            [i32] + [ptr] * 8 + [i32] + [ptr] * 2 + [i32] * 7 + [ptr])
+        lib.fastmax_causal_bwd_queries.argtypes = (
+            [i32] + [ptr] * 9 + [i32] * 8 + [ctypes.c_float, ptr])
+        lib.fastmax_causal_bwd_cot.argtypes = (
+            [i32] + [ptr] * 5 + [i32] + [ptr] * 8 + [i32] * 8 + [ptr])
+        lib.fastmax_causal_bwd_keys.argtypes = (
+            [i32] + [ptr] * 9 + [i32] * 8 + [ptr])
+        for fn in ("slots", "queries", "cot", "keys"):
+            getattr(lib, f"fastmax_causal_bwd_{fn}").restype = i32
         lib._typed = True
     return lib
 
 
-def kernel_chunk(g: int, d: int) -> int:
-    """The kernel's own chunk length at group G and head dim D: the
-    forward's rule rounded down to even (any chunking is exact, since the
-    carry is a plain sum)."""
-    c = pick_chunk(g, d, _lib().fastmax_causal_bwd_smem_bytes)
-    c -= c % 2
-    if c < 2:
-        raise ValueError(f"G={g}, D={d} leaves the kernel no even chunk")
-    return c
+def bwd_workspace_bytes(b: int, hq: int, hkv: int, n: int, d: int, dv: int,
+                        p: int) -> int:
+    """Bytes of one call's workspace: per chunk of the longest segment a
+    carry slot (float32 m rows, float64 g column) and a cotangent slot
+    (float32), u and sden for every query row (float32), and, over
+    several segments, the cotangent carried between them."""
+    bh, r = b * hkv, feature_rows(d, p)
+    seg = segment_tokens(bh, d, dv, p)
+    chunks = -(-min(n, seg) // CHUNK)
+    carry = 4 * bh * r * (dv + 1) if n > seg else 0
+    return (chunks * bh * r * ((4 * dv + 8) + (4 * dv + 4))
+            + 4 * b * hq * n * (dv + 1) + carry)
 
 
 def _full_state(state, b, hkv, d, dv, like):
@@ -66,94 +81,180 @@ def _full_state(state, b, hkv, d, dv, like):
     return out
 
 
+class _Backward:
+    """One call of the backward kernel with its inputs checked and its
+    outputs and workspaces allocated: `slots(i)`, `queries(i)`, `cot(i)`
+    and `keys(i)` make the four CUDA launches of segment i (timed apart by
+    `chip_smoke.py`), `run()` every segment's, the last segment first."""
+
+    def __init__(self, q, k, v, state, do, p, denom_eps, return_dstate):
+        _check_inputs(q, k, v)
+        if p not in (1, 2):
+            raise ValueError(f"p must be 1 or 2, got {p}")
+        dev = q.device
+        if dev.type != "cuda":
+            raise ValueError(f"fastmax_causal_bwd_cuda needs CUDA tensors, "
+                             f"got {dev}")
+        if q.dtype not in _KERNEL_DTYPES or any(
+                t.dtype != q.dtype for t in (k, v, do)):
+            raise ValueError(f"q/k/v/do must share float32 or bfloat16, got "
+                             f"{q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
+        b, hq, n, d = q.shape
+        hkv, dv = k.shape[1], v.shape[-1]
+        if tuple(do.shape) != (b, hq, n, dv):
+            raise ValueError(f"do {tuple(do.shape)}, expected "
+                             f"{(b, hq, n, dv)}")
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+            if t.device != dev:
+                raise ValueError(f"{name} on {t.device}, q on {dev}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if d % 4 or dv % 4 or d > _MAX_WIDTH or dv > _MAX_WIDTH:
+            raise ValueError(f"the kernel needs D and Dv divisible by 4 and "
+                             f"at most {_MAX_WIDTH}, got D={d}, Dv={dv}")
+        f32 = torch.float32
+        # read only: the residual is never written; m2, g2 unused at p=1
+        self.fin = []
+        for j, (t, shp) in enumerate(zip(state, _state_shapes(b, hkv, d,
+                                                              dv))):
+            if p < 2 and j in (2, 5):
+                self.fin.append(None)
+                continue
+            if t is None or tuple(t.shape) != shp or t.device != dev:
+                got = ("None" if t is None
+                       else f"{tuple(t.shape)} on {t.device}")
+                raise ValueError(f"state leaf {got}, expected {shp} on {dev}")
+            self.fin.append(_aligned(t.to(f32).contiguous()))
+        self.q, self.k, self.v, self.do = q, k, v, do
+        self.p, self.eps = p, float(denom_eps)
+        self.bh, self.g, self.n, self.d, self.dv = b * hkv, hq // hkv, n, d, dv
+        seg = segment_tokens(self.bh, d, dv, p)
+        self.segments = [(t, min(seg, n - t)) for t in range(0, n, seg)]
+        self.workspace_bytes = bwd_workspace_bytes(b, hq, hkv, n, d, dv, p)
+        r = self.bh * feature_rows(d, p)
+        rows = -(-min(n, seg) // CHUNK) * r
+        self.wsm = torch.empty(rows * dv, dtype=f32, device=dev)
+        self.wsg = torch.empty(rows, dtype=torch.float64, device=dev)
+        self.wzm = torch.empty(rows * dv, dtype=f32, device=dev)
+        self.wzg = torch.empty(rows, dtype=f32, device=dev)
+        self.uws = torch.empty(b * hq * n * dv, dtype=f32, device=dev)
+        self.sws = torch.empty(b * hq * n, dtype=f32, device=dev)
+        self.zc = None
+        if len(self.segments) > 1:
+            self.zc = (torch.empty(r * dv, dtype=f32, device=dev),
+                       torch.empty(r, dtype=f32, device=dev))
+        self.dq = torch.empty_like(q)
+        self.dk = torch.empty_like(k)
+        self.dvo = torch.empty_like(v)
+        self.dstate = None
+        if return_dstate:
+            # at p=1 the kernel writes no m2, g2
+            alloc = torch.empty if p >= 2 else torch.zeros
+            self.dstate = tuple(alloc(s, dtype=f32, device=dev)
+                                for s in _state_shapes(b, hkv, d, dv))
+        self.dtype = _KERNEL_DTYPES[q.dtype]
+        self.lib = _lib()
+
+    def _launch(self, fn, *args):
+        with torch.cuda.device(self.q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = getattr(self.lib, f"fastmax_causal_bwd_{fn}")(
+                self.dtype, *args, stream)
+        if err != 0:
+            raise RuntimeError(f"fastmax_causal_bwd {fn} launch failed: CUDA "
+                               f"error {err}")
+
+    def _last(self, i):
+        return i == len(self.segments) - 1
+
+    def slots(self, i: int = 0):
+        """Launch A' of segment i: the carry before each of its chunks into
+        the carry slots, rebuilt from the final carry (the last segment) or
+        from slot 0 of the segment after it (the launch before, in place)."""
+        t0, n = self.segments[i]
+        fin = [None if t is None else t.data_ptr() for t in self.fin]
+        self._launch("slots", self.k.data_ptr(), self.v.data_ptr(), *fin,
+                     int(not self._last(i)), self.wsm.data_ptr(),
+                     self.wsg.data_ptr(), self.bh, self.n, t0, n, self.d,
+                     self.dv, self.p)
+
+    def queries(self, i: int = 0):
+        """Launch B' of segment i: dq, u and sden of its query rows."""
+        t0, n = self.segments[i]
+        self._launch("queries", self.q.data_ptr(), self.k.data_ptr(),
+                     self.v.data_ptr(), self.do.data_ptr(),
+                     self.wsm.data_ptr(), self.wsg.data_ptr(),
+                     self.dq.data_ptr(), self.uws.data_ptr(),
+                     self.sws.data_ptr(), self.bh, self.g, self.n, t0, n,
+                     self.d, self.dv, self.p, self.eps)
+
+    def cot(self, i: int = 0):
+        """Launch C of segment i: the cotangent of the carry after each of
+        its chunks into the cotangent slots, seeded with the total of the
+        segment after it; segment 0's total is dstate."""
+        t0, n = self.segments[i]
+        zc = (None, None) if self.zc is None else [t.data_ptr()
+                                                   for t in self.zc]
+        ds = [None] * 6
+        if self.dstate is not None and i == 0:
+            ds = [t.data_ptr() for t in self.dstate]
+        self._launch("cot", self.q.data_ptr(), self.uws.data_ptr(),
+                     self.sws.data_ptr(), *zc, int(not self._last(i)), *ds,
+                     self.wzm.data_ptr(), self.wzg.data_ptr(), self.bh,
+                     self.g, self.n, t0, n, self.d, self.dv, self.p)
+
+    def keys(self, i: int = 0):
+        """Launch D of segment i: dk and dv of its keys."""
+        t0, n = self.segments[i]
+        self._launch("keys", self.q.data_ptr(), self.k.data_ptr(),
+                     self.v.data_ptr(), self.uws.data_ptr(),
+                     self.sws.data_ptr(), self.wzm.data_ptr(),
+                     self.wzg.data_ptr(), self.dk.data_ptr(),
+                     self.dvo.data_ptr(), self.bh, self.g, self.n, t0, n,
+                     self.d, self.dv, self.p)
+
+    def run(self):
+        for i in reversed(range(len(self.segments))):
+            self.slots(i)
+            self.queries(i)
+            self.cot(i)
+            self.keys(i)
+        grads = (self.dq, self.dk, self.dvo)
+        return grads if self.dstate is None else grads + (self.dstate,)
+
+
+def bwd_call(q, k, v, state, do, *, p: int = 2, denom_eps: float = 1e-6,
+             return_dstate: bool = False) -> _Backward:
+    """The backward kernel's call on these inputs, checked and allocated
+    but not launched (its `slots(i)`, `queries(i)`, `cot(i)`, `keys(i)` and
+    `run()` launch; none of them counts in `launches`). Arguments as
+    `fastmax_causal_bwd_cuda`."""
+    return _Backward(q, k, v, state, do, p, denom_eps, return_dstate)
+
+
 def fastmax_causal_bwd_cuda(q, k, v, state, do, *, p: int = 2,
                             denom_eps: float = 1e-6,
                             return_dstate: bool = False):
     """Launch the CUDA §2.5 backward on pre-normalized q̂ [B,Hq,N,D],
     k̂ [B,Hkv,N,D], v [B,Hkv,N,Dv] (float32 or bfloat16, contiguous, one
-    CUDA device), the forward's final carry `state` (f32, m2 m-major
-    [B,Hkv,D,D,Dv], as `fastmax_causal_cuda` emits it; m2/g2 may be None
-    at p=1) and the output cotangent `do` [B,Hq,N,Dv] in q's dtype.
+    CUDA device, D and Dv at most 128), the forward's final carry `state`
+    (f32, m2 m-major [B,Hkv,D,D,Dv], as `fastmax_causal_cuda` emits it;
+    m2/g2 may be None at p=1) and the output cotangent `do` [B,Hq,N,Dv] in
+    q's dtype.
 
     Returns (dq, dk, dv) in q's, k's and v's dtypes; with `return_dstate`
     also the cotangent of the scan's initial carry (f32 moment tuple). The
-    residual `state` is never written: the kernel rebuilds the carry in a
-    workspace copy. Raises on any input the kernel does not take and on a
-    failed build or launch.
+    residual `state` is never written. Raises on any input the kernel does
+    not take and on a failed build or launch. Each call adds one to
+    `launches`: the kernel is its four CUDA launches per segment of
+    `segment_tokens` (one at qwen3's training shapes), with a workspace of
+    `bwd_workspace_bytes`, freed on return.
     """
     global launches
-    _check_inputs(q, k, v)
-    if p not in (1, 2):
-        raise ValueError(f"p must be 1 or 2, got {p}")
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"fastmax_causal_bwd_cuda needs CUDA tensors, got "
-                         f"{dev}")
-    if q.dtype not in _KERNEL_DTYPES or any(
-            t.dtype != q.dtype for t in (k, v, do)):
-        raise ValueError(f"q/k/v/do must share float32 or bfloat16, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
-    b, hq, n, d = q.shape
-    hkv, dv = k.shape[1], v.shape[-1]
-    if tuple(do.shape) != (b, hq, n, dv):
-        raise ValueError(f"do {tuple(do.shape)}, expected {(b, hq, n, dv)}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, q on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if d % 4 or dv % 4:
-        raise ValueError(f"the kernel needs D and Dv divisible by 4, got "
-                         f"D={d}, Dv={dv}")
-    g = hq // hkv
-    if g > _MAX_GROUP:
-        raise ValueError(f"G={g} query heads per kv head exceeds "
-                         f"{_MAX_GROUP}")
-    f32 = torch.float32
-    m0, m1, m2, g0, g1, g2 = _full_state(state, b, hkv, d, dv, q)
-    for t in (m0, m1, m2, g0, g1, g2):
-        if t.device != dev:
-            raise ValueError(f"state on {t.device}, q on {dev}")
-    m0, m1, g0, g1 = (t.to(f32).contiguous() for t in (m0, m1, g0, g1))
-    nb = -(-dv // _COLS)
-    bh = b * hkv
-    # workspaces: the kernel subtracts from copies, never from the residual
-    m2w = m2.to(f32, memory_format=torch.contiguous_format, copy=True) \
-        if p >= 2 else None
-    # (repeat always copies; expand(...).contiguous() would hand the
-    # residual itself to the kernel when nb == 1)
-    g2w = g2.to(f32).reshape(1, bh, d, d).repeat(nb, 1, 1, 1)
-    dq_part = torch.zeros(nb, b, hq, n, d, dtype=f32, device=dev)
-    dk_part = torch.zeros(nb, b, hkv, n, d, dtype=f32, device=dev)
-    dv_out = torch.empty(b, hkv, n, dv, dtype=v.dtype, device=dev)
-    dm2 = torch.zeros(b, hkv, d, d, dv, dtype=f32, device=dev)
-    dg2 = torch.zeros(nb, b, hkv, d, d, dtype=f32, device=dev)
-    dm0 = torch.empty(b, hkv, dv, dtype=f32, device=dev)
-    dm1 = torch.empty(b, hkv, d, dv, dtype=f32, device=dev)
-    dg0 = torch.empty(nb, b, hkv, dtype=f32, device=dev)
-    dg1 = torch.empty(nb, b, hkv, d, dtype=f32, device=dev)
-
-    lib = _lib()
-    c = kernel_chunk(g, d)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.fastmax_causal_bwd(
-            _KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), m0.data_ptr(), m1.data_ptr(), g0.data_ptr(),
-            g1.data_ptr(), None if m2w is None else m2w.data_ptr(),
-            g2w.data_ptr(), dq_part.data_ptr(), dk_part.data_ptr(),
-            dv_out.data_ptr(), dm2.data_ptr(), dg2.data_ptr(),
-            dm0.data_ptr(), dm1.data_ptr(), dg0.data_ptr(), dg1.data_ptr(),
-            bh, g, n, d, dv, p, c, float(denom_eps), stream)
-    if err != 0:
-        raise RuntimeError(f"fastmax_causal_bwd launch failed: CUDA error "
-                           f"{err}")
+    out = bwd_call(q, k, v, state, do, p=p, denom_eps=denom_eps,
+                   return_dstate=return_dstate).run()
     launches += 1
-    # per-Dv-block partials, summed in a fixed order
-    grads = (dq_part.sum(0).to(q.dtype), dk_part.sum(0).to(k.dtype), dv_out)
-    if not return_dstate:
-        return grads
-    return grads + ((dm0, dm1, dm2, dg0.sum(0), dg1.sum(0), dg2.sum(0)),)
+    return out
 
 
 def fastmax_causal_bwd_ref(q, k, v, state, do, *, p: int = 2,

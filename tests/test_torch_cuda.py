@@ -322,14 +322,15 @@ def _assert_bwd_close(a, plain, exact, first):
                                   exact[..., :first, :], 1e-4)
 
 
-def _check_bwd_on_card(dev, seed, heads, n, p, dtype, seeded, d=64):
+def _check_bwd_on_card(dev, seed, heads, n, p, dtype, seeded, d=64, b=2):
+    from repro_torch.kernels.fastmax_causal import CHUNK
     from repro_torch.kernels.fastmax_causal_bwd import (
-        fastmax_causal_bwd_cuda, fastmax_causal_bwd_ref, kernel_chunk)
+        fastmax_causal_bwd_cuda, fastmax_causal_bwd_ref)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, do, st = _bwd_inputs(dev, gen, 2, *heads, n, d, d, p, seeded,
+    q, k, v, do, st = _bwd_inputs(dev, gen, b, *heads, n, d, d, p, seeded,
                                   dtype)
-    c = kernel_chunk(heads[0] // heads[1], d)
+    c = CHUNK   # the kernel's chunk at any G and D
     before = [x.clone() for x in st]
     got = fastmax_causal_bwd_cuda(q, k, v, st, do, p=p,
                                   return_dstate=seeded)
@@ -364,9 +365,47 @@ def test_bwd_kernel_matches_plain_on_card(cuda_device, p, dtype, n, seeded):
 
 @pytest.mark.cuda
 def test_bwd_kernel_odd_group_on_card(cuda_device):
-    """G = 5: the forward's chunk 128 // 5 = 25 is odd; the backward rounds
-    its own chunk down to an even one (any chunking is exact)."""
+    """G = 5: 640 query rows in each chunk of L = 128, ten blocks of 64."""
     _check_bwd_on_card(cuda_device, 7, (10, 2), 300, 2, torch.float32, True)
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_granite_group_on_card(cuda_device):
+    """G = 48 on one kv head at D = 128 (granite's grouping): 6144 query
+    rows a chunk, any G."""
+    _check_bwd_on_card(cuda_device, 9, (48, 1), 300, 2, torch.float32,
+                       False, d=128, b=1)
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_over_segments_on_card(cuda_device, monkeypatch):
+    """A workspace budget below one slot: segments of one chunk, run last
+    to first, each seeded with the carry and cotangent of the one after it
+    (N = 300: three segments, the last ragged), with dstate."""
+    import repro_torch.kernels.fastmax_causal as fc
+    from repro_torch.kernels.fastmax_causal_bwd import bwd_call
+
+    monkeypatch.setattr(fc, "_WORKSPACE_BUDGET", 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    q, k, v, do, st = _bwd_inputs(cuda_device, gen, 2, 4, 2, 300, 64, 64, 2,
+                                  True, torch.float32)
+    assert len(bwd_call(q, k, v, st, do, p=2).segments) == 3
+    _check_bwd_on_card(cuda_device, 10, (4, 2), 300, 2, torch.float32, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 2])
+def test_bwd_kernel_repeats_bit_for_bit_on_card(cuda_device, p):
+    """Every sum runs in a fixed order: two calls give the same bits."""
+    from repro_torch.kernels.fastmax_causal_bwd import fastmax_causal_bwd_cuda
+
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, do, st = _bwd_inputs(cuda_device, gen, 2, 4, 2, 300, 64, 64, p,
+                                  True, torch.bfloat16)
+    a = fastmax_causal_bwd_cuda(q, k, v, st, do, p=p, return_dstate=True)
+    b = fastmax_causal_bwd_cuda(q, k, v, st, do, p=p, return_dstate=True)
+    for x, y in zip(list(a[:3]) + list(a[3]), list(b[:3]) + list(b[3])):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
