@@ -5,7 +5,7 @@
 Phases, one line each (then a JSON line of kernel numbers, the card's name
 and power limit, and the result line last):
   1. device   — needs CUDA; TF32 off for float32 products.
-  2. build    — compiles the five CUDA kernel sources from
+  2. build    — compiles the four CUDA kernel sources from
                 src/repro_torch/kernels/csrc with nvcc (one process per
                 source, in parallel).
   3. kernels  — each kernel against its plain PyTorch version, float32 and
@@ -76,10 +76,13 @@ and power limit, and the result line last):
  13. hybrid kernels — the hybrid kernel against its plain version, o and
                 all six final moments: at qwen3's widths (B=4, Hq=16, Hkv=8,
                 D=Dv=128, N=1024, window 64 at chunk 512) in float32 and
-                bfloat16; with a seeded kv_mask; at D=Dv=64 with G=1; with a
-                band over several of the kernel's chunks (window 200 at
-                chunk 256); p=1 on q̂/D. Then timed at qwen3's shapes in
-                bfloat16 against its plain version and its bound.
+                bfloat16; with a seeded kv_mask; at D=Dv=64 with G=1; with
+                bands past the kernel's chunk L = 128 (window 200 at chunk
+                256, 300 at 512); B=2 N=4096 in two segments; p=1 on q̂/D.
+                Then timed at qwen3's shapes in bfloat16 against its plain
+                version and its bound, its two launches apart (prefix
+                moments, band combine), and two calls compared bit for
+                bit.
  14. hybrid train — full-width qwen3-1.7b, attn hybrid2-kernel, bfloat16,
                 remat="full", AdamW, B=4, N=1024, one SyntheticLM batch: at
                 layer 0's own inputs the kernel path's attention against
@@ -93,6 +96,12 @@ and power limit, and the result line last):
                 step ms, tokens/s, peak memory, falling loss.
  15. hybrid small — the smoke config in float32 with hybrid2-kernel: kernel
                 and plain path grads agree per leaf.
+ 16. hybrid serve — full-width qwen3-1.7b, attn hybrid2-kernel, bfloat16:
+                generate() at batch 4, prompt 1024, 32 new tokens (a
+                warm-up, then a timed call: prefill and decode ms, exactly
+                n_layers hybrid launches and no other kernel); the smoke
+                config in float32 gives the same greedy tokens on the
+                kernel and plain (hybrid2-chunked) paths.
 Exits non-zero, printing no result line, when any phase fails.
 """
 from __future__ import annotations
@@ -270,7 +279,7 @@ def main() -> None:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.fastmax_causal import (fastmax_causal_cuda,
                                                     fastmax_causal_ref,
-                                                    pick_chunk, prefill_call,
+                                                    prefill_call,
                                                     segment_tokens, CHUNK)
     from repro_torch.kernels.fastmax_causal_bwd import (
         bwd_call, fastmax_causal_bwd_cuda, fastmax_causal_bwd_ref)
@@ -1054,8 +1063,8 @@ def main() -> None:
 
     def hy_case(b, hq_, hkv_, n, d_, dtype, window, chunk, p=2, cut=0):
         """The kernel and its plain version on one input: (o max abs
-        error, the inputs). `cut` masks the last keys of every other
-        sequence off."""
+        error, the inputs, the kernel's segments). `cut` masks the last
+        keys of every other sequence off."""
         qs = 1.0 / d_ if p == 1 else 1.0   # p=1: q̂/D (see bwd_case)
         q = (normalize_qk(randn(b, hq_, n, d_)) * qs).to(dtype)
         k = normalize_qk(randn(b, hkv_, n, d_)).to(dtype)
@@ -1071,48 +1080,77 @@ def main() -> None:
         torch.cuda.synchronize()
         eo, o_ok = o_err(o, ro)
         em = max(moment_err(a, r) for a, r in zip(st, rst))
+        nseg = -(-n // segment_tokens(b * hkv_, d_, d_, p))
         tag = (f"hybrid p={p} {str(dtype)[6:]} B={b} Hq={hq_} Hkv={hkv_} "
                f"D={d_} N={n} window {window} at chunk {chunk} (w_eff "
-               f"{band_width(window, chunk, n)})" + (" mask" if cut else ""))
+               f"{band_width(window, chunk, n)})" + (" mask" if cut else "")
+               + f", {nseg} segment(s)")
         print(f"  {tag}: o max abs err {eo:.3e} (tol {o_tol(dtype)}), "
               f"moments max rel err {em:.3e} (tol {TOL_MOMENTS:.0e})")
         if not (o_ok and em <= TOL_MOMENTS):
             fail(f"{tag}: the hybrid kernel disagrees with its plain version")
-        return eo, (q, k, v)
+        return eo, (q, k, v), nseg
 
     with torch.inference_mode():
         hy_err = {}
         for dtype in (torch.float32, torch.bfloat16):
             # the bf16 inputs at qwen3's shapes stay for the timing below
-            hy_err[dtype], (q, k, v) = hy_case(B, hq, hkv, P, d, dtype, HW,
-                                               HC)
+            hy_err[dtype], (q, k, v), _ = hy_case(B, hq, hkv, P, d, dtype,
+                                                  HW, HC)
             hy_case(2, hq, hkv, 1000, d, dtype, HW, HC, cut=137)
             hy_case(B, wh, wh, 512, wd, dtype, HW, HC)
-            # the band reaches over several of the kernel's chunks of 64
+            # bands past the kernel's chunk L = 128: w_eff 200 (the first
+            # two chunks take no slot) and 300 > 2L (three; band-only rows
+            # past L, summed pair by pair from token 0)
             hy_case(2, hq, hkv, P, d, dtype, 200, 256)
+            hy_case(2, hq, hkv, P, d, dtype, 300, 512)
+            # two segments of the two launches (3840 tokens each at B=2):
+            # the second's first band reaches back into the first
+            _, _, nseg = hy_case(2, hq, hkv, 4096, d, dtype, HW, HC, cut=137)
+            if nseg != 2:
+                fail(f"the hybrid kernel at B=2 N=4096 ran in {nseg} "
+                     f"segments, not 2")
         hy_case(2, hq, hkv, P, d, torch.float32, HW, HC, p=1)
         hy_ms = sync_ms(lambda: hybrid_causal_cuda(
             q, k, v, window=HW, chunk_size=HC, return_state=True), reps=5)
         hy_plain = sync_ms(lambda: hybrid_causal_ref(
             q, k, v, window=HW, chunk_size=HC, return_state=True), reps=3)
-    # operations: the prefill's at the hybrid kernel's own chunk hc, plus
-    # 2(D + Dv) per query head for each band pair outside that chunk (its
-    # score and its product with v; a band pair inside the chunk is
-    # already one of the intra-chunk pairs, weighed exp instead of f);
-    # bytes as the prefill's
-    w_eff = band_width(HW, HC, P)
-    hc = pick_chunk(gq, d, build.load("hybrid_causal")
-                    .hybrid_causal_smem_bytes)
-
+        # its two launches apart (launch A is the prefill's), and two
+        # calls' bits
+        w_eff = band_width(HW, HC, P)
+        call = prefill_call(q, k, v, p=2, band=w_eff)
+        call.run()
+        hy_prefix_ms = sync_ms(call.prefix, reps=5)
+        hy_combine_ms = sync_ms(call.combine, reps=5)
+        hy_ws, hy_nseg = call.workspace_bytes, len(call.segments)
+        del call
+        o1, s1 = hybrid_causal_cuda(q, k, v, window=HW, chunk_size=HC,
+                                    return_state=True)
+        o2, s2 = hybrid_causal_cuda(q, k, v, window=HW, chunk_size=HC,
+                                    return_state=True)
+        torch.cuda.synchronize()
+        hy_same = bool(torch.equal(o1, o2)) and all(
+            torch.equal(a, b_) for a, b_ in zip(s1, s2))
+        del o1, o2, s1, s2
+    if not hy_same:
+        fail("two hybrid calls on the same inputs differ")
+    if hy_nseg != 1:
+        fail(f"the hybrid kernel at the main path's shapes ran in {hy_nseg} "
+             f"segments (the launch times above are one segment's)")
+    # operations: the prefill's (its in-chunk pairs at BOUND_CHUNK), plus
+    # 2(D + Dv) per query head for each band pair before its query's chunk
+    # of BOUND_CHUNK (its score and its product with v; a band pair inside
+    # that chunk is one of the causal pairs already, weighed exp instead
+    # of f); bytes as the prefill's
     def band_pairs(n, w):
         """Pairs (i, j) with 0 <= i - j < w among n consecutive tokens."""
         m = min(n, w)
         return m * n - m * (m - 1) // 2
 
-    in_chunk = (P // hc) * band_pairs(hc, hc) + band_pairs(P % hc, hc)
-    far_band = band_pairs(P, w_eff) - (P // hc) * band_pairs(hc, w_eff) \
-        - band_pairs(P % hc, w_eff)
-    hy_ops = fc_ops + bh * gq * ((in_chunk - pairs) + far_band) * 2 * (d + d)
+    far_band = band_pairs(P, w_eff) \
+        - (P // BOUND_CHUNK) * band_pairs(BOUND_CHUNK, w_eff) \
+        - band_pairs(P % BOUND_CHUNK, w_eff)
+    hy_ops = fc_ops + bh * gq * far_band * 2 * (d + d)
     hy_bound = max(fc_bytes / H100_BYTES_PER_S,
                    hy_ops / H100_BF16_FLOPS) * 1e3
     del q, k, v
@@ -1120,10 +1158,14 @@ def main() -> None:
     print(f"  timing (hybrid, bf16 B={B} N={P} w_eff={w_eff}): kernel "
           f"{hy_ms:.3f} ms (plain {hy_plain:.3f}, bound {hy_bound:.3f} "
           f"bf16-peak / {hy_ops / H100_F32_FLOPS * 1e3:.3f} f32-peak, "
-          f"{hy_ops / hy_ms / 1e9:.2f} TFLOP/s)")
+          f"{hy_ops / hy_ms / 1e9:.2f} TFLOP/s); prefix-moments launch "
+          f"{hy_prefix_ms:.3f} ms, band combine launch {hy_combine_ms:.3f} "
+          f"ms, workspace {hy_ws / 1e9:.3f} GB; two calls bitwise equal (o "
+          f"and state): {hy_same}")
     phase("hybrid kernels", "the hybrid kernel agrees with its plain version "
-          "(f32, bf16; qwen3 widths, mask, D=64 G=1, a band over several "
-          "kernel chunks; p=1)")
+          "(f32, bf16; qwen3 widths, mask, D=64 G=1, bands of 200 and 300 "
+          "past the kernel's chunk, B=2 N=4096 in two segments; p=1); two "
+          "calls equal bit for bit")
 
     # ---- 14. hybrid training: full-width qwen3-1.7b, bf16 ----
     from repro_torch.models import layers as L
@@ -1191,6 +1233,10 @@ def main() -> None:
             h32, attn=hplain.attn))[0].item()
         l32f = model_loss(p32, tbatch, dataclasses.replace(
             h32, attn=AttentionSpec.parse("fastmax2-chunked")))[0].item()
+        # and the plain path at chunk 256 (the same band of 64, summed in
+        # another order): how far float32 rounding alone moves this loss
+        l32c = model_loss(p32, tbatch, dataclasses.replace(
+            h32, attn=hplain.attn, chunk_size=256))[0].item()
         # the bf16 model's loss gap, printed only (see TRAIN_LOSS_TOL's
         # note above the hybrid phase)
         l16k = model_loss(params, tbatch, hcfg)[0].item()
@@ -1200,8 +1246,10 @@ def main() -> None:
     d32 = abs(l32k - l32p)
     print(f"  parity before any update (f32 model): loss kernel {l32k:.6f} "
           f"plain {l32p:.6f} |diff| {d32:.3e} (tol {TRAIN_LOSS_TOL}), "
-          f"{l32_launches} hybrid launches; without the band "
-          f"(fastmax2-chunked) {l32f:.6f}, |diff| {abs(l32f - l32p):.3e}; "
+          f"{l32_launches} hybrid launches; plain at chunk 256 "
+          f"{l32c:.6f}, |diff| {abs(l32c - l32p):.3e} (not held); without "
+          f"the band (fastmax2-chunked) {l32f:.6f}, |diff| "
+          f"{abs(l32f - l32p):.3e}; "
           f"bf16 model: loss kernel {l16k:.5f} plain {l16p:.5f} |diff| "
           f"{abs(l16k - l16p):.3e} (not held)")
     if not (math.isfinite(l32k) and math.isfinite(l16k)
@@ -1262,6 +1310,57 @@ def main() -> None:
           f"|g_k - g_p|/|g_p| {serr:.3e} (tol {SMOKE_GRAD_TOL:.0e})")
     if not serr <= SMOKE_GRAD_TOL:
         fail("hybrid smoke train: kernel and plain grads disagree")
+    del sparams
+
+    # ---- 16. hybrid serving: full-width qwen3-1.7b, bf16 ----
+    # a fresh prefill runs the hybrid kernel once per layer; the decode
+    # steps run the plain two-leg step (as the reference)
+    hs_cfg = dataclasses.replace(cfg, attn=AttentionSpec.parse(
+        "hybrid2-kernel"))
+    params = init_model(hs_cfg, seed=0, device=dev)
+    hprompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                             device=dev)
+    generate(params, hs_cfg, hprompts, G, device=dev)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    hs_timings = {}
+    t0 = time.monotonic()
+    htoks = generate(params, hs_cfg, hprompts, G, device=dev,
+                     timings=hs_timings)
+    torch.cuda.synchronize()
+    hs_total = time.monotonic() - t0
+    hs_launches = ops.launch_counts()
+    hs_peak = torch.cuda.max_memory_allocated() / 1e9
+    want_hs = {k_: 0 for k_ in hs_launches}
+    want_hs["hybrid_causal"] = hs_cfg.n_layers
+    if hs_launches != want_hs:
+        fail(f"hybrid serve launch counts {hs_launches}, expected {want_hs}")
+    if tuple(htoks.shape) != (B, G) or not bool(
+            ((htoks >= 0) & (htoks < cfg.vocab_size)).all()):
+        fail(f"hybrid serve: bad tokens {tuple(htoks.shape)}")
+    del params
+    torch.cuda.empty_cache()
+    # the smoke config in float32: the same greedy tokens on the kernel
+    # and the plain (hybrid2-chunked) path
+    sparams = init_model(hsmall, seed=0, device=dev)
+    sprompts = torch.randint(0, small.vocab_size, (2, 40), generator=gen,
+                             device=dev)
+    with torch.inference_mode():
+        stk = generate(sparams, hsmall, sprompts, 8, device=dev)
+        stp = generate(sparams, hsmall_plain, sprompts, 8, device=dev)
+    hs_same = bool((stk == stp).all())
+    hs_prefill = hs_timings["prefill_ms"]
+    hs_decode = hs_timings["decode_ms"] / hs_timings["decode_steps"]
+    phase("hybrid serve", f"qwen3-1.7b hybrid2-kernel bf16 B={B} P={P} "
+          f"G={G}: {hs_total:.3f}s total, prefill {hs_prefill:.1f} ms, "
+          f"decode {hs_decode:.2f} ms/token (CUDA events inside the call), "
+          f"{B * G / hs_total:.1f} tok/s, peak {hs_peak:.2f} GB, launches "
+          f"{hs_launches}; smoke config f32 greedy tokens kernel == plain: "
+          f"{hs_same}")
+    if not hs_same:
+        fail("hybrid serve: the smoke model's greedy tokens differ between "
+             "the kernel and plain paths")
 
     kernels = [
         {"name": "fastmax_causal_prefill", "route": "cuda",
@@ -1321,16 +1420,20 @@ def main() -> None:
          "ms_n1": n1_ms, "plain_ms_n1": n1_plain, "bound_ms_n1": n1_bound,
          "bound_by_n1": "operations" if n1_ops / H100_BF16_FLOPS
          >= n1_bytes / H100_BYTES_PER_S else "bytes"},
-        # timed at qwen3's training shapes; launches per train step
+        # timed at qwen3's training shapes; launches per train step (and
+        # per hybrid generate(): launches_serve)
         {"name": "hybrid_causal", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/hybrid_causal.cu",
+         "source": "src/repro_torch/kernels/csrc/fastmax_causal.cu",
          "replaces": "src/repro/kernels/hybrid_causal.py:182",
          "launches": hlaunches[-1]["hybrid_causal"],
          "max_abs_err": hy_err[torch.bfloat16], "ms": hy_ms,
          "plain_ms": hy_plain, "bound_ms": hy_bound,
          "bound_by": "operations" if hy_ops / H100_BF16_FLOPS
          >= fc_bytes / H100_BYTES_PER_S else "bytes",
-         "library_ms": None},
+         "library_ms": None, "prefix_ms": hy_prefix_ms,
+         "combine_ms": hy_combine_ms, "chunk": CHUNK,
+         "workspace_bytes": hy_ws,
+         "launches_serve": hs_launches["hybrid_causal"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -13,13 +13,15 @@
                     band plus the fastmax moments; exact kv masking; the
                     band-extended §2.5 backward. Causal only.
   hybrid-kernel   — the hybrid CUDA kernel forward with that backward
-                    (kernels.ops.hybrid). Causal only; no kv_mask.
+                    (kernels.ops.hybrid), and in a fresh prefill
+                    (`prefill_kernel`). Causal only; no kv_mask.
 
 Both fns share one signature: fn(q, k, v, spec, *, causal, kv_mask) -> o,
 with q [B,Hq,N,D], k/v [B,Hkv,M,*], Hq % Hkv == 0 (M = N when causal).
 The decode-state protocol (`attention.state`) routes on the capabilities;
 both hybrid backends decode through the plain two-leg state, as in the
-reference (neither declares `decode_kernel`). softmax, oracle and rowwise
+reference (neither declares `decode_kernel`), and hybrid-kernel runs a
+fresh prefill through the hybrid kernel. softmax, oracle and rowwise
 backends are not ported yet.
 """
 from __future__ import annotations
@@ -76,7 +78,7 @@ register(Backend(
 register(Backend(
     name="fastmax-kernel",
     family="fastmax",
-    caps=Capabilities(decode=True, decode_kernel=True),
+    caps=Capabilities(decode=True, decode_kernel=True, prefill_kernel=True),
     fn=_kernel_fn,
 ))
 
@@ -127,10 +129,12 @@ register(Backend(
 
 # decode_kernel stays False, as in the reference: the hybrid decode state
 # carries a rolling window beside the moments, which the decode kernel does
-# not model, so prefill and step run the plain two-leg protocol
+# not model, so the step and a resumed (offset) prefill run the plain
+# two-leg protocol; a fresh prefill runs the hybrid kernel (at a window of
+# 0, the fastmax prefill kernel)
 register(Backend(
     name="hybrid-kernel",
     family="hybrid",
-    caps=Capabilities(decode=True, decode_kernel=False),
+    caps=Capabilities(decode=True, decode_kernel=False, prefill_kernel=True),
     fn=_hybrid_kernel_fn,
 ))

@@ -21,8 +21,10 @@ __all__ = ["Capabilities", "Backend", "register", "get_backend",
 @dataclasses.dataclass(frozen=True)
 class Capabilities:
     decode: bool = False          # has a streaming decode path
-    decode_kernel: bool = False   # prefill/decode run the CUDA kernels on
-    #                               the native moment carry
+    decode_kernel: bool = False   # the decode step runs the CUDA decode
+    #                               kernel on the native moment carry
+    prefill_kernel: bool = False  # prefill runs a CUDA kernel (all but a
+    #                               hybrid's resumed, offset, prefill)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,19 +2,22 @@
 and hybrid families — port of `repro/attention/state.py`.
 
 The state of a fastmax layer is its moment tuple, independent of context
-length. Backends declaring `decode_kernel` (fastmax-kernel) run prefill
-and step through the CUDA kernels on that carry: prefill's final moments
-come out of the prefill kernel, each step is the fused update+combine
-decode kernel. There is no fallback for CUDA tensors; CPU tensors take the
-kernels' plain versions (inside `kernels.ops`).
+length. fastmax-kernel runs prefill and step through the CUDA kernels on
+that carry (it declares `prefill_kernel` and `decode_kernel`): prefill's
+final moments come out of the prefill kernel, each step is the fused
+update+combine decode kernel. There is no fallback for CUDA tensors; CPU
+tensors take the kernels' plain versions (inside `kernels.ops`).
 
 A hybrid layer carries both legs: the fastmax moments and a `KVCache`
 window of the last W = min(window, chunk_size) tokens (the exact
 near-field band), still O(1) in context length; W = 0 carries the moments
 only and runs the fastmax paths. Neither hybrid backend declares
-`decode_kernel`, as in the reference, so hybrid serving runs no kernel:
-prefill is the plain hybrid scan plus `roll_window`, and a step adds the
-band's (exp - f_p) correction to the plain moment step.
+`decode_kernel`, as in the reference, so a hybrid step adds the band's
+(exp - f_p) correction to the plain moment step, and a resumed (`offset`)
+hybrid prefill is the plain hybrid scan. A fresh hybrid prefill on a
+backend declaring `prefill_kernel` (hybrid-kernel) runs the hybrid kernel
+(`kernels.ops.hybrid_prefill_kernel`; where the reference runs its jnp
+scan), otherwise the plain scan; both then `roll_window`.
 
 Unlike the functional reference, the port updates a layer's state IN
 PLACE: `prefill` copies the new carry (and window) into the given tensors
@@ -136,23 +139,34 @@ def prefill(q, k, v, spec: AttentionSpec, *, state: AttnState,
     init = None if offset is None else state.moments
     w_slots = _window_slots(spec)
     if w_slots > 0:
-        # one plain hybrid scan gives the outputs and the final moments;
-        # the window is recompacted to the last <= W valid (normalized)
-        # keys. With `offset` the carried window seeds the scan's
-        # previous-chunk buffer and the carried moments its far field
+        # one hybrid kernel call or plain hybrid scan gives the outputs and
+        # the final moments; the window is recompacted to the last <= W
+        # valid (normalized) keys. With `offset` the carried window seeds
+        # the scan's previous-chunk buffer and the carried moments its far
+        # field (the kernel takes neither)
         kv = state.kv
         win = None if offset is None else (kv.k, kv.v, kv.mask)
-        o, final = _hybrid_scan(qh, kh, v, p=spec.p, window=spec_r.window,
-                                chunk_size=spec_r.chunk_size,
-                                kv_mask=kv_mask, denom_eps=spec.denom_eps,
-                                init=init, init_win=win)
+        if offset is None and resolve(spec).caps.prefill_kernel:
+            from repro_torch.kernels import ops
+
+            o, final = ops.hybrid_prefill_kernel(
+                qh, kh, v, p=spec.p, window=spec_r.window,
+                chunk_size=spec_r.chunk_size, denom_eps=spec.denom_eps,
+                kv_mask=kv_mask)
+        else:
+            o, final = _hybrid_scan(qh, kh, v, p=spec.p,
+                                    window=spec_r.window,
+                                    chunk_size=spec_r.chunk_size,
+                                    kv_mask=kv_mask,
+                                    denom_eps=spec.denom_eps, init=init,
+                                    init_win=win)
         m = (torch.ones(b, hkv, n, dtype=torch.float32, device=k.device)
              if kv_mask is None else kv_mask.to(torch.float32))
         window = roll_window(*(win or (None, None, None)), kh, v, m,
                              w_slots)
         _copy_into((kv.k, kv.v, kv.mask), window)
         kv.length.fill_((0 if offset is None else int(offset)) + n)
-    elif resolve(spec).caps.decode_kernel:
+    elif resolve(spec).caps.prefill_kernel:
         from repro_torch.kernels import ops
 
         o, final = ops.fastmax_prefill_kernel(

@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("fastmax_causal", "fastmax_causal_bwd", "fastmax_decode",
-           "fastmax_noncausal", "hybrid_causal")
+           "fastmax_noncausal")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,8 +1,12 @@
-// Causal fastmax prefill for Hopper (sm_90a), plain C interface.
+// Causal fastmax prefill, and the hybrid near/far-field forward, for Hopper
+// (sm_90a), plain C interface.
 //
-// Replaces the Pallas TPU kernel `fastmax_causal_pallas`
+// Replaces the Pallas TPU kernels `fastmax_causal_pallas`
 // (src/repro/kernels/fastmax_causal.py, body `_causal_kernel`), in its
-// prefill form (`return_state=True`, optional `init_state`, `kv_mask`).
+// prefill form (`return_state=True`, optional `init_state`, `kv_mask`), and
+// `hybrid_causal_pallas` (src/repro/kernels/hybrid_causal.py, body
+// `_hybrid_kernel`, with `kv_mask` and `return_state`; no init_state, as
+// there).
 //
 // What it computes, per (batch, kv-head) bh with G grouped query heads, on
 // pre-normalized q [N, D] per query head, k [N, D], v [N, Dv] and key
@@ -12,6 +16,10 @@
 // plus the moments of tokens folded before the call (`init_state`), and
 // the final carry (m0, m1, m2, g0, g1, g2 as in core/fastmax.py) as the
 // state output, m2 in the m-major [D*D, Dv] layout the decode kernel reads.
+// The hybrid (w_eff >= 1) weighs the pairs of its band, 0 <= i - j < w_eff,
+// exp(s) instead of f(s): the reference's unshifted exp, no max shift and
+// no clamp (it overflows float32 above s = 88.72 there as here). Its carry
+// is the same moment carry: the band holds none.
 //
 // What bounds it on an H100: arithmetic. Factorized over feature rows, the
 // function needs about 2(G+1) * N * R * (Dv+1) operations per bh (the
@@ -20,9 +28,11 @@
 // of 64 tokens (a fixed count, not this kernel's L): 2.14e11 at qwen3's
 // shapes (B=4, Hq=16, Hkv=8, N=1024, D=Dv=128), 0.216 ms at the bf16
 // tensor-core peak and 3.19 ms at the f32 CUDA-core peak, against
-// ~0.07 ms for its bytes. This version runs
-// it as f32 FMAs on the CUDA cores (tensor cores, wgmma and TMA are later
-// work), so the f32 figure is its practical floor.
+// ~0.07 ms for its bytes. The hybrid adds 2G(D + Dv) for each band pair
+// that lies before its query's chunk of 64 (a band pair inside it is one
+// of the causal pairs already): 2.15e11, 0.217 ms at w_eff = 64. This
+// version runs both as f32 FMAs on the CUDA cores (tensor cores, wgmma
+// and TMA are later work), so the f32 figure is its practical floor.
 //
 // Design: the moment scan is a prefix sum, so its sequential chunk loop
 // splits into two launches that run in parallel across the card, the
@@ -55,6 +65,21 @@
 //     as the same tiled product against the chunk's v. A wider Dv loops
 //     over column blocks; the denominator is summed in the first, in a
 //     fixed order.
+//   * The hybrid's launch B, `causal_combine_kernel<..., kBand = true>`
+//     (launch A is the same): a chunk [t0, t0 + len) whose band reaches
+//     past its start (t0 >= w_eff) takes slot c, weighs its own band pairs
+//     exp(s) in the in-chunk term, pair by pair, and adds
+//     (exp(s) - f(s)) w_j for the keys j in [t0 - w_eff + 1, t0) within
+//     w_eff of the query: loaded 32 at a time from k, v, w by absolute
+//     position (an earlier segment's keys alike), as many tiles as the
+//     band needs. A chunk whose band reaches token 0 (t0 < w_eff: it holds
+//     the rows i < w_eff, whose every key is in the band) takes no slot and
+//     sums every key from token 0 pair by pair, exp in the band and f
+//     outside it, so band-only rows never form sum f + sum (exp - f),
+//     which cancels in float32 (the reference does; ROADMAP queue 3). The
+//     denominator takes the same terms in A. The prefill's instantiation
+//     (kBand = false) compiles to the code it had: its outputs are
+//     bit-identical.
 // Nothing is carried between blocks, the m2 work is on the D(D+1)/2
 // symmetric rows only, and every sum runs in a fixed order (no float
 // atomics): two calls give the same bits. The ragged edges (N not a
@@ -78,7 +103,8 @@
 // the last one's final carry (its state outputs, read and rewritten in
 // place, every element by the thread that owns it, and `gin`/`gout`, the
 // g column in f64, so the p = 1 denominator is not rounded between
-// segments).
+// segments). The hybrid's slotless chunks (t0 < w_eff) lie in the first
+// segment: the wrapper checks it.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -90,6 +116,11 @@
 namespace {
 
 constexpr int kL = 128;      // the chunk L: keys per workspace slot
+
+// The band's weight: the reference's unshifted exp (no max shift, no
+// clamp), in the accumulator type.
+__device__ __forceinline__ float band_exp(float x) { return expf(x); }
+__device__ __forceinline__ double band_exp(double x) { return exp(x); }
 
 // ---------------------------------------------------------------------------
 // Launch A, over tokens [t0, t0 + n) of N. k [BH, N, D], v [BH, N, Dv],
@@ -279,14 +310,14 @@ __host__ __device__ inline int combine_smem_floats(int D, int ncg) {
          kChunk * (D + 1) + kChunk;
 }
 
-template <typename T, int NCG, typename A>
+template <typename T, int NCG, typename A, bool kBand>
 __global__ void __launch_bounds__(kThreads)
 causal_combine_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const float* __restrict__ w,
                       const float* __restrict__ wsm,
                       const double* __restrict__ wsg, T* __restrict__ o,
                       int G, int N, int t_begin, int n, int D, int Dv, int p,
-                      float eps) {
+                      int w_eff, float eps) {
   constexpr int BC = kCols * NCG;     // block's columns per pass
   constexpr bool kF64 = std::is_same<A, double>::value;
   // the den partials reuse sM and sP (contiguous) once both are consumed
@@ -316,6 +347,8 @@ causal_combine_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + ((size_t)bh * N + t0) * D;
   const T* vb = v + ((size_t)bh * N + t0) * Dv;
   const float* wb = w + (size_t)bh * N + t0;
+  // the band's chunks that reach token 0 take no slot (see the header)
+  const bool slot_on = !kBand || t0 >= w_eff;
 
   for (int e = tid; e < kTile * D; e += kThreads) {
     const int r = e / D, a = e - r * D, qr = qr0 + r;
@@ -344,11 +377,37 @@ causal_combine_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kTile / 8; ++i) dp[i] = A(0);
 
-    // the 32 x BC tile product shared by both terms
+    // the 32 x BC tile product shared by every term
     auto accumulate = [&]() { tile_product<NCG>(acc, sP, sM, BC, ty, tx); };
+    // keys [j0, j0 + jn) of kp, vp, wp (jn <= 32) into sK, sM (their v
+    // columns of this pass) and sW
+    auto load_keys = [&](const T* kp, const T* vp, const float* wp, int j0,
+                         int jn) {
+      for (int e = tid; e < kChunk * D; e += kThreads) {
+        const int t = e / D, a = e - t * D;
+        sK[t * QS + a] = t < jn ? ld(kp + (size_t)(j0 + t) * D + a) : 0.f;
+      }
+      for (int e = tid; e < kChunk * BC; e += kThreads) {
+        const int t = e / BC, cc = c0 + e - t * BC;
+        sM[e] = (t < jn && cc < Dv) ? ld(vp + (size_t)(j0 + t) * Dv + cc)
+                                    : 0.f;
+      }
+      if (tid < kChunk) sW[tid] = tid < jn ? wp[j0 + tid] : 0.f;
+    };
+    // the scores (the den's terms) in A of key rl with queries l8 + 8 i
+    auto scores = [&](A (&s)[kTile / 8]) {
+#pragma unroll
+      for (int i = 0; i < kTile / 8; ++i) s[i] = A(0);
+      for (int a = 0; a < D; ++a) {
+        const A ka = sK[rl * QS + a];
+#pragma unroll
+        for (int i = 0; i < kTile / 8; ++i)
+          s[i] += (A)sQ[(l8 + 8 * i) * QS + a] * ka;
+      }
+    };
 
     // inter: the carry before chunk c (slot c), feature row by row
-    for (int r0 = 0; r0 < R; r0 += kChunk) {
+    for (int r0 = 0; slot_on && r0 < R; r0 += kChunk) {
       const int r = r0 + rl;
       const int code = row_code(r, D, R);
 #pragma unroll
@@ -378,37 +437,63 @@ causal_combine_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
     }
 
-    // intra: the chunk's own keys j <= the query's position, exactly
+    // band: the keys before the chunk within w_eff of a query, by
+    // absolute position (they may lie in an earlier segment): (exp - f)
+    // on top of the slot's f, or, where the band reaches token 0 (no
+    // slot), every key from token 0, exp in the band and f outside it
+    if constexpr (kBand) {
+      const T* kB = k + (size_t)bh * N * D;
+      const T* vB = v + (size_t)bh * N * Dv;
+      const float* wB = w + (size_t)bh * N;
+      for (int j0 = slot_on ? t0 - w_eff + 1 : 0; j0 < t0; j0 += kChunk) {
+        const int jn = min(kChunk, t0 - j0);
+        load_keys(kB, vB, wB, j0, jn);
+        __syncthreads();
+        A s[kTile / 8];
+        scores(s);
+#pragma unroll
+        for (int i = 0; i < kTile / 8; ++i) {
+          const int qi = l8 + 8 * i;
+          A f = A(0);
+          if (rl < jn && sPos[qi] >= 0) {
+            const bool in_band = t0 + sPos[qi] - (j0 + rl) < w_eff;
+            A fs = A(1) + s[i];
+            if (p >= 2) fs += A(0.5) * s[i] * s[i];
+            if (in_band)
+              f = slot_on ? band_exp(s[i]) - fs : band_exp(s[i]);
+            else if (!slot_on)
+              f = fs;
+            f *= (A)sW[rl];
+          }
+          sP[rl * kPS + qi] = (float)f;
+          if (cb == 0) dp[i] += f;
+        }
+        __syncthreads();
+        accumulate();
+        __syncthreads();
+      }
+    }
+
+    // intra: the chunk's own keys j <= the query's position, exactly (in
+    // the band weighed exp(s), pair by pair)
     for (int j0 = 0; j0 < len; j0 += kChunk) {
       const int jn = min(kChunk, len - j0);
-      for (int e = tid; e < kChunk * D; e += kThreads) {
-        const int t = e / D, a = e - t * D;
-        sK[t * QS + a] = t < jn ? ld(kb + (size_t)(j0 + t) * D + a) : 0.f;
-      }
-      for (int e = tid; e < kChunk * BC; e += kThreads) {
-        const int t = e / BC, cc = c0 + e - t * BC;
-        sM[e] = (t < jn && cc < Dv) ? ld(vb + (size_t)(j0 + t) * Dv + cc)
-                                    : 0.f;
-      }
-      if (tid < kChunk) sW[tid] = tid < jn ? wb[j0 + tid] : 0.f;
+      load_keys(kb, vb, wb, j0, jn);
       __syncthreads();
       const int j = j0 + rl;
-      A s[kTile / 8];   // the scores (the den's terms) in A
-#pragma unroll
-      for (int i = 0; i < kTile / 8; ++i) s[i] = A(0);
-      for (int a = 0; a < D; ++a) {
-        const A ka = sK[rl * QS + a];
-#pragma unroll
-        for (int i = 0; i < kTile / 8; ++i)
-          s[i] += (A)sQ[(l8 + 8 * i) * QS + a] * ka;
-      }
+      A s[kTile / 8];
+      scores(s);
 #pragma unroll
       for (int i = 0; i < kTile / 8; ++i) {
         const int qi = l8 + 8 * i;
         A f = A(0);
         if (rl < jn && j <= sPos[qi]) {
-          f = A(1) + s[i];
-          if (p >= 2) f += A(0.5) * s[i] * s[i];
+          if (kBand && sPos[qi] - j < w_eff) {
+            f = band_exp(s[i]);
+          } else {
+            f = A(1) + s[i];
+            if (p >= 2) f += A(0.5) * s[i] * s[i];
+          }
           f *= (A)sW[rl];
         }
         sP[rl * kPS + qi] = (float)f;
@@ -477,36 +562,37 @@ int launch_prefix(const void* k, const void* v, const void* w,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NCG, typename A>
+template <typename T, int NCG, typename A, bool kBand>
 int launch_combine(const void* q, const void* k, const void* v,
                    const void* w, const void* wsm, const void* wsg, void* o,
                    int bh, int G, int N, int t_begin, int n, int D, int Dv,
-                   int p, float eps, cudaStream_t s) {
+                   int p, int w_eff, float eps, cudaStream_t s) {
   const size_t sm = sizeof(float) * combine_smem_floats(D, NCG);
   cudaError_t err = cudaFuncSetAttribute(
-      causal_combine_kernel<T, NCG, A>,
+      causal_combine_kernel<T, NCG, A, kBand>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
   if (err != cudaSuccess) return (int)err;
   const int nc = (n + kL - 1) / kL;
   const dim3 grid((G * kL + kTile - 1) / kTile, nc, bh);
-  causal_combine_kernel<T, NCG, A><<<grid, kThreads, sm, s>>>(
+  causal_combine_kernel<T, NCG, A, kBand><<<grid, kThreads, sm, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)w,
       (const float*)wsm, (const double*)wsg, (T*)o, G, N, t_begin, n, D, Dv,
-      p, eps);
+      p, w_eff, eps);
   return (int)cudaGetLastError();
 }
 
 // Launch B's instantiation by the column groups of a pass.
-template <typename T, typename A>
+template <typename T, typename A, bool kBand>
 int combine_of(const void* q, const void* k, const void* v, const void* w,
                const void* wsm, const void* wsg, void* o, int bh, int G,
-               int N, int t_begin, int n, int D, int Dv, int p, float eps,
-               cudaStream_t s) {
+               int N, int t_begin, int n, int D, int Dv, int p, int w_eff,
+               float eps, cudaStream_t s) {
   if (column_groups(Dv) == 2)
-    return launch_combine<T, 2, A>(q, k, v, w, wsm, wsg, o, bh, G, N,
-                                   t_begin, n, D, Dv, p, eps, s);
-  return launch_combine<T, 1, A>(q, k, v, w, wsm, wsg, o, bh, G, N, t_begin,
-                                 n, D, Dv, p, eps, s);
+    return launch_combine<T, 2, A, kBand>(q, k, v, w, wsm, wsg, o, bh, G, N,
+                                          t_begin, n, D, Dv, p, w_eff, eps,
+                                          s);
+  return launch_combine<T, 1, A, kBand>(q, k, v, w, wsm, wsg, o, bh, G, N,
+                                        t_begin, n, D, Dv, p, w_eff, eps, s);
 }
 
 bool dims_ok(int bh, int G, int N, int t_begin, int n, int D, int Dv,
@@ -520,6 +606,31 @@ State state_of(const void* m0, const void* m1, const void* m2,
                const void* g0, const void* g1, const void* g2) {
   return State{(float*)m0, (float*)m1, (float*)m2,
                (float*)g0, (float*)g1, (float*)g2};
+}
+
+// Launch B by dtype (0 = float32 q/k/v/o, 1 = bfloat16) and p: the
+// denominator in f64 at p = 1 (see the header), f32 at p = 2.
+template <bool kBand>
+int combine_dispatch(int dtype, const void* q, const void* k, const void* v,
+                     const void* w, const void* wsm, const void* wsg, void* o,
+                     int bh, int G, int N, int t_begin, int n, int D, int Dv,
+                     int p, int w_eff, float eps, void* stream) {
+  if (!dims_ok(bh, G, N, t_begin, n, D, Dv, p))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return p == 1 ? combine_of<float, double, kBand>(
+                        q, k, v, w, wsm, wsg, o, bh, G, N, t_begin, n, D, Dv,
+                        p, w_eff, eps, s)
+                  : combine_of<float, float, kBand>(
+                        q, k, v, w, wsm, wsg, o, bh, G, N, t_begin, n, D, Dv,
+                        p, w_eff, eps, s);
+  return p == 1 ? combine_of<__nv_bfloat16, double, kBand>(
+                      q, k, v, w, wsm, wsg, o, bh, G, N, t_begin, n, D, Dv, p,
+                      w_eff, eps, s)
+                : combine_of<__nv_bfloat16, float, kBand>(
+                      q, k, v, w, wsm, wsg, o, bh, G, N, t_begin, n, D, Dv, p,
+                      w_eff, eps, s);
 }
 
 }  // namespace
@@ -569,21 +680,22 @@ int fastmax_causal_combine(int dtype, const void* q, const void* k,
                            const void* wsg, void* o, int bh, int G, int N,
                            int t_begin, int n, int D, int Dv, int p,
                            float eps, void* stream) {
-  if (!dims_ok(bh, G, N, t_begin, n, D, Dv, p))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the denominator in f64 at p = 1 (see the header), f32 at p = 2
-  if (dtype == 0)
-    return p == 1 ? combine_of<float, double>(q, k, v, w, wsm, wsg, o, bh, G,
-                                              N, t_begin, n, D, Dv, p, eps, s)
-                  : combine_of<float, float>(q, k, v, w, wsm, wsg, o, bh, G,
-                                             N, t_begin, n, D, Dv, p, eps, s);
-  return p == 1 ? combine_of<__nv_bfloat16, double>(q, k, v, w, wsm, wsg, o,
-                                                    bh, G, N, t_begin, n, D,
-                                                    Dv, p, eps, s)
-                : combine_of<__nv_bfloat16, float>(q, k, v, w, wsm, wsg, o,
-                                                   bh, G, N, t_begin, n, D,
-                                                   Dv, p, eps, s);
+  return combine_dispatch<false>(dtype, q, k, v, w, wsm, wsg, o, bh, G, N,
+                                 t_begin, n, D, Dv, p, 0, eps, stream);
+}
+
+// The hybrid's launch B: launch B with the band of w_eff >= 1 tokens (the
+// diagonal included). A chunk whose band reaches token 0 (t0 < w_eff)
+// reads no slot and keys from token 0: the wrapper runs those chunks in
+// the first segment.
+int hybrid_causal_combine(int dtype, const void* q, const void* k,
+                          const void* v, const void* w, const void* wsm,
+                          const void* wsg, void* o, int bh, int G, int N,
+                          int t_begin, int n, int D, int Dv, int p,
+                          int w_eff, float eps, void* stream) {
+  if (w_eff < 1) return (int)cudaErrorInvalidValue;
+  return combine_dispatch<true>(dtype, q, k, v, w, wsm, wsg, o, bh, G, N,
+                                t_begin, n, D, Dv, p, w_eff, eps, stream);
 }
 
 }  // extern "C"

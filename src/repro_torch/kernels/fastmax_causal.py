@@ -6,7 +6,8 @@ The kernel is `csrc/fastmax_causal.cu` (design notes there): two CUDA
 launches, the prefix moments of every chunk of L = 128 keys into a
 per-call workspace, then each chunk's queries against them plus the
 chunk's own keys, over segments of the tokens that keep the workspace
-within `_WORKSPACE_BUDGET`; `prefill_call` exposes the launches one by one;
+within `_WORKSPACE_BUDGET`; `prefill_call` exposes the launches one by one
+(and with `band` runs the hybrid kernel's combine, `kernels.hybrid_causal`);
 `fastmax_causal_ref` is the plain PyTorch version with the same signature,
 built on `core.fastmax._causal_scan`. `kernels.ops.fastmax_prefill_kernel`
 picks between them by the tensors' device.
@@ -21,15 +22,11 @@ from repro_torch.core.fastmax import Moments, _causal_scan
 
 __all__ = ["fastmax_causal_cuda", "fastmax_causal_ref", "prefill_call",
            "CHUNK", "feature_rows", "segment_tokens", "workspace_bytes",
-           "pick_chunk", "check_kernel_inputs", "launches"]
+           "check_kernel_inputs", "launches"]
 
 # calls of `fastmax_causal_cuda` that launched the kernel (one per call,
 # though each call makes two CUDA launches: prefix moments, then combine)
 launches = 0
-
-# pick_chunk: the chunk of the sequential scan kernel (hybrid)
-_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
-_MAX_ROWS = 128       # G * C query rows per chunk (4 per thread)
 
 # the prefill kernel's chunk L: keys per workspace slot (kL in the source)
 CHUNK = 128
@@ -53,6 +50,10 @@ def _lib():
             [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_void_p])
         lib.fastmax_causal_combine.restype = ctypes.c_int
+        lib.hybrid_causal_combine.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.hybrid_causal_combine.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -81,22 +82,6 @@ def workspace_bytes(bh: int, n: int, d: int, dv: int, p: int) -> int:
     segments (BH x R)."""
     chunks = -(-min(n, segment_tokens(bh, d, dv, p)) // CHUNK)
     return chunks * _slot_bytes(bh, d, dv, p) + 8 * bh * feature_rows(d, p)
-
-
-def pick_chunk(g: int, d: int, smem_bytes) -> int:
-    """Chunk length of the sequential scan kernel (hybrid): at most
-    64 tokens and 128 query rows (G * C <= 128), halved until the block's
-    shared memory fits the card."""
-    if g > _MAX_ROWS:
-        raise ValueError(f"G={g} query heads per kv head exceeds "
-                         f"{_MAX_ROWS}")
-    c = min(64, _MAX_ROWS // g)
-    while smem_bytes(g, c, d) > _SMEM_LIMIT:
-        if c == 1:
-            raise ValueError(f"head dim D={d} does not fit the kernel's "
-                             f"shared memory")
-        c //= 2
-    return c
 
 
 def _state_shapes(b, hkv, d, dv):
@@ -161,11 +146,15 @@ class _Prefill:
     """One call of the prefill kernel with its inputs checked and its
     outputs and workspace allocated: `prefix(i)` and `combine(i)` make the
     two CUDA launches of segment i (timed apart by `chip_smoke.py`),
-    `run()` every segment's in order."""
+    `run()` every segment's in order. With `band` = w_eff >= 1 the combine
+    is the hybrid kernel's (no `init_state`)."""
 
-    def __init__(self, q, k, v, kv_mask, p, denom_eps, init_state):
-        self.w = check_kernel_inputs(q, k, v, kv_mask, p,
-                                     "fastmax_causal_cuda")
+    def __init__(self, q, k, v, kv_mask, p, denom_eps, init_state, band=0):
+        self.w = check_kernel_inputs(
+            q, k, v, kv_mask, p,
+            "hybrid_causal_cuda" if band else "fastmax_causal_cuda")
+        if band and init_state is not None:
+            raise ValueError("the hybrid kernel takes no init_state")
         b, hq, n, d = q.shape
         hkv, dv = k.shape[1], v.shape[-1]
         dev, f32 = q.device, torch.float32
@@ -183,6 +172,13 @@ class _Prefill:
         self.bh, self.g, self.n, self.d, self.dv = b * hkv, hq // hkv, n, d, dv
         seg = segment_tokens(self.bh, d, dv, p)
         self.segments = [(t, min(seg, n - t)) for t in range(0, n, seg)]
+        # the hybrid's chunks whose band reaches token 0 read no slot and
+        # keys from token 0: they must lie in the first segment
+        if min(band, n) > self.segments[0][1]:
+            raise ValueError(f"a band of {band} tokens needs a first "
+                             f"segment of as many, got "
+                             f"{self.segments[0][1]}")
+        self.band = band
         self.workspace_bytes = workspace_bytes(self.bh, n, d, dv, p)
         r = self.bh * feature_rows(d, p)
         rows = -(-min(n, seg) // CHUNK) * r
@@ -223,16 +219,20 @@ class _Prefill:
 
     def combine(self, i: int = 0):
         """Launch B of segment i: its o from the workspace and each chunk's
-        own keys."""
+        own keys (and with `band`, the band's keys before the chunk)."""
         t0, n = self.segments[i]
-        with torch.cuda.device(self.q.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            self._check(self.lib.fastmax_causal_combine(
-                self.dtype, self.q.data_ptr(), self.k.data_ptr(),
+        args = (self.dtype, self.q.data_ptr(), self.k.data_ptr(),
                 self.v.data_ptr(), self.w.data_ptr(), self.wsm.data_ptr(),
                 self.wsg.data_ptr(), self.o.data_ptr(), self.bh, self.g,
-                self.n, t0, n, self.d, self.dv, self.p, self.eps, stream),
-                "combine")
+                self.n, t0, n, self.d, self.dv, self.p)
+        with torch.cuda.device(self.q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            if self.band:
+                self._check(self.lib.hybrid_causal_combine(
+                    *args, self.band, self.eps, stream), "hybrid combine")
+            else:
+                self._check(self.lib.fastmax_causal_combine(
+                    *args, self.eps, stream), "combine")
 
     def run(self):
         for i in range(len(self.segments)):
@@ -242,11 +242,14 @@ class _Prefill:
 
 
 def prefill_call(q, k, v, kv_mask=None, *, p: int = 2,
-                 denom_eps: float = 1e-6, init_state=None) -> _Prefill:
+                 denom_eps: float = 1e-6, init_state=None,
+                 band: int = 0) -> _Prefill:
     """The prefill kernel's call on these inputs, checked and allocated but
     not launched (its `prefix(i)`, `combine(i)` and `run()` launch; none of
-    them counts in `launches`). Arguments as `fastmax_causal_cuda`."""
-    return _Prefill(q, k, v, kv_mask, p, denom_eps, init_state)
+    them counts in `launches`). Arguments as `fastmax_causal_cuda`; `band`
+    >= 1 makes it the hybrid kernel's call with w_eff = `band`
+    (`hybrid_causal.band_width`), which takes no `init_state`."""
+    return _Prefill(q, k, v, kv_mask, p, denom_eps, init_state, band)
 
 
 def fastmax_causal_cuda(q, k, v, kv_mask=None, *, p: int = 2,

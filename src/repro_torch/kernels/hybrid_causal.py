@@ -2,19 +2,20 @@
 its plain version.
 
 Port of `repro/kernels/hybrid_causal.py::hybrid_causal_pallas` (with
-`kv_mask` and `return_state`). The kernel is `csrc/hybrid_causal.cu` (the
-sequential chunk scan `csrc/causal_scan.cuh` with the near-field band);
+`kv_mask` and `return_state`). The kernel is the causal prefill's pair of
+launches in `csrc/fastmax_causal.cu` (design notes there): the same prefix
+moments of every chunk of L = 128 keys (launch A), then the combine with
+the near-field band (`hybrid_causal_combine`), run by
+`fastmax_causal.prefill_call(..., band=w_eff)` over the same segments;
 `hybrid_causal_ref` is the plain PyTorch version with the same signature,
 built on `core.hybrid._hybrid_scan`. Both realize the band of the
 reference's rule, cs = min(chunk_size, max(8, N)) and
 w_eff = max(0, min(window, cs)), from the caller's `chunk_size`, not from
-the chunk the kernel picks for itself; at w_eff = 0 both are the fastmax
-prefill pair. `kernels.ops.hybrid` picks between them by the tensors'
-device.
+the kernel's chunk; at w_eff = 0 both are the fastmax prefill pair.
+`kernels.ops.hybrid` and `kernels.ops.hybrid_prefill_kernel` pick between
+them by the tensors' device.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -24,23 +25,10 @@ from repro_torch.kernels import fastmax_causal as _fc
 __all__ = ["hybrid_causal_cuda", "hybrid_causal_ref", "band_width",
            "launches"]
 
-# kernel launches made by `hybrid_causal_cuda` (one per call with a band)
+# calls of `hybrid_causal_cuda` that launched the kernel (one per call with
+# a band, though each makes two CUDA launches a segment: prefix moments,
+# then the band combine)
 launches = 0
-
-
-def _lib():
-    from repro_torch.kernels import build
-
-    lib = build.load("hybrid_causal")
-    if not getattr(lib, "_typed", False):
-        lib.hybrid_causal_forward.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 11
-            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
-        lib.hybrid_causal_forward.restype = ctypes.c_int
-        lib.hybrid_causal_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.hybrid_causal_smem_bytes.restype = ctypes.c_long
-        lib._typed = True
-    return lib
 
 
 def band_width(window: int, chunk_size: int, n: int) -> int:
@@ -61,35 +49,19 @@ def hybrid_causal_cuda(q, k, v, kv_mask=None, *, p: int = 2,
     `return_state`: the final moment carry (m0, m1, m2, g0, g1, g2) in
     float32, m2 m-major [B,Hkv,D,D,Dv], zeros for m2 and g2 at p=1. At
     w_eff = 0 this is `fastmax_causal_cuda`. Raises on any input the
-    kernel does not take and on a failed build or launch.
+    kernel does not take and on a failed build or launch. Each call with
+    a band adds one to `launches` (not to `fastmax_causal.launches`); its
+    workspace (`fastmax_causal.workspace_bytes`) is freed on return.
     """
     global launches
     _fc._check_inputs(q, k, v)
-    b, hq, n, d = q.shape
-    hkv, dv = k.shape[1], v.shape[-1]
-    w_eff = band_width(window, chunk_size, n)
+    w_eff = band_width(window, chunk_size, q.shape[2])
     if w_eff == 0:
         o, state = _fc.fastmax_causal_cuda(q, k, v, kv_mask, p=p,
                                            denom_eps=denom_eps)
         return (o, state) if return_state else o
-    w = _fc.check_kernel_inputs(q, k, v, kv_mask, p, "hybrid_causal_cuda")
-    dev, g, f32 = q.device, hq // hkv, torch.float32
-
-    lib = _lib()
-    c = _fc.pick_chunk(g, d, lib.hybrid_causal_smem_bytes)
-    o = torch.empty(b, hq, n, dv, dtype=q.dtype, device=dev)
-    state = tuple(torch.empty(s, dtype=f32, device=dev)
-                  for s in _fc._state_shapes(b, hkv, d, dv))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.hybrid_causal_forward(
-            _fc._KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), w.data_ptr(), o.data_ptr(),
-            *[t.data_ptr() for t in state],
-            b * hkv, g, n, d, dv, p, c, w_eff, float(denom_eps), stream)
-    if err != 0:
-        raise RuntimeError(f"hybrid_causal_forward launch failed: CUDA "
-                           f"error {err}")
+    o, state = _fc.prefill_call(q, k, v, kv_mask, p=p, denom_eps=denom_eps,
+                                band=w_eff).run()
     launches += 1
     return (o, state) if return_state else o
 

@@ -11,7 +11,8 @@ reference does (it has no noncausal backward kernel). The trainable
 `hybrid()` pairs the hybrid kernel, which also emits its final moment
 carry, with the plain band-extended §2.5 reverse scan
 (`core.hybrid.hybrid_bwd_scan`) seeded by that carry, as the reference
-does (it has no hybrid backward kernel).
+does (it has no hybrid backward kernel). `hybrid_prefill_kernel` is the
+hybrid kernel's serving route: the prompt's o and final moments.
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ from repro_torch.kernels import hybrid_causal as _hc
 from repro_torch.kernels.ref import fastmax_decode_ref
 
 __all__ = ["fastmax", "fastmax_bwd", "fastmax_prefill_kernel",
-           "fastmax_decode", "hybrid", "launch_counts",
-           "reset_launch_counts"]
+           "fastmax_decode", "hybrid", "hybrid_prefill_kernel",
+           "launch_counts", "reset_launch_counts"]
 
 
 def _route(x: torch.Tensor) -> str:
@@ -190,6 +191,23 @@ def fastmax_prefill_kernel(q, k, v, *, p: int = 2, chunk_size: int = 128,
     return _fc.fastmax_causal_ref(q, k, v, kv_mask, p=p,
                                   chunk_size=chunk_size, denom_eps=denom_eps,
                                   init_state=init_state)
+
+
+def hybrid_prefill_kernel(q, k, v, *, p: int = 2, window: int = 64,
+                          chunk_size: int = 128, denom_eps: float = 1e-6,
+                          kv_mask=None):
+    """Hybrid causal prefill on pre-normalized q̂/k̂ (no carried state).
+    Returns (o, state): o in q's dtype and the final moment carry in the
+    layout of `fastmax_prefill_kernel`. `kv_mask` [B, Hkv|1, N] removes
+    keys from both legs. CUDA tensors launch the hybrid kernel, CPU
+    tensors take its plain version (the chunked hybrid scan at
+    `chunk_size`)."""
+    kw = dict(p=p, window=window, chunk_size=chunk_size,
+              denom_eps=denom_eps, return_state=True)
+    if _route(q) == "cuda":
+        return _hc.hybrid_causal_cuda(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), kv_mask, **kw)
+    return _hc.hybrid_causal_ref(q, k, v, kv_mask, **kw)
 
 
 def fastmax_decode(q, k, v, state, *, p: int = 2, denom_eps: float = 1e-6):

@@ -663,10 +663,10 @@ def _assert_hybrid_close(o, plain):
 
 
 @pytest.mark.cuda
-# (heads, D, N, window, chunk_size): qwen3's group (G=2, the kernel's
-# chunk C=64) with the band one tile back (w 64) and over four tiles
-# (w 200 at chunk 256); G=1 (C=64) with a band shorter than a tile; G=4
-# (C=32) with the band over several tiles and a ragged last chunk
+# (heads, D, N, window, chunk_size): qwen3's group (G=2) with the band of
+# 64 below the kernel's chunk L = 128, and of 200 above it (the first two
+# chunks take no slot); G=1 with a band of 5; G=4 with a band of 100 and a
+# ragged last chunk
 @pytest.mark.parametrize("case", [((4, 2), 64, 300, 64, 512),
                                   ((4, 2), 64, 300, 200, 256),
                                   ((3, 3), 32, 150, 5, 16),
@@ -691,6 +691,83 @@ def test_hybrid_kernel_matches_plain_on_card(cuda_device, p, dtype, case):
     for a, r in zip(st, rst):
         scale = max(1.0, r.abs().max().item())
         torch.testing.assert_close(a / scale, r / scale, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_hybrid_kernel_in_segments_on_card(cuda_device, monkeypatch):
+    """With a workspace budget of one slot the hybrid call runs its two
+    launches over segments of one chunk (N = 300: three); the band's keys
+    before a segment's first chunk are read from the one before. o and
+    state as in one segment, up to rounding, and as the plain version's. A
+    band longer than the first segment raises."""
+    import repro_torch.kernels.fastmax_causal as fc
+    from repro_torch.kernels.hybrid_causal import (hybrid_causal_cuda,
+                                                   hybrid_causal_ref)
+
+    q, k, v = (t.float() for t in _qwen3_like(cuda_device, 19))
+    mask = torch.ones(k.shape[:3], device=cuda_device)
+    mask[1, :, -40:] = 0.0
+    kw = dict(p=2, window=100, chunk_size=128, return_state=True)
+    o1, st1 = hybrid_causal_cuda(q, k, v, mask, **kw)
+    monkeypatch.setattr(fc, "_WORKSPACE_BUDGET", 1)
+    assert fc.prefill_call(q, k, v, mask, p=2, band=100).segments == [
+        (0, 128), (128, 128), (256, 44)]
+    o, st = hybrid_causal_cuda(q, k, v, mask, **kw)
+    ro, rst = hybrid_causal_ref(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, o1, rtol=1e-6, atol=1e-6)
+    _assert_hybrid_close(o, ro)
+    for a, a1, r in zip(st, st1, rst):
+        scale = max(1.0, r.abs().max().item())
+        torch.testing.assert_close(a / scale, a1 / scale, rtol=0, atol=1e-6)
+        torch.testing.assert_close(a / scale, r / scale, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="first segment"):
+        hybrid_causal_cuda(q, k, v, mask, p=2, window=200, chunk_size=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hybrid_kernel_band_past_two_chunks_on_card(cuda_device, dtype):
+    """w_eff = 300 > 2L at qwen3's widths: the first three chunks take no
+    slot, and their rows past L (band-only rows i < 300, and rows whose
+    band starts after token 0) are summed pair by pair from token 0. o
+    against the plain version, and in float32 as close to float64 as the
+    plain version (4x margin) or within 1e-4; the carry as the prefill's
+    checks."""
+    from repro_torch.kernels.hybrid_causal import (hybrid_causal_cuda,
+                                                   hybrid_causal_ref)
+
+    q, k, v = (t.to(dtype) for t in _qwen3_like(cuda_device, 23, n=700))
+    kw = dict(p=2, window=300, chunk_size=512, return_state=True)
+    o, st = hybrid_causal_cuda(q, k, v, **kw)
+    ro, rst = hybrid_causal_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_hybrid_close(o, ro)
+    if dtype == torch.float32:
+        o64, _ = hybrid_causal_ref(q.double(), k.double(), v.double(), **kw)
+        _assert_as_close_as_plain(o, ro, o64, 1e-4)
+    for a, r in zip(st, rst):
+        scale = max(1.0, r.abs().max().item())
+        torch.testing.assert_close(a / scale, r / scale, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 2])
+def test_hybrid_kernel_repeats_bit_for_bit_on_card(cuda_device, p):
+    """Two hybrid calls on the same inputs give the same bits, o and
+    state: the band's sums, like the prefill's, run in a fixed order."""
+    from repro_torch.kernels.hybrid_causal import hybrid_causal_cuda
+
+    q, k, v = _qwen3_like(cuda_device, 29)
+    if p == 1:
+        q = q / q.shape[-1]
+    kw = dict(p=p, window=64, chunk_size=512, return_state=True)
+    o1, s1 = hybrid_causal_cuda(q, k, v, **kw)
+    o2, s2 = hybrid_causal_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+    for a, b in zip(s1, s2):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -734,8 +811,9 @@ def test_hybrid_op_routes_through_the_hybrid_kernel_on_card(cuda_device):
 @pytest.mark.cuda
 def test_hybrid_generate_on_card_matches_cpu(cuda_device):
     """The float32 hybrid smoke model's greedy tokens on the card equal
-    the CPU's from the same weights; hybrid serving launches no kernel
-    (the reference decodes hybrid through its plain two-leg state)."""
+    the CPU's from the same weights; hybrid serving launches the hybrid
+    kernel once per layer (the prefill) and no other kernel (the
+    reference decodes hybrid through its plain two-leg state)."""
     import dataclasses
 
     from repro_torch.attention import AttentionSpec
@@ -759,5 +837,7 @@ def test_hybrid_generate_on_card_matches_cpu(cuda_device):
     ops.reset_launch_counts()
     got = generate(to_card(cpu), cfg, prompts.to(cuda_device), 6,
                    device=cuda_device)
-    assert not any(ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert counts.pop("hybrid_causal") == cfg.n_layers
+    assert not any(counts.values())
     assert torch.equal(got.cpu(), want)

@@ -18,7 +18,7 @@ from repro.kernels.fastmax_decode import fastmax_decode_pallas  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.fastmax_causal import (  # noqa: E402
-    fastmax_causal_cuda, fastmax_causal_ref, pick_chunk, prefill_call)
+    fastmax_causal_cuda, fastmax_causal_ref, prefill_call)
 from repro_torch.kernels.fastmax_decode import fastmax_decode_cuda  # noqa: E402
 from repro_torch.kernels.ref import fastmax_decode_ref  # noqa: E402
 
@@ -168,16 +168,3 @@ def test_asking_for_cuda_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--smoke", "--batch", "1", "--prompt-len", "4",
                     "--gen", "2"])
-
-
-def test_pick_chunk_fits_shared_memory():
-    assert pick_chunk(2, 128, lambda g, c, d: 0) == 64
-    assert pick_chunk(4, 128, lambda g, c, d: 0) == 32
-    assert pick_chunk(16, 128, lambda g, c, d: 0) == 8
-    assert pick_chunk(128, 128, lambda g, c, d: 0) == 1
-    # halves until the (fake) footprint fits 227 KB
-    assert pick_chunk(1, 128, lambda g, c, d: c * 10_000) == 16
-    with pytest.raises(ValueError):
-        pick_chunk(129, 128, lambda g, c, d: 0)
-    with pytest.raises(ValueError):
-        pick_chunk(1, 512, lambda g, c, d: 10**9)
