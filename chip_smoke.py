@@ -59,8 +59,11 @@ and power limit, and the result line last):
                 against their plain versions, float32 and bfloat16, o and
                 all six moments: at whisper's widths (B=4, Hq=Hkv=12,
                 D=Dv=64, M=1500 keys, N = 1500, 128 and 1 queries), at
-                qwen3's (B=2, Hq=16, Hkv=8, D=Dv=128, N=M=1024) and one p=1
-                case on q̂/D.
+                qwen3's (B=2, Hq=16, Hkv=8, D=Dv=128, N=M=1024), one p=1
+                case on q̂/D, then ragged shapes of the tensor-core
+                launches (M = 1, 7, 33, 1501 at G*N = 17; Dv = 12, 20, 36;
+                D = 128), each launch called twice and compared bit for
+                bit, float32 o there held against float64.
  11. whisper small — the whisper smoke config in float32: kernel and plain
                 path give the same greedy tokens and close prefill logits.
  12. whisper    — full-width whisper-small, attn fastmax2-kernel, bfloat16,
@@ -72,7 +75,9 @@ and power limit, and the result line last):
                 against the plain path (absolute limit). Then the
                 noncausal launches timed at this path's shapes against
                 their plain versions and bounds (moments at M=1500;
-                combine at N=1500 and N=1).
+                combine at N=1500, 128 and 1), with their TFLOP/s beside
+                the dense TF32 rate, and two calls of each compared bit
+                for bit.
  13. hybrid kernels — the hybrid kernel against its plain version, o and
                 all six final moments: at qwen3's widths (B=4, Hq=16, Hkv=8,
                 D=Dv=128, N=1024, window 64 at chunk 512) in float32 and
@@ -119,6 +124,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12   # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak
 H100_F32_FLOPS = 67e12       # CUDA-core float32 peak
+H100_TF32_FLOPS = 495e12     # dense tensor-core TF32 peak
 # the causal prefill's bound counts its exact in-chunk pairs at chunks of
 # this many tokens, a fixed count (the function needs none of them: the
 # feature-row combine covers every key), so no kernel's chunk moves it
@@ -175,6 +181,14 @@ SMOKE_GRAD_TOL = 1e-4        # the same, float32 smoke model
 # encoder and 12 decoder layers. Measured on an H100: 4.69e-2 and 4.30e-2
 # (two draws of frames and prompts); the limit is about four times that
 WHISPER_LOGIT_TOL = 0.2      # absolute, max over the last row's logits
+# noncausal kernel, ragged shapes in float32 (as tests/test_torch_cuda.py
+# holds it): o's max error to float64 at most this many times the plain
+# version's, or TOL_O32 of the output scale. With one key (M = 1) a row's
+# denominator f(s) falls to 1/2 from terms a hundred times larger: on an
+# H100 the plain float32 version was 4.79e-5 from float64 there and the
+# kernel 9.43e-5 from plain, so an absolute limit against plain would
+# measure both versions' rounding
+NC_F64_MARGIN = 4
 
 
 def fail(msg: str) -> None:
@@ -852,15 +866,17 @@ def main() -> None:
         noncausal_moments_ref)
     from repro_torch.models.encdec import encode
 
-    def nc_case(b, hq, hkv, n, m, d, dtype, p=2):
+    def nc_case(b, hq, hkv, n, m, d, dtype, p=2, dv=None, ragged=False):
         """Both launches against their plain versions on one input: (o max
         abs error, the moments' max abs error, the inputs, the kernel's and
-        the plain moments)."""
+        the plain moments). `ragged`: also each launch twice, bit for bit,
+        and float32 o held against float64 by NC_F64_MARGIN (below)."""
         # at p=1 the queries are q̂/D (|s| <= 1, f >= 0; see bwd_case)
         qs = 1.0 / d if p == 1 else 1.0
+        dv = d if dv is None else dv
         q = (normalize_qk(randn(b, hq, n, d)) * qs).to(dtype)
         k = normalize_qk(randn(b, hkv, m, d)).to(dtype)
-        v = randn(b, hkv, m, d).to(dtype)
+        v = randn(b, hkv, m, dv).to(dtype)
         mom = noncausal_moments_cuda(k, v, p=p)
         rmom = noncausal_moments_ref(k, v, p=p)
         o = noncausal_combine_cuda(q, mom, p=p)
@@ -870,10 +886,28 @@ def main() -> None:
         em = max(moment_err(a, r) for a, r in zip(mom, rmom))
         em_abs = max((a - r).abs().max().item() for a, r in zip(mom, rmom))
         tag = (f"nc p={p} {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} D={d} "
-               f"N={n} M={m}")
+               f"Dv={dv} N={n} M={m}")
+        extra = ""
+        if ragged:
+            same = (all(torch.equal(a, c) for a, c in
+                        zip(mom, noncausal_moments_cuda(k, v, p=p)))
+                    and torch.equal(o, noncausal_combine_cuda(q, mom, p=p)))
+            extra = f", two calls equal bit for bit={same}"
+            o_ok = o_ok and same
+            if dtype == torch.float32:
+                o64 = noncausal_combine_ref(q.double(), noncausal_moments_ref(
+                    k.double(), v.double(), p=p), p=p)
+                e_k = (o.double() - o64).abs().max().item()
+                e_p = (ro.double() - o64).abs().max().item()
+                o_ok = same and e_k <= max(
+                    NC_F64_MARGIN * e_p,
+                    TOL_O32 * max(1.0, o64.abs().max().item()))
+                extra += (f"; to float64: kernel {e_k:.3e}, plain {e_p:.3e} "
+                          f"(kernel <= {NC_F64_MARGIN} x plain or "
+                          f"{TOL_O32:.0e} of scale)")
         print(f"  {tag}: o max abs err {eo:.3e} (tol {o_tol(dtype)}), "
               f"moments max rel err {em:.3e} (tol {TOL_MOMENTS:.0e}; max "
-              f"abs err {em_abs:.3e})")
+              f"abs err {em_abs:.3e}){extra}")
         if not (o_ok and em <= TOL_MOMENTS):
             fail(f"{tag}: the noncausal kernel disagrees with its plain "
                  f"version")
@@ -888,10 +922,20 @@ def main() -> None:
                                              dtype)[:2]
             nc_case(2, hq, hkv, P, P, d, dtype)
         nc_case(B, wh, wh, WM, WM, wd, torch.float32, p=1)
+        # ragged shapes of the tensor-core launches: keys M (stages of 32,
+        # the last zero-filled), value widths Dv that are not a multiple of
+        # the n8 tile, G*N = 17 (the row combine's smallest input), D = 128
+        for dtype in (torch.float32, torch.bfloat16):
+            for m in (1, 7, 33, 1501):
+                nc_case(2, 2, 2, 17, m, wd, dtype, ragged=True)
+            for dv in (12, 20, 36):
+                nc_case(2, 4, 2, 200, 300, wd, dtype, dv=dv, ragged=True)
+            nc_case(2, 4, 2, 300, 333, d, dtype, dv=36, ragged=True)
     torch.cuda.empty_cache()
     phase("nc kernels", "moments and combine agree with their plain versions "
           f"(f32, bf16; whisper widths N={WM}, 128, 1 against M={WM}; qwen3 "
-          f"widths N=M={P}; p=1)")
+          f"widths N=M={P}; p=1; ragged M=1, 7, 33, 1501, Dv=12, 20, 36, "
+          f"G*N=17, D={d}, each launch twice bit for bit)")
 
     # ---- 11. whisper smoke config: kernel path vs plain path ----
     wsmall = dataclasses.replace(get_smoke_config("whisper-small"),
@@ -1017,21 +1061,37 @@ def main() -> None:
         _, _, (q, k, v, mom, rmom) = nc_case(B, wh, wh, WM, WM, wd,
                                              torch.bfloat16)
         q1 = q[:, :, :1].contiguous()
+        q128 = q[:, :, :WP].contiguous()
         nm_ms = sync_ms(lambda: noncausal_moments_cuda(k, v, p=2), reps=10)
         nm_plain = sync_ms(lambda: noncausal_moments_ref(k, v, p=2), reps=5)
         nc_ms = sync_ms(lambda: noncausal_combine_cuda(q, mom, p=2), reps=10)
         nc_plain = sync_ms(lambda: noncausal_combine_ref(q, rmom, p=2),
                            reps=5)
+        n128_ms = sync_ms(lambda: noncausal_combine_cuda(q128, mom, p=2),
+                          reps=20)
+        n128_plain = sync_ms(lambda: noncausal_combine_ref(q128, rmom, p=2),
+                             reps=10)
         n1_ms = sync_ms(lambda: noncausal_combine_cuda(q1, mom, p=2),
                         reps=50)
         n1_plain = sync_ms(lambda: noncausal_combine_ref(q1, rmom, p=2),
                            reps=20)
+        nc_same = (all(torch.equal(a, c) for a, c in
+                       zip(noncausal_moments_cuda(k, v, p=2),
+                           noncausal_moments_cuda(k, v, p=2)))
+                   and all(torch.equal(noncausal_combine_cuda(x, mom, p=2),
+                                       noncausal_combine_cuda(x, mom, p=2))
+                           for x in (q, q128, q1)))
+    if not nc_same:
+        fail("nc: two calls of a noncausal launch differ")
     # per (b, head): each feature row (the constant, the linear ones, the
     # pairs a <= b) is one FMA per value column and one for the g column;
     # bytes: k, v read and the moments written; q read, the feature rows
-    # of the moments read and o written
+    # of the moments read and o written. The tensor cores run the value
+    # columns' products in passes of the TF32 split: 2 for the moments of
+    # bf16 keys and values, 3 for the combine
     nm_ops = bhw * WM * rows * 2 * (wd + 1)
     nm_bytes = (k.numel() + v.numel()) * 2 + sum(t.numel() for t in mom) * 4
+    nm_tc = 2 * bhw * WM * rows * 2 * wd
 
     def combine_bound(n):
         ops_ = bhw * n * rows * 2 * (wd + 1)
@@ -1039,18 +1099,28 @@ def main() -> None:
         return ops_, bytes_, max(ops_ / H100_BF16_FLOPS,
                                  bytes_ / H100_BYTES_PER_S) * 1e3
 
+    def rates(ops_, tc_ops, ms):
+        return (f"{ops_ / ms / 1e9:.2f} TFLOP/s; {tc_ops / ms / 1e9:.1f} "
+                f"TFLOP/s of TF32 products against the dense "
+                f"{H100_TF32_FLOPS / 1e12:.0f}")
+
     nm_bound = max(nm_ops / H100_BF16_FLOPS,
                    nm_bytes / H100_BYTES_PER_S) * 1e3
     nc_ops, nc_bytes, nc_bound = combine_bound(WM)
+    n128_ops, n128_bytes, n128_bound = combine_bound(WP)
     n1_ops, n1_bytes, n1_bound = combine_bound(1)
-    print(f"  timing (nc, bf16 B={B} H={wh} D={wd} M={WM}): moments "
-          f"{nm_ms:.3f} ms (plain {nm_plain:.3f}, bound {nm_bound:.4f}, "
-          f"{nm_ops / nm_ms / 1e9:.2f} TFLOP/s); combine N={WM} {nc_ms:.3f} "
-          f"ms (plain {nc_plain:.3f}, bound {nc_bound:.4f}, "
-          f"{nc_ops / nc_ms / 1e9:.2f} TFLOP/s); combine N=1 {n1_ms:.4f} ms "
-          f"(plain {n1_plain:.4f}, bound {n1_bound:.4f}, "
-          f"{n1_bytes / n1_ms / 1e6:.0f} GB/s)")
-    del q, k, v, q1, mom, rmom
+    print(f"  timing (nc, bf16 B={B} H={wh} D={wd} M={WM}; two calls of each "
+          f"launch equal bit for bit): moments {nm_ms:.3f} ms (plain "
+          f"{nm_plain:.3f}, bound {nm_bound:.4f}, "
+          f"{rates(nm_ops, nm_tc, nm_ms)}); combine N={WM} {nc_ms:.3f} ms "
+          f"(plain {nc_plain:.3f}, bound {nc_bound:.4f}, "
+          f"{rates(nc_ops, 3 * nc_ops * wd / (wd + 1), nc_ms)}); combine "
+          f"N={WP} {n128_ms:.4f} ms (plain {n128_plain:.4f}, bound "
+          f"{n128_bound:.4f}, "
+          f"{rates(n128_ops, 3 * n128_ops * wd / (wd + 1), n128_ms)}); "
+          f"combine N=1 {n1_ms:.4f} ms (plain {n1_plain:.4f}, bound "
+          f"{n1_bound:.4f}, {n1_bytes / n1_ms / 1e6:.0f} GB/s)")
+    del q, k, v, q1, q128, mom, rmom
     torch.cuda.empty_cache()
 
     # ---- 13. the hybrid kernel against its plain version ----
@@ -1405,7 +1475,8 @@ def main() -> None:
          "bound_by": "operations" if nm_ops / H100_BF16_FLOPS
          >= nm_bytes / H100_BYTES_PER_S else "bytes",
          "library_ms": None},
-        # timed at N=1500 (encoder); the *_n1 keys are the decode steps'
+        # timed at N=1500 (encoder); the *_n128 keys are the prefill's
+        # cross-attention, the *_n1 keys the decode steps'
         {"name": "fastmax_noncausal_combine", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_noncausal.cu",
          "replaces": "src/repro/kernels/fastmax_noncausal.py:192",
@@ -1417,6 +1488,10 @@ def main() -> None:
          "bound_by": "operations" if nc_ops / H100_BF16_FLOPS
          >= nc_bytes / H100_BYTES_PER_S else "bytes",
          "library_ms": None,
+         "ms_n128": n128_ms, "plain_ms_n128": n128_plain,
+         "bound_ms_n128": n128_bound,
+         "bound_by_n128": "operations" if n128_ops / H100_BF16_FLOPS
+         >= n128_bytes / H100_BYTES_PER_S else "bytes",
          "ms_n1": n1_ms, "plain_ms_n1": n1_plain, "bound_ms_n1": n1_bound,
          "bound_by_n1": "operations" if n1_ops / H100_BF16_FLOPS
          >= n1_bytes / H100_BYTES_PER_S else "bytes"},

@@ -1,9 +1,9 @@
 // Noncausal (bidirectional) fastmax for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernel `fastmax_noncausal_pallas`
-// (src/repro/kernels/fastmax_noncausal.py): its two pallas_calls,
-// `_moment_kernel` (the global moments) and `_combine_kernel` (the queries
-// against them), become the launches below.
+// (src/repro/kernels/fastmax_noncausal.py:113): its two pallas_calls,
+// `_moment_kernel` (:160, the global moments) and `_combine_kernel` (:192,
+// the queries against them), become the launches below.
 //
 // What it computes, per (batch, kv-head) bh with G grouped query heads, on
 // pre-normalized q [N, D] per query head and k [M, D], v [M, Dv]:
@@ -18,55 +18,106 @@
 // (m1, g1), then at p = 2 one row per pair a <= b, x_a x_b (m2 and g2 are
 // symmetric, so D(D+1)/2 rows do the work of D^2; the moment launch writes
 // rows a*D+b and b*D+a, the combine weights the pair by 1 and the diagonal
-// by 1/2). R = 1 + D + D(D+1)/2 rows: 2145 at D = 64.
+// by 1/2). R = 1 + D + D(D+1)/2 rows: 2145 at D = 64. Per bh each launch is
+// a product of two matrices:
+//   moments  C[R, Dv]   = phi(k)^T [R, M] . v [M, Dv]  (over the keys)
+//   combine  O[G N, Dv] = (w phi(q)) [G N, R] . C [R, Dv]  (over the rows)
 //
 // What bounds it on an H100:
 //   * the moments and the combine at N = 1500 (encoder self-attention): the
-//     operations, 2 * M * R * Dv per bh for each, ~2e10 per launch at B = 4
-//     and 12 heads; this version runs them as float32 FMAs on the CUDA
-//     cores (tensor cores, wgmma and TMA are later work);
-//   * the combine at N = 1 (cross-attention in each decode step): the bytes
-//     of the moments, R * Dv * 4 bytes per bh (0.55 MB at D = Dv = 64),
-//     read once.
+//     operations, 2 M R Dv per bh for each, 2e10 per launch at B = 4 and 12
+//     heads. Both run on the tensor cores (`mma.sync` m16n8k8 with TF32
+//     operands, 495 TFLOP/s dense on the data sheet; wgmma and TMA are later
+//     work), in two or three passes of the split below: 4e10 or 6e10 tensor
+//     operations, 0.08-0.12 ms at that rate. This version does not reach it:
+//     the scalar work around the products (building and splitting the
+//     features, rewriting B in fragment order) and the shared-memory reads
+//     of B hold it back (PERF.md);
+//   * the combine at N = 1 (decode's cross-attention): the bytes of the
+//     moments, R * Dv * 4 bytes per bh (0.55 MB at D = Dv = 64), read once.
+//
+// The split (mma_tf32.cuh). TF32 keeps 11 significant bits, too few for the
+// port's 1e-4 limits, so each float32 operand x is split into TF32
+// hi = tf32(x) and lo = tf32(x - hi), and each k8 step runs the passes
+// lo.hi, hi.lo and hi.hi, accumulated in float32 (3xTF32: the dropped lo.lo
+// is 2^-22 of the product). On bfloat16 keys and values the moments take two
+// passes, and every product is exact: a bf16 value is exact in TF32 (v's lo
+// is 0) and a pair feature k_a k_b of two bf16 values has at most 16
+// significant bits, so its hi + lo is exact. The combine always takes three
+// (the moments are float32). The tensor cores do not round each addition to
+// nearest, so each stage of 32 keys or moment rows is summed in fresh
+// accumulators and then added to the running sum in float32 on the CUDA
+// cores. The g column is summed on the CUDA cores in float32. So are the
+// denominators, a stage at a time, the stages' partials added in float64:
+// with few keys a row's denominator cancels from terms a hundred times
+// larger, where a float32 running sum would err more than the plain
+// version (and the p = 1 denominators are sign-indefinite).
 //
 // Design. The TPU kernel keeps an m-block of the moments resident in VMEM
 // and walks the key chunks on a sequential grid axis; here m2 (1 MB per bh
 // at D = Dv = 64, 8 MB at 128) cannot sit in one SM's 227 KB, and blocks
 // run in parallel with nothing carried between them. So:
-//   * moments (`moments_kernel`): one block per (64 feature rows x 64 value
-//     columns tile, bh). It streams all M keys through shared memory in
-//     chunks of 32 and keeps its tile in registers (thread (ty, tx) owns
-//     rows 4ty..4ty+3 and columns 4tx..4tx+3, float4 reads: 16 FMAs per two
-//     shared-memory loads), then writes the tile once: no reduction across
-//     blocks. The g column (the weights' sum) rides along in the feature
-//     build, written by the first column block. The ragged edge of M is
-//     masked in the kernel (the features of a missing key are 0), with no
-//     padded copy.
+//   * moments (`moments_kernel`): one block of 8 warps per (128 feature rows
+//     x 64 value columns, bh), two blocks an SM; warp w owns rows
+//     16w..16w+15 and all 64 columns (eight m16n8 tiles; columns past Dv are
+//     zeros and go through the products, so the unrolled loop has no
+//     branch). Stages of 32 keys of k and v come in by cp.async into a
+//     double buffer (the next stage loads while this one is multiplied; the
+//     ragged edge of M is zero-filled, with no padded copy). Each stage is
+//     widened to float32, k with a column of ones and one of zeros beside
+//     it so that every feature row (the constant, a linear or a pair row,
+//     or one past R) is x[ia] x[ib], and v is rewritten in B fragment order
+//     (split on float32) once for the block's 8 warps. Each lane builds its
+//     A fragments' features in registers from its two rows' factor columns
+//     and runs four k8 steps; the same features are summed into the g
+//     column, written by the first column block. Both halves of a pair row
+//     are written.
 //   * combine, many query rows (`combine_rows_kernel`, G*N > 16): one block
-//     per (64 query rows, bh). It walks the moment rows in tiles of 32 from
-//     L2 (every block of a bh reads the same ones), builds the queries'
-//     features for those rows in shared memory and accumulates the 64 x 64
-//     output tile in registers; with Dv > 64 it loops over the column
-//     blocks, and the denominator is summed once per row, in the first.
+//     of 4 warps per (64 query rows, bh); warp w owns 16 query rows. It walks
+//     the moment rows in stages of 32 from L2 (every block of a bh reads the
+//     same ones) by cp.async into a double buffer, split into B fragment
+//     order once for the block; each lane builds its queries' weighted
+//     features (row_weight x feature) in registers, and sums them against
+//     the g column for the denominator, in a fixed order (each lane over
+//     the rows in order, then the four lanes of a quad). With Dv > 64 it
+//     loops over the column blocks and divides by the first one's
+//     denominators.
 //   * combine, few query rows (`combine_split_kernel` + `combine_sum_kernel`,
-//     G*N <= 16, every decode step's cross-attention): one block per head
-//     would read its moments on only B*Hkv of 132 SMs, so the moment rows
-//     are split across blocks (float4 loads, coalesced across the warp);
-//     each block writes partial numerators and denominators, and the second
-//     launch sums them in a FIXED order (split 0, 1, ...) and divides. No
-//     float atomics: greedy tokens must not change from run to run.
-// All launches use the caller's stream; each C entry returns
-// cudaGetLastError() after its launches. Requires D % 4 == 0, Dv % 4 == 0,
-// D <= 255 (checked by the wrapper and here).
+//     G*N <= 16, every decode step's cross-attention; CUDA cores): one block
+//     per head would read its moments on only B*Hkv of 132 SMs, so the
+//     moment rows are split across blocks (float4 loads, coalesced across
+//     the warp); each block writes partial numerators and denominators, and
+//     the second launch sums them in a FIXED order (split 0, 1, ...) and
+//     divides.
+// No float atomics: greedy tokens must not change from run to run. All
+// launches use the caller's stream; each C entry returns cudaGetLastError()
+// after its launches. Requires D % 4 == 0, Dv % 4 == 0, 4 <= D <= 255 and
+// Dv <= 1024 (checked by the wrapper and here), and k, v, the moments and o
+// aligned to 16 bytes (float32) or 8 (bfloat16), as any contiguous tensor
+// of those widths is (checked here).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 #include "feature_table.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 constexpr int kMaxQ = 16;    // query rows per bh of the split combine
+constexpr int kNT = kCols / 8;                      // n8 tiles of 64 columns
+constexpr int kBS = kCols + 8;                      // staged row stride
+// moments: 8 warps x 16 feature rows, stages of kKeys keys
+constexpr int kMomRows = 16 * (kThreads / 32);
+constexpr int kKeys = 32;
+constexpr int kFrags = (kKeys / 8) * kNT * 32;      // B fragments a stage
+// combine: 4 warps x 16 query rows, stages of kRowStage moment rows
+constexpr int kCombThreads = 128;
+constexpr int kQRows = 16 * (kCombThreads / 32);
+constexpr int kRowStage = 32;
+constexpr int kFragsC = (kRowStage / 8) * kNT * 32;
 
 // Row `c` of the moments of bh: its m row (Dv floats) and its g entry.
 __device__ __forceinline__ const float* m_row(int c, const float* m0,
@@ -78,127 +129,221 @@ __device__ __forceinline__ const float* m_row(int c, const float* m0,
   if (b < 0) return m1 + ((size_t)bh * D + a) * Dv;
   return m2 + ((size_t)bh * D * D + a * D + b) * Dv;
 }
-__device__ __forceinline__ float g_val(int c, const float* g0,
-                                       const float* g1, const float* g2,
-                                       int bh, int D) {
+__device__ __forceinline__ const float& g_val(int c, const float* g0,
+                                              const float* g1,
+                                              const float* g2, int bh,
+                                              int D) {
   const int a = code_a(c), b = code_b(c);
   if (a < 0) return g0[bh];
   if (b < 0) return g1[(size_t)bh * D + a];
   return g2[(size_t)bh * D * D + a * D + b];
 }
 
+// The factor columns of row `c` in a vector x padded with x[D] = 1 and
+// x[D + 1] = 0: the row's feature is x[ia] x[ib] (0 past the last row).
+__device__ __forceinline__ void factor_cols(int c, int D, int& ia, int& ib) {
+  if (c < 0) {
+    ia = ib = D + 1;
+    return;
+  }
+  const int a = code_a(c), b = code_b(c);
+  ia = a < 0 ? D : a;
+  ib = b < 0 ? D : b;
+}
+
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// acc += part, then part = 0: a stage's sum folded in float32.
+__device__ __forceinline__ void fold(float (&acc)[kNT][4],
+                                     float (&part)[kNT][4]) {
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[j][i] += part[j][i];
+      part[j][i] = 0.f;
+    }
+}
+
+// The sum over the four lanes of a quad (lanes 4g..4g+3), the same bits on
+// each.
+template <typename F>
+__device__ __forceinline__ F quad_sum(F x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // ---------------------------------------------------------------------------
 // Moments. k [BH, M, D], v [BH, M, Dv]; m0 [BH, Dv], m1 [BH, D, Dv],
 // m2 [BH, D*D, Dv], g0 [BH], g1 [BH, D], g2 [BH, D, D] (f32).
-// grid (row tiles * column blocks, BH).
+// grid (row tiles of 128 * column blocks, BH), kThreads threads.
+// Shared memory: the stage's v in B fragment order, its k widened to f32
+// [kKeys, D + 8], then the raw double buffers of k [kKeys, D] and v
+// [kKeys, kBS].
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ inline size_t moments_smem_bytes(int D) {
+  const size_t frag = sizeof(T) == 2 ? sizeof(float2) : sizeof(float4);
+  return frag * kFrags + sizeof(float) * kKeys * (D + 8) +
+         sizeof(T) * 2 * kKeys * (D + kBS);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
 moments_kernel(const T* __restrict__ k, const T* __restrict__ v,
                float* __restrict__ m0, float* __restrict__ m1,
                float* __restrict__ m2, float* __restrict__ g0,
                float* __restrict__ g1, float* __restrict__ g2, int M, int D,
                int Dv, int p) {
-  __shared__ __align__(16) float sT[kChunk * kTile];   // features x valid
-  __shared__ __align__(16) float sV[kChunk * kCols];
-  __shared__ float sG[(kThreads / kTile) * kTile];     // g partials
-  __shared__ int sCode[kTile];
-  extern __shared__ float sK[];                        // [kChunk, D + 1]
-  const int KS = D + 1;  // padded: conflict-free reads of one key's entries
+  constexpr bool exact = sizeof(T) == 2;   // bf16: v is exact in TF32
+  extern __shared__ __align__(16) unsigned char sbytes[];
+  float4* sB4 = reinterpret_cast<float4*>(sbytes);   // v hi/lo (f32)
+  float2* sB2 = reinterpret_cast<float2*>(sbytes);   // v (bf16)
+  float* sK = reinterpret_cast<float*>(
+      sbytes + (exact ? sizeof(float2) : sizeof(float4)) * kFrags);
+  const int KS = D + 8;  // padded: conflict-free feature reads
+  T* rawK = reinterpret_cast<T*>(sK + kKeys * KS);   // [2][kKeys, D]
+  T* rawV = rawK + 2 * kKeys * D;                     // [2][kKeys, kBS]
   const int R = n_rows(D, p);
   const int ncb = (Dv + kCols - 1) / kCols;
   const int tile = blockIdx.x / ncb, cb = blockIdx.x - tile * ncb;
-  const int r0 = tile * kTile, c0 = cb * kCols;
+  const int c0 = cb * kCols, ncols = min(kCols, Dv - c0);
   const int bh = blockIdx.y;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int myrow = tid & (kTile - 1);   // the row this thread builds
-  if (tid < kTile) sCode[tid] = row_code(r0 + tid, D, R);
-  __syncthreads();
-  const int mycode = sCode[myrow];
-
-  float acc[4][4];
-#pragma unroll
-  for (int ri = 0; ri < 4; ++ri)
-#pragma unroll
-    for (int ci = 0; ci < 4; ++ci) acc[ri][ci] = 0.f;
-  float gp = 0.f;
+  const int tid = threadIdx.x, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int wr = tile * kMomRows + (tid >> 5) * 16;  // the warp's first row
+  const bool active = wr < R;
+  const int code0 = row_code(wr + gq, D, R);       // row of a0, a2, c0, c1
+  const int code1 = row_code(wr + gq + 8, D, R);   // row of a1, a3, c2, c3
+  int ia0, ib0, ia1, ib1;
+  factor_cols(code0, D, ia0, ib0);
+  factor_cols(code1, D, ia1, ib1);
   const T* kb = k + (size_t)bh * M * D;
   const T* vb = v + (size_t)bh * M * Dv;
+  const int nst = (M + kKeys - 1) / kKeys;
 
-  for (int t0 = 0; t0 < M; t0 += kChunk) {
-    const int len = min(kChunk, M - t0);
-    for (int e = tid; e < kChunk * D; e += kThreads) {
-      const int t = e / D, a = e - t * D;
-      sK[t * KS + a] = t < len ? ld(kb + (size_t)(t0 + t) * D + a) : 0.f;
+  // stage s into buffer s & 1; missing keys and columns are zero-filled
+  auto issue = [&](int s) {
+    const int t0 = s * kKeys, len = min(kKeys, M - t0);
+    T* dk = rawK + (s & 1) * kKeys * D;
+    for (int e = 4 * tid; e < kKeys * D; e += 4 * kThreads) {
+      const bool ok = e < len * D;
+      cp_async4(dk + e, ok ? kb + (size_t)t0 * D + e : kb, ok);
     }
-    for (int e = tid; e < kChunk * kCols; e += kThreads) {
-      const int t = e / kCols, c = e - t * kCols, cc = c0 + c;
-      sV[e] = (t < len && cc < Dv) ? ld(vb + (size_t)(t0 + t) * Dv + cc)
-                                   : 0.f;
+    T* dv = rawV + (s & 1) * kKeys * kBS;
+    for (int e = tid; e < kKeys * (kCols / 4); e += kThreads) {
+      const int t = e / (kCols / 4), c = 4 * (e - t * (kCols / 4));
+      const bool ok = t < len && c < ncols;
+      cp_async4(dv + t * kBS + c,
+                ok ? vb + (size_t)(t0 + t) * Dv + c0 + c : vb, ok);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+
+  float acc[kNT][4], part[kNT][4];
 #pragma unroll
-    for (int i = 0; i < kChunk / (kThreads / kTile); ++i) {
-      const int t = (tid / kTile) + (kThreads / kTile) * i;
-      const float f = (t < len && mycode >= 0) ? feature(mycode, sK + t * KS)
-                                                : 0.f;
-      sT[t * kTile + myrow] = f;
-      gp += f;
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = part[j][i] = 0.f;
+  float gp0 = 0.f, gp1 = 0.f;   // g partials of rows code0, code1
+  issue(0);
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait_all();
+    __syncthreads();   // stage s landed; stage s - 1's products are done
+    if (s + 1 < nst) issue(s + 1);
+    const int len = min(kKeys, M - s * kKeys);
+    const T* rk = rawK + (s & 1) * kKeys * D;
+    for (int e = 4 * tid; e < kKeys * D; e += 4 * kThreads) {
+      const int t = e / D;
+      *reinterpret_cast<float4*>(sK + t * KS + (e - t * D)) = lds4(rk + e);
     }
+    if (tid < kKeys) {
+      sK[tid * KS + D] = tid < len ? 1.f : 0.f;
+      sK[tid * KS + D + 1] = 0.f;
+    }
+    const T* rv = rawV + (s & 1) * kKeys * kBS;
+    if (exact)
+      b_fragments_exact<kNT>(sB2, rv, kBS, kKeys / 8, tid, kThreads);
+    else
+      b_fragments_split<kNT>(sB4, rv, kBS, kKeys / 8, tid, kThreads);
     __syncthreads();
-    moment_tile(acc, sT, sV, len, ty, tx);
-    __syncthreads();
+    if (!active) continue;
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 8; ++kk) {
+      const float* x0 = sK + (8 * kk + tq) * KS;   // key of a0, a1
+      const float* x1 = x0 + 4 * KS;                // key of a2, a3
+      const float f[4] = {x0[ia0] * x0[ib0], x0[ia1] * x0[ib1],
+                          x1[ia0] * x1[ib0], x1[ia1] * x1[ib1]};
+      gp0 += f[0];
+      gp0 += f[2];
+      gp1 += f[1];
+      gp1 += f[3];
+      uint32_t ah[4], al[4];
+      split_a<sizeof(T) == 2>(f, ah, al);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int fi = (kk * kNT + j) * 32 + lane;
+        if (exact) {
+          const float2 b = sB2[fi];
+          mma_tf32(part[j], al, __float_as_uint(b.x), __float_as_uint(b.y));
+          mma_tf32(part[j], ah, __float_as_uint(b.x), __float_as_uint(b.y));
+        } else {
+          const float4 b = sB4[fi];
+          mma_tf32(part[j], ah, __float_as_uint(b.z), __float_as_uint(b.w));
+          mma_tf32(part[j], al, __float_as_uint(b.x), __float_as_uint(b.y));
+          mma_tf32(part[j], ah, __float_as_uint(b.x), __float_as_uint(b.y));
+        }
+      }
+    }
+    fold(acc, part);
   }
+  if (!active) return;
 
   // the tile: m rows (both halves of a pair), then the g column
-  const int cq = c0 + 4 * tx;
-  if (cq < Dv) {
+  gp0 = quad_sum(gp0);
+  gp1 = quad_sum(gp1);
+  const State out{m0, m1, m2, g0, g1, g2};
 #pragma unroll
-    for (int ri = 0; ri < 4; ++ri) {
-      const int c = sCode[4 * ty + ri];
-      if (c < 0) continue;
-      const float4 x = make_float4(acc[ri][0], acc[ri][1], acc[ri][2],
-                                   acc[ri][3]);
-      const int a = code_a(c), b = code_b(c);
-      float* dst;
-      if (a < 0) dst = m0 + (size_t)bh * Dv;
-      else if (b < 0) dst = m1 + ((size_t)bh * D + a) * Dv;
-      else dst = m2 + ((size_t)bh * D * D + a * D + b) * Dv;
-      *reinterpret_cast<float4*>(dst + cq) = x;
-      if (b >= 0 && b != a)
-        *reinterpret_cast<float4*>(
-            m2 + ((size_t)bh * D * D + b * D + a) * Dv + cq) = x;
+  for (int h = 0; h < 2; ++h) {
+    const int c = h ? code1 : code0;
+    if (c < 0) continue;
+    size_t mo, go;
+    long mt, gt;
+    state_offsets(c, bh, D, Dv, &mo, &go, &mt, &gt);
+    float* mb = out.m(c) + c0;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const int col = 8 * j + 2 * tq;
+      if (col >= ncols) continue;
+      st2(mb + mo + col, acc[j][2 * h], acc[j][2 * h + 1]);
+      if (mt >= 0) st2(mb + mt + col, acc[j][2 * h], acc[j][2 * h + 1]);
     }
-  }
-  if (cb == 0) {
-    sG[tid] = gp;
-    __syncthreads();
-    if (tid < kTile && mycode >= 0) {
-      float s = 0.f;
-      for (int l = 0; l < kThreads / kTile; ++l) s += sG[l * kTile + tid];
-      const int a = code_a(mycode), b = code_b(mycode);
-      if (a < 0) {
-        g0[bh] = s;
-      } else if (b < 0) {
-        g1[(size_t)bh * D + a] = s;
-      } else {
-        g2[(size_t)bh * D * D + a * D + b] = s;
-        g2[(size_t)bh * D * D + b * D + a] = s;
-      }
+    if (cb == 0 && tq == 0) {
+      const float gs = h ? gp1 : gp0;
+      out.g(c)[go] = gs;
+      if (gt >= 0) out.g(c)[gt] = gs;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
 // Combine, many query rows. q [BH*G, N, D]; o [BH*G, N, Dv].
-// grid (ceil(G*N / 64), BH).
+// grid (ceil(G*N / kQRows), BH), kCombThreads threads. Shared memory: the
+// stage's moment rows in B fragment order, the raw double buffer
+// [kRowStage, kBS], its rows' records (factor columns ia | ib << 16, g),
+// then the queries [kQRows, D + 4].
 // ---------------------------------------------------------------------------
-__host__ __device__ inline int rows_smem_floats(int D) {
-  return kChunk * kCols + kChunk * kPS + kTile * (D + 1) + kTile;
+__host__ __device__ inline size_t rows_smem_bytes(int D) {
+  return sizeof(float4) * kFragsC + sizeof(int2) * 2 * kRowStage +
+         sizeof(float) * (2 * kRowStage * kBS + kQRows * (D + 4));
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCombThreads)
 combine_rows_kernel(const T* __restrict__ q, const float* __restrict__ m0,
                     const float* __restrict__ m1,
                     const float* __restrict__ m2,
@@ -206,95 +351,126 @@ combine_rows_kernel(const T* __restrict__ q, const float* __restrict__ m0,
                     const float* __restrict__ g1,
                     const float* __restrict__ g2, T* __restrict__ o, int G,
                     int N, int D, int Dv, int p, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  float* sM = smem;                   // [32, 64] moment tile
-  float* sP = sM + kChunk * kCols;    // [32, kPS] query features
-  float* sQ = sP + kChunk * kPS;      // [64, D + 1] queries
-  float* sDen = sQ + kTile * (D + 1); // [64]
-  float* sRed = sM;                   // [32, 64] den partials (after use)
-  const int QS = D + 1;
+  extern __shared__ __align__(16) unsigned char sbytes[];
+  float4* sB = reinterpret_cast<float4*>(sbytes);            // hi/lo
+  float* sRaw = reinterpret_cast<float*>(sB + kFragsC);  // [2][stage, kBS]
+  int2* sRec = reinterpret_cast<int2*>(sRaw + 2 * kRowStage * kBS);
+  float* sQ = reinterpret_cast<float*>(sRec + 2 * kRowStage);  // [, D + 4]
+  const int QS = D + 4;
   const int R = n_rows(D, p);
   const int GN = G * N;
   const int bh = blockIdx.y;
-  const int qr0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int rl = tid >> 3;            // the moment row this thread loads
-  const int l8 = tid & 7;
+  const int qr0 = blockIdx.x * kQRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const bool active = qr0 + 16 * warp < GN;
 
-  for (int e = tid; e < kTile * D; e += kThreads) {
-    const int r = e / D, a = e - r * D, qr = qr0 + r;
-    float x = 0.f;
-    if (qr < GN) {
-      const int g = qr / N, n = qr - g * N;
-      x = ld(q + (((size_t)bh * G + g) * N + n) * D + a);
-    }
-    sQ[r * QS + a] = x;
+  const T* qb = q + (size_t)bh * GN * D;
+  for (int e = tid; e < kQRows * D; e += kCombThreads) {
+    const int r = e / D, a = e - r * D;
+    sQ[r * QS + a] = qr0 + r < GN ? ld(qb + (size_t)(qr0 + r) * D + a) : 0.f;
   }
-  __syncthreads();
-
+  if (tid < kQRows) {
+    sQ[tid * QS + D] = 1.f;
+    sQ[tid * QS + D + 1] = 0.f;
+  }
+  const float* q0 = sQ + (16 * warp + gq) * QS;   // query of a0, a2
+  const float* q1 = q0 + 8 * QS;                  // query of a1, a3
+  const int nst = (R + kRowStage - 1) / kRowStage;
   const int ncb = (Dv + kCols - 1) / kCols;
-  for (int cb = 0; cb < ncb; ++cb) {
-    const int c0 = cb * kCols;
-    float acc[4][4];
-#pragma unroll
-    for (int ri = 0; ri < 4; ++ri)
-#pragma unroll
-      for (int ci = 0; ci < 4; ++ci) acc[ri][ci] = 0.f;
-    float dp[kTile / 8];
-#pragma unroll
-    for (int i = 0; i < kTile / 8; ++i) dp[i] = 0.f;
+  double den0 = 0.0, den1 = 0.0;   // denominators of rows gq, gq + 8
+  float dn0 = 1.f, dn1 = 1.f;
 
-    for (int r0 = 0; r0 < R; r0 += kChunk) {
-      const int c = row_code(r0 + rl, D, R);
-      // moment tile: row rl, two float4 per thread
-#pragma unroll
-      for (int j = 0; j < kCols / 32; ++j) {
-        const int cc = 4 * l8 + 32 * j;
-        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (c >= 0 && c0 + cc < Dv)
-          x = ld4(m_row(c, m0, m1, m2, bh, D, Dv) + c0 + cc);
-        *reinterpret_cast<float4*>(sM + rl * kCols + cc) = x;
+  for (int cb = 0; cb < ncb; ++cb) {
+    const int c0 = cb * kCols, ncols = min(kCols, Dv - c0);
+    // stage s into buffer s & 1: four threads load a row; the first of them
+    // finds its code, writes the record (factor columns) and loads its g
+    auto issue = [&](int s) {
+      for (int i = tid >> 2; i < kRowStage; i += kCombThreads / 4) {
+        const int slot = (s & 1) * kRowStage + i;
+        int c = (tid & 3) == 0 ? row_code(s * kRowStage + i, D, R) : 0;
+        c = __shfl_sync(0xffffffffu, c, lane & ~3);
+        const float* src =
+            c >= 0 ? m_row(c, m0, m1, m2, bh, D, Dv) + c0 : m0;
+        float* dst = sRaw + slot * kBS;
+        for (int u = 4 * (tid & 3); u < kCols; u += 16) {
+          const bool ok = c >= 0 && u < ncols;
+          cp_async4(dst + u, ok ? src + u : m0, ok);
+        }
+        if ((tid & 3) == 0) {
+          int ia, ib;
+          factor_cols(c, D, ia, ib);
+          sRec[slot].x = ia | ib << 16;
+          if (c >= 0)
+            cp_async1(reinterpret_cast<float*>(&sRec[slot].y),
+                      &g_val(c, g0, g1, g2, bh, D));
+          else
+            sRec[slot].y = 0;
+        }
       }
-      // the queries' features of row rl (query l8 + 8 i), and the
-      // denominator's partial sums in the first column block
-      const float w = c >= 0 ? row_weight(c) : 0.f;
-      const float gv = (cb == 0 && c >= 0) ? g_val(c, g0, g1, g2, bh, D)
-                                           : 0.f;
+      cp_async_commit();
+    };
+
+    float acc[kNT][4], part[kNT][4];
 #pragma unroll
-      for (int i = 0; i < kTile / 8; ++i) {
-        const int n = l8 + 8 * i;
-        const float f = c >= 0 ? w * feature(c, sQ + n * QS) : 0.f;
-        sP[rl * kPS + n] = f;
-        dp[i] += f * gv;
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = part[j][i] = 0.f;
+    __syncthreads();   // the queries are in; the last block's stages used
+    issue(0);
+    for (int s = 0; s < nst; ++s) {
+      cp_async_wait_all();
+      __syncthreads();   // stage s landed; stage s - 1's products are done
+      if (s + 1 < nst) issue(s + 1);
+      b_fragments_split<kNT>(sB, sRaw + (s & 1) * kRowStage * kBS, kBS,
+                             kRowStage / 8, tid, kCombThreads);
+      __syncthreads();
+      if (!active) continue;
+      const int2* rec = sRec + (s & 1) * kRowStage;
+      float dp0 = 0.f, dp1 = 0.f;   // this stage's denominator partials
+#pragma unroll
+      for (int kk = 0; kk < kRowStage / 8; ++kk) {
+        const int2 ra = rec[8 * kk + tq], rb = rec[8 * kk + tq + 4];
+        const int aa = ra.x & 0xffff, ba = ra.x >> 16;
+        const int ab = rb.x & 0xffff, bb = rb.x >> 16;
+        // row_weight: 1/2 on the diagonal pairs (aa == ba < D)
+        const float wa = aa == ba && aa < D ? 0.5f : 1.f;
+        const float wb = ab == bb && ab < D ? 0.5f : 1.f;
+        const float f[4] = {wa * (q0[aa] * q0[ba]), wa * (q1[aa] * q1[ba]),
+                            wb * (q0[ab] * q0[bb]), wb * (q1[ab] * q1[bb])};
+        const float ga = __int_as_float(ra.y), gb = __int_as_float(rb.y);
+        dp0 += f[0] * ga;
+        dp0 += f[2] * gb;
+        dp1 += f[1] * ga;
+        dp1 += f[3] * gb;
+        uint32_t ah[4], al[4];
+        split_a<sizeof(T) == 2>(f, ah, al);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const float4 b = sB[(kk * kNT + j) * 32 + lane];
+          mma_tf32(part[j], ah, __float_as_uint(b.z), __float_as_uint(b.w));
+          mma_tf32(part[j], al, __float_as_uint(b.x), __float_as_uint(b.y));
+          mma_tf32(part[j], ah, __float_as_uint(b.x), __float_as_uint(b.y));
+        }
       }
-      __syncthreads();
-      tile_product<1>(acc, sP, sM, kCols, ty, tx);
-      __syncthreads();
+      fold(acc, part);
+      den0 += dp0;
+      den1 += dp1;
     }
     if (cb == 0) {
-      // den per query row: the 32 row-lanes' partials in a fixed order
-#pragma unroll
-      for (int i = 0; i < kTile / 8; ++i) sRed[rl * kTile + l8 + 8 * i] = dp[i];
-      __syncthreads();
-      if (tid < kTile) {
-        float s = 0.f;
-        for (int l = 0; l < kChunk; ++l) s += sRed[l * kTile + tid];
-        sDen[tid] = s + eps;
-      }
-      __syncthreads();
+      dn0 = (float)(quad_sum(den0) + eps);
+      dn1 = (float)(quad_sum(den1) + eps);
     }
-    const int cq = c0 + 4 * tx;
-    if (cq < Dv) {
+    if (!active) continue;
+    const int qa = qr0 + 16 * warp + gq, qc = qa + 8;
+    T* oa = o + ((size_t)bh * GN + qa) * Dv + c0;
+    T* oc = oa + (size_t)8 * Dv;
 #pragma unroll
-      for (int ri = 0; ri < 4; ++ri) {
-        const int r = 4 * ty + ri, qr = qr0 + r;
-        if (qr >= GN) continue;
-        const int g = qr / N, n = qr - g * N;
-        T* orow = o + (((size_t)bh * G + g) * N + n) * Dv + cq;
-        const float den = sDen[r];
-#pragma unroll
-        for (int ci = 0; ci < 4; ++ci) st(orow + ci, acc[ri][ci] / den);
-      }
+    for (int j = 0; j < kNT; ++j) {
+      const int col = 8 * j + 2 * tq;
+      if (col >= ncols) continue;
+      if (qa < GN) st2(oa + col, acc[j][0] / dn0, acc[j][1] / dn0);
+      if (qc < GN) st2(oc + col, acc[j][2] / dn1, acc[j][3] / dn1);
     }
   }
 }
@@ -406,8 +582,9 @@ int launch_moments(const void* k, const void* v, void* m0, void* m1,
                    void* m2, void* g0, void* g1, void* g2, int bh, int M,
                    int D, int Dv, int p, cudaStream_t s) {
   const int R = n_rows(D, p);
-  const dim3 grid(((R + kTile - 1) / kTile) * ((Dv + kCols - 1) / kCols), bh);
-  const size_t sm = sizeof(float) * kChunk * (D + 1);
+  const dim3 grid(((R + kMomRows - 1) / kMomRows) * ((Dv + kCols - 1) / kCols),
+                  bh);
+  const size_t sm = moments_smem_bytes<T>(D);
   cudaError_t err = cudaFuncSetAttribute(
       moments_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)sm);
@@ -422,13 +599,13 @@ template <typename T>
 int launch_rows(const void* q, const void* const* mom, void* o, int bh,
                 int G, int N, int D, int Dv, int p, float eps,
                 cudaStream_t s) {
-  const size_t sm = sizeof(float) * rows_smem_floats(D);
+  const size_t sm = rows_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       combine_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)sm);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((G * N + kTile - 1) / kTile, bh);
-  combine_rows_kernel<T><<<grid, kThreads, sm, s>>>(
+  const dim3 grid((G * N + kQRows - 1) / kQRows, bh);
+  combine_rows_kernel<T><<<grid, kCombThreads, sm, s>>>(
       (const T*)q, (const float*)mom[0], (const float*)mom[1],
       (const float*)mom[2], (const float*)mom[3], (const float*)mom[4],
       (const float*)mom[5], (T*)o, G, N, D, Dv, p, eps);
@@ -475,7 +652,14 @@ int launch_split(int qt, const void* q, const void* const* mom, void* part,
 
 bool dims_ok(int D, int Dv, int p) {
   return D >= 4 && D % 4 == 0 && D <= 255 && Dv >= 4 && Dv % 4 == 0 &&
-         (p == 1 || p == 2);
+         Dv <= 1024 && (p == 1 || p == 2);
+}
+
+// Every pointer aligned to `bytes` (four elements of the launch's type).
+bool aligned(int bytes, std::initializer_list<const void*> ptrs) {
+  for (const void* x : ptrs)
+    if (reinterpret_cast<uintptr_t>(x) % bytes) return false;
+  return true;
 }
 
 }  // namespace
@@ -495,6 +679,9 @@ int fastmax_noncausal_moments(int dtype, const void* k, const void* v,
                               void* g1, void* g2, int bh, int M, int D,
                               int Dv, int p, void* stream) {
   if (!dims_ok(D, Dv, p) || M < 1) return (int)cudaErrorInvalidValue;
+  if (!aligned(dtype == 0 ? 16 : 8, {k, v}) ||
+      !aligned(16, {m0, m1, m2, g0, g1, g2}))
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_moments<float>(k, v, m0, m1, m2, g0, g1, g2, bh, M, D, Dv,
@@ -513,6 +700,9 @@ int fastmax_noncausal_combine(int dtype, const void* q, void* m0, void* m1,
                               int D, int Dv, int p, int rows, float eps,
                               void* stream) {
   if (!dims_ok(D, Dv, p) || G < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  if (!aligned(16, {m0, m1, m2, g0, g1, g2}) ||
+      !aligned(dtype == 0 ? 8 : 4, {o}))
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* mom[6] = {m0, m1, m2, g0, g1, g2};
   const int gn = G * N;

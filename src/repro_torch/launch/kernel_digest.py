@@ -1,13 +1,15 @@
-"""Digests of the causal prefill and noncausal kernels' outputs on the card.
+"""Digests of the port's kernels' outputs on the card.
 
   python3 src/repro_torch/launch/kernel_digest.py [--src DIR]
 
 Runs the causal prefill kernel (o and all six moments; float32 and
 bfloat16 inputs, p = 1 and 2, with a kv_mask and an init_state, at
-qwen3-1.7b's widths and at G = 1, D = 64) and the noncausal kernel's two
-launches (the six moments and o, at whisper-small's widths) on inputs made
-from a seeded generator, and prints one line per output tensor, its name
-and the sha256 of its bytes, then one line of the digest of all of them.
+qwen3-1.7b's widths and at G = 1, D = 64), the §2.5 backward and the hybrid
+kernel (float32 and bfloat16 at qwen3-1.7b's widths; dq, dk, dv and
+dstate; o and the final moments) and the noncausal kernel's two launches
+(the six moments and o, at whisper-small's widths) on inputs made from a
+seeded generator, and prints one line per output tensor, its name and the
+sha256 of its bytes, then one line of the digest of all of them.
 Two trees whose kernels give the same bits print the same lines: run it
 once with `--src` pointing at the other tree's `src` directory (its
 `repro_torch` is imported instead of this one's) and compare the output.
@@ -39,6 +41,8 @@ def main(argv=None) -> None:
     from repro_torch.core.ref import normalize_qk
     from repro_torch.kernels.fastmax_causal import (fastmax_causal_cuda,
                                                     fastmax_causal_ref)
+    from repro_torch.kernels.fastmax_causal_bwd import fastmax_causal_bwd_cuda
+    from repro_torch.kernels.hybrid_causal import hybrid_causal_cuda
     from repro_torch.kernels.fastmax_noncausal import (
         noncausal_combine_cuda, noncausal_moments_cuda)
 
@@ -76,6 +80,20 @@ def main(argv=None) -> None:
                     o, st = fastmax_causal_cuda(q, k, v, mask, p=p,
                                                 init_state=init)
                     emit(f"prefill {tag} p={p} {str(dtype)[6:]}", (o, *st))
+        # the backward and the hybrid forward at qwen3's widths
+        b, hq, hkv, d, n = 2, 16, 8, 128, 1000
+        for dtype in (torch.float32, torch.bfloat16):
+            q = normalize_qk(rn(b, hq, n, d)).to(dtype)
+            k = normalize_qk(rn(b, hkv, n, d)).to(dtype)
+            v = rn(b, hkv, n, d).to(dtype)
+            do = rn(b, hq, n, d).to(dtype)
+            _, st = fastmax_causal_cuda(q, k, v, p=2)
+            *grads, dstate = fastmax_causal_bwd_cuda(q, k, v, st, do, p=2,
+                                                     return_dstate=True)
+            emit(f"bwd {str(dtype)[6:]}", (*grads, *dstate))
+            o, st = hybrid_causal_cuda(q, k, v, p=2, window=64,
+                                       chunk_size=512, return_state=True)
+            emit(f"hybrid {str(dtype)[6:]}", (o, *st))
         # whisper-small's widths: M = 1500 keys, N = 1500 and 1 queries
         b, h, d, m = 4, 12, 64, 1500
         for p in (1, 2):

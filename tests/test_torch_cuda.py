@@ -477,7 +477,8 @@ def test_train_main_runs_smoke_steps_on_card(cuda_device):
     assert len(losses) == 4 and all(math.isfinite(x) for x in losses)
 
 
-def _check_noncausal_on_card(dev, seed, d, n, m, dtype, p=2, heads=(4, 2)):
+def _check_noncausal_on_card(dev, seed, d, n, m, dtype, p=2, heads=(4, 2),
+                             dv=None):
     """The noncausal kernel's two launches against their plain versions:
     the six moments within 1e-5 of their scale (float32 both ways, only
     the summation order differs), and o as close to float64 as the plain
@@ -494,10 +495,11 @@ def _check_noncausal_on_card(dev, seed, d, n, m, dtype, p=2, heads=(4, 2)):
         return torch.randn(s, generator=gen, device=dev)
 
     (hq, hkv), b = heads, 2
+    dv = d if dv is None else dv
     qs = 1.0 / d if p == 1 else 1.0
     q = (normalize_qk(rn(b, hq, n, d)) * qs).to(dtype)
     k = normalize_qk(rn(b, hkv, m, d)).to(dtype)
-    v = rn(b, hkv, m, d).to(dtype)
+    v = rn(b, hkv, m, dv).to(dtype)
     mom = noncausal_moments_cuda(k, v, p=p)
     rmom = noncausal_moments_ref(k, v, p=p)
     o = noncausal_combine_cuda(q, mom, p=p)
@@ -508,7 +510,7 @@ def _check_noncausal_on_card(dev, seed, d, n, m, dtype, p=2, heads=(4, 2)):
     for a, r in zip(mom, rmom):
         scale = max(1.0, r.abs().max().item())
         torch.testing.assert_close(a / scale, r / scale, rtol=0, atol=1e-5)
-    assert o.dtype == dtype and o.shape == (b, hq, n, d)
+    assert o.dtype == dtype and o.shape == (b, hq, n, dv)
     if dtype == torch.float32:
         _assert_as_close_as_plain(o, ro, o64, 1e-4)
     else:
@@ -551,6 +553,48 @@ def test_noncausal_kernel_is_deterministic_on_card(cuda_device, n):
     b = fastmax_noncausal_cuda(q, k, v, p=2)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 7, 33, 1501])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noncausal_kernel_ragged_keys_on_card(cuda_device, dtype, m):
+    """Key counts around the moment launch's stages of 32 (the last one
+    zero-filled), at G*N = 17, the row combine's smallest input."""
+    _check_noncausal_on_card(cuda_device, 50 + m, 64, 17, m, dtype,
+                             heads=(2, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dv", [12, 20, 36])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noncausal_kernel_ragged_values_on_card(cuda_device, dtype, dv):
+    """Value widths that are not a multiple of the tensor cores' n8 tile,
+    at D = 64 and D = 128."""
+    _check_noncausal_on_card(cuda_device, 60 + dv, 64, 200, 300, dtype, dv=dv)
+    _check_noncausal_on_card(cuda_device, 70 + dv, 128, 100, 333, dtype,
+                             dv=dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noncausal_tensor_core_launches_repeat_bit_for_bit(cuda_device,
+                                                           dtype):
+    """The moment launch and the row combine (G*N > 16), called twice on
+    the same inputs, give the same bits (no atomics; fixed sums)."""
+    from repro_torch.kernels.fastmax_noncausal import (
+        noncausal_combine_cuda, noncausal_moments_cuda)
+
+    for d, dv, n, m in ((64, 64, 1500, 1500), (128, 36, 17, 333)):
+        q, k, v = _check_noncausal_on_card(cuda_device, 80 + d, d, n, m,
+                                           dtype, heads=(2, 2), dv=dv)
+        mom = noncausal_moments_cuda(k, v, p=2)
+        again = noncausal_moments_cuda(k, v, p=2)
+        o = noncausal_combine_cuda(q, mom, p=2)
+        o2 = noncausal_combine_cuda(q, again, p=2)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(mom, again))
+        assert torch.equal(o, o2)
 
 
 @pytest.mark.cuda
