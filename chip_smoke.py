@@ -18,7 +18,13 @@ and power limit, and the result line last):
                 decode steps; then the prefill kernel's edges: N=1 resumed
                 from an init_state, N=37 (below its chunk L), G=1 at D=64
                 over N=1000 with mask and init_state, p=1 on q̂/D, and
-                N=4096 (B=2) in two segments of its two launches.
+                N=4096 (B=2) in two segments of its two launches; then the
+                prefill kernel as the engine phase calls it (B=1, qwen3's
+                widths): a first chunk from zero moments, a full 512-token
+                chunk and the ragged last chunk of an engine prompt (at its
+                own length, no mask) each resumed from the carry of the 512
+                tokens before it, and a 512-token chunk with a contiguous
+                tail mask from that carry.
   4. small    — the smoke config in float32: kernel path and plain path give
                 the same greedy tokens and close prefill logits.
   5. main     — full-width qwen3-1.7b, attn fastmax2-kernel, bfloat16,
@@ -27,6 +33,23 @@ and power limit, and the result line last):
                 call whose kernel launches are counted and whose prefill and
                 decode are timed inside it), and the prefill's last logit
                 row against the plain path.
+  5b. engine  — the continuous-batching engine (serve.ServeEngine) on the
+                same weights: 8 requests submitted at once into 4 slots
+                (prompt lengths from default_rng(0).integers(256, 1025, 8),
+                32 new tokens each, max_len 1056, chunks of 512): each
+                request's tokens and first-token logit row against
+                generate() on its prompt at batch 1 (ENGINE_LOGIT_TOL,
+                which also holds generate()'s kernel path against its plain
+                path on prompt 0); a
+                timed run() with every launch counted (exactly n_layers
+                prefill launches per tick with a prefill part and n_layers
+                decode launches per tick with a decode part, nothing else),
+                tok/s, TTFT, peak memory; a stepped run (ms per tick by its
+                parts, launches per tick, slot restores with the save and
+                the write-back timed by CUDA events); the same traffic
+                on the plain softmax backend; and the float32 smoke model
+                (2 slots, 5 requests, 8 new tokens) giving generate()'s
+                tokens for every request.
   6. shapes   — both kernels at the main path's shapes (B=4, N=1024), in
                 float32 and bfloat16: prefill o and all six moments, then
                 one decode step's o and updated moments; then timed against
@@ -107,6 +130,12 @@ and power limit, and the result line last):
                 n_layers hybrid launches and no other kernel); the smoke
                 config in float32 gives the same greedy tokens on the
                 kernel and plain (hybrid2-chunked) paths.
+ 17. sdpa     — torch's scaled_dot_product_attention in bf16 (softmax, the
+                attention fastmax replaces) timed at qwen3's causal prefill
+                (B=4, 16/8 heads, N=1024, D=128), one decode query against
+                1056 keys, and whisper's noncausal N=M=1500 (12 heads,
+                D=64); printed beside the fastmax kernels' times as a
+                `softmax_sdpa` JSON line.
 Exits non-zero, printing no result line, when any phase fails.
 """
 from __future__ import annotations
@@ -181,6 +210,19 @@ SMOKE_GRAD_TOL = 1e-4        # the same, float32 smoke model
 # encoder and 12 decoder layers. Measured on an H100: 4.69e-2 and 4.30e-2
 # (two draws of frames and prompts); the limit is about four times that
 WHISPER_LOGIT_TOL = 0.2      # absolute, max over the last row's logits
+# engine phase, full-width qwen3-1.7b in bf16: each request's first-token
+# logit row from the engine's chunked prefill (chunks of 512 resumed from
+# the slot's carry, the ragged last one padded and masked) against
+# generate()'s whole-prompt prefill of the same prompt at batch 1. Both
+# run the prefill kernel; they round their bf16 activations at different
+# places. The limit is about four times the gap between generate()'s
+# kernel and plain (fastmax2-chunked) paths on one of the prompts (the
+# rule of WHISPER_LOGIT_TOL): measured on an H100, that gap was 1.016e-1
+# on prompt 0 and the engine's largest gap to generate() 9.92e-2. The
+# kernel-vs-plain gap itself is held to the same limit
+ENGINE_LOGIT_TOL = 0.4       # absolute, max over the first-token row
+ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_GEN = 4, 8, 32
+ENGINE_PROMPTS = (256, 1025)  # prompt lengths: default_rng(0).integers
 # noncausal kernel, ragged shapes in float32 (as tests/test_torch_cuda.py
 # holds it): o's max error to float64 at most this many times the plain
 # version's, or TOL_O32 of the output scale. With one key (M = 1) a row's
@@ -281,6 +323,232 @@ def worst_leaf(gk, gp):
                 / gp[n].float().norm().clamp_min(1e-30)).item() for n in gp}
     name = max(errs, key=errs.get)
     return name, errs[name]
+
+
+def engine_traffic(vocab, lo, hi, n, seed=0):
+    """`n` prompts of lengths default_rng(seed).integers(lo, hi, n), their
+    tokens drawn from the same generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(m)).astype(np.int32)
+            for m in rng.integers(lo, hi, n)]
+
+
+def engine_run(eng, prompts, gen, on_first=None):
+    """Submit every prompt at once and run the engine to the end. Returns
+    (tokens per request, FinishedRequest per request, seconds). With
+    `on_first`, each request's first-token logit row is kept in it."""
+    from repro_torch.serve import RequestStatus
+
+    def first_row(rid, _tok):
+        if rid not in on_first:
+            on_first[rid] = eng.prefill_row.float().clone()
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rids = [eng.submit(p, gen, callback=None if on_first is None
+                       else first_row) for p in prompts]
+    outs = eng.run()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    fins = {f.rid: f for f in eng.history if f.rid in rids}
+    bad = [(r, str(fins[r].status)) for r in rids
+           if fins[r].status is not RequestStatus.FINISHED]
+    if bad:
+        fail(f"engine: requests did not finish: {bad}")
+    if on_first is not None:
+        by_index = {i: on_first[r] for i, r in enumerate(rids)}
+        on_first.clear()
+        on_first.update(by_index)
+    return [outs[r] for r in rids], [fins[r] for r in rids], dt
+
+
+def engine_phase(params, cfg, plain_cfg, dev):
+    """The continuous-batching engine at full width (see the docstring's
+    phase 5b). Returns its numbers for the JSON lines."""
+    import numpy as np
+
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_decode_state, init_model
+    from repro_torch.models.transformer import lm_prefill
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.monotonic()
+    gen = ENGINE_GEN
+    max_len = 1024 + gen
+    prompts = engine_traffic(cfg.vocab_size, *ENGINE_PROMPTS,
+                             ENGINE_REQUESTS)
+
+    def prefill_row(c, prompt):
+        st = init_decode_state(c, 1, len(prompt), device=dev)
+        logits, _ = lm_prefill(params, torch.as_tensor(
+            prompt[None], dtype=torch.int64, device=dev), c, st)
+        return logits[0, -1].float()
+
+    # generate() per prompt at batch 1: tokens and first-token rows
+    ref_toks, ref_rows = [], []
+    for pr in prompts:
+        ref_toks.append(generate(params, cfg, torch.as_tensor(
+            pr[None], dtype=torch.int64, device=dev), gen, max_len=max_len,
+            device=dev)[0].cpu().numpy())
+        ref_rows.append(prefill_row(cfg, pr))
+    kp_gap = (ref_rows[0] - prefill_row(plain_cfg, prompts[0])).abs() \
+        .max().item()
+    if not kp_gap <= ENGINE_LOGIT_TOL:
+        fail(f"engine: generate()'s first-token row on prompt 0 is "
+             f"{kp_gap:.3e} off the plain path's (tol {ENGINE_LOGIT_TOL})")
+
+    eng = ServeEngine(params, cfg, max_slots=ENGINE_SLOTS, max_len=max_len)
+    # warm-up run, held against generate()
+    rows = {}
+    toks, _, _ = engine_run(eng, prompts, gen, on_first=rows)
+    row_err = max((rows[i] - ref_rows[i]).abs().max().item()
+                  for i in range(len(prompts)))
+    same_prefix = [int(np.argmax(np.append(t != r, True)))
+                   for t, r in zip(toks, ref_toks)]
+    # the timed run(), every kernel launch counted
+    ops.reset_launch_counts()
+    st0 = eng.stats()
+    torch.cuda.reset_peak_memory_stats()
+    toks2, fins, dt = engine_run(eng, prompts, gen)
+    launches = ops.launch_counts()
+    st1 = eng.stats()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pre_ticks = st1["prefill_ticks"] - st0["prefill_ticks"]
+    dec_ticks = st1["decode_ticks"] - st0["decode_ticks"]
+    want = {k: 0 for k in launches}
+    want["fastmax_causal"] = cfg.n_layers * pre_ticks
+    want["fastmax_decode"] = cfg.n_layers * dec_ticks
+    if launches != want:
+        fail(f"engine launch counts {launches}, expected {want}")
+    n_tok = sum(len(t) for t in toks2)
+    ttft = sorted(f.ttft for f in fins)
+    ttft_p50, ttft_p90 = ttft[len(ttft) // 2], ttft[int(0.9 * (len(ttft)
+                                                                - 1))]
+    # a stepped run: ms per tick by its parts, the launches of every tick,
+    # and the slot saves and write-backs around decode parts on the
+    # device's clock (CUDA events in stream order: no added waits)
+    tick_ms = {"decode": [], "mixed": [], "prefill": []}
+    copy_ev = {"save": [], "restore": []}
+
+    def timed(name, fn):
+        def run(*args):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args)
+            e1.record()
+            if args[0]:
+                copy_ev[name].append((e0, e1))
+            return out
+        return run
+
+    eng.slots.save = timed("save", eng.slots.save)
+    eng.slots.restore = timed("restore", eng.slots.restore)
+    for pr in prompts:
+        eng.submit(pr, gen)
+    restored0 = eng.stats()["restored_slots"]
+    while eng.pending:
+        c0, s0 = ops.launch_counts(), eng.stats()
+        t0 = time.perf_counter()
+        eng.step()
+        ms = (time.perf_counter() - t0) * 1e3
+        c1, s1 = ops.launch_counts(), eng.stats()
+        has_pre = s1["prefill_ticks"] - s0["prefill_ticks"]
+        has_dec = s1["decode_ticks"] - s0["decode_ticks"]
+        got = {k: c1[k] - c0[k] for k in c1}
+        want = {k: 0 for k in c1}
+        want["fastmax_causal"] = cfg.n_layers * has_pre
+        want["fastmax_decode"] = cfg.n_layers * has_dec
+        if got != want:
+            fail(f"engine tick launches {got}, expected {want}")
+        if has_pre or has_dec:
+            tick_ms["mixed" if has_pre and has_dec else
+                    "prefill" if has_pre else "decode"].append(ms)
+    restored = eng.stats()["restored_slots"] - restored0
+    torch.cuda.synchronize()
+    copy_ms = {k: sum(a.elapsed_time(b) for a, b in v)
+               for k, v in copy_ev.items()}
+    del eng.slots.save, eng.slots.restore
+    slot_bytes = eng.slots.state_bytes_per_slot()
+    del eng
+    torch.cuda.empty_cache()
+
+    # the same traffic on softmax (plain torch): the paper's baseline
+    sm_cfg = dataclasses.replace(cfg, attn=AttentionSpec.parse("softmax"))
+    sm = ServeEngine(params, sm_cfg, max_slots=ENGINE_SLOTS, max_len=max_len)
+    engine_run(sm, prompts, gen)
+    ops.reset_launch_counts()
+    sm_toks, sm_fins, sm_dt = engine_run(sm, prompts, gen)
+    if any(ops.launch_counts().values()):
+        fail(f"softmax engine launched kernels: {ops.launch_counts()}")
+    sm_ttft = sorted(f.ttft for f in sm_fins)[len(sm_fins) // 2]
+    sm_bytes = sm.slots.state_bytes_per_slot()
+    del sm
+    torch.cuda.empty_cache()
+
+    # the float32 smoke model (untied head: its greedy tokens follow the
+    # hidden state, where the tied one echoes the last prompt token)
+    small = dataclasses.replace(
+        get_smoke_config("qwen3-1.7b", tie_embeddings=False),
+        attn=AttentionSpec.parse("fastmax2-kernel"))
+    sp = init_model(small, seed=0, device=dev)
+    s_prompts = engine_traffic(small.vocab_size, 20, 61, 5)
+    s_eng = ServeEngine(sp, small, max_slots=2, max_len=60 + 8)
+    s_toks, _, _ = engine_run(s_eng, s_prompts, 8)
+    s_same = all(np.array_equal(t, generate(
+        sp, small, torch.as_tensor(pr[None], dtype=torch.int64, device=dev),
+        8, max_len=68, device=dev)[0].cpu().numpy())
+        for t, pr in zip(s_toks, s_prompts))
+
+    def mean(xs):
+        return sum(xs) / len(xs) if xs else float("nan")
+
+    print(f"  traffic: {len(prompts)} requests, prompts "
+          f"{[len(pr) for pr in prompts]}, {gen} new tokens each, "
+          f"{ENGINE_SLOTS} slots, max_len {max_len}, chunk {cfg.chunk_size}")
+    print(f"  first-token rows: max |engine - generate()| {row_err:.3e} "
+          f"(tol {ENGINE_LOGIT_TOL}); generate() kernel vs plain on prompt "
+          f"0: {kp_gap:.3e}; tokens equal to generate()'s before the first "
+          f"difference: {same_prefix}; timed run's tokens equal the warm-up "
+          f"run's: {all(np.array_equal(a, b) for a, b in zip(toks, toks2))}")
+    print(f"  timed run(): {n_tok} tokens in {dt:.3f}s, {n_tok / dt:.1f} "
+          f"tok/s, ticks {st1['ticks'] - st0['ticks']} (prefill part "
+          f"{pre_ticks}, decode part {dec_ticks}), TTFT p50 "
+          f"{ttft_p50 * 1e3:.1f} ms p90 {ttft_p90 * 1e3:.1f} ms, slot "
+          f"{slot_bytes / 1e9:.3f} GB, peak {peak_gb:.2f} GB, launches "
+          f"{launches}")
+    print(f"  stepped run: ms per tick decode-only {mean(tick_ms['decode']):.2f}"
+          f" (n={len(tick_ms['decode'])}), mixed {mean(tick_ms['mixed']):.2f}"
+          f" (n={len(tick_ms['mixed'])}), prefill-only "
+          f"{mean(tick_ms['prefill']):.2f} (n={len(tick_ms['prefill'])}); "
+          f"slot restores {restored} in {len(copy_ev['save'])} decode "
+          f"parts: saves {copy_ms['save']:.2f} ms, write-backs "
+          f"{copy_ms['restore']:.2f} ms in all (CUDA events), "
+          f"{(copy_ms['save'] + copy_ms['restore']) / max(restored, 1):.3f}"
+          f" ms per restored slot; stepped run's ticks "
+          f"{sum(map(sum, tick_ms.values())):.1f} ms in all")
+    print(f"  softmax (plain torch), same traffic: {sum(map(len, sm_toks)) / sm_dt:.1f}"
+          f" tok/s, TTFT p50 {sm_ttft * 1e3:.1f} ms, slot "
+          f"{sm_bytes / 1e9:.3f} GB")
+    phase("engine", f"{cfg.name} fastmax2-kernel bf16 ServeEngine: every "
+          f"request FINISHED, {cfg.n_layers} prefill launches per prefill "
+          f"part and {cfg.n_layers} decode launches per decode part and "
+          f"nothing else; first-token rows within {ENGINE_LOGIT_TOL}: "
+          f"{row_err <= ENGINE_LOGIT_TOL}; smoke config f32 engine tokens "
+          f"== generate(): {s_same}; phase {time.monotonic() - t_phase:.1f}s")
+    if not row_err <= ENGINE_LOGIT_TOL:
+        fail("engine: a first-token logit row is off generate()'s")
+    if not s_same:
+        fail("engine: the smoke model's tokens differ from generate()'s")
+    return {"launches": launches, "tok_s": n_tok / dt,
+            "decode_tick_ms": mean(tick_ms["decode"]),
+            "mixed_tick_ms": mean(tick_ms["mixed"]),
+            "restore_ms": copy_ms["save"] + copy_ms["restore"]}
 
 
 def main() -> None:
@@ -451,10 +719,66 @@ def main() -> None:
                       f"(tol {TOL_MOMENTS:.0e})")
                 if not (o_ok and em <= TOL_MOMENTS):
                     fail(f"{etag} kernel disagrees with its plain version")
+        # the prefill kernel at the engine phase's own shapes: batch 1,
+        # chunks of qwen3's chunk_size, each seeded with the slot's carry.
+        # A prompt's first chunk starts from zero moments (offset 0); a
+        # later one from the carry of the tokens before it (here the plain
+        # version's state after a 512-token chunk); the ragged last chunk
+        # runs at its own length with no mask. Also a full chunk with a
+        # contiguous tail mask (the reference pads a ragged chunk so).
+        # Lengths from the engine's traffic; its own generator, so the
+        # later phases draw the same data
+        import numpy as np
+
+        qcfg = get_config("qwen3-1.7b")
+        ec, ehq, ehkv, ed = (qcfg.chunk_size, qcfg.n_heads,
+                             qcfg.n_kv_heads, qcfg.head_dim)
+        plens = np.random.default_rng(0).integers(*ENGINE_PROMPTS,
+                                                  ENGINE_REQUESTS)
+        n_short = int(next(n for n in plens if n < ec))
+        n_tail = int(next(n for n in plens if n > ec and n % ec)) % ec
+        eg = torch.Generator(device=dev).manual_seed(1)
+        for dtype in (torch.float32, torch.bfloat16):
+            def chunk(n):
+                return (normalize_qk(torch.randn(1, ehq, n, ed, generator=eg,
+                                                 device=dev)).to(dtype),
+                        normalize_qk(torch.randn(1, ehkv, n, ed, generator=eg,
+                                                 device=dev)).to(dtype),
+                        torch.randn(1, ehkv, n, ed, generator=eg,
+                                    device=dev).to(dtype))
+
+            _, carry = fastmax_causal_ref(*chunk(ec), p=2, chunk_size=512)
+            zero = tuple(torch.zeros_like(t) for t in carry)
+            for tag, n, init, nvalid in (
+                    ("first chunk from zero moments", n_short, zero, None),
+                    ("resumed chunk", ec, carry, None),
+                    ("resumed ragged last chunk", n_tail, carry, None),
+                    (f"resumed chunk, tail mask {n_tail} valid", ec, carry,
+                     n_tail)):
+                q, k, v = chunk(n)
+                mask = None if nvalid is None else (
+                    torch.arange(n, device=dev) < nvalid).float().expand(
+                        1, ehkv, n)
+                o, st = fastmax_causal_cuda(q, k, v, mask, p=2,
+                                            init_state=init)
+                ro, rst = fastmax_causal_ref(q, k, v, mask, p=2,
+                                             chunk_size=512, init_state=init)
+                torch.cuda.synchronize()
+                eo, o_ok = o_err(o, ro)
+                em = max(moment_err(a, r) for a, r in zip(st, rst))
+                etag = (f"prefill engine {tag} {str(dtype)[6:]} B=1 "
+                        f"Hq={ehq} Hkv={ehkv} D={ed} N={n}")
+                print(f"  {etag}: o max abs err {eo:.3e} (tol "
+                      f"{o_tol(dtype)}), moments max rel err {em:.3e} "
+                      f"(tol {TOL_MOMENTS:.0e})")
+                if not (o_ok and em <= TOL_MOMENTS):
+                    fail(f"{etag} kernel disagrees with its plain version")
         phase("kernels", "prefill (f32, bf16; plain and mask+init) and "
               "chained decode steps agree with their plain versions at "
               "qwen3's and whisper's widths; the prefill's edges (N=1 "
-              "resumed, N < L, G=1 D=64, p=1, N=4096 in 2 segments) too")
+              "resumed, N < L, G=1 D=64, p=1, N=4096 in 2 segments) and "
+              "the engine's batch-1 chunks (from zero moments, resumed "
+              "from a carry, ragged, tail mask) too")
 
         # ---- 4. small model: kernel path vs plain path ----
         small = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
@@ -531,6 +855,9 @@ def main() -> None:
               f"{B * G / total_s:.1f} tok/s, peak {peak_gb:.2f} GB, launches "
               f"{launches}, last-row logit max |kernel - plain| {dlog:.3e} "
               f"(argmax agree {agree:.2f})")
+
+        # ---- 5b. the continuous-batching engine, full width ----
+        eng_out = engine_phase(params, cfg, plain_cfg, dev)
 
         # ---- 6. the kernels at the main path's shapes ----
         del params
@@ -1432,6 +1759,35 @@ def main() -> None:
         fail("hybrid serve: the smoke model's greedy tokens differ between "
              "the kernel and plain paths")
 
+    # ---- the SDPA yardstick: torch's softmax attention, bf16 ----
+    # softmax, not fastmax, so no kernel's library_ms: timed beside them
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sq = randn(B, cfg.n_heads, P, cfg.head_dim).bfloat16()
+    skv = randn(B, cfg.n_kv_heads, P + G, cfg.head_dim).bfloat16()
+    wq = randn(B, 12, WM, 64).bfloat16()
+    sdpa_line = {"softmax_sdpa": {
+        "prefill_causal_ms": sync_ms(lambda: sdpa(
+            sq, skv[:, :, :P], skv[:, :, :P], is_causal=True,
+            enable_gqa=True), 10),
+        "decode_ms": sync_ms(lambda: sdpa(
+            sq[:, :, :1], skv, skv, enable_gqa=True), 100),
+        "whisper_noncausal_ms": sync_ms(lambda: sdpa(wq, wq, wq), 10),
+        "shapes": {"prefill_causal": [B, cfg.n_heads, cfg.n_kv_heads, P,
+                                      cfg.head_dim],
+                   "decode": [B, cfg.n_heads, cfg.n_kv_heads, 1, P + G,
+                              cfg.head_dim],
+                   "whisper_noncausal": [B, 12, 12, WM, WM, 64]},
+        "fastmax_ms": {"prefill": fc_ms, "decode": fd_ms,
+                       "noncausal_moments_plus_combine": nm_ms + nc_ms}}}
+    del sq, skv, wq
+    phase("sdpa", f"scaled_dot_product_attention bf16: causal B={B} "
+          f"N={P} {sdpa_line['softmax_sdpa']['prefill_causal_ms']:.3f} ms "
+          f"(fastmax prefill kernel {fc_ms:.3f}); one query against "
+          f"{P + G} keys {sdpa_line['softmax_sdpa']['decode_ms']:.4f} ms "
+          f"(fastmax decode kernel {fd_ms:.4f}); whisper noncausal N=M={WM} "
+          f"{sdpa_line['softmax_sdpa']['whisper_noncausal_ms']:.3f} ms "
+          f"(fastmax moments + combine {nm_ms + nc_ms:.3f})")
+
     kernels = [
         {"name": "fastmax_causal_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_causal.cu",
@@ -1443,7 +1799,8 @@ def main() -> None:
          "library_ms": None, "prefix_ms": fc_prefix_ms,
          "combine_ms": fc_combine_ms, "chunk": CHUNK,
          "workspace_bytes": ws_bytes,
-         "call_peak_bytes": call_peak},
+         "call_peak_bytes": call_peak,
+         "launches_engine": eng_out["launches"]["fastmax_causal"]},
         {"name": "fastmax_decode_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_decode.cu",
          "replaces": "src/repro/kernels/fastmax_decode.py:81",
@@ -1451,7 +1808,8 @@ def main() -> None:
          "ms": fd_ms, "plain_ms": fd_plain, "bound_ms": fd_bound,
          "bound_by": "bytes" if fd_bytes / H100_BYTES_PER_S
          >= fd_ops / H100_F32_FLOPS else "operations",
-         "library_ms": None},
+         "library_ms": None,
+         "launches_engine": eng_out["launches"]["fastmax_decode"]},
         {"name": "fastmax_causal_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_causal_bwd.cu",
          "replaces": "src/repro/kernels/fastmax_causal_bwd.py:280",
@@ -1511,6 +1869,7 @@ def main() -> None:
          "launches_serve": hs_launches["hybrid_causal"]},
     ]
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps(sdpa_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

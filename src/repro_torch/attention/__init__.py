@@ -1,4 +1,5 @@
-"""Attention-operator API of the port (fastmax and hybrid families): spec,
+"""Attention-operator API of the port (softmax, fastmax and hybrid
+families): spec,
 registry, the full-sequence `attention()` dispatcher and the decode-state
 protocol."""
 from repro_torch.attention.api import attention  # noqa: F401

@@ -18,8 +18,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               spec: Optional[AttentionSpec] = None, *, causal: bool = False,
               kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Compute attention per `spec`. q [B,Hq,N,D]; k, v [B,Hkv,M,*].
-    `kv_mask` ([B,Hkv,M], 1 = valid) exactly removes padding keys (chunked
-    backend only)."""
+    `kv_mask` ([B,Hkv,M], 1 = valid) exactly removes padding keys (the
+    softmax and chunked backends)."""
     if spec is None:
         spec = AttentionSpec()
     return resolve(spec).fn(q, k, v, spec, causal=causal, kv_mask=kv_mask)

@@ -1,6 +1,9 @@
 """Built-in attention backends of the port — port of
 `repro/attention/backends.py`.
 
+  softmax         — the paper's baseline (Eqs. 1-4) in plain torch
+                    (core.softmax), O(N^2), GQA by grouping queries; decode
+                    through the KV cache.
   fastmax-chunked — the plain chunked prefix scan (core.fastmax), or the
                     global moment path when noncausal; exact kv masking;
                     the §2.5 custom backward; decode through the plain
@@ -16,13 +19,13 @@
                     (kernels.ops.hybrid), and in a fresh prefill
                     (`prefill_kernel`). Causal only; no kv_mask.
 
-Both fns share one signature: fn(q, k, v, spec, *, causal, kv_mask) -> o,
+All fns share one signature: fn(q, k, v, spec, *, causal, kv_mask) -> o,
 with q [B,Hq,N,D], k/v [B,Hkv,M,*], Hq % Hkv == 0 (M = N when causal).
 The decode-state protocol (`attention.state`) routes on the capabilities;
 both hybrid backends decode through the plain two-leg state, as in the
 reference (neither declares `decode_kernel`), and hybrid-kernel runs a
-fresh prefill through the hybrid kernel. softmax, oracle and rowwise
-backends are not ported yet.
+fresh prefill through the hybrid kernel. The oracle and rowwise backends
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,6 +33,26 @@ from repro_torch.attention.registry import Backend, Capabilities, register
 from repro_torch.attention.spec import AttentionSpec
 
 __all__ = []
+
+
+def _softmax_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):
+    from repro_torch.core.softmax import softmax_attention
+
+    del spec
+    # grouped queries per kv head, no Hq-broadcast copies of k/v; the mask
+    # is per kv head: [B, Hkv|1, M]
+    if kv_mask is not None and kv_mask.shape[1] not in (1, k.shape[1]):
+        raise ValueError(f"kv_mask heads {kv_mask.shape[1]} must be 1 or "
+                         f"Hkv={k.shape[1]}")
+    return softmax_attention(q, k, v, causal=causal, kv_mask=kv_mask)
+
+
+register(Backend(
+    name="softmax",
+    family="softmax",
+    caps=Capabilities(decode=True),
+    fn=_softmax_fn,
+))
 
 
 def _chunked_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):

@@ -1,32 +1,39 @@
-"""Decode-state protocol `init_state` / `prefill` / `step` for the fastmax
-and hybrid families — port of `repro/attention/state.py`.
+"""Decode-state protocol `init_state` / `prefill` / `step` — port of
+`repro/attention/state.py`, for every family:
 
-The state of a fastmax layer is its moment tuple, independent of context
-length. fastmax-kernel runs prefill and step through the CUDA kernels on
-that carry (it declares `prefill_kernel` and `decode_kernel`): prefill's
-final moments come out of the prefill kernel, each step is the fused
-update+combine decode kernel. There is no fallback for CUDA tensors; CPU
-tensors take the kernels' plain versions (inside `kernels.ops`).
+  softmax  -> `KVCache` (O(N) per sequence, the baseline's cost): keys and
+              values [B, Hkv, Nmax, *], a validity mask lane that keeps
+              prompt padding masked through every later step, and a write
+              cursor `length`: one shared scalar, or a [B] lane per
+              sequence in a serving engine's slot pool (`serve.slots`).
+  fastmax  -> `Moments` (O(D^2 Dv) per kv head, independent of context).
+  hybrid   -> both legs: the fastmax moments and a `KVCache` window of the
+              last W = min(window, chunk_size) tokens (the exact near-field
+              band), still O(1) in context length; W = 0 carries the
+              moments only and runs the fastmax paths.
 
-A hybrid layer carries both legs: the fastmax moments and a `KVCache`
-window of the last W = min(window, chunk_size) tokens (the exact
-near-field band), still O(1) in context length; W = 0 carries the moments
-only and runs the fastmax paths. Neither hybrid backend declares
-`decode_kernel`, as in the reference, so a hybrid step adds the band's
-(exp - f_p) correction to the plain moment step, and a resumed (`offset`)
+fastmax-kernel runs prefill and step through the CUDA kernels on the
+moment carry (it declares `prefill_kernel` and `decode_kernel`): prefill's
+final moments come out of the prefill kernel (a resumed, `offset`, prefill
+seeds it with the carried moments), each step is the fused update+combine
+decode kernel. There is no fallback for CUDA tensors; CPU tensors take
+the kernels' plain versions (inside `kernels.ops`). Neither hybrid backend
+declares `decode_kernel`, as in the reference, so a hybrid step adds the
+band's (exp - f_p) correction to the plain moment step, and a resumed
 hybrid prefill is the plain hybrid scan. A fresh hybrid prefill on a
 backend declaring `prefill_kernel` (hybrid-kernel) runs the hybrid kernel
 (`kernels.ops.hybrid_prefill_kernel`; where the reference runs its jnp
-scan), otherwise the plain scan; both then `roll_window`.
+scan), otherwise the plain scan; both then `roll_window`. The softmax
+cache is plain torch (`core.softmax`), as in the reference.
 
 Unlike the functional reference, the port updates a layer's state IN
-PLACE: `prefill` copies the new carry (and window) into the given tensors
-and `step` folds the token into them, so the state may be a view into a
-stacked [n_layers, ...] model state. The moments are therefore allocated
-in their accumulator type from the start (float32 for bf16/f32
-activations, float64 for float64 ones). The window's `length` is a shared
-scalar cursor (the reference's per-slot [B] lengths come with the serving
-engine). The softmax KV cache comes in a later slice.
+PLACE: `prefill` copies the new carry, cache rows and window into the
+given tensors and `step` folds the token into them, so the state may be a
+view into a stacked [n_layers, ...] model state or into one slot of a
+serving pool. The moments are therefore allocated in their accumulator
+type from the start (float32 for bf16/f32 activations, float64 for
+float64 ones). A `length` with a batch axis ([B]: the hybrid window's
+token count, the KV cache's write cursor) advances per sequence.
 """
 from __future__ import annotations
 
@@ -41,26 +48,50 @@ from repro_torch.core.fastmax import (Moments, _causal_scan,
                                       combine_with_queries, compute_moments)
 from repro_torch.core.hybrid import _hybrid_scan, effective_window, roll_window
 from repro_torch.core.ref import normalize_qk, poly_kernel
+from repro_torch.core.softmax import softmax_attention
 from repro_torch.kernels.ref import fastmax_decode_ref
 
-__all__ = ["KVCache", "AttnState", "init_state", "prefill", "step"]
+__all__ = ["KVCache", "AttnState", "init_state", "prefill", "step",
+           "map_state", "state_leaves"]
 
 
 class KVCache(NamedTuple):
-    """A cache of keys and values. Here only the hybrid window: W slots,
-    right-aligned (row W-1 the most recent token)."""
-    k: torch.Tensor       # [B, Hkv, W, D]  normalized keys
-    v: torch.Tensor       # [B, Hkv, W, Dv]
-    length: torch.Tensor  # [] int32: tokens folded so far
-    mask: torch.Tensor    # [B, Hkv, W] validity (1 = real token)
+    """A cache of keys and values: the softmax KV cache (Nmax rows, row t
+    the token at position t), or the hybrid window (W rows, right-aligned:
+    row W-1 the most recent token, keys normalized)."""
+    k: torch.Tensor       # [B, Hkv, Nmax|W, D]
+    v: torch.Tensor       # [B, Hkv, Nmax|W, Dv]
+    length: torch.Tensor  # [] or [B] int32: the softmax write cursor, the
+    #                       hybrid window's count of tokens folded so far
+    mask: torch.Tensor    # [B, Hkv, Nmax|W] validity (1 = real token)
 
 
 class AttnState(NamedTuple):
-    """Per-layer decode state. fastmax uses `moments`; hybrid uses both,
-    `kv` being its near-field window (None at W = 0); the softmax KV cache
-    is not ported yet."""
+    """Per-layer decode state. softmax uses `kv`, fastmax `moments`;
+    hybrid uses both, `kv` being its near-field window (None at W = 0)."""
     kv: Optional[KVCache]
     moments: Optional[Moments]
+
+
+def map_state(fn, *trees):
+    """Apply `fn` leaf by leaf over decode states of one structure (a
+    model's dict of `AttnState`s, or any of its NamedTuples; None legs
+    stay None)."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: map_state(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, tuple):
+        return type(first)(*(map_state(fn, *subs) for subs in zip(*trees)))
+    return fn(*trees)
+
+
+def state_leaves(tree) -> list:
+    """The leaves of a decode state in `map_state`'s order."""
+    out = []
+    map_state(out.append, tree)
+    return out
 
 
 def _window_slots(spec: AttentionSpec) -> int:
@@ -72,8 +103,11 @@ def _window_slots(spec: AttentionSpec) -> int:
 
 def _check_state(state: AttnState, spec: AttentionSpec) -> None:
     if spec.family == "softmax":
-        raise NotImplementedError(
-            f"{spec}: the softmax KV cache is not ported yet")
+        if state.kv is None:
+            raise ValueError(
+                f"AttnState carries no KV cache but spec is {spec}: the "
+                f"state was initialized for another attention family")
+        return
     if state.moments is None or (_window_slots(spec) > 0
                                  and state.kv is None):
         raise ValueError(
@@ -84,16 +118,24 @@ def _check_state(state: AttnState, spec: AttentionSpec) -> None:
 def init_state(spec: AttentionSpec, *, batch: int, n_kv_heads: int,
                q_head_dim: int, v_head_dim: int, max_len: int,
                dtype=torch.float32, device=None) -> AttnState:
-    """Fresh per-layer state for `batch` sequences (max_len is unused: the
-    fastmax and hybrid states do not grow). A hybrid window starts empty:
-    zero keys and values, mask 0."""
-    del max_len
-    if spec.family == "softmax":
-        raise NotImplementedError(
-            f"{spec}: the softmax KV cache is not ported yet")
+    """Fresh per-layer state for `batch` sequences of up to `max_len`
+    tokens (only the softmax cache grows with it). The softmax cache
+    starts with zero rows, all valid in its mask lane (a step masks the
+    rows past the cursor); a hybrid window starts empty: zero keys and
+    values, mask 0. The cursor is a shared scalar."""
     backend = resolve(spec)
     if not backend.caps.decode:
         raise ValueError(f"backend {backend.name!r} has no decode path")
+    if spec.family == "softmax":
+        kv = KVCache(
+            k=torch.zeros(batch, n_kv_heads, max_len, q_head_dim,
+                          dtype=dtype, device=device),
+            v=torch.zeros(batch, n_kv_heads, max_len, v_head_dim,
+                          dtype=dtype, device=device),
+            length=torch.zeros((), dtype=torch.int32, device=device),
+            mask=torch.ones(batch, n_kv_heads, max_len, dtype=torch.float32,
+                            device=device))
+        return AttnState(kv=kv, moments=None)
     mom = init_fastmax_state(batch, n_kv_heads, q_head_dim, v_head_dim,
                              p=spec.p,
                              dtype=torch.promote_types(dtype, torch.float32),
@@ -117,22 +159,91 @@ def _copy_into(dst, src) -> None:
         d.copy_(s)
 
 
+def _set_length(length, off: int, n: int, kv_mask) -> None:
+    """`length` <- off + this prefill's tokens: all n for a shared cursor
+    (padding rows stay in the cache, masked), each sequence's valid tokens
+    for a [B] lane (its decode appends right after its last valid one)."""
+    if length.dim() == 0 or kv_mask is None:
+        length.fill_(off + n)
+    else:
+        length.copy_(off + (kv_mask[:, 0] > 0).sum(dim=-1))
+
+
+def _softmax_prefill(q, k, v, kv: KVCache, kv_mask, offset):
+    """Write the chunk's keys and values (and its mask) into the cache at
+    the offset; attend over the chunk alone, or, resumed, over the whole
+    cache (rows before the offset are the carried prefix, valid per the
+    mask lane; rows past the chunk are excluded causally)."""
+    n = q.shape[2]
+    off = 0 if offset is None else int(offset)
+    if off + n > kv.k.shape[2]:
+        raise ValueError(
+            f"prefill of tokens [{off}, {off + n}) past the KV cache's "
+            f"{kv.k.shape[2]} rows")
+    kv.k[:, :, off:off + n].copy_(k)
+    kv.v[:, :, off:off + n].copy_(v)
+    if kv_mask is not None:
+        # persist prompt padding so every later step keeps it masked
+        kv.mask[:, :, off:off + n].copy_(kv_mask)
+    if offset is None:
+        o = softmax_attention(q, k, v, causal=True, kv_mask=kv_mask)
+    else:
+        o = softmax_attention(q, kv.k, kv.v, causal=True, q_offset=off,
+                              kv_mask=kv.mask)
+    _set_length(kv.length, off, n, kv_mask)
+    return o
+
+
+def _softmax_step(kv: KVCache, q, k, v):
+    """Append the token at the cursor (one row per sequence under a [B]
+    cursor, its mask row set valid: a chunked prefill may have left a
+    padding mark there) and attend over the rows up to it."""
+    nmax = kv.k.shape[2]
+    # a write past the last row is clamped to it (the reference's
+    # dynamic_update_slice clamps a shared cursor; a [B] cursor that far
+    # is a free slot of a serving pool, which its next admit rewrites)
+    row = kv.length.long().clamp(max=nmax - 1)
+    if kv.length.dim() == 0:
+        kv.k.index_copy_(2, row.view(1), k.to(kv.k.dtype))
+        kv.v.index_copy_(2, row.view(1), v.to(kv.v.dtype))
+        length_b = kv.length.view(1)
+    else:
+        bidx = torch.arange(kv.k.shape[0], device=kv.k.device)
+        kv.k[bidx, :, row] = k[:, :, 0].to(kv.k.dtype)
+        kv.v[bidx, :, row] = v[:, :, 0].to(kv.v.dtype)
+        kv.mask[bidx, :, row] = 1.0
+        length_b = kv.length
+    pos = torch.arange(nmax, device=kv.k.device)
+    mask = (pos[None, None, :] <= length_b[:, None, None]).to(
+        torch.float32) * kv.mask
+    o = softmax_attention(q, kv.k, kv.v, causal=False, kv_mask=mask)
+    kv.length.add_(1)
+    return o
+
+
 def prefill(q, k, v, spec: AttentionSpec, *, state: AttnState,
             kv_mask: Optional[torch.Tensor] = None,
             offset: Optional[int] = None):
     """Causal prefill of a prompt: returns (o, state) with the layer's
-    moments (and hybrid window) replaced, in place, by the prompt's.
+    state primed, in place, with the prompt: the softmax cache's rows, or
+    the moments (and hybrid window) replaced by the prompt's.
 
-    `offset` makes it resumable: `state` already holds tokens
-    [0, offset) and this call appends [offset, offset + n), the scan (or
-    the prefill kernel) seeded with the carried moments, and a hybrid scan
-    with the carried window too. `kv_mask` may be [B, N] or [B, Hkv, N].
+    `offset` (an int) makes it resumable: `state` already holds tokens
+    [0, offset) and this call appends [offset, offset + n): the softmax
+    chunk is written at the offset and attends over the cache; the scan
+    (or the prefill kernel) is seeded with the carried moments, and a
+    hybrid scan with the carried window too. `kv_mask` may be [B, N] or
+    [B, Hkv, N]. A [B] `length` lane (slot pools) advances per sequence by
+    its valid tokens.
     """
     _check_state(state, spec)
     b, n = q.shape[0], q.shape[2]
     hkv = k.shape[1]
     if kv_mask is not None and kv_mask.dim() == 2:
         kv_mask = kv_mask[:, None].expand(b, hkv, n)
+    if spec.family == "softmax":
+        o = _softmax_prefill(q, k, v, state.kv, kv_mask, offset)
+        return o, state
     spec_r = spec.resolved()
     qh = normalize_qk(q) if spec.normalize else q
     kh = normalize_qk(k) if spec.normalize else k
@@ -165,7 +276,8 @@ def prefill(q, k, v, spec: AttentionSpec, *, state: AttnState,
         window = roll_window(*(win or (None, None, None)), kh, v, m,
                              w_slots)
         _copy_into((kv.k, kv.v, kv.mask), window)
-        kv.length.fill_((0 if offset is None else int(offset)) + n)
+        _set_length(kv.length, 0 if offset is None else int(offset), n,
+                    kv_mask)
     elif resolve(spec).caps.prefill_kernel:
         from repro_torch.kernels import ops
 
@@ -217,9 +329,12 @@ def _hybrid_step(state: AttnState, qh, kh, v, spec: AttentionSpec):
 
 
 def step(state: AttnState, q, k, v, spec: AttentionSpec):
-    """One-token decode. q [B,Hq,1,D], k/v [B,Hkv,1,*]. Folds (k, v) into
-    the state in place and returns (o [B,Hq,1,Dv], state)."""
+    """One-token decode. q [B,Hq,1,D], k/v [B,Hkv,1,*]. Appends (k, v) to
+    the softmax cache, or folds them into the moments (and window), in
+    place, and returns (o [B,Hq,1,Dv], state)."""
     _check_state(state, spec)
+    if spec.family == "softmax":
+        return _softmax_step(state.kv, q, k, v), state
     qh = normalize_qk(q) if spec.normalize else q
     kh = normalize_qk(k) if spec.normalize else k
     if _window_slots(spec) > 0:

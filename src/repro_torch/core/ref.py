@@ -1,4 +1,5 @@
-"""O(N^2) reference oracle for FAST / Fastmax attention (paper Eqs. 5-12).
+"""O(N^2) reference oracles for FAST / Fastmax attention (paper Eqs. 5-12)
+and for the softmax baseline (Eqs. 1-4).
 
 Port of `repro/core/ref.py`. Materializes the full attention matrix; for
 tests at small N only. q, k, v are `[..., N, D]` with matching leading
@@ -6,10 +7,12 @@ dims (callers broadcast kv heads for GQA).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["normalize_qk", "poly_kernel", "fastmax_attention_ref",
-           "fastmax_attention_matrix_ref"]
+           "fastmax_attention_matrix_ref", "softmax_attention_ref"]
 
 
 def normalize_qk(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -52,4 +55,19 @@ def fastmax_attention_ref(q, k, v, *, p: int = 2, causal: bool = False,
     """O = A V with A = Fastmax(Q K^T) (paper Eqs. 11-12)."""
     a = fastmax_attention_matrix_ref(q, k, p=p, causal=causal,
                                      normalize=normalize, denom_eps=denom_eps)
+    return torch.einsum("...nm,...mj->...nj", a, v)
+
+
+def softmax_attention_ref(q, k, v, *, causal: bool = False,
+                          scale: float | None = None) -> torch.Tensor:
+    """Vanilla softmax attention (paper Eqs. 1-4) in the inputs' dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("...nd,...md->...nm", q, k) * scale
+    if causal:
+        n, m = s.shape[-2], s.shape[-1]
+        tri = torch.ones(n, m, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~tri, float("-inf"))
+    a = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    a = a / a.sum(dim=-1, keepdim=True)
     return torch.einsum("...nm,...mj->...nj", a, v)

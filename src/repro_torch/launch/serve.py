@@ -1,16 +1,26 @@
 """Serving driver: batched prefill + greedy decode with O(1)-in-context
-state — port of `repro/launch/serve.py` (the static-batch `generate()`
-path; the continuous-batching engine comes in a later slice).
+state — port of `repro/launch/serve.py`. Two paths:
 
-An encoder-decoder arch (whisper-small) first encodes stub frames drawn
-from the same numpy generator as the prompts, then decodes against the
-encoder's output.
+  default          `generate()`: one static batch, whole-prompt prefill,
+                   lockstep greedy decode (optionally eos-early-stopped).
+                   An encoder-decoder arch (whisper-small) first encodes
+                   stub frames drawn from the same numpy generator as the
+                   prompts, then decodes against the encoder's output.
+  --serve-engine   `serve.ServeEngine`: continuous batching over a slot
+                   pool (staggered admissions, chunked prefill mixed with
+                   decode), with --max-queue backpressure and
+                   --ttft-deadline / --deadline timeouts; prints the
+                   engine's two `[engine]` lines (decoder-only archs, as
+                   in the reference).
 
 Usage (on the card; `--device cpu` runs the plain versions on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --attn fastmax2-kernel --batch 4 --prompt-len 1024 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
       --attn fastmax2-kernel --batch 4 --prompt-len 128 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+      --attn fastmax2-kernel --serve-engine --slots 4 --batch 8 \
+      --prompt-len 1024 --gen 32
 """
 from __future__ import annotations
 
@@ -118,6 +128,61 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _submit_all(eng, prompts, n_gen, args):
+    """Submit the batch, absorbing backpressure: a bounded queue
+    (--max-queue) rejects at submit time with EngineOverloaded, and we
+    drain a tick and retry rather than fail the whole batch."""
+    from repro_torch.serve import EngineOverloaded
+
+    rids = []
+    for p in prompts:
+        while True:
+            try:
+                rids.append(eng.submit(
+                    p, n_gen, ttft_deadline=args.ttft_deadline,
+                    deadline=args.deadline))
+                break
+            except EngineOverloaded:
+                eng.step()   # make room, then retry this prompt
+    return rids
+
+
+def _serve_engine(params, cfg, prompts, args) -> None:
+    """Continuous batching: the batch submitted as requests, once as a
+    warm-up (kernel builds, allocator), then timed through the same
+    engine; prints the reference's two [engine] lines."""
+    from repro_torch.serve import ServeEngine
+
+    dev = params["embed"].device
+    eng = ServeEngine(
+        params, cfg, max_slots=args.slots,
+        max_len=prompts.shape[1] + args.gen, eos_id=args.eos_id,
+        policy=args.policy, prefix_cache_bytes=args.prefix_cache_mb << 20,
+        max_queue=args.max_queue)
+    _submit_all(eng, prompts, args.gen, args)
+    eng.run()
+    _sync(dev)
+    t0 = time.monotonic()
+    rids = _submit_all(eng, prompts, args.gen, args)
+    outs = eng.run()
+    _sync(dev)
+    dt = time.monotonic() - t0
+    n_tok = sum(len(outs.get(r, [])) for r in rids)
+    ttfts = sorted(f.ttft for f in eng.history[-len(rids):]
+                   if f.ttft is not None)
+    ttft_ms = f"{ttfts[len(ttfts) // 2] * 1e3:.1f}ms" if ttfts else "n/a"
+    st = eng.stats()
+    print(f"[engine] generated {n_tok} tokens in {dt:.2f}s "
+          f"({n_tok / dt:.1f} tok/s)  ttft p50 {ttft_ms}  "
+          f"slot bytes {eng.slots.state_bytes_per_slot()}  sample: "
+          f"{outs[rids[0]][:16]}")
+    print(f"[engine] lifecycle: finished {st['finished']}  "
+          f"failed {st['failed']}  cancelled {st['cancelled']}  "
+          f"timed_out {st['timed_out']}  rejected {st['rejected']}  "
+          f"shed {st['shed']}  quarantined {st['quarantined']}  "
+          f"ticks {st['ticks']}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
@@ -130,6 +195,20 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--serve-engine", action="store_true",
+                    help="continuous batching via serve.ServeEngine")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--policy", default="fcfs", choices=("fcfs", "lpf"))
+    ap.add_argument("--prefix-cache-mb", type=int, default=0)
+    ap.add_argument("--max-queue", type=int, default=256,
+                    help="bounded admission queue depth; submits beyond it "
+                         "raise EngineOverloaded (0 = unbounded)")
+    ap.add_argument("--ttft-deadline", type=float, default=None,
+                    help="seconds from submit to first token before the "
+                         "request is timed out")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="seconds from submit to completion before the "
+                         "request is timed out")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -138,6 +217,11 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, attn=AttentionSpec.parse(args.attn))
     params = init_model(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)
+    if args.serve_engine:
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (args.batch, args.prompt_len))
+        _serve_engine(params, cfg, prompts, args)
+        return
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
         dtype=torch.int64, device=dev)

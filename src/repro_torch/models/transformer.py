@@ -10,9 +10,9 @@ Layers run as a Python loop over the stacked `blocks_0` parameters (the
 reference scans them); under `remat="full"` each layer is recomputed in
 the backward (`torch.utils.checkpoint`), as the reference checkpoints each
 scanned group with `nothing_saveable`. The decode state is stacked the same
-way, [n_layers, B, ...] (moments, and a hybrid spec's window), and each
-layer's state is a contiguous view that the attention step updates in
-place. Other mixers (MoE, MLA, Mamba, xLSTM) come in later slices.
+way, [n_layers, B, ...] (the softmax KV cache, or the moments and a hybrid
+spec's window), and each layer's state is a contiguous view that the
+attention step updates in place. Other mixers (MoE, MLA, Mamba, xLSTM) come in later slices.
 """
 from __future__ import annotations
 
@@ -145,29 +145,29 @@ def _unbind_layers(tree, n: int) -> list:
 
 def _layer_state(state: AttnState, i: int) -> AttnState:
     kv = None if state.kv is None else KVCache(*(t[i] for t in state.kv))
-    return AttnState(kv=kv, moments=Moments(*(t[i] for t in state.moments)))
+    mom = None if state.moments is None else Moments(
+        *(t[i] for t in state.moments))
+    return AttnState(kv=kv, moments=mom)
 
 
 def init_lm_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                          device=None) -> dict:
-    """Zero decode state for `batch` sequences: {"blocks_0": AttnState}
-    whose moments (and a hybrid spec's window) are stacked
-    [n_layers, B, Hkv, ...], the window's length [n_layers]."""
+    """Fresh decode state for `batch` sequences of up to `max_len` tokens:
+    {"blocks_0": AttnState} whose leaves (the softmax KV cache, or the
+    moments and a hybrid spec's window) are stacked [n_layers, B, Hkv,
+    ...], each cache's length [n_layers]. On the `meta` device it only
+    describes the shapes (`core.decode_state.decode_state_bytes`)."""
     _check_supported(cfg)
-    dev = resolve_device(device)
-    one = L.init_attn_state(cfg, 1, max_len, cfg.adtype(), device="meta")
+    dev = device if str(device) == "meta" else resolve_device(device)
+    one = L.init_attn_state(cfg, batch, max_len, cfg.adtype(), device=dev)
 
     def stack(t):
-        # a fresh state is all zeros, the window's mask included
-        return torch.zeros((cfg.n_layers, batch) + tuple(t.shape[1:]),
-                           dtype=t.dtype, device=dev)
+        return t.unsqueeze(0).expand((cfg.n_layers,) + tuple(t.shape)) \
+            .contiguous()
 
-    moments = Moments(*(stack(t) for t in one.moments))
-    kv = None
-    if one.kv is not None:
-        kv = KVCache(stack(one.kv.k), stack(one.kv.v),
-                     torch.zeros(cfg.n_layers, dtype=one.kv.length.dtype,
-                                 device=dev), stack(one.kv.mask))
+    kv = None if one.kv is None else KVCache(*(stack(t) for t in one.kv))
+    moments = None if one.moments is None else Moments(
+        *(stack(t) for t in one.moments))
     return {"blocks_0": AttnState(kv=kv, moments=moments)}
 
 
@@ -232,7 +232,7 @@ def forward_lm(params, tokens, cfg: ModelConfig, *, causal=True,
     _check_supported(cfg)
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported (ROADMAP queue 1 item 1)")
+            f"remat={cfg.remat!r} is not ported (ROADMAP queue 1 item 3)")
     x = _embed(params, tokens, cfg, embeddings)
     # one unbind per stacked leaf: its backward stacks the 28 layer grads
     # once, where per-layer indexing would scatter each into a full copy

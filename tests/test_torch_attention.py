@@ -140,6 +140,7 @@ def test_resolve_is_a_name_lookup(name, backend, decode_kernel):
 def test_unported_backends_are_refused():
     with pytest.raises(KeyError, match="no attention backend"):
         get_backend("softmax-flash")
-    with pytest.raises(NotImplementedError):
-        TS.init_state(AttentionSpec.parse("softmax"), batch=1, n_kv_heads=1,
-                      q_head_dim=4, v_head_dim=4, max_len=4, device="cpu")
+    with pytest.raises(KeyError, match="no attention backend"):
+        TS.init_state(AttentionSpec.parse("fastmax2-oracle"), batch=1,
+                      n_kv_heads=1, q_head_dim=4, v_head_dim=4, max_len=4,
+                      device="cpu")
