@@ -75,7 +75,24 @@ and power limit, and the result line last):
                 then a warm-up step and 3 timed steps on one batch (CUDA
                 events per step; counts reset before each step: exactly
                 n_layers backward and 2 n_layers forward launches); loss
-                falling; step ms, tokens/s, peak memory.
+                falling; step ms, tokens/s, peak memory. Then remat="dots"
+                beside it from the same weights and batch: the loss equal
+                and every leaf's grad within REMAT_RTOL/REMAT_ATOL before
+                any update, that backward's launches as "full"'s, then a
+                warm-up and 3 timed steps (launches per step, step ms,
+                peak memory).
+  8b. ckpt    — the same training through launch/train.py's main (4 steps,
+                a checkpoint every 2 updates under build/ckpt_smoke: label
+                2 async, label 4 the final blocking save), then the state a
+                kill during the final save leaves (label 4 removed, LATEST
+                back at 2), then `--resume`: the resumed run's losses at
+                steps 2-3 and its final parameters equal the first run's
+                bit for bit, exactly 2 n_layers forward and n_layers
+                backward launches per step in both runs; the checkpoint's
+                GB, the blocking save's s, the async snapshot's ms on the
+                loop's thread, the restore's s, and step ms with and
+                without a write in flight. The checkpoints are removed at
+                the end, pass or fail.
   9. smoke train — the smoke config in float32: kernel and plain path
                 grads agree per leaf.
  10. nc kernels — the noncausal kernel's two launches (moments, combine)
@@ -136,6 +153,14 @@ and power limit, and the result line last):
                 1056 keys, and whisper's noncausal N=M=1500 (12 heads,
                 D=64); printed beside the fastmax kernels' times as a
                 `softmax_sdpa` JSON line.
+ 18. api      — the attention API's oracle and rowwise backends (plain
+                torch; the reference has no kernel for either) at whisper's
+                widths (12 heads, G=1, Dv=64; noncausal N=M=256 at D=64,
+                causal N=256 at D=32) in float32 against fastmax2-chunked
+                and fastmax2-kernel (API_TOL of scale); then rowwise's
+                dropout modes from a CUDA torch.Generator: two calls from
+                one seed equal bit for bit, the keep share within
+                KEEP_SIGMAS standard deviations of 1 - rate.
 Exits non-zero, printing no result line, when any phase fails.
 """
 from __future__ import annotations
@@ -549,6 +574,241 @@ def engine_phase(params, cfg, plain_cfg, dev):
             "decode_tick_ms": mean(tick_ms["decode"]),
             "mixed_tick_ms": mean(tick_ms["mixed"]),
             "restore_ms": copy_ms["save"] + copy_ms["restore"]}
+
+
+# train phase, remat="dots" beside remat="full" from the same weights and
+# batch: the forward is the same computation, so the loss is held equal;
+# each leaf's grad within the CPU test's limits
+# (tests/test_torch_train.py::test_remat_full_and_none_give_the_same_grads):
+# |g_dots - g_full| <= REMAT_ATOL + REMAT_RTOL |g_full| per element
+REMAT_RTOL, REMAT_ATOL = 1e-6, 1e-7
+# ckpt phase: qwen3-1.7b training through launch/train.py's main at full
+# width and depth, stopped at a checkpoint and resumed; the checkpoints
+# (~24 GB each: bf16 params, f32 m, v and master) live here and are
+# removed at the end of the phase, pass or fail
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "ckpt_smoke"
+CKPT_ARGV = ["--arch", "qwen3-1.7b", "--attn", "fastmax2-kernel",
+             "--batch", "4", "--seq", "1024", "--steps", "4",
+             "--log-every", "1"]
+# api phase: the oracle and rowwise backends (plain torch) against the
+# chunked and kernel backends in float32 with TF32 off, at this fraction
+# of the output scale; dropout's keep share within this many standard
+# deviations of 1 - rate
+API_TOL, KEEP_SIGMAS = 1e-4, 4
+
+
+def train_dots(tcfg, batch, dev, n_steps: int = 3) -> dict:
+    """remat="dots" beside `tcfg`'s remat="full" from the seeded weights
+    and `batch`: the loss and every leaf's grad before any update (and the
+    launches of that backward), then a warm-up and `n_steps` timed AdamW
+    steps (CUDA events, launches per step, peak memory, losses)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step, pick_optimizer
+    from repro_torch.models import init_model
+    from repro_torch.models.param import count_params
+
+    dcfg = dataclasses.replace(tcfg, remat="dots")
+    params = init_model(tcfg, seed=0, device=dev)
+    tbatch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    loss_full, g_full = loss_and_grads(params, tbatch, tcfg)
+    ops.reset_launch_counts()
+    loss_dots, g_dots = loss_and_grads(params, tbatch, dcfg)
+    torch.cuda.synchronize()
+    grad_launches = ops.launch_counts()
+    over, max_diff = -math.inf, 0.0
+    for name, gf in g_full.items():
+        diff = (g_dots[name].float() - gf.float()).abs()
+        over = max(over, (diff - REMAT_RTOL * gf.float().abs()).max().item())
+        max_diff = max(max_diff, diff.max().item())
+    del g_full, g_dots
+    _, opt = pick_optimizer(dcfg, count_params(params), lr=3e-4,
+                            total_steps=1 + n_steps)
+    opt_state = opt[0](params)
+    train_step = make_train_step(dcfg, opt)
+    params, opt_state, m = train_step(params, opt_state, batch)  # warm-up
+    losses = [m["loss"].item()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_launches = [], []
+    for _ in range(n_steps):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ops.reset_launch_counts()
+        ev0.record()
+        params, opt_state, m = train_step(params, opt_state, batch)
+        ev1.record()
+        ev1.synchronize()
+        step_launches.append(ops.launch_counts())
+        step_ms.append(ev0.elapsed_time(ev1))
+        losses.append(m["loss"].item())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt_state, train_step, opt
+    torch.cuda.empty_cache()
+    return {"loss_full": loss_full.item(), "loss_dots": loss_dots.item(),
+            "grad_over": over, "grad_max_diff": max_diff,
+            "grad_launches": grad_launches, "step_ms": step_ms,
+            "step_launches": step_launches, "peak_gb": peak,
+            "losses": losses}
+
+
+def _ckpt_step_leaf(ckpt_dir: Path, label: int) -> int:
+    """The optimizer `step` stored in checkpoint `label`."""
+    import numpy as np
+
+    d = ckpt_dir / f"step_{label:08d}"
+    files = {m["path"]: m["file"] for m in json.loads(
+        (d / "manifest.json").read_text())["leaves"]}
+    return int(np.load(d / "arrays" / files["1/.step"]))
+
+
+def ckpt_phase(n_layers: int) -> tuple:
+    """Full-width qwen3-1.7b training through `launch.train.main`: run A
+    (4 steps, a checkpoint every 2 updates: label 2 async, label 4 the
+    final blocking save), then the state a kill during the final save
+    leaves (label 4 removed, LATEST back at label 2), then run B
+    (`--resume`, steps 2-3). Fails unless run B's losses and final
+    parameters equal run A's bit for bit and every step launched exactly
+    2 n_layers forward and n_layers backward kernels."""
+    import contextlib
+    import io
+    import re
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.optim.grad_utils import leaves
+
+    def run(extra):
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        try:
+            with contextlib.redirect_stdout(buf):
+                params, losses = train.main(
+                    CKPT_ARGV + ["--ckpt-dir", str(CKPT_DIR)] + extra)
+        finally:
+            print(buf.getvalue(), end="", flush=True)
+        torch.cuda.synchronize()
+        return params, losses, ops.launch_counts(), buf.getvalue()
+
+    def want(steps):
+        return {"fastmax_causal": 2 * n_layers * steps,
+                "fastmax_causal_bwd": n_layers * steps, "fastmax_decode": 0,
+                "fastmax_noncausal_moments": 0,
+                "fastmax_noncausal_combine": 0, "hybrid_causal": 0}
+
+    def steps_of(out):
+        return [(int(s), float(ms), bool(fl)) for s, ms, fl in re.findall(
+            r"step +(\d+) loss \S+ gnorm \S+ (\d+)ms( \[save in flight\])?",
+            out)]
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        params_a, losses_a, launches_a, out_a = run(["--ckpt-every", "2"])
+        label2_step = _ckpt_step_leaf(CKPT_DIR, 2)
+        ckpt_gb = sum(f.stat().st_size for f in
+                      (CKPT_DIR / "step_00000004").rglob("*")) / 1e9
+        shutil.rmtree(CKPT_DIR / "step_00000004")
+        (CKPT_DIR / "LATEST").write_text("step_00000002")
+        params_b, losses_b, launches_b, out_b = run(["--resume"])
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    same = [name for (name, a), (_, b) in zip(leaves(params_a),
+                                               leaves(params_b))
+            if torch.equal(a, b)]
+    n_leaves = len(leaves(params_a))
+    snap = re.search(r"checkpoint 2 \(async\): ([\d.]+) ms", out_a)
+    final = re.search(r"checkpoint 4 \(blocking\): ([\d.]+) s \(after "
+                      r"([\d.]+) s", out_a)
+    restore = re.search(r"resumed from step 2 \(restore ([\d.]+) s\)",
+                        out_b)
+    res = {"losses_a": losses_a, "losses_b": losses_b,
+           "launches_a": launches_a, "launches_b": launches_b,
+           "label2_step": label2_step, "leaves_equal": len(same),
+           "leaves": n_leaves, "steps_a": steps_of(out_a),
+           "steps_b": steps_of(out_b),
+           "snapshot_ms": float(snap.group(1)) if snap else None,
+           "save_s": float(final.group(1)) if final else None,
+           "ckpt_gb": ckpt_gb,
+           "wait_s": float(final.group(2)) if final else None,
+           "restore_s": float(restore.group(1)) if restore else None}
+    del params_a, params_b
+    torch.cuda.empty_cache()
+    ok = (losses_b == losses_a[2:] and len(same) == n_leaves
+          and launches_a == want(4) and launches_b == want(2)
+          and label2_step == 2 and None not in (snap, final, restore))
+    return res, ok
+
+
+def api_phase(dev) -> tuple:
+    """fastmax-oracle and fastmax-rowwise on the card at whisper's widths
+    (12 heads, G = 1, Dv = 64): noncausal N = M = 256 at D = 64 and causal
+    N = 256 at D = 32, float32, against fastmax2-chunked and
+    fastmax2-kernel (API_TOL of the output scale); then each dropout mode
+    on rowwise from a CUDA torch.Generator: two calls from one seed equal
+    bit for bit, and the keep share of the masks drawn within KEEP_SIGMAS
+    standard deviations of 1 - rate."""
+    from repro_torch import attention as TA
+    from repro_torch.core import fastmax as TF
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    errs, ok = {}, True
+    for causal, n, d in ((False, 256, 64), (True, 256, 32)):
+        q, k = (torch.randn(2, 12, n, d, generator=gen, device=dev)
+                for _ in range(2))
+        v = torch.randn(2, 12, n, 64, generator=gen, device=dev)
+        outs = {name: TA.attention(q, k, v, TA.AttentionSpec.parse(name),
+                                   causal=causal)
+                for name in ("fastmax2-chunked", "fastmax2-kernel",
+                             "fastmax2-oracle", "fastmax2-rowwise")}
+        torch.cuda.synchronize()
+        for name in ("fastmax2-oracle", "fastmax2-rowwise"):
+            for against in ("fastmax2-chunked", "fastmax2-kernel"):
+                ref = outs[against]
+                e = (outs[name] - ref).abs().max().item()
+                scale = max(1.0, ref.abs().max().item())
+                errs[(causal, name, against)] = e
+                ok = ok and e <= API_TOL * scale
+    rate = 0.1
+    q, k = (torch.randn(2, 12, 256, 64, generator=gen, device=dev)
+            for _ in range(2))
+    v = torch.randn(2, 12, 256, 64, generator=gen, device=dev)
+    plain = TA.attention(q, k, v, TA.AttentionSpec.parse("fastmax2-rowwise"),
+                         causal=False)
+    real, drawn = TF.draw_keep, []
+
+    def recording(*args):
+        drawn.append(real(*args))
+        return drawn[-1]
+
+    dropout = {}
+    TF.draw_keep = recording
+    try:
+        for mode in ("quadratic", "1d", "none"):
+            spec = TA.AttentionSpec.parse("fastmax2-rowwise",
+                                          dropout_rate=rate,
+                                          dropout_mode=mode)
+            drawn.clear()
+            o1 = TA.attention(q, k, v, spec, causal=False,
+                              rng=torch.Generator(device=dev).manual_seed(5))
+            masks = list(drawn)
+            o2 = TA.attention(q, k, v, spec, causal=False,
+                              rng=torch.Generator(device=dev).manual_seed(5))
+            n_el = sum(m_.numel() for m_ in masks)
+            share = (sum(m_.sum().item() for m_ in masks) / n_el
+                     if n_el else None)
+            sigma = math.sqrt(rate * (1 - rate) / n_el) if n_el else None
+            same = bool(torch.equal(o1, o2))
+            moved = (o1 - plain).abs().max().item()
+            dropout[mode] = {"draws": len(masks), "elements": n_el,
+                             "keep_share": share, "sigma": sigma,
+                             "bitwise": same, "moved": moved}
+            ok = ok and same and (
+                (mode == "none" and not masks and moved == 0.0)
+                or (mode != "none" and masks and moved > 0.0
+                    and abs(share - (1 - rate)) <= KEEP_SIGMAS * sigma))
+    finally:
+        TF.draw_keep = real
+    return {"errs": errs, "dropout": dropout}, ok
 
 
 def main() -> None:
@@ -1173,6 +1433,53 @@ def main() -> None:
           f", launches per step {train_launches[-1]}")
     del params, opt_state, train_step, opt
     torch.cuda.empty_cache()
+    dots = train_dots(tcfg, batch, dev, n_steps)
+    med_dots = sorted(dots["step_ms"])[len(dots["step_ms"]) // 2]
+    phase("train", f"remat=dots beside remat=full, same weights and batch: "
+          f"loss {dots['loss_dots']:.6f} / {dots['loss_full']:.6f} (equal: "
+          f"{dots['loss_dots'] == dots['loss_full']}); grads max |dots - "
+          f"full| {dots['grad_max_diff']:.3e}, worst excess over "
+          f"{REMAT_RTOL:.0e}|full| {dots['grad_over']:.3e} (tol "
+          f"{REMAT_ATOL:.0e}); that backward's launches "
+          f"{dots['grad_launches']}; step ms "
+          f"{', '.join(f'{x:.1f}' for x in dots['step_ms'])} (full "
+          f"{', '.join(f'{x:.1f}' for x in step_ms)}), "
+          f"{B * P / (med_dots / 1e3):.1f} tokens/s at the median, peak "
+          f"{dots['peak_gb']:.2f} GB (full {peak_train:.2f}), loss "
+          f"{', '.join(f'{x:.4f}' for x in dots['losses'])} (same as full: "
+          f"{dots['losses'] == losses})")
+    if not (dots["loss_dots"] == dots["loss_full"]
+            and dots["grad_over"] <= REMAT_ATOL
+            and dots["grad_launches"] == want_t
+            and all(c == want_t for c in dots["step_launches"])):
+        fail(f"train: remat=dots disagrees with remat=full or launched "
+             f"{dots['grad_launches']} / {dots['step_launches']}, expected "
+             f"{want_t}")
+
+    # ---- 8b. checkpoint, kill, resume: full-width qwen3-1.7b ----
+    t0 = time.monotonic()
+    ck, ck_ok = ckpt_phase(tcfg.n_layers)
+    in_flight = [ms for _, ms, fl in ck["steps_a"] if fl]
+    quiet = [ms for s_, ms, fl in ck["steps_a"] + ck["steps_b"]
+             if not fl and s_ not in (0, 2)]
+    phase("ckpt", f"qwen3-1.7b fastmax2-kernel bf16 B=4 N=1024 AdamW "
+          f"through launch.train: run A losses "
+          f"{', '.join(f'{x:.6f}' for x in ck['losses_a'])}; resumed run B "
+          f"{', '.join(f'{x:.6f}' for x in ck['losses_b'])} (bitwise equal "
+          f"to A's steps 2-3: {ck['losses_b'] == ck['losses_a'][2:]}); "
+          f"params equal {ck['leaves_equal']}/{ck['leaves']} leaves; label "
+          f"2 holds .step {ck['label2_step']}; checkpoint "
+          f"{ck['ckpt_gb']:.3f} GB on disk, blocking save {ck['save_s']} s "
+          f"(after "
+          f"{ck['wait_s']} s waiting for the async write), async snapshot "
+          f"{ck['snapshot_ms']} ms on the loop's thread, restore "
+          f"{ck['restore_s']} s; step ms (host) with a save in flight "
+          f"{in_flight}, without {quiet}; launches A {ck['launches_a']}, B "
+          f"{ck['launches_b']}; {time.monotonic() - t0:.1f}s in all")
+    if not ck_ok:
+        fail("ckpt: the resumed run is not the unbroken run bit for bit, or "
+             "a step launched other kernels than 2 n_layers forward and "
+             "n_layers backward")
 
     # ---- 9. smoke config in float32: kernel and plain grads ----
     sparams = init_model(small, seed=0, device=dev)
@@ -1787,6 +2094,20 @@ def main() -> None:
           f"(fastmax decode kernel {fd_ms:.4f}); whisper noncausal N=M={WM} "
           f"{sdpa_line['softmax_sdpa']['whisper_noncausal_ms']:.3f} ms "
           f"(fastmax moments + combine {nm_ms + nc_ms:.3f})")
+
+    # ---- the attention API's oracle and rowwise backends ----
+    api, api_ok = api_phase(dev)
+    phase("api", "oracle / rowwise f32 at whisper's widths, max |diff| "
+          "against chunked / kernel: " + "; ".join(
+              f"{'causal D=32' if c else 'noncausal D=64'} {n[8:]} vs "
+              f"{a[8:]} {e:.2e}" for (c, n, a), e in api["errs"].items())
+          + f" (tol {API_TOL:.0e} of scale); dropout 0.1: " + "; ".join(
+              f"{m}: {r['draws']} masks, keep {r['keep_share']} "
+              f"(sigma {r['sigma']}), two calls bitwise {r['bitwise']}"
+              for m, r in api["dropout"].items()))
+    if not api_ok:
+        fail("api: oracle or rowwise disagrees on the card, or a dropout "
+             "mode is not seeded or keeps the wrong share")
 
     kernels = [
         {"name": "fastmax_causal_prefill", "route": "cuda",

@@ -19,13 +19,22 @@
                     (kernels.ops.hybrid), and in a fresh prefill
                     (`prefill_kernel`). Causal only; no kv_mask.
 
-All fns share one signature: fn(q, k, v, spec, *, causal, kv_mask) -> o,
-with q [B,Hq,N,D], k/v [B,Hkv,M,*], Hq % Hkv == 0 (M = N when causal).
+  fastmax-oracle  — the O(N^2) reference (core.ref), per query group;
+                    tests and validation only.
+  fastmax-rowwise — the paper's own schedule through explicit phi
+                    features (core.fastmax.fastmax_rowwise), the only
+                    backend with the Fig. 2 factorized dropout. Causal
+                    attention holds [B,Hkv,N,1+D+D²,Dv+1]: small N and D.
+
+All fns share one signature: fn(q, k, v, spec, *, causal, kv_mask, rng)
+-> o, with q [B,Hq,N,D], k/v [B,Hkv,M,*], Hq % Hkv == 0 (M = N when
+causal); `rng` (a torch.Generator) reaches only the dropout backend.
 The decode-state protocol (`attention.state`) routes on the capabilities;
 both hybrid backends decode through the plain two-leg state, as in the
 reference (neither declares `decode_kernel`), and hybrid-kernel runs a
-fresh prefill through the hybrid kernel. The oracle and rowwise backends
-are not ported yet.
+fresh prefill through the hybrid kernel. Neither the oracle nor rowwise
+has a decode path or takes a kv_mask (the reference drops the mask
+silently; the port raises, as it does on the kernel backends).
 """
 from __future__ import annotations
 
@@ -35,10 +44,10 @@ from repro_torch.attention.spec import AttentionSpec
 __all__ = []
 
 
-def _softmax_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):
+def _softmax_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask, rng):
     from repro_torch.core.softmax import softmax_attention
 
-    del spec
+    del spec, rng
     # grouped queries per kv head, no Hq-broadcast copies of k/v; the mask
     # is per kv head: [B, Hkv|1, M]
     if kv_mask is not None and kv_mask.shape[1] not in (1, k.shape[1]):
@@ -55,10 +64,11 @@ register(Backend(
 ))
 
 
-def _chunked_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):
+def _chunked_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask, rng):
     from repro_torch.core.fastmax import (fastmax_causal_chunked,
                                           fastmax_noncausal, normalize_qk)
 
+    del rng
     spec = spec.resolved()
     qh = normalize_qk(q) if spec.normalize else q
     kh = normalize_qk(k) if spec.normalize else k
@@ -71,10 +81,11 @@ def _chunked_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):
         chunk_size=max(spec.chunk_size, 512))
 
 
-def _kernel_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):
+def _kernel_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask, rng):
     from repro_torch.core.fastmax import normalize_qk
     from repro_torch.kernels import ops as kernel_ops
 
+    del rng
     if kv_mask is not None:
         # the reference reroutes a masked causal call to its chunked backend
         # and drops the mask of a noncausal one; the port has no fallback
@@ -91,6 +102,53 @@ def _kernel_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):
                               denom_eps=spec.denom_eps)
 
 
+def _refuse_mask(name, kv_mask):
+    if kv_mask is not None:
+        # the reference drops the mask silently; the port drops nothing
+        raise ValueError(f"{name} takes no kv_mask; use fastmax2-chunked "
+                         f"for masked attention")
+
+
+def _oracle_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask, rng):
+    from repro_torch.core.fastmax import _group_queries, _ungroup
+    from repro_torch.core.ref import fastmax_attention_ref
+
+    del rng
+    _refuse_mask("fastmax-oracle", kv_mask)
+    # each query group against its kv head: k, v broadcast over the group
+    qg = _group_queries(q, k.shape[1])
+    o = fastmax_attention_ref(qg, k[:, :, None], v[:, :, None], p=spec.p,
+                              causal=causal, normalize=spec.normalize,
+                              denom_eps=spec.denom_eps)
+    return _ungroup(o)
+
+
+def _rowwise_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask, rng):
+    from repro_torch.core.fastmax import fastmax_rowwise
+
+    _refuse_mask("fastmax-rowwise", kv_mask)
+    if not spec.normalize:
+        raise ValueError("fastmax-rowwise always normalizes (paper schedule)")
+    return fastmax_rowwise(
+        q, k, v, p=spec.p, causal=causal, denom_eps=spec.denom_eps,
+        dropout_rate=spec.dropout_rate if rng is not None else 0.0,
+        dropout_mode=spec.dropout_mode, generator=rng)
+
+
+register(Backend(
+    name="fastmax-oracle",
+    family="fastmax",
+    caps=Capabilities(),
+    fn=_oracle_fn,
+))
+
+register(Backend(
+    name="fastmax-rowwise",
+    family="fastmax",
+    caps=Capabilities(dropout=True),
+    fn=_rowwise_fn,
+))
+
 register(Backend(
     name="fastmax-chunked",
     family="fastmax",
@@ -106,10 +164,12 @@ register(Backend(
 ))
 
 
-def _hybrid_chunked_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):
+def _hybrid_chunked_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask,
+                       rng):
     from repro_torch.core.fastmax import normalize_qk
     from repro_torch.core.hybrid import hybrid_causal_chunked
 
+    del rng
     if not causal:
         raise ValueError("hybrid attention is causal-only")
     spec = spec.resolved()
@@ -122,10 +182,12 @@ def _hybrid_chunked_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):
         custom_grad=spec.custom_grad)
 
 
-def _hybrid_kernel_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask):
+def _hybrid_kernel_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask,
+                      rng):
     from repro_torch.core.fastmax import normalize_qk
     from repro_torch.kernels import ops as kernel_ops
 
+    del rng
     if not causal:
         raise ValueError("hybrid attention is causal-only")
     if kv_mask is not None:

@@ -25,13 +25,14 @@ class Capabilities:
     #                               kernel on the native moment carry
     prefill_kernel: bool = False  # prefill runs a CUDA kernel (all but a
     #                               hybrid's resumed, offset, prefill)
+    dropout: bool = False         # the paper's Fig. 2 factorized dropout
 
 
 @dataclasses.dataclass(frozen=True)
 class Backend:
     """A registered attention implementation. `fn(q, k, v, spec, *,
-    causal, kv_mask)` computes full-sequence attention (the `attention()`
-    dispatcher's call)."""
+    causal, kv_mask, rng)` computes full-sequence attention (the
+    `attention()` dispatcher's call)."""
 
     name: str
     family: str

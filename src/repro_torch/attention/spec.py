@@ -18,15 +18,19 @@ class AttentionSpec:
     """Static, hashable configuration of one attention operator.
 
     family: "softmax" | "fastmax" | "hybrid"; p: fastmax order (1 or 2);
-    impl: schedule within the family ("chunked" plain scan, "kernel" the
-    CUDA kernels); chunk_size: scan chunk (None inherits the model's);
+    impl: schedule within the family ("oracle" the O(N^2) reference,
+    "rowwise" the paper's per-row moments through explicit features,
+    "chunked" plain scan, "kernel" the CUDA kernels); chunk_size: scan
+    chunk (None inherits the model's);
     normalize: paper Eqs. 5-6 q/k normalization; denom_eps: denominator
     guard; custom_grad: the paper's §2.5 memory-reduced backward on the
     chunked scan (the kernel backend always pairs its forward with the
     §2.5 backward kernel); window: hybrid only, the width of the exact
     near-field band including the diagonal, clamped to one chunk
-    (w_eff = min(window, chunk_size)); 0 is fastmax. The reference's
-    dropout fields join with their slice.
+    (w_eff = min(window, chunk_size)); 0 is fastmax; dropout_rate /
+    dropout_mode: the paper's Fig. 2 dropout variants ("quadratic" | "1d"
+    | "none"), active only when `attention(...)` gets an `rng` (a
+    `torch.Generator`), on the one backend that has them, fastmax-rowwise.
     """
 
     family: str = "fastmax"
@@ -37,6 +41,8 @@ class AttentionSpec:
     normalize: bool = True
     denom_eps: float = 1e-6
     custom_grad: bool = True
+    dropout_rate: float = 0.0
+    dropout_mode: str = "quadratic"
 
     def __post_init__(self):
         if self.family not in FAMILIES:
@@ -57,6 +63,8 @@ class AttentionSpec:
             if self.window < 0:
                 raise ValueError(
                     f"hybrid window must be >= 0, got {self.window}")
+        if self.dropout_mode not in ("quadratic", "1d", "none"):
+            raise ValueError(f"unknown dropout_mode {self.dropout_mode!r}")
 
     @property
     def backend_name(self) -> str:

@@ -125,7 +125,9 @@ def init_state(spec: AttentionSpec, *, batch: int, n_kv_heads: int,
     values, mask 0. The cursor is a shared scalar."""
     backend = resolve(spec)
     if not backend.caps.decode:
-        raise ValueError(f"backend {backend.name!r} has no decode path")
+        raise ValueError(
+            f"backend {backend.name!r} has no decode path; use a spec whose "
+            f"backend declares decode=True")
     if spec.family == "softmax":
         kv = KVCache(
             k=torch.zeros(batch, n_kv_heads, max_len, q_head_dim,

@@ -12,11 +12,15 @@ noncausal kernel (`repro_torch.kernels.fastmax_noncausal`).
 
 Shapes: q [B, Hq, N, D]; k, v [B, Hkv, M, *] with Hq % Hkv == 0 (M = N
 for causal attention). Moments are computed once per kv head and shared by
-the query group. The port has no mesh, so the reference's feature-sharded
-variants are left out; its rowwise / dropout schedule is not ported yet.
+the query group. `fastmax_rowwise` is the paper's own schedule through
+explicit phi features, with the Fig. 2 dropout variants (plain torch: the
+reference has no kernel for it). The port has no mesh, so the reference's
+feature-sharded variants are left out.
 """
 from __future__ import annotations
 
+import math
+import warnings
 from typing import NamedTuple, Optional
 
 import torch
@@ -27,7 +31,8 @@ from repro_torch.kernels.tiling import SCAN_BM_BUDGET, pick_bm
 
 __all__ = ["Moments", "compute_moments", "compute_moments_chunked",
            "combine_with_queries", "fastmax_noncausal",
-           "fastmax_causal_chunked", "normalize_qk", "poly_kernel"]
+           "fastmax_causal_chunked", "fastmax_rowwise", "fastmax_attention",
+           "normalize_qk", "poly_kernel"]
 
 
 class Moments(NamedTuple):
@@ -402,3 +407,120 @@ def fastmax_causal_chunked(q, k, v, *, p: int = 2, chunk_size: int = 128,
         o, _ = _causal_scan(q, k, v, p=p, chunk_size=chunk_size,
                             kv_mask=kv_mask, denom_eps=denom_eps)
     return o.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The paper's rowwise schedule (+ the Fig. 2 dropout variants)
+# ---------------------------------------------------------------------------
+
+
+def _phi_features(x: torch.Tensor, *, p: int,
+                  quad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """phi(x) with f(q.k) = phi(q).phi(k): [1, x, vec(x x^T)/sqrt(2)]."""
+    parts = [torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device),
+             x]
+    if p >= 2:
+        d = x.shape[-1]
+        outer = (x[..., :, None] * x[..., None, :]) / math.sqrt(2.0)
+        outer = outer.reshape(x.shape[:-1] + (d * d,))
+        if quad_mask is not None:
+            outer = outer * quad_mask
+        parts.append(outer)
+    return torch.cat(parts, dim=-1)
+
+
+def draw_keep(shape, keep_prob: float, generator: torch.Generator,
+              device) -> torch.Tensor:
+    """A boolean keep mask, True with probability `keep_prob`, drawn from
+    `generator` (on `device`). The dropout's one source of randomness: the
+    port cannot reproduce `jax.random.bernoulli`'s bits, so parity tests
+    replace this function with one that returns the reference's masks."""
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
+def fastmax_rowwise(q, k, v, *, p: int = 2, causal: bool = False,
+                    denom_eps: float = 1e-6, dropout_rate: float = 0.0,
+                    dropout_mode: str = "quadratic",
+                    generator: Optional[torch.Generator] = None):
+    """The paper's own schedule (Eqs. 26-35) through explicit phi features,
+    on q, k that it normalizes itself; o in q's dtype.
+
+    Causal attention is a running prefix sum over the tokens of
+    phi(k_n) [v_n; 1]^T, the paper's O(N D^p)-memory layout
+    ([B, Hkv, N, 1+D+D², Dv+1]: keep it small). With a `generator` and
+    `dropout_rate` > 0, the Fig. 2 dropout variants:
+      * "quadratic": a [B, Hkv, 1, D²] keep mask on the degree-2 feature
+        dims, shared by queries and keys (the paper's best);
+      * "1d": keep masks on whole dims of q and of k (two draws, q's
+        first) before the factorization;
+      * "none": no dropout.
+    Kept entries are scaled by 1 / (1 - rate).
+    """
+    b, hq, n, d = q.shape
+    hkv = k.shape[1]
+    qh = normalize_qk(_f32(q))
+    kh = normalize_qk(_f32(k))
+
+    quad_mask = None
+    if dropout_rate > 0.0 and generator is not None:
+        keep = 1.0 - dropout_rate
+        if dropout_mode == "quadratic" and p >= 2:
+            mask = draw_keep((b, hkv, 1, d * d), keep, generator, q.device)
+            # float32, as the reference builds it, whatever the inputs
+            quad_mask = mask.to(torch.float32) / keep
+        elif dropout_mode == "1d":
+            keep_q = draw_keep(qh.shape, keep, generator, q.device)
+            keep_k = draw_keep(kh.shape, keep, generator, q.device)
+            qh = qh * keep_q / keep
+            kh = kh * keep_k / keep
+
+    qg = _group_queries(qh, hkv)
+    phq = _phi_features(qg, p=p, quad_mask=None if quad_mask is None
+                        else quad_mask[:, :, None])
+    phk = _phi_features(kh, p=p, quad_mask=quad_mask)
+    acc = _acc_dtype(q)
+    v1 = torch.cat([_f32(v), torch.ones(v.shape[:-1] + (1,), dtype=acc,
+                                        device=v.device)], dim=-1)
+    if causal:
+        # running prefix of phi(k) [v;1]^T over the tokens
+        pref = torch.cumsum(phk[..., :, None] * v1[..., None, :], dim=-3)
+        fg = torch.einsum("...gnf,...nfj->...gnj", phq, pref)
+    else:
+        mom = torch.einsum("...nf,...nj->...fj", phk, v1)
+        fg = torch.einsum("...gnf,...fj->...gnj", phq, mom)
+    num, den = fg[..., :-1], fg[..., -1]
+    o = num / (den + denom_eps)[..., None]
+    return _ungroup(o).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Deprecated entry point (use repro_torch.attention.attention)
+# ---------------------------------------------------------------------------
+
+
+def fastmax_attention(q, k, v, *, p: int = 2, causal: bool = False,
+                      normalize: bool = True, impl: str = "chunked",
+                      chunk_size: int = 128,
+                      kv_mask: Optional[torch.Tensor] = None,
+                      denom_eps: float = 1e-6, custom_grad: bool = True,
+                      feature_shard: bool = False,
+                      dropout_rate: float = 0.0,
+                      dropout_mode: str = "quadratic",
+                      dropout_rng: Optional[torch.Generator] = None):
+    """DEPRECATED shim over `repro_torch.attention.attention`, kept so that
+    callers of the reference's 13-kwarg entry point keep working: it builds
+    an `AttentionSpec` and calls the dispatcher (`dropout_rng` is a
+    `torch.Generator`; `feature_shard` is ignored: the port has no mesh)."""
+    from repro_torch.attention import AttentionSpec, attention
+
+    del feature_shard
+    warnings.warn(
+        "repro_torch.core.fastmax.fastmax_attention is deprecated; use "
+        "repro_torch.attention.attention(q, k, v, AttentionSpec(...))",
+        DeprecationWarning, stacklevel=2)
+    spec = AttentionSpec(
+        family="fastmax", p=p, impl=impl, chunk_size=chunk_size,
+        normalize=normalize, denom_eps=denom_eps, custom_grad=custom_grad,
+        dropout_rate=dropout_rate, dropout_mode=dropout_mode)
+    return attention(q, k, v, spec, causal=causal, kv_mask=kv_mask,
+                     rng=dropout_rng)

@@ -1,3 +1,7 @@
-"""Fault tolerance (port of `repro.ft`): straggler detection. Preemption
-handling and auto-resume come with checkpointing."""
-from repro_torch.ft.runtime import StragglerMonitor  # noqa: F401
+"""Fault tolerance (port of `repro.ft`): preemption handling, straggler
+detection, auto-resume."""
+from repro_torch.ft.runtime import (  # noqa: F401
+    PreemptionHandler,
+    StragglerMonitor,
+    run_with_restarts,
+)

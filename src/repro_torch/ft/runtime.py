@@ -1,18 +1,42 @@
 """Fault-tolerance runtime pieces — port of `repro/ft/runtime.py`.
 
-`StragglerMonitor` is a robust step-time tracker (median over a window):
-a step slower than `threshold` x the running median is counted, and
-sustained stragglers raise a signal. The serving engine times its ticks
-with it. `PreemptionHandler` and `run_with_restarts` come with the
-checkpointing slice.
+  * `PreemptionHandler` — SIGTERM/SIGINT set a flag; the train loop saves
+    a checkpoint and exits at the next step boundary (saves are atomic, so
+    a kill during one is safe too). `restore()` puts the old handlers back.
+  * `StragglerMonitor` — robust step-time tracker (median over a window):
+    a step slower than `threshold` x the running median is counted, and
+    sustained stragglers raise a signal. The train loop and the serving
+    engine time their steps and ticks with it.
+  * `run_with_restarts` — supervisor loop: run until completion; on a
+    worker failure, rebuild the state from the last checkpoint and go on.
 """
 from __future__ import annotations
 
+import signal
 import statistics
 import time
-from typing import Optional
+from typing import Callable, Optional
 
-__all__ = ["StragglerMonitor"]
+__all__ = ["PreemptionHandler", "StragglerMonitor", "run_with_restarts"]
+
+
+class PreemptionHandler:
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
+        self.requested = False
+        self._old = {}
+        for s in signals:
+            try:
+                self._old[s] = signal.signal(s, self._on)
+            except ValueError:          # not the main thread
+                pass
+
+    def _on(self, signum, frame):
+        self.requested = True
+
+    def restore(self):
+        for s, h in self._old.items():
+            signal.signal(s, h)
+        self._old = {}
 
 
 class StragglerMonitor:
@@ -54,3 +78,26 @@ class StragglerMonitor:
                 "p90_s": sorted(self.times)[int(0.9 * (len(self.times) - 1))],
                 "max_s": max(self.times),
                 "straggling": self.straggling}
+
+
+def run_with_restarts(make_state: Callable[[], tuple],
+                      run: Callable[..., int],
+                      *, max_restarts: int = 10,
+                      on_restart: Optional[Callable[[int, Exception], None]]
+                      = None) -> int:
+    """Supervisor: (re)build the state (restoring the latest checkpoint) and
+    run until `run` returns normally. A worker exception triggers a restore
+    and a retry, at most `max_restarts` times."""
+    attempt = 0
+    while True:
+        state = make_state()
+        try:
+            return run(*state)
+        except KeyboardInterrupt:
+            raise
+        except Exception as e:  # noqa: BLE001 — any worker failure
+            attempt += 1
+            if attempt > max_restarts:
+                raise
+            if on_restart is not None:
+                on_restart(attempt, e)

@@ -10,6 +10,8 @@ MLA projections come with the architectures that use them.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -18,6 +20,16 @@ from repro_torch.attention import AttnState
 from repro_torch.models.param import Builder
 
 _F32 = torch.float32
+
+
+def _dense(x, w, n_in: int = 1):
+    """Contract x's last `n_in` axes with w's first `n_in` as ONE
+    un-batched matmul (aten.mm): the reference's projection einsums are
+    dot_generals without batch dims, the outputs that remat="dots" keeps
+    (torch.einsum would run them as a bmm)."""
+    k = math.prod(w.shape[:n_in])
+    y = x.reshape(-1, k) @ w.reshape(k, -1)
+    return y.reshape(*x.shape[:x.dim() - n_in], *w.shape[n_in:])
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -94,15 +106,14 @@ def init_mlp(b: Builder, name: str, d_model: int, d_ff: int,
 
 def apply_mlp(params, x, *, act: str = "swiglu"):
     if act == "swiglu":
-        g = torch.einsum("bnd,df->bnf", x, params["wi_gate"])
-        u = torch.einsum("bnd,df->bnf", x, params["wi_up"])
+        g = _dense(x, params["wi_gate"])
+        u = _dense(x, params["wi_up"])
         h = F.silu(g) * u
     else:
         # the reference's jax.nn.gelu defaults to the tanh approximation;
         # this follows it, not OpenAI whisper's exact (erf) GELU
-        h = F.gelu(torch.einsum("bnd,df->bnf", x, params["wi"]),
-                   approximate="tanh")
-    return torch.einsum("bnf,fd->bnd", h, params["wo"])
+        h = F.gelu(_dense(x, params["wi"]), approximate="tanh")
+    return _dense(h, params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +139,7 @@ def init_attention(b: Builder, name: str, cfg) -> None:
 
 def _project_q(params, x, cfg, positions):
     """q [B,Hq,N,D]."""
-    q = torch.einsum("bnd,dhk->bhnk", x, params["wq"])
+    q = _dense(x, params["wq"]).transpose(1, 2)
     if cfg.qkv_bias:
         q = q + params["bq"][None, :, None, :]
     if cfg.rope_theta > 0:
@@ -140,8 +151,8 @@ def _project_q(params, x, cfg, positions):
 
 def _project_kv(params, x, cfg, positions):
     """k [B,Hkv,N,D], v [B,Hkv,N,Dv]."""
-    k = torch.einsum("bnd,dhk->bhnk", x, params["wk"])
-    v = torch.einsum("bnd,dhk->bhnk", x, params["wv"])
+    k = _dense(x, params["wk"]).transpose(1, 2)
+    v = _dense(x, params["wv"]).transpose(1, 2)
     if cfg.qkv_bias:
         k = k + params["bk"][None, :, None, :]
         v = v + params["bv"][None, :, None, :]
@@ -158,6 +169,11 @@ def _project_qkv(params, x, cfg, positions):
             *_project_kv(params, x, cfg, positions))
 
 
+def _out_proj(o, wo):
+    """o [B,Hq,N,Dv] through wo [Hq,Dv,d] -> [B,N,d]."""
+    return _dense(o.transpose(1, 2), wo, n_in=2)
+
+
 def apply_attention(params, x, cfg, *, causal=True, kv_mask=None,
                     kv_x=None):
     """Full-sequence attention. x [B, N, d]; `kv_x` [B, M, d] makes it
@@ -172,7 +188,7 @@ def apply_attention(params, x, cfg, *, causal=True, kv_mask=None,
                               device=x.device)
         k, v = _project_kv(params, kv_x, cfg, kv_pos)
     o = A.attention(q, k, v, cfg.attn_spec, causal=causal, kv_mask=kv_mask)
-    return torch.einsum("bhnk,hkd->bnd", o.to(x.dtype), params["wo"])
+    return _out_proj(o.to(x.dtype), params["wo"])
 
 
 def init_attn_state(cfg, batch: int, max_len: int, dtype,
@@ -190,7 +206,7 @@ def attention_decode(params, x_t, state: AttnState, cfg, *, position):
     pos = torch.as_tensor(position, device=x_t.device).reshape(-1)[:, None]
     q, k, v = _project_qkv(params, x_t, cfg, pos)
     o, state = A.step(state, q, k, v, cfg.attn_spec)
-    y = torch.einsum("bhnk,hkd->bnd", o.to(x_t.dtype), params["wo"])
+    y = _out_proj(o.to(x_t.dtype), params["wo"])
     return y, state
 
 
@@ -205,5 +221,5 @@ def attention_prefill(params, x, state: AttnState, cfg, *, positions=None,
     q, k, v = _project_qkv(params, x, cfg, positions)
     o, state = A.prefill(q, k, v, cfg.attn_spec, state=state,
                          kv_mask=kv_mask, offset=offset)
-    y = torch.einsum("bhnk,hkd->bnd", o.to(x.dtype), params["wo"])
+    y = _out_proj(o.to(x.dtype), params["wo"])
     return y, state

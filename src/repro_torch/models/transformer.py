@@ -9,7 +9,10 @@ encoder-decoder model add a cross-attention to the encoder's output
 Layers run as a Python loop over the stacked `blocks_0` parameters (the
 reference scans them); under `remat="full"` each layer is recomputed in
 the backward (`torch.utils.checkpoint`), as the reference checkpoints each
-scanned group with `nothing_saveable`. The decode state is stacked the same
+scanned group with `nothing_saveable`; under `remat="dots"` the outputs of
+the un-batched matmuls (the projections and the MLP, `aten.mm`) are kept
+and everything else is recomputed, the reference's
+`checkpoint_dots_with_no_batch_dims`. The decode state is stacked the same
 way, [n_layers, B, ...] (the softmax KV cache, or the moments and a hybrid
 spec's window), and each layer's state is a contiguous view that the
 attention step updates in place. Other mixers (MoE, MLA, Mamba, xLSTM) come in later slices.
@@ -17,11 +20,13 @@ attention step updates in place. Other mixers (MoE, MLA, Mamba, xLSTM) come in l
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.attention import AttentionSpec, AttnState, KVCache
 from repro_torch.core.fastmax import Moments
@@ -65,7 +70,7 @@ class ModelConfig:
     input_embeddings_only: bool = False  # encoder towers (no vocab/unembed)
     param_dtype: str = "float32"
     activ_dtype: str = "float32"
-    remat: str = "full"             # none | full ("dots" is not ported)
+    remat: str = "full"             # none | full | dots
     logits_softcap: float = 0.0
 
     @property
@@ -198,6 +203,21 @@ def _block(params_b, x, cfg: ModelConfig, attn, enc_out=None):
     return x + L.apply_mlp(params_b["ffn"], h, act=cfg.mlp_act)
 
 
+# remat="dots": the un-batched matmuls' outputs are saved, everything else
+# (the attention's batched products and the CUDA kernels, which launch
+# through ctypes into buffers from torch.empty) is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts,
+                               _dots_policy)
+
+
 def _train_block(params_b, x, cfg: ModelConfig, causal, kv_mask, enc_out):
     return _block(params_b, x, cfg,
                   lambda p, h: L.apply_attention(p, h, cfg, causal=causal,
@@ -230,20 +250,20 @@ def forward_lm(params, tokens, cfg: ModelConfig, *, causal=True,
     final-normed hidden states in place of the logits with
     `return_hidden`."""
     _check_supported(cfg)
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported (ROADMAP queue 1 item 3)")
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
     x = _embed(params, tokens, cfg, embeddings)
     # one unbind per stacked leaf: its backward stacks the 28 layer grads
     # once, where per-layer indexing would scatter each into a full copy
     layers = _unbind_layers(params["blocks_0"], cfg.n_layers)
     # recompute only where a backward will run: without grad there is
     # nothing to save
-    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    kw = {"context_fn": _SAVE_DOTS} if cfg.remat == "dots" else {}
     for p_i in layers:
         if remat:
             x = checkpoint(_train_block, p_i, x, cfg, causal, kv_mask,
-                           enc_out, use_reentrant=False)
+                           enc_out, use_reentrant=False, **kw)
         else:
             x = _train_block(p_i, x, cfg, causal, kv_mask, enc_out)
     x = L.apply_norm(params["final_norm"], x, norm_type=cfg.norm_type,

@@ -140,7 +140,9 @@ def test_resolve_is_a_name_lookup(name, backend, decode_kernel):
 def test_unported_backends_are_refused():
     with pytest.raises(KeyError, match="no attention backend"):
         get_backend("softmax-flash")
-    with pytest.raises(KeyError, match="no attention backend"):
+    # the oracle is registered, but it has no decode path (the reference's
+    # refusal)
+    with pytest.raises(ValueError, match="has no decode path"):
         TS.init_state(AttentionSpec.parse("fastmax2-oracle"), batch=1,
                       n_kv_heads=1, q_head_dim=4, v_head_dim=4, max_len=4,
                       device="cpu")

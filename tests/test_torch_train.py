@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro import attention as JA  # noqa: E402
 from repro import optim as JO  # noqa: E402
@@ -37,6 +38,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import steps as TS  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.param import from_jax_params  # noqa: E402
+from repro_torch.optim.grad_utils import leaves as leaves_of  # noqa: E402
 
 TOL = 1e-10
 # lm_loss and grads: float32 islands (norms, RoPE) in a float64 model;
@@ -170,7 +172,13 @@ def test_lm_loss_and_every_grad_match_jax(attn):
         assert e <= GRAD_TOL, name
 
 
-def test_remat_full_and_none_give_the_same_grads():
+REMATS = ("full", "none", "dots")
+
+
+@pytest.mark.parametrize("remat", REMATS)
+def test_remat_full_and_none_give_the_same_grads(remat):
+    """Each remat policy's grads against the next one's (full -> none ->
+    dots -> full: every pair is held)."""
     _, tcfg, _, tparams, batch = _setup("fastmax2-kernel")
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
     leaves = [tparams["embed"], tparams["blocks_0"]["mixer"]["wq"],
@@ -178,14 +186,80 @@ def test_remat_full_and_none_give_the_same_grads():
     for x in leaves:
         x.requires_grad_(True)
     out = []
-    for remat in ("full", "none"):
-        cfg = dataclasses.replace(tcfg, remat=remat)
+    for r in (remat, REMATS[(REMATS.index(remat) + 1) % len(REMATS)]):
+        cfg = dataclasses.replace(tcfg, remat=r)
         loss, _ = TT.lm_loss(tparams, tb, cfg)
         out.append(torch.autograd.grad(loss, leaves))
     for a, b in zip(*out):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="dots"):
-        TT.lm_loss(tparams, tb, dataclasses.replace(tcfg, remat="dots"))
+
+
+def test_remat_dots_loss_and_grads_match_jax():
+    """remat="dots" against the reference's (checkpoint_dots_with_no_batch_
+    dims), every leaf, at the float32-island tolerances above."""
+    jcfg, tcfg, jparams, tparams, batch = _setup("fastmax2-kernel",
+                                                 remat="dots", **F64)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p, b: JT.lm_loss(p, b, jcfg), has_aux=True))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    named = [(n, x.requires_grad_(True)) for n, x in leaves_of(tparams)]
+    tl, _ = TT.lm_loss(tparams, {k: torch.as_tensor(v)
+                                 for k, v in batch.items()}, tcfg)
+    grads = torch.autograd.grad(tl, [x for _, x in named])
+    assert abs(float(jl) - tl.item()) <= LOSS_TOL * abs(float(jl))
+    jflat = _flat(jax.tree.map(np.asarray, jg))
+    assert sorted(jflat) == sorted(f"/{n}" for n, _ in named)
+    for (name, _), g in zip(named, grads):
+        assert _rel(g.numpy(), jflat[f"/{name}"]) <= GRAD_TOL, name
+
+
+class _CountMM(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func is torch.ops.aten.mm.default
+        return func(*args, **(kwargs or {}))
+
+
+def test_remat_dots_keeps_the_projections_and_recomputes_the_kernels(
+        monkeypatch):
+    """The backward under remat="dots" runs exactly the aten.mm calls of
+    remat="none" (the grads' own): no projection is recomputed, where
+    "full" recomputes them. The kernel wrappers are recomputed all the
+    same (their ctypes launches and torch.empty buffers are nothing the
+    policy saves): 2 n_layers forward calls and n_layers backward ones,
+    as under "full"."""
+    _, tcfg, _, tparams, batch = _setup("fastmax2-kernel")
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = ops.fastmax_prefill_kernel, ops.fastmax_bwd
+
+    def spy(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(ops, "fastmax_prefill_kernel", spy("fwd", fwd))
+    monkeypatch.setattr(ops, "fastmax_bwd", spy("bwd", bwd))
+    leaves = [x.requires_grad_(True) for _, x in leaves_of(tparams)]
+    mm, launches = {}, {}
+    for remat in ("none", "full", "dots"):
+        calls.update(fwd=0, bwd=0)
+        loss, _ = TT.lm_loss(tparams, tb,
+                             dataclasses.replace(tcfg, remat=remat))
+        with _CountMM() as counter:
+            torch.autograd.grad(loss, leaves)
+        mm[remat], launches[remat] = counter.n, dict(calls)
+    # 7 projections per layer (q, k, v, o, gate, up, down); the recompute
+    # stops once the backward has what it needs, before the last one
+    assert mm["dots"] == mm["none"]
+    assert mm["full"] - mm["none"] >= 6 * tcfg.n_layers
+    assert launches["dots"] == launches["full"] == {
+        "fwd": 2 * tcfg.n_layers, "bwd": tcfg.n_layers}
+    assert launches["none"] == {"fwd": tcfg.n_layers, "bwd": tcfg.n_layers}
 
 
 def test_kernel_training_forward_runs_the_kernel_wrappers_once_per_layer(
