@@ -161,6 +161,32 @@ and power limit, and the result line last):
                 dropout modes from a CUDA torch.Generator: two calls from
                 one seed equal bit for bit, the keep share within
                 KEEP_SIGMAS standard deviations of 1 - rate.
+ 19. moe      — MLA's shapes (deepseek-v2: Hkv = Hq = 128, D = 192,
+                Dv = 128; B=2, N=1024): the prefill kernel against its
+                plain version in float32 and bfloat16 (o and all six
+                moments), 31 chained decode steps from its state against
+                the plain version's, both timed against their plain
+                versions and bounds (the prefill's segments, workspace,
+                one call's peak memory, two calls bit for bit); then
+                full-width deepseek-v2-236b with one cut, n_layers 60 -> 3
+                (dense_0 and two MoE blocks), bf16 weights from a seeded
+                generator, fastmax2-kernel: generate() at batch 2, prompt
+                1024, 32 new tokens (a warm-up, then a timed call with
+                exactly 3 prefill and 93 decode launches and nothing else;
+                prefill ms, decode ms per token, tok/s, peak memory);
+                prompt 0's last logit row on the kernel and plain paths at
+                batch 1 in bf16 (a reading, with the share of router
+                choices that differ) and with the weights widened to
+                float32 (MLA_F32_LOGIT_TOL).
+ 20. archs    — the six configs added with the MoE family (llama3-405b,
+                qwen2.5-32b, granite-20b, chameleon-34b, deepseek-v2-236b,
+                kimi-k2-1t-a32b): each float32 smoke model's greedy tokens
+                equal on the kernel and plain paths, and the engine's
+                tokens equal generate()'s on the two MoE smoke models;
+                then the decode kernel at granite-20b's widths (Hq = 48 on
+                one kv head, B=4, D=Dv=128): a prefill N=1024 and 32
+                chained steps against the plain version in float32 and
+                bfloat16, timed against its plain version and bound.
 Exits non-zero, printing no result line, when any phase fails.
 """
 from __future__ import annotations
@@ -256,6 +282,33 @@ ENGINE_PROMPTS = (256, 1025)  # prompt lengths: default_rng(0).integers
 # kernel 9.43e-5 from plain, so an absolute limit against plain would
 # measure both versions' rounding
 NC_F64_MARGIN = 4
+
+
+def prefill_ops(bh: int, g: int, n: int, d: int, dv: int) -> int:
+    """Operations the causal prefill needs over `bh` (b, kv-head) pairs of
+    `g` query heads each: m2 and g2 are symmetric in (a, b), as is
+    q_a q_b, so the degree-2 fold and combine need D(D+1)/2 rows, not D^2;
+    plus the degree-0/1 terms and the causal intra-chunk block, counted at
+    chunks of BOUND_CHUNK whatever chunk a kernel takes."""
+    c = BOUND_CHUNK
+    pairs = (n // c) * c * (c + 1) // 2 + (n % c) * (n % c + 1) // 2
+    return bh * ((g + 1) * n * d * (d + 1) * (dv + 1)       # m2, g2
+                 + 2 * (g + 1) * n * (d + 1) * (dv + 1)     # m1 g1 m0 g0
+                 + g * pairs * 2 * (d + dv))                # intra-chunk
+
+
+def decode_ops(bh: int, g: int, d: int, dv: int) -> int:
+    """Operations of one decode step: the token folded into the moments
+    and `g` queries contracted with them, per (b, kv-head)."""
+    return bh * (g + 1) * (d * (d + 1) * (dv + 1) + 2 * (d + 1) * (dv + 1))
+
+
+def bound_ms(ops: float, nbytes: float, peak: float) -> tuple:
+    """(bound ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over `peak`."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def fail(msg: str) -> None:
@@ -811,6 +864,390 @@ def api_phase(dev) -> tuple:
     return {"errs": errs, "dropout": dropout}, ok
 
 
+# [moe] phase: full-width deepseek-v2-236b with one cut, n_layers 60 -> 3
+# (the dense first block and two MoE blocks), at batch 2, prompt 1024, 32
+# new tokens. MLA decompresses k and v per query head, so both kernels run
+# at Hkv = Hq = 128, D = 192, Dv = 128 there
+MOE_ARCH, MOE_LAYERS = "deepseek-v2-236b", 3
+MOE_B, MOE_P, MOE_G = 2, 1024, 32
+# the prefill's last logit row, kernel path against the plain
+# (fastmax2-chunked) path on prompt 0 at batch 1, with the bf16 weights
+# widened to float32 (the same function, 38 GB): float32 attention outputs
+# differ by rounding only, and a router choice flips only on a near-tie of
+# float32 probabilities. In bf16 the two paths round their attention
+# outputs differently, which moves the router's inputs by ~2^-8: a top-6 of
+# 160 choice then flips wherever two experts' probabilities are that
+# close, and a flipped choice moves its token's row by a routed expert's
+# share. So the bf16 gap is printed beside the share of (token, slot)
+# choices that differ, and the float32 gap is held
+MLA_F32_LOGIT_TOL = 1e-2     # absolute, max over the last row's logits
+# [archs] phase: the decode kernel at granite-20b's widths (48 query heads
+# on one kv head, G = 48: three groups of 16 queries per launch pair)
+GRANITE_ARCH, GRANITE_B, GRANITE_N, GRANITE_STEPS = "granite-20b", 4, 1024, 32
+
+
+def decode_chain(gen, b, hq, hkv, d, dv, dtype, kst, pst, steps):
+    """`steps` chained decode steps on fresh seeded tokens: the kernel
+    updates `kst` in place, the plain version steps from `pst`. Returns
+    (max o error, every o within its limit, the plain state)."""
+    from repro_torch.core.ref import normalize_qk
+    from repro_torch.kernels.fastmax_decode import fastmax_decode_cuda
+    from repro_torch.kernels.ref import fastmax_decode_ref
+
+    dev = kst[0].device
+    eo, ok = 0.0, True
+    for _ in range(steps):
+        qs, ks = (normalize_qk(torch.randn(b, h, 1, d, generator=gen,
+                                           device=dev)).to(dtype)
+                  for h in (hq, hkv))
+        vs = torch.randn(b, hkv, 1, dv, generator=gen, device=dev).to(dtype)
+        od = fastmax_decode_cuda(qs, ks, vs, kst, p=2)
+        rd, pst = fastmax_decode_ref(qs, ks, vs, pst, p=2)
+        e, o_ok = o_err(od, rd)
+        eo, ok = max(eo, e), ok and o_ok
+    torch.cuda.synchronize()
+    return eo, ok, pst
+
+
+def kernel_pair_check(tag, gen, b, hq, hkv, n, d, dv, steps, dtypes):
+    """The prefill kernel at [B, Hq|Hkv, N, D|Dv] against its plain
+    version (o and all six moments), then `steps` chained decode steps
+    from its state against the plain version's (o, and the moments after
+    them). Fails the run on a disagreement. Returns the bf16 (or last)
+    inputs and the plain state for timing."""
+    from repro_torch.core.ref import normalize_qk
+    from repro_torch.kernels.fastmax_causal import (fastmax_causal_cuda,
+                                                    fastmax_causal_ref)
+
+    dev = torch.device("cuda")
+    out = None
+    for dtype in dtypes:
+        q = normalize_qk(torch.randn(b, hq, n, d, generator=gen,
+                                     device=dev)).to(dtype)
+        k = normalize_qk(torch.randn(b, hkv, n, d, generator=gen,
+                                     device=dev)).to(dtype)
+        v = torch.randn(b, hkv, n, dv, generator=gen, device=dev).to(dtype)
+        o, st = fastmax_causal_cuda(q, k, v, p=2)
+        ro, rst = fastmax_causal_ref(q, k, v, p=2, chunk_size=512)
+        torch.cuda.synchronize()
+        eo, o_ok = o_err(o, ro)
+        em = max(moment_err(a, r) for a, r in zip(st, rst))
+        del o, ro
+        eo_d, ok_d, pst = decode_chain(gen, b, hq, hkv, d, dv, dtype, st,
+                                       tuple(t.clone() for t in rst), steps)
+        em_d = max(moment_err(a, r) for a, r in zip(st, pst))
+        del st, pst
+        dt = str(dtype)[6:]
+        print(f"  {tag} {dt} B={b} Hq={hq} Hkv={hkv} D={d} Dv={dv} N={n}: "
+              f"prefill o max abs err {eo:.3e}, moments {em:.3e}; {steps} "
+              f"chained decode steps o max abs err {eo_d:.3e}, moments "
+              f"after them {em_d:.3e} (tol {o_tol(dtype)}; moments "
+              f"{TOL_MOMENTS:.0e})")
+        if not (o_ok and ok_d and em <= TOL_MOMENTS and em_d <= TOL_MOMENTS):
+            fail(f"{tag} {dt}: a kernel disagrees with its plain version")
+        out = (q, k, v, rst)
+    return out
+
+
+def time_decode(gen, q_heads, state, dtype, reps=10):
+    """The decode kernel and its plain version timed on `state` (the
+    kernel's updates it in place; the plain version leaves it), with the
+    bound of one step: the f32 state read and written once against the
+    step's operations at the f32 peak. Returns a dict of numbers."""
+    from repro_torch.core.ref import normalize_qk
+    from repro_torch.kernels.fastmax_decode import fastmax_decode_cuda
+    from repro_torch.kernels.ref import fastmax_decode_ref
+
+    b, hkv, d, _, dv = state[2].shape
+    dev = state[0].device
+    qs = normalize_qk(torch.randn(b, q_heads, 1, d, generator=gen,
+                                  device=dev)).to(dtype)
+    ks = normalize_qk(torch.randn(b, hkv, 1, d, generator=gen,
+                                  device=dev)).to(dtype)
+    vs = torch.randn(b, hkv, 1, dv, generator=gen, device=dev).to(dtype)
+    kst = tuple(t.clone() for t in state)
+    ms = sync_ms(lambda: fastmax_decode_cuda(qs, ks, vs, kst, p=2),
+                 reps=reps)
+    plain = sync_ms(lambda: fastmax_decode_ref(qs, ks, vs, state, p=2),
+                    reps=3)
+    el = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 2 * sum(t.numel() for t in kst) * 4 + el * (
+        qs.numel() + ks.numel() + vs.numel() + b * q_heads * dv)
+    ops_n = decode_ops(b * hkv, q_heads // hkv, d, dv)
+    bms, by = bound_ms(ops_n, nbytes, H100_F32_FLOPS)
+    del kst
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "bytes": nbytes}
+
+
+def route_flips(routes_a, routes_b, e: int) -> float:
+    """Share of (token, slot) router choices of one run that the other did
+    not make, over every MoE call of the two runs in order."""
+    diff = total = 0
+    for a, b in zip(routes_a, routes_b):
+        t, k = a.shape
+        oa = torch.zeros(t, e, device=a.device).scatter_(1, a, 1.0)
+        ob = torch.zeros(t, e, device=b.device).scatter_(1, b, 1.0)
+        diff += t * k - int((oa * ob).sum().item())
+        total += t * k
+    return diff / max(total, 1)
+
+
+def moe_phase(dev) -> dict:
+    """[moe]: the prefill and decode kernels at MLA's shapes against their
+    plain versions and timed against their bounds; then full-width
+    deepseek-v2-236b (depth cut to MOE_LAYERS) on fastmax2-kernel in bf16:
+    generate() with exactly MOE_LAYERS prefill and MOE_LAYERS (G - 1)
+    decode launches and nothing else, its times, tok/s and peak memory;
+    the last logit row of prompt 0 against the plain path in bf16 (a
+    reading, with the router flips) and in float32 weights (held)."""
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fastmax_causal import (fastmax_causal_cuda,
+                                                    fastmax_causal_ref,
+                                                    prefill_call)
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_decode_state, init_model
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import _kv_dims
+    from repro_torch.models.param import count_params
+    from repro_torch.models.transformer import lm_prefill
+
+    full = get_config(MOE_ARCH)
+    cfg = get_config(MOE_ARCH, n_layers=MOE_LAYERS,
+                     attn=AttentionSpec.parse("fastmax2-kernel"))
+    hq, dv = cfg.n_heads, cfg.head_dim
+    hkv, d = _kv_dims(cfg)
+    B, P, G = MOE_B, MOE_P, MOE_G
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    print(f"  card memory allocated before the phase: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    with torch.inference_mode():
+        # ---- both kernels at MLA's shapes against their plain versions ----
+        q, k, v, rst = kernel_pair_check(
+            "MLA", gen, B, hq, hkv, P, d, dv, G - 1,
+            (torch.float32, torch.bfloat16))
+        fc_ms = sync_ms(lambda: fastmax_causal_cuda(q, k, v, p=2), reps=2)
+        fc_plain = sync_ms(lambda: fastmax_causal_ref(q, k, v, p=2,
+                                                      chunk_size=512),
+                           reps=1, warmup=0)
+        call = prefill_call(q, k, v, p=2)
+        nseg, ws = len(call.segments), call.workspace_bytes
+        del call
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        o1, s1 = fastmax_causal_cuda(q, k, v, p=2)
+        torch.cuda.synchronize()
+        call_peak = torch.cuda.max_memory_allocated() - before
+        o2, s2 = fastmax_causal_cuda(q, k, v, p=2)
+        same = bool(torch.equal(o1, o2)) and all(
+            torch.equal(a, b) for a, b in zip(s1, s2))
+        del o1, o2, s1, s2
+        if not same:
+            fail("MLA: two prefill calls on the same inputs differ")
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + B * hq * P * dv) \
+            + 4 * sum(t.numel() for t in rst)
+        fc_bound, fc_by = bound_ms(prefill_ops(B * hkv, hq // hkv, P, d, dv),
+                                   nbytes, H100_BF16_FLOPS)
+        fd = time_decode(gen, hq, rst, torch.bfloat16)
+        print(f"  MLA prefill kernel bf16 B={B} N={P}: {nseg} segment(s) of "
+              f"its two launches, workspace {ws / 1e9:.3f} GB, one call's "
+              f"peak {call_peak / 1e9:.3f} GB above what was allocated "
+              f"before it; {fc_ms:.2f} ms (plain {fc_plain:.2f}, bound "
+              f"{fc_bound:.3f} by {fc_by}); two calls bitwise equal")
+        print(f"  MLA decode kernel bf16 B={B}: {fd['ms']:.4f} ms (plain "
+              f"{fd['plain_ms']:.4f}, bound {fd['bound_ms']:.4f} by "
+              f"{fd['bound_by']}: {fd['bytes'] / 1e9:.3f} GB, "
+              f"{fd['bytes'] / fd['ms'] / 1e6:.0f} GB/s)")
+        out.update(prefill_ms_mla=fc_ms, prefill_plain_ms_mla=fc_plain,
+                   prefill_bound_ms_mla=fc_bound, prefill_bound_by_mla=fc_by,
+                   prefill_segments_mla=nseg, prefill_workspace_bytes_mla=ws,
+                   prefill_call_peak_bytes_mla=call_peak,
+                   decode_ms_mla=fd["ms"], decode_plain_ms_mla=fd["plain_ms"],
+                   decode_bound_ms_mla=fd["bound_ms"],
+                   decode_bound_by_mla=fd["bound_by"])
+        del q, k, v, rst
+        torch.cuda.empty_cache()
+
+        # ---- full-width deepseek-v2, depth cut, bf16 ----
+        print(f"  {MOE_ARCH}: n_layers {full.n_layers} -> {cfg.n_layers} "
+              f"(dense_0 + {cfg.n_groups} MoE blocks), every width as "
+              f"published: d_model {cfg.d_model}, {hq} heads, MLA "
+              f"{cfg.kv_lora_rank}/{cfg.qk_nope_dim}/{cfg.qk_rope_dim} v "
+              f"{dv}, {cfg.n_experts} experts of {cfg.d_ff_expert} top-"
+              f"{cfg.moe_top_k} + {cfg.n_shared_experts} shared, dense d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_size}")
+        t0 = time.monotonic()
+        params = init_model(cfg, seed=0, device=dev)
+        prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                                device=dev)
+        torch.cuda.synchronize()
+        n_params = count_params(params)
+        print(f"  weights: {n_params / 1e9:.3f} B params bf16 "
+              f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) in "
+              f"{time.monotonic() - t0:.1f}s")
+        generate(params, cfg, prompts, G, device=dev)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        timings = {}
+        t0 = time.monotonic()
+        toks = generate(params, cfg, prompts, G, device=dev, timings=timings)
+        torch.cuda.synchronize()
+        total_s = time.monotonic() - t0
+        launches = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {name: 0 for name in launches}
+        want.update(fastmax_causal=cfg.n_layers,
+                    fastmax_decode=cfg.n_layers * (G - 1))
+        if launches != want:
+            fail(f"[moe] launch counts {launches}, expected {want}")
+        if tuple(toks.shape) != (B, G) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"[moe] bad tokens {tuple(toks.shape)}")
+        prefill_ms = timings["prefill_ms"]
+        decode_ms = timings["decode_ms"] / timings["decode_steps"]
+        print(f"  first tokens: {toks[0, :8].tolist()} {toks[1, :8].tolist()}")
+
+        # ---- prompt 0's last logit row, kernel and plain paths ----
+        routes = []
+        real_route = MOE._route
+
+        def recording(xf, router, k_):
+            r = real_route(xf, router, k_)
+            routes.append(r[2].clone())
+            return r
+
+        def last_rows(c):
+            """(kernel row, plain row, router flip share) at batch 1."""
+            rows, runs = [], []
+            for cc in (c, dataclasses.replace(
+                    c, attn=AttentionSpec.parse("fastmax2-chunked"))):
+                routes.clear()
+                st = init_decode_state(cc, 1, P, device=dev)
+                lg, _ = lm_prefill(params, prompts[:1], cc, st)
+                rows.append(lg[0, -1].float())
+                runs.append(list(routes))
+                del lg, st
+                torch.cuda.empty_cache()
+            return rows[0], rows[1], route_flips(*runs, cfg.n_experts)
+
+        MOE._route = recording
+        try:
+            lk, lp, flips16 = last_rows(cfg)
+            d16 = (lk - lp).abs().max().item()
+            agree16 = bool(lk.argmax() == lp.argmax())
+            if not bool(torch.isfinite(lk).all()):
+                fail("[moe] non-finite logits on the kernel path")
+            # the same weights widened to float32, leaf by leaf
+            for key in list(params):
+                params[key] = _widen(params[key])
+            torch.cuda.empty_cache()
+            cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                        activ_dtype="float32")
+            lk, lp, flips32 = last_rows(cfg32)
+            d32 = (lk - lp).abs().max().item()
+        finally:
+            MOE._route = real_route
+        del params
+        torch.cuda.empty_cache()
+    phase("moe", f"{MOE_ARCH} (n_layers {full.n_layers} -> {cfg.n_layers}) "
+          f"fastmax2-kernel bf16 B={B} P={P} G={G}: {total_s:.3f}s total, "
+          f"prefill {prefill_ms:.1f} ms, decode {decode_ms:.2f} ms/token "
+          f"(CUDA events inside the call), {B * G / total_s:.1f} tok/s, peak "
+          f"{peak_gb:.2f} GB, launches {launches}; prompt 0's last logit "
+          f"row |kernel - plain|: bf16 {d16:.3e} (argmax agree {agree16}, "
+          f"router choices differing {flips16:.4f}), float32 weights "
+          f"{d32:.3e} (tol {MLA_F32_LOGIT_TOL:.0e}; choices differing "
+          f"{flips32:.4f})")
+    if not d32 <= MLA_F32_LOGIT_TOL:
+        fail(f"[moe] float32 last-row logits differ by {d32:.3e}")
+    out.update(launches_mla=launches, prefill_ms=prefill_ms,
+               decode_ms=decode_ms, tok_s=B * G / total_s, peak_gb=peak_gb,
+               logit_gap_bf16=d16, logit_gap_f32=d32, route_flips_bf16=flips16,
+               route_flips_f32=flips32, params=n_params)
+    return out
+
+
+def _widen(tree):
+    """`tree`'s float leaves in float32, each replaced in its dict as it is
+    widened (so one leaf's two copies live at a time)."""
+    if isinstance(tree, dict):
+        for key in list(tree):
+            tree[key] = _widen(tree[key])
+        return tree
+    return tree.float()
+
+
+def archs_phase(dev) -> dict:
+    """[archs]: the six attention-only configs added beside qwen3 and
+    whisper, each smoke model in float32 giving the same greedy tokens on
+    the kernel and plain paths; the engine on the deepseek-v2 and kimi-k2
+    smoke models giving generate()'s tokens; then the decode kernel at
+    granite-20b's widths (G = 48) after a prefill, chained against its
+    plain version, and timed against its bound."""
+    import numpy as np
+
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_model
+    from repro_torch.models.layers import _kv_dims
+    from repro_torch.serve import ServeEngine
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    same = {}
+    for arch in ("llama3-405b", "qwen2.5-32b", "granite-20b",
+                 "chameleon-34b", "deepseek-v2-236b", "kimi-k2-1t-a32b"):
+        small = get_smoke_config(
+            arch, attn=AttentionSpec.parse("fastmax2-kernel"))
+        plain = dataclasses.replace(
+            small, attn=AttentionSpec.parse("fastmax2-chunked"))
+        sp = init_model(small, seed=0, device=dev)
+        prompts = torch.randint(0, small.vocab_size, (2, 40), generator=gen,
+                                device=dev)
+        tk = generate(sp, small, prompts, 8, device=dev)
+        tp = generate(sp, plain, prompts, 8, device=dev)
+        same[arch] = bool(torch.equal(tk, tp))
+        if small.n_experts:
+            rng = np.random.default_rng(3)
+            reqs = [rng.integers(0, small.vocab_size, n)
+                    for n in (40, 17, 33, 9, 26)]
+            eng = ServeEngine(sp, small, max_slots=2, max_len=64)
+            rids = [eng.submit(r, 6) for r in reqs]
+            outs = eng.run()
+            same[f"{arch} engine"] = all(
+                outs[rid].tolist() == generate(
+                    sp, small, torch.as_tensor(r, device=dev)[None], 6,
+                    max_len=64, device=dev)[0].tolist()
+                for rid, r in zip(rids, reqs))
+    print("  smoke f32 tokens kernel == plain (and engine == generate()): "
+          + ", ".join(f"{a} {v}" for a, v in same.items()))
+    if not all(same.values()):
+        fail("[archs] a smoke model's kernel path or engine disagrees")
+
+    gcfg = get_config(GRANITE_ARCH)
+    hq, (hkv, d), dv = gcfg.n_heads, _kv_dims(gcfg), gcfg.head_dim
+    with torch.inference_mode():
+        *_, rst = kernel_pair_check(
+            "granite", gen, GRANITE_B, hq, hkv, GRANITE_N, d, dv,
+            GRANITE_STEPS, (torch.float32, torch.bfloat16))
+        fd = time_decode(gen, hq, rst, torch.bfloat16, reps=20)
+        del rst
+    torch.cuda.empty_cache()
+    phase("archs", f"six smoke models' tokens equal on both paths, engines "
+          f"equal generate(); decode kernel at G={hq // hkv} (B="
+          f"{GRANITE_B}, D=Dv={d}) {fd['ms']:.4f} ms (plain "
+          f"{fd['plain_ms']:.4f}, bound {fd['bound_ms']:.4f} by "
+          f"{fd['bound_by']})")
+    return {"decode_ms_g48": fd["ms"], "decode_plain_ms_g48": fd["plain_ms"],
+            "decode_bound_ms_g48": fd["bound_ms"],
+            "decode_bound_by_g48": fd["bound_by"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -1188,16 +1625,7 @@ def main() -> None:
                  f"segments (the launch times above are one segment's)")
         gq = hq // hkv
         bh = B * hkv
-        # operations the function needs, per (b, kv-head): m2 and g2 are
-        # symmetric in (a, b), as is q_a q_b, so the degree-2 combine and
-        # fold need D(D+1)/2 rows, not D^2; plus the degree-0/1 terms and
-        # the causal intra-chunk block, counted at chunks of BOUND_CHUNK
-        # whatever chunk a kernel takes
-        c = BOUND_CHUNK
-        pairs = (P // c) * c * (c + 1) // 2 + (P % c) * (P % c + 1) // 2
-        fc_ops = bh * ((gq + 1) * P * d * (d + 1) * (d + 1)   # m2, g2
-                       + 2 * (gq + 1) * P * (d + 1) * (d + 1)  # m1 g1 m0 g0
-                       + gq * pairs * 2 * (d + d))            # intra-chunk
+        fc_ops = prefill_ops(bh, gq, P, d, d)
         fc_bytes = (q.numel() + k.numel() + v.numel()) * 2 + fc_o.numel() * 2 \
             + sum(t.numel() for t in rc_st) * 4
         fc_bound = max(fc_bytes / H100_BYTES_PER_S,
@@ -1215,8 +1643,7 @@ def main() -> None:
         state_bytes = sum(t.numel() for t in kst) * 4
         fd_bytes = 2 * state_bytes + (qs.numel() + ks.numel() + vs.numel()
                                       + od.numel()) * 2
-        fd_ops = bh * (gq + 1) * (d * (d + 1) * (d + 1)
-                                  + 2 * (d + 1) * (d + 1))
+        fd_ops = decode_ops(bh, gq, d, d)
         fd_bound = max(fd_bytes / H100_BYTES_PER_S,
                        fd_ops / H100_F32_FLOPS) * 1e3
         print(f"  timing (shapes): prefill kernel {fc_ms:.3f} ms (plain "
@@ -1873,7 +2300,7 @@ def main() -> None:
 
     # ---- 14. hybrid training: full-width qwen3-1.7b, bf16 ----
     from repro_torch.models import layers as L
-    from repro_torch.models.transformer import _layer
+    from repro_torch.models.transformer import _layers
 
     hcfg = dataclasses.replace(tcfg, attn=AttentionSpec.parse(
         "hybrid2-kernel"))
@@ -1887,7 +2314,7 @@ def main() -> None:
     from repro_torch.core.hybrid import hybrid_causal_chunked
 
     with torch.no_grad():
-        layer0 = _layer(params["blocks_0"], 0)
+        layer0 = _layers(params, hcfg)[0][2]
         x0 = params["embed"][tbatch["tokens"]].to(hcfg.adtype())
         h0 = L.apply_norm(layer0["norm1"], x0, norm_type=hcfg.norm_type,
                           eps=hcfg.norm_eps)
@@ -2109,6 +2536,11 @@ def main() -> None:
         fail("api: oracle or rowwise disagrees on the card, or a dropout "
              "mode is not seeded or keeps the wrong share")
 
+    # ---- the MoE family: full-width deepseek-v2 (MLA), the new configs ----
+    torch.cuda.empty_cache()
+    moe = moe_phase(dev)
+    arch = archs_phase(dev)
+
     kernels = [
         {"name": "fastmax_causal_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_causal.cu",
@@ -2121,7 +2553,10 @@ def main() -> None:
          "combine_ms": fc_combine_ms, "chunk": CHUNK,
          "workspace_bytes": ws_bytes,
          "call_peak_bytes": call_peak,
-         "launches_engine": eng_out["launches"]["fastmax_causal"]},
+         "launches_engine": eng_out["launches"]["fastmax_causal"],
+         "launches_mla": moe["launches_mla"]["fastmax_causal"],
+         **{k: moe[k] for k in moe if k.startswith("prefill_")
+            and k.endswith("_mla")}},
         {"name": "fastmax_decode_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_decode.cu",
          "replaces": "src/repro/kernels/fastmax_decode.py:81",
@@ -2130,7 +2565,11 @@ def main() -> None:
          "bound_by": "bytes" if fd_bytes / H100_BYTES_PER_S
          >= fd_ops / H100_F32_FLOPS else "operations",
          "library_ms": None,
-         "launches_engine": eng_out["launches"]["fastmax_decode"]},
+         "launches_engine": eng_out["launches"]["fastmax_decode"],
+         "launches_mla": moe["launches_mla"]["fastmax_decode"],
+         **{k: moe[k] for k in moe if k.startswith("decode_")
+            and k.endswith("_mla")},
+         **arch},
         {"name": "fastmax_causal_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_causal_bwd.cu",
          "replaces": "src/repro/kernels/fastmax_causal_bwd.py:280",
@@ -2191,6 +2630,11 @@ def main() -> None:
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps(sdpa_line))
+    print(json.dumps({"moe_deepseek_v2": {
+        k: moe[k] for k in ("prefill_ms", "decode_ms", "tok_s", "peak_gb",
+                            "logit_gap_bf16", "logit_gap_f32",
+                            "route_flips_bf16", "route_flips_f32",
+                            "params")}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

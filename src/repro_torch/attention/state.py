@@ -29,7 +29,7 @@ cache is plain torch (`core.softmax`), as in the reference.
 Unlike the functional reference, the port updates a layer's state IN
 PLACE: `prefill` copies the new carry, cache rows and window into the
 given tensors and `step` folds the token into them, so the state may be a
-view into a stacked [n_layers, ...] model state or into one slot of a
+view into a stacked [n_groups, ...] model state or into one slot of a
 serving pool. The moments are therefore allocated in their accumulator
 type from the start (float32 for bf16/f32 activations, float64 for
 float64 ones). A `length` with a batch axis ([B]: the hybrid window's

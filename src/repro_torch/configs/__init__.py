@@ -1,6 +1,7 @@
 """Architecture registry of the port — mirrors `repro.configs`. Only the
-architectures whose mixers are ported are listed; the rest come with
-their slices."""
+architectures whose mixers are ported are listed (attention with an MLP or
+MoE ffn, MLA, encoder-decoder); xlstm-1.3b and jamba-v0.1-52b (Mamba and
+xLSTM mixers) come with their slices."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,8 +13,14 @@ __all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]
 
 # public ids used on the CLI (--arch) mapped to module names
 ARCH_IDS = {
+    "qwen2.5-32b": "qwen2_5_32b",
+    "granite-20b": "granite_20b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "llama3-405b": "llama3_405b",
     "whisper-small": "whisper_small",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t",
+    "chameleon-34b": "chameleon_34b",
 }
 
 

@@ -25,7 +25,9 @@ def decode_state_bytes(cfg, batch: int, max_len: int) -> int:
     to `max_len` tokens, without allocating it (the state is built on the
     `meta` device, the counterpart of the reference's `jax.eval_shape`).
     Constant in `max_len` for the fastmax family, linear in it for the
-    softmax KV cache."""
+    softmax KV cache. Under MLA the state is per query head at D =
+    qk_nope_dim + qk_rope_dim (`models.layers._kv_dims`): deepseek-v2's is
+    2.45 GB per layer and sequence."""
     # core must not import attention or models at top level
     from repro_torch.attention.state import state_leaves
     from repro_torch.models import init_decode_state

@@ -30,6 +30,14 @@
 //     atomics: greedy tokens must not change from run to run.
 // Both launch on the caller's stream; the C entry returns
 // cudaGetLastError() after the launches.
+//
+// Any G (the Pallas kernel takes any): a block holds at most kMaxG = 16
+// queries' partials in registers, so the C entry runs the pair of launches
+// once per group of at most 16 queries of each head, in order. Only the
+// first group folds the token into the moments (`upd`); each later group
+// reads the updated moments and contracts with them. At G <= 16 that is
+// one pair, as before. The m2 scratch is reused from group to group (the
+// launches are ordered on the stream).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -49,8 +57,9 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// q [BH, G, D], k [BH, D], v [BH, Dv]; m2 [BH, D*D, Dv] f32 (in place);
-// part [BH, nsplit, G, Dv] f32. Each thread owns 4 consecutive columns
+// q [BH, Gq, D] (this group's GT queries start at query j0), k [BH, D],
+// v [BH, Dv]; m2 [BH, D*D, Dv] f32 (updated in place when `upd`);
+// part [BH, nsplit, GT, Dv] f32. Each thread owns 4 consecutive columns
 // (float4 loads and stores) of every `rpar`-th row of the block's range;
 // the per-thread partial numerators are then summed over the row lanes in
 // shared memory in a fixed order.
@@ -58,7 +67,8 @@ template <typename T, int GT>
 __global__ void __launch_bounds__(kM2Threads)
 decode_m2_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, float* __restrict__ m2,
-                 float* __restrict__ part, int D, int Dv, int rows) {
+                 float* __restrict__ part, int D, int Dv, int rows, int Gq,
+                 int j0, bool upd) {
   extern __shared__ __align__(16) float smem[];
   const int tpr = Dv / 4;                 // threads per row
   const int rpar = kM2Threads / tpr;      // rows in flight per block
@@ -71,7 +81,7 @@ decode_m2_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int tid = threadIdx.x;
   for (int i = tid; i < GT * D; i += blockDim.x)
-    sq[i] = ld(q + (size_t)bh * GT * D + i);
+    sq[i] = ld(q + ((size_t)bh * Gq + j0) * D + i);
   for (int i = tid; i < D; i += blockDim.x)
     sk[i] = ld(k + (size_t)bh * D + i);
   __syncthreads();
@@ -95,8 +105,10 @@ decode_m2_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float kk = sk[a] * sk[b];
       float4* p = reinterpret_cast<float4*>(mb + (size_t)r * Dv);
       float4 m = *p;
-      m.x += kk * v0; m.y += kk * v1; m.z += kk * v2; m.w += kk * v3;
-      *p = m;
+      if (upd) {
+        m.x += kk * v0; m.y += kk * v1; m.z += kk * v2; m.w += kk * v3;
+        *p = m;
+      }
 #pragma unroll
       for (int g = 0; g < GT; ++g) {
         const float y = sq[g * D + a] * sq[g * D + b];
@@ -116,8 +128,9 @@ decode_m2_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Small moments in place + final combine. m0 [BH, Dv], m1 [BH, D, Dv],
-// g0 [BH], g1 [BH, D], g2 [BH, D, D] (f32); o [BH, G, Dv].
+// Small moments in place (when `upd`) + final combine of this group's GT
+// queries. m0 [BH, Dv], m1 [BH, D, Dv], g0 [BH], g1 [BH, D], g2 [BH, D, D]
+// (f32); q [BH, Gq, D] and o [BH, Gq, Dv], the group's at query j0.
 template <typename T, int GT>
 __global__ void decode_small_kernel(const T* __restrict__ q,
                                     const T* __restrict__ k,
@@ -130,7 +143,7 @@ __global__ void decode_small_kernel(const T* __restrict__ q,
                                     const float* __restrict__ part,
                                     T* __restrict__ o,
                                     int D, int Dv, int p, int nsplit,
-                                    float eps) {
+                                    float eps, int Gq, int j0, bool upd) {
   extern __shared__ float smem[];
   float* sq = smem;                 // [G, D]
   float* sk = sq + GT * D;          // [D]
@@ -139,20 +152,21 @@ __global__ void decode_small_kernel(const T* __restrict__ q,
   const int bh = blockIdx.x;
   const int tid = threadIdx.x;
   for (int i = tid; i < GT * D; i += blockDim.x)
-    sq[i] = ld(q + (size_t)bh * GT * D + i);
+    sq[i] = ld(q + ((size_t)bh * Gq + j0) * D + i);
   for (int i = tid; i < D; i += blockDim.x)
     sk[i] = ld(k + (size_t)bh * D + i);
   __syncthreads();
 
   // denominator: g-moments updated first, then contracted (per-thread
   // partials, reduced below in a fixed order)
-  const float g0n = g0[bh] + 1.f;
+  const float g0n = upd ? g0[bh] + 1.f : g0[bh];
   float dpart[GT];
 #pragma unroll
   for (int g = 0; g < GT; ++g) dpart[g] = 0.f;
   for (int a = tid; a < D; a += blockDim.x) {
-    const float x = g1[(size_t)bh * D + a] + sk[a];
-    g1[(size_t)bh * D + a] = x;
+    const float x = upd ? g1[(size_t)bh * D + a] + sk[a]
+                        : g1[(size_t)bh * D + a];
+    if (upd) g1[(size_t)bh * D + a] = x;
 #pragma unroll
     for (int g = 0; g < GT; ++g)
       dpart[g] += sq[g * D + a] * x;
@@ -161,8 +175,8 @@ __global__ void decode_small_kernel(const T* __restrict__ q,
     float* g2b = g2 + (size_t)bh * D * D;
     for (int e = tid; e < D * D; e += blockDim.x) {
       const int a = e / D, b = e - a * D;
-      const float x = g2b[e] + sk[a] * sk[b];
-      g2b[e] = x;
+      const float x = upd ? g2b[e] + sk[a] * sk[b] : g2b[e];
+      if (upd) g2b[e] = x;
 #pragma unroll
       for (int g = 0; g < GT; ++g)
         dpart[g] += 0.5f * sq[g * D + a] * x * sq[g * D + b];
@@ -177,19 +191,21 @@ __global__ void decode_small_kernel(const T* __restrict__ q,
     sden[tid] = g0n + s;
   }
   __syncthreads();
-  if (tid == 0) g0[bh] = g0n;
+  if (tid == 0 && upd) g0[bh] = g0n;
 
   for (int j = tid; j < Dv; j += blockDim.x) {
     const float vj = ld(v + (size_t)bh * Dv + j);
-    const float m0n = m0[(size_t)bh * Dv + j] + vj;
-    m0[(size_t)bh * Dv + j] = m0n;
+    const float m0n = upd ? m0[(size_t)bh * Dv + j] + vj
+                          : m0[(size_t)bh * Dv + j];
+    if (upd) m0[(size_t)bh * Dv + j] = m0n;
     float num[GT];
 #pragma unroll
     for (int g = 0; g < GT; ++g) num[g] = m0n;
     float* m1b = m1 + (size_t)bh * D * Dv + j;
     for (int a = 0; a < D; ++a) {
-      const float x = m1b[(size_t)a * Dv] + sk[a] * vj;
-      m1b[(size_t)a * Dv] = x;
+      const float x = upd ? m1b[(size_t)a * Dv] + sk[a] * vj
+                          : m1b[(size_t)a * Dv];
+      if (upd) m1b[(size_t)a * Dv] = x;
 #pragma unroll
       for (int g = 0; g < GT; ++g)
         num[g] += sq[g * D + a] * x;
@@ -200,7 +216,7 @@ __global__ void decode_small_kernel(const T* __restrict__ q,
       for (int s = 0; s < nsplit; ++s)
         s2 += part[(((size_t)bh * nsplit + s) * GT + g) * Dv + j];
       const float n = num[g] + 0.5f * s2;
-      st(o + ((size_t)bh * GT + g) * Dv + j, n / (sden[g] + eps));
+      st(o + ((size_t)bh * Gq + j0 + g) * Dv + j, n / (sden[g] + eps));
     }
   }
 }
@@ -208,8 +224,8 @@ __global__ void decode_small_kernel(const T* __restrict__ q,
 template <typename T, int GT>
 int launch(const void* q, const void* k, const void* v, void* m0, void* m1,
            void* m2, void* g0, void* g1, void* g2, void* part, void* o,
-           int bh, int D, int Dv, int p, int rows, float eps,
-           cudaStream_t s) {
+           int bh, int D, int Dv, int p, int rows, float eps, int Gq,
+           int j0, bool upd, cudaStream_t s) {
   int nsplit = 0;
   if (p >= 2) {
     nsplit = (D * D + rows - 1) / rows;
@@ -222,7 +238,7 @@ int launch(const void* q, const void* k, const void* v, void* m0, void* m1,
     if (err != cudaSuccess) return (int)err;
     decode_m2_kernel<T, GT><<<dim3(nsplit, bh), kM2Threads, sm, s>>>(
         (const T*)q, (const T*)k, (const T*)v, (float*)m2, (float*)part, D,
-        Dv, rows);
+        Dv, rows, Gq, j0, upd);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -230,8 +246,38 @@ int launch(const void* q, const void* k, const void* v, void* m0, void* m1,
   decode_small_kernel<T, GT><<<bh, kThreads, sm2, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (float*)m0, (float*)m1,
       (float*)g0, (float*)g1, (float*)g2, (const float*)part, (T*)o, D, Dv,
-      p, nsplit, eps);
+      p, nsplit, eps, Gq, j0, upd);
   return (int)cudaGetLastError();
+}
+
+// One group of GT = min(16, G - j0) queries at query j0 of each head.
+template <typename T>
+int launch_group(int GT, const void* q, const void* k, const void* v,
+                 void* m0, void* m1, void* m2, void* g0, void* g1, void* g2,
+                 void* part, void* o, int bh, int D, int Dv, int p, int rows,
+                 float eps, int Gq, int j0, cudaStream_t s) {
+#define ARGS q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, \
+             eps, Gq, j0, j0 == 0, s
+  switch (GT) {
+    case 1: return launch<T, 1>(ARGS);
+    case 2: return launch<T, 2>(ARGS);
+    case 3: return launch<T, 3>(ARGS);
+    case 4: return launch<T, 4>(ARGS);
+    case 5: return launch<T, 5>(ARGS);
+    case 6: return launch<T, 6>(ARGS);
+    case 7: return launch<T, 7>(ARGS);
+    case 8: return launch<T, 8>(ARGS);
+    case 9: return launch<T, 9>(ARGS);
+    case 10: return launch<T, 10>(ARGS);
+    case 11: return launch<T, 11>(ARGS);
+    case 12: return launch<T, 12>(ARGS);
+    case 13: return launch<T, 13>(ARGS);
+    case 14: return launch<T, 14>(ARGS);
+    case 15: return launch<T, 15>(ARGS);
+    case 16: return launch<T, 16>(ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ARGS
 }
 
 template <typename T>
@@ -239,25 +285,13 @@ int launch_any_g(int G, const void* q, const void* k, const void* v,
                  void* m0, void* m1, void* m2, void* g0, void* g1, void* g2,
                  void* part, void* o, int bh, int D, int Dv, int p, int rows,
                  float eps, cudaStream_t s) {
-  switch (G) {
-    case 1: return launch<T, 1>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 2: return launch<T, 2>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 3: return launch<T, 3>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 4: return launch<T, 4>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 5: return launch<T, 5>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 6: return launch<T, 6>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 7: return launch<T, 7>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 8: return launch<T, 8>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 9: return launch<T, 9>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 10: return launch<T, 10>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 11: return launch<T, 11>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 12: return launch<T, 12>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 13: return launch<T, 13>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 14: return launch<T, 14>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 15: return launch<T, 15>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    case 16: return launch<T, 16>(q, k, v, m0, m1, m2, g0, g1, g2, part, o, bh, D, Dv, p, rows, eps, s);
-    default: return (int)cudaErrorInvalidValue;
+  for (int j0 = 0; j0 < G; j0 += kMaxG) {
+    const int err = launch_group<T>(G - j0 < kMaxG ? G - j0 : kMaxG, q, k, v,
+                                    m0, m1, m2, g0, g1, g2, part, o, bh, D,
+                                    Dv, p, rows, eps, G, j0, s);
+    if (err != 0) return err;
   }
+  return 0;
 }
 
 }  // namespace
@@ -270,7 +304,7 @@ int fastmax_decode_step(int dtype, const void* q, const void* k,
                         void* g0, void* g1, void* g2, void* part, void* o,
                         int bh, int G, int D, int Dv, int p, int rows,
                         float eps, void* stream) {
-  if (G < 1 || G > kMaxG || Dv % 4 || Dv / 4 > kM2Threads)
+  if (G < 1 || Dv % 4 || Dv / 4 > kM2Threads)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -11,7 +11,7 @@ import ctypes
 
 import torch
 
-__all__ = ["fastmax_decode_cuda", "launches", "M2_ROWS_PER_BLOCK"]
+__all__ = ["fastmax_decode_cuda", "launches", "M2_ROWS_PER_BLOCK", "GROUP"]
 
 # kernel launches made by `fastmax_decode_cuda` (one per call)
 launches = 0
@@ -21,7 +21,9 @@ launches = 0
 M2_ROWS_PER_BLOCK = 512
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_G = 16
+# queries of one head a launch pair contracts at once: a larger G runs the
+# pair once per group of at most this many, the token folded in by the first
+GROUP = 16
 
 
 def _lib():
@@ -45,7 +47,9 @@ def fastmax_decode_cuda(q, k, v, state, *, p: int = 2,
     `state` is the moment tuple (m0, m1, m2, g0, g1, g2) in float32, each
     leaf contiguous on the same device; it is UPDATED IN PLACE (the new
     token folded in), never copied, so a leaf may be a view into a stacked
-    per-layer state. At p=1, m2 and g2 are left as they are. Returns
+    per-layer state. Any G = Hq / Hkv: past `GROUP` queries per head the
+    kernel's launch pair runs once per group of queries, and only the
+    first folds the token in. At p=1, m2 and g2 are left as they are. Returns
     o [B,Hq,1,Dv] in q's dtype. Raises on any input the kernel does not
     take and on a failed build or launch.
     """
@@ -59,9 +63,8 @@ def fastmax_decode_cuda(q, k, v, state, *, p: int = 2,
     if one != 1 or k.shape != (b, hkv, 1, d) or v.shape[:3] != (b, hkv, 1):
         raise ValueError(f"shape mismatch q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if hq % hkv or hq // hkv > _MAX_G:
-        raise ValueError(f"Hq={hq}, Hkv={hkv}: need Hq % Hkv == 0 and "
-                         f"G <= {_MAX_G}")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} % Hkv={hkv} != 0")
     if dv % 4 or dv > 1024:
         raise ValueError(f"the kernel needs Dv divisible by 4 and <= 1024, "
                          f"got {dv}")
@@ -89,8 +92,8 @@ def fastmax_decode_cuda(q, k, v, state, *, p: int = 2,
     g = hq // hkv
     rows = min(M2_ROWS_PER_BLOCK, d * d)
     nsplit = -(-d * d // rows) if p >= 2 else 0
-    part = torch.empty(max(1, b * hkv * nsplit * g * dv), dtype=torch.float32,
-                       device=dev)
+    part = torch.empty(max(1, b * hkv * nsplit * min(g, GROUP) * dv),
+                       dtype=torch.float32, device=dev)
     o = torch.empty(b, hq, 1, dv, dtype=q.dtype, device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream

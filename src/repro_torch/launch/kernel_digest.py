@@ -4,7 +4,10 @@
 
 Runs the causal prefill kernel (o and all six moments; float32 and
 bfloat16 inputs, p = 1 and 2, with a kv_mask and an init_state, at
-qwen3-1.7b's widths and at G = 1, D = 64), the §2.5 backward and the hybrid
+qwen3-1.7b's widths and at G = 1, D = 64), the decode kernel (32 chained
+steps from the prefill's state, o of each and the final moments, float32
+and bfloat16, at G = 2, 1 and 16: the groups of at most 16 queries one
+launch pair takes), the §2.5 backward and the hybrid
 kernel (float32 and bfloat16 at qwen3-1.7b's widths; dq, dk, dv and
 dstate; o and the final moments) and the noncausal kernel's two launches
 (the six moments and o, at whisper-small's widths) on inputs made from a
@@ -42,6 +45,7 @@ def main(argv=None) -> None:
     from repro_torch.kernels.fastmax_causal import (fastmax_causal_cuda,
                                                     fastmax_causal_ref)
     from repro_torch.kernels.fastmax_causal_bwd import fastmax_causal_bwd_cuda
+    from repro_torch.kernels.fastmax_decode import fastmax_decode_cuda
     from repro_torch.kernels.hybrid_causal import hybrid_causal_cuda
     from repro_torch.kernels.fastmax_noncausal import (
         noncausal_combine_cuda, noncausal_moments_cuda)
@@ -80,6 +84,22 @@ def main(argv=None) -> None:
                     o, st = fastmax_causal_cuda(q, k, v, mask, p=p,
                                                 init_state=init)
                     emit(f"prefill {tag} p={p} {str(dtype)[6:]}", (o, *st))
+        # the decode kernel: chained steps from a prefill's state, at
+        # qwen3's G = 2, at G = 1 (D = 64) and at G = 16
+        for tag, b, hq, hkv, d in (("qwen3", 2, 16, 8, 128),
+                                   ("g1d64", 2, 12, 12, 64),
+                                   ("g16", 2, 16, 1, 128)):
+            for dtype in (torch.float32, torch.bfloat16):
+                _, st = fastmax_causal_cuda(
+                    normalize_qk(rn(b, hq, 200, d)).to(dtype),
+                    normalize_qk(rn(b, hkv, 200, d)).to(dtype),
+                    rn(b, hkv, 200, d).to(dtype), p=2)
+                outs = [fastmax_decode_cuda(
+                    normalize_qk(rn(b, hq, 1, d)).to(dtype),
+                    normalize_qk(rn(b, hkv, 1, d)).to(dtype),
+                    rn(b, hkv, 1, d).to(dtype), st, p=2) for _ in range(32)]
+                emit(f"decode {tag} 32 steps {str(dtype)[6:]}",
+                     (torch.stack(outs), *st))
         # the backward and the hybrid forward at qwen3's widths
         b, hq, hkv, d, n = 2, 16, 8, 128, 1000
         for dtype in (torch.float32, torch.bfloat16):

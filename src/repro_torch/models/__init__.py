@@ -1,5 +1,5 @@
-"""Model substrate of the port: layers, the dense transformer LM and the
-encoder-decoder assembly."""
+"""Model substrate of the port: layers (GQA and MLA attention, MLPs), the
+MoE FFN, the transformer LM and the encoder-decoder assembly."""
 from repro_torch.models.model import (  # noqa: F401
     decode_step,
     decoder_params,

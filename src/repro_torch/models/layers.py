@@ -1,12 +1,13 @@
-"""Model layers of the dense GQA transformer — port of
-`repro/models/layers.py`.
+"""Model layers of the transformer — port of `repro/models/layers.py`.
 
 RMS norms and LayerNorm (computed in float32 and cast back, as the
 reference does), RoPE in the half-split layout, the SwiGLU and GELU MLPs,
-GQA projections with optional bias and qk_norm, full-sequence attention
+GQA projections with optional bias and qk_norm, the MLA projections
+(deepseek-v2: q at qk_nope_dim + qk_rope_dim per head, k and v
+decompressed per query head from a kv_lora_rank latent, RoPE on the rope
+part only, its key part shared by every head), full-sequence attention
 (causal or not, and cross-attention to another sequence), and the attention
-prefill/decode steps over the `repro_torch.attention` state protocol. The
-MLA projections come with the architectures that use them.
+prefill/decode steps over the `repro_torch.attention` state protocol.
 """
 from __future__ import annotations
 
@@ -117,47 +118,82 @@ def apply_mlp(params, x, *, act: str = "swiglu"):
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA)
+# Attention (GQA, or MLA's projections)
 # ---------------------------------------------------------------------------
 
 
 def init_attention(b: Builder, name: str, cfg) -> None:
     sub = b.sub(name)
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    sub.add("wq", (d, hq, hd))
-    sub.add("wk", (d, hkv, hd))
-    sub.add("wv", (d, hkv, hd))
-    sub.add("wo", (hq, hd, d), fan_in=hq * hd)
-    if cfg.qkv_bias:
-        sub.add("bq", (hq, hd), init="zeros")
-        sub.add("bk", (hkv, hd), init="zeros")
-        sub.add("bv", (hkv, hd), init="zeros")
+    if cfg.use_mla:
+        rank = cfg.kv_lora_rank
+        qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+        sub.add("wq", (d, hq, qk_dim))
+        sub.add("w_dkv", (d, rank + cfg.qk_rope_dim))
+        sub.add("w_uk", (rank, hq, cfg.qk_nope_dim))
+        sub.add("w_uv", (rank, hq, hd))
+        sub.add("wo", (hq, hd, d), fan_in=hq * hd)
+    else:
+        sub.add("wq", (d, hq, hd))
+        sub.add("wk", (d, hkv, hd))
+        sub.add("wv", (d, hkv, hd))
+        sub.add("wo", (hq, hd, d), fan_in=hq * hd)
+        if cfg.qkv_bias:
+            sub.add("bq", (hq, hd), init="zeros")
+            sub.add("bk", (hkv, hd), init="zeros")
+            sub.add("bv", (hkv, hd), init="zeros")
     if cfg.qk_norm:
-        sub.add("q_norm_scale", (hd,), init="ones")
-        sub.add("k_norm_scale", (hd,), init="ones")
+        _, dq = _kv_dims(cfg)
+        sub.add("q_norm_scale", (dq,), init="ones")
+        sub.add("k_norm_scale", (dq,), init="ones")
 
 
 def _project_q(params, x, cfg, positions):
-    """q [B,Hq,N,D]."""
+    """q [B,Hq,N,D] (D = qk_nope_dim + qk_rope_dim under MLA, RoPE on the
+    last qk_rope_dim features only)."""
     q = _dense(x, params["wq"]).transpose(1, 2)
-    if cfg.qkv_bias:
-        q = q + params["bq"][None, :, None, :]
-    if cfg.rope_theta > 0:
-        q = apply_rope(q, positions, cfg.rope_theta)
+    if cfg.use_mla:
+        nope = cfg.qk_nope_dim
+        q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], positions,
+                                                 cfg.rope_theta)], dim=-1)
+    else:
+        if cfg.qkv_bias:
+            q = q + params["bq"][None, :, None, :]
+        if cfg.rope_theta > 0:
+            q = apply_rope(q, positions, cfg.rope_theta)
     if cfg.qk_norm:
         q = rms_norm_headwise(q) * params["q_norm_scale"]
     return q
 
 
+def _project_kv_mla(params, x, cfg, positions):
+    """MLA: k [B,Hq,N,D], v [B,Hq,N,Dv], both decompressed per query head
+    from the latent c = x w_dkv[:, :rank]; the key's rope part, x
+    w_dkv[:, rank:] rotated, is one per token and broadcast to every
+    head."""
+    rank = cfg.kv_lora_rank
+    ckv = _dense(x, params["w_dkv"])
+    c, k_rope = ckv[..., :rank], ckv[..., rank:]
+    k_nope = _dense(c, params["w_uk"]).transpose(1, 2)
+    v = _dense(c, params["w_uv"]).transpose(1, 2)
+    k_rope = apply_rope(k_rope[:, None], positions, cfg.rope_theta)
+    k = torch.cat([k_nope, k_rope.expand(-1, k_nope.shape[1], -1, -1)],
+                  dim=-1)
+    return k, v
+
+
 def _project_kv(params, x, cfg, positions):
-    """k [B,Hkv,N,D], v [B,Hkv,N,Dv]."""
-    k = _dense(x, params["wk"]).transpose(1, 2)
-    v = _dense(x, params["wv"]).transpose(1, 2)
-    if cfg.qkv_bias:
-        k = k + params["bk"][None, :, None, :]
-        v = v + params["bv"][None, :, None, :]
-    if cfg.rope_theta > 0:
-        k = apply_rope(k, positions, cfg.rope_theta)
+    """k [B,Hkv,N,D], v [B,Hkv,N,Dv] (Hkv = Hq under MLA)."""
+    if cfg.use_mla:
+        k, v = _project_kv_mla(params, x, cfg, positions)
+    else:
+        k = _dense(x, params["wk"]).transpose(1, 2)
+        v = _dense(x, params["wv"]).transpose(1, 2)
+        if cfg.qkv_bias:
+            k = k + params["bk"][None, :, None, :]
+            v = v + params["bv"][None, :, None, :]
+        if cfg.rope_theta > 0:
+            k = apply_rope(k, positions, cfg.rope_theta)
     if cfg.qk_norm:
         k = rms_norm_headwise(k) * params["k_norm_scale"]
     return k, v
@@ -191,10 +227,20 @@ def apply_attention(params, x, cfg, *, causal=True, kv_mask=None,
     return _out_proj(o.to(x.dtype), params["wo"])
 
 
+def _kv_dims(cfg):
+    """(n_kv_heads, q_head_dim) as the decode state sees them: MLA
+    decompresses k and v per query head, so Hkv = Hq and D = qk_nope_dim +
+    qk_rope_dim there (Dv stays head_dim)."""
+    hkv = cfg.n_heads if cfg.use_mla else cfg.n_kv_heads
+    dq = (cfg.qk_nope_dim + cfg.qk_rope_dim) if cfg.use_mla else cfg.head_dim
+    return hkv, dq
+
+
 def init_attn_state(cfg, batch: int, max_len: int, dtype,
                     device=None) -> AttnState:
-    return A.init_state(cfg.attn_spec, batch=batch, n_kv_heads=cfg.n_kv_heads,
-                        q_head_dim=cfg.head_dim, v_head_dim=cfg.head_dim,
+    hkv, dq = _kv_dims(cfg)
+    return A.init_state(cfg.attn_spec, batch=batch, n_kv_heads=hkv,
+                        q_head_dim=dq, v_head_dim=cfg.head_dim,
                         max_len=max_len, dtype=dtype, device=device)
 
 

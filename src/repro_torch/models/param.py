@@ -67,7 +67,8 @@ def from_jax_params(tree, cfg, device) -> dict:
     """Convert a JAX `init_model` params tree (an `init_lm` tree, or the
     `{"encoder", "decoder"}` tree of an encoder-decoder model) whose leaves
     were turned into numpy arrays into the port's parameters: same nested
-    layout (the stacked `blocks_0` keeps its leading layer axis), cast to
+    layout, whatever its keys (the unstacked `dense_i` blocks, each stacked
+    `blocks_i` with its leading group axis, MoE and MLA leaves), cast to
     the config's param dtype on `device`."""
     dtype = getattr(torch, cfg.param_dtype)
 
@@ -83,6 +84,8 @@ def from_jax_params(tree, cfg, device) -> dict:
 
 
 def count_params(tree) -> int:
+    """Elements of a parameter tree; a tree built on the `meta` device
+    (`init_lm(cfg, device="meta")`) counts a full config without memory."""
     if isinstance(tree, dict):
         return sum(count_params(v) for v in tree.values())
     return tree.numel()

@@ -1,21 +1,30 @@
 """Transformer LM — port of `repro/models/transformer.py`.
 
-The dense `"attn:mlp"` pattern (qwen3, llama3, qwen2.5, granite, and both
-towers of whisper) is ported: config, initialization, the training forward
-and loss, prefill and one-token decode. Encoder towers take embeddings in
+One `ModelConfig` expresses the ported architectures through a repeating
+`pattern` of blocks ("mixer:ffn"): `"attn:mlp"` (qwen3, qwen2.5, granite,
+llama3, chameleon, and both towers of whisper) and `"attn:moe"`
+(deepseek-v2 with MLA projections, kimi-k2), any number of blocks per
+group, with `first_k_dense` leading blocks whose ffn is an MLP at `d_ff`
+(`dense_i`, unstacked), then `n_groups` groups of the pattern, each
+entry's parameters stacked on a leading group axis (`blocks_i`): the
+reference's tree, so `from_jax_params` converts a JAX tree as it is. The
+config, initialization, the training forward and loss (the MoE blocks'
+aux added to the loss), prefill and one-token decode are ported; prefill
+and decode run the MoE at full capacity. Encoder towers take embeddings in
 place of tokens and attend noncausally; decoder blocks of an
 encoder-decoder model add a cross-attention to the encoder's output
 (`enc_out`), recomputed from it at every call as the reference does.
-Layers run as a Python loop over the stacked `blocks_0` parameters (the
-reference scans them); under `remat="full"` each layer is recomputed in
-the backward (`torch.utils.checkpoint`), as the reference checkpoints each
-scanned group with `nothing_saveable`; under `remat="dots"` the outputs of
-the un-batched matmuls (the projections and the MLP, `aten.mm`) are kept
-and everything else is recomputed, the reference's
-`checkpoint_dots_with_no_batch_dims`. The decode state is stacked the same
-way, [n_layers, B, ...] (the softmax KV cache, or the moments and a hybrid
-spec's window), and each layer's state is a contiguous view that the
-attention step updates in place. Other mixers (MoE, MLA, Mamba, xLSTM) come in later slices.
+Layers run as a Python loop (the reference scans the groups); under
+`remat="full"` each layer is recomputed in the backward
+(`torch.utils.checkpoint`), as the reference checkpoints each scanned
+group with `nothing_saveable`; under `remat="dots"` the outputs of the
+un-batched matmuls (the projections, the MLP and the experts, `aten.mm`)
+are kept and everything else is recomputed, the reference's
+`checkpoint_dots_with_no_batch_dims`. The decode state has the same keys:
+`dense_i` [B, ...], `blocks_i` stacked [n_groups, B, ...] (the softmax KV
+cache, or the moments and a hybrid spec's window), and each layer's state
+is a contiguous view that the attention step updates in place. Mamba and
+xLSTM mixers come in later slices.
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ from repro_torch.attention import AttentionSpec, AttnState, KVCache
 from repro_torch.core.fastmax import Moments
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.param import Builder
 
 _F32 = torch.float32
@@ -58,7 +68,19 @@ class ModelConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 1e4
+    # MLA (deepseek-v2)
+    use_mla: bool = False
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    # MLP / MoE
     mlp_act: str = "swiglu"
+    n_experts: int = 0
+    moe_top_k: int = 2
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
     norm_type: str = "rmsnorm"
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -80,6 +102,16 @@ class ModelConfig:
             return self.attn
         return dataclasses.replace(self.attn, chunk_size=self.chunk_size)
 
+    @property
+    def n_groups(self) -> int:
+        assert self.n_layers_scanned % len(self.pattern) == 0, (
+            self.n_layers_scanned, self.pattern)
+        return self.n_layers_scanned // len(self.pattern)
+
+    @property
+    def n_layers_scanned(self) -> int:
+        return self.n_layers - self.first_k_dense
+
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
 
@@ -88,10 +120,14 @@ class ModelConfig:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if tuple(cfg.pattern) != ("attn:mlp",) or cfg.first_k_dense:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense 'attn:mlp' pattern is ported "
-            f"(got {cfg.pattern}, first_k_dense={cfg.first_k_dense})")
+    for kind in cfg.pattern:
+        mixer, ffn = kind.split(":")
+        if mixer != "attn" or ffn not in ("mlp", "moe"):
+            raise NotImplementedError(
+                f"{cfg.name}: only 'attn:mlp' and 'attn:moe' blocks are "
+                f"ported (got {kind!r} in {cfg.pattern})")
+        if ffn == "moe" and cfg.n_experts < 1:
+            raise ValueError(f"{cfg.name}: 'attn:moe' needs n_experts >= 1")
     if cfg.norm_type not in ("rmsnorm", "layernorm") \
             or cfg.mlp_act not in ("swiglu", "gelu"):
         raise NotImplementedError(
@@ -99,27 +135,53 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"(got {cfg.norm_type}, {cfg.mlp_act})")
     if cfg.pos_emb not in ("none", "sinusoidal"):
         raise NotImplementedError(f"{cfg.name}: pos_emb={cfg.pos_emb!r}")
+    if cfg.n_layers_scanned < 0 or cfg.n_layers_scanned % len(cfg.pattern):
+        raise ValueError(
+            f"{cfg.name}: n_layers - first_k_dense = {cfg.n_layers_scanned} "
+            f"is not a whole number of {len(cfg.pattern)}-block groups")
+
+
+def _block_keys(cfg: ModelConfig) -> list:
+    """(parameter / state key, kind, stacked) of every block entry: the
+    `first_k_dense` leading blocks (their ffn forced to an MLP), then one
+    stacked entry per pattern position."""
+    out = [(f"dense_{i}", cfg.pattern[0], False)
+           for i in range(cfg.first_k_dense)]
+    return out + [(f"blocks_{i}", kind, True)
+                  for i, kind in enumerate(cfg.pattern)]
+
+
+def _init_block(b: Builder, kind: str, cfg: ModelConfig,
+                force_mlp: bool = False) -> None:
+    ffn = kind.split(":")[1]
+    L.init_norm(b, "norm1", cfg.d_model, cfg.norm_type)
+    L.init_attention(b, "mixer", cfg)
+    if cfg.cross_attention:
+        L.init_norm(b, "norm_x", cfg.d_model, cfg.norm_type)
+        L.init_attention(b, "cross", cfg)
+    L.init_norm(b, "norm2", cfg.d_model, cfg.norm_type)
+    if ffn == "moe" and not force_mlp:
+        MOE.init_moe(b, "ffn", cfg)
+    else:
+        L.init_mlp(b, "ffn", cfg.d_model, cfg.d_ff, cfg.mlp_act)
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0,
             generator: Optional[torch.Generator] = None, device=None) -> dict:
     """Random parameters at the config's widths, drawn from `generator` (or
-    a fresh one seeded with `seed`) on `device` (default cuda)."""
+    a fresh one seeded with `seed`) on `device` (default cuda). On the
+    `meta` device it only describes the shapes (`param.count_params`)."""
     _check_supported(cfg)
-    dev = resolve_device(device)
+    dev = device if str(device) == "meta" else resolve_device(device)
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(seed)
+        generator = torch.Generator(
+            device="cpu" if str(dev) == "meta" else dev).manual_seed(seed)
     b = Builder(generator, cfg.dtype(), dev)
     if not cfg.input_embeddings_only:
         b.add("embed", (cfg.vocab_size, cfg.d_model), scale=1.0)
-    blk = b.stacked("blocks_0", cfg.n_layers)
-    L.init_norm(blk, "norm1", cfg.d_model, cfg.norm_type)
-    L.init_attention(blk, "mixer", cfg)
-    if cfg.cross_attention:
-        L.init_norm(blk, "norm_x", cfg.d_model, cfg.norm_type)
-        L.init_attention(blk, "cross", cfg)
-    L.init_norm(blk, "norm2", cfg.d_model, cfg.norm_type)
-    L.init_mlp(blk, "ffn", cfg.d_model, cfg.d_ff, cfg.mlp_act)
+    for key, kind, stacked in _block_keys(cfg):
+        sub = b.stacked(key, cfg.n_groups) if stacked else b.sub(key)
+        _init_block(sub, kind, cfg, force_mlp=not stacked)
     L.init_norm(b, "final_norm", cfg.d_model, cfg.norm_type)
     if not cfg.tie_embeddings and not cfg.input_embeddings_only:
         b.add("unembed", (cfg.d_model, cfg.vocab_size))
@@ -134,12 +196,6 @@ def _sinusoidal_at(pos, d: int, dtype):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
-def _layer(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
 def _unbind_layers(tree, n: int) -> list:
     """Per-layer views of a stacked parameter tree."""
     if isinstance(tree, dict):
@@ -148,32 +204,59 @@ def _unbind_layers(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
-def _layer_state(state: AttnState, i: int) -> AttnState:
-    kv = None if state.kv is None else KVCache(*(t[i] for t in state.kv))
-    mom = None if state.moments is None else Moments(
-        *(t[i] for t in state.moments))
+def _layers(params, cfg: ModelConfig) -> list:
+    """(key, group, parameters) of every layer in the order they run: the
+    `dense_i` blocks (group None), then each group's pattern entries
+    (views into the stacked `blocks_i`; one unbind per stacked leaf, whose
+    backward stacks the layers' grads once where per-layer indexing would
+    scatter each into a full copy)."""
+    out = [(key, None, params[key])
+           for key, _, stacked in _block_keys(cfg) if not stacked]
+    stacked = [(key, _unbind_layers(params[key], cfg.n_groups))
+               for key, _, st in _block_keys(cfg) if st]
+    for g in range(cfg.n_groups):
+        out += [(key, g, per[g]) for key, per in stacked]
+    return out
+
+
+def _layer_state(state: dict, key: str, g) -> AttnState:
+    """The state of layer (key, group): `state[key]` itself for a dense
+    block, else contiguous views of group g of the stacked leaves."""
+    st = state[key]
+    if g is None:
+        return st
+    kv = None if st.kv is None else KVCache(*(t[g] for t in st.kv))
+    mom = None if st.moments is None else Moments(
+        *(t[g] for t in st.moments))
     return AttnState(kv=kv, moments=mom)
 
 
 def init_lm_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                          device=None) -> dict:
-    """Fresh decode state for `batch` sequences of up to `max_len` tokens:
-    {"blocks_0": AttnState} whose leaves (the softmax KV cache, or the
-    moments and a hybrid spec's window) are stacked [n_layers, B, Hkv,
-    ...], each cache's length [n_layers]. On the `meta` device it only
-    describes the shapes (`core.decode_state.decode_state_bytes`)."""
+    """Fresh decode state for `batch` sequences of up to `max_len` tokens,
+    one `AttnState` per key of the parameter tree: `dense_i` with leaves
+    [B, Hkv, ...] (each cache's length []), `blocks_i` with leaves stacked
+    [n_groups, B, Hkv, ...] (each cache's length [n_groups]); the softmax
+    KV cache, or the moments and a hybrid spec's window. On the `meta`
+    device it only describes the shapes
+    (`core.decode_state.decode_state_bytes`)."""
     _check_supported(cfg)
     dev = device if str(device) == "meta" else resolve_device(device)
-    one = L.init_attn_state(cfg, batch, max_len, cfg.adtype(), device=dev)
 
     def stack(t):
-        return t.unsqueeze(0).expand((cfg.n_layers,) + tuple(t.shape)) \
+        return t.unsqueeze(0).expand((cfg.n_groups,) + tuple(t.shape)) \
             .contiguous()
 
-    kv = None if one.kv is None else KVCache(*(stack(t) for t in one.kv))
-    moments = None if one.moments is None else Moments(
-        *(stack(t) for t in one.moments))
-    return {"blocks_0": AttnState(kv=kv, moments=moments)}
+    state = {}
+    for key, _, stacked in _block_keys(cfg):
+        one = L.init_attn_state(cfg, batch, max_len, cfg.adtype(), device=dev)
+        if stacked:
+            one = AttnState(
+                kv=None if one.kv is None else KVCache(*map(stack, one.kv)),
+                moments=None if one.moments is None else Moments(
+                    *map(stack, one.moments)))
+        state[key] = one
+    return state
 
 
 def _logits(params, x, cfg: ModelConfig):
@@ -189,7 +272,11 @@ def _logits(params, x, cfg: ModelConfig):
     return logits
 
 
-def _block(params_b, x, cfg: ModelConfig, attn, enc_out=None):
+def _block(params_b, x, cfg: ModelConfig, attn, enc_out=None, *,
+           full_capacity: bool = False):
+    """One block; returns (x, the MoE's aux or None). A block whose ffn
+    has no router runs the MLP (the `dense_i` blocks of an "attn:moe"
+    pattern, as in the reference)."""
     h = L.apply_norm(params_b["norm1"], x, norm_type=cfg.norm_type,
                      eps=cfg.norm_eps)
     x = x + attn(params_b["mixer"], h)
@@ -200,7 +287,11 @@ def _block(params_b, x, cfg: ModelConfig, attn, enc_out=None):
                                   kv_x=enc_out)
     h = L.apply_norm(params_b["norm2"], x, norm_type=cfg.norm_type,
                      eps=cfg.norm_eps)
-    return x + L.apply_mlp(params_b["ffn"], h, act=cfg.mlp_act)
+    if "router" in params_b["ffn"]:
+        y, aux = MOE.apply_moe(params_b["ffn"], h, cfg,
+                               full_capacity=full_capacity)
+        return x + y, aux
+    return x + L.apply_mlp(params_b["ffn"], h, act=cfg.mlp_act), None
 
 
 # remat="dots": the un-batched matmuls' outputs are saved, everything else
@@ -246,29 +337,28 @@ def forward_lm(params, tokens, cfg: ModelConfig, *, causal=True,
     """Full-sequence forward. tokens [B, N] int, or `embeddings`
     [B, N, d] (stub frontends, encoder towers); `enc_out` [B, M, d] feeds
     the cross-attention of a decoder tower. Returns (logits [B, N, vocab],
-    aux loss — a float32 zero: the dense pattern has no router), or the
-    final-normed hidden states in place of the logits with
-    `return_hidden`."""
+    aux loss — the float32 sum of the MoE blocks' load-balance terms, zero
+    without a router), or the final-normed hidden states in place of the
+    logits with `return_hidden`."""
     _check_supported(cfg)
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
     x = _embed(params, tokens, cfg, embeddings)
-    # one unbind per stacked leaf: its backward stacks the 28 layer grads
-    # once, where per-layer indexing would scatter each into a full copy
-    layers = _unbind_layers(params["blocks_0"], cfg.n_layers)
     # recompute only where a backward will run: without grad there is
     # nothing to save
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     kw = {"context_fn": _SAVE_DOTS} if cfg.remat == "dots" else {}
-    for p_i in layers:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, _, p_i in _layers(params, cfg):
         if remat:
-            x = checkpoint(_train_block, p_i, x, cfg, causal, kv_mask,
-                           enc_out, use_reentrant=False, **kw)
+            x, a = checkpoint(_train_block, p_i, x, cfg, causal, kv_mask,
+                              enc_out, use_reentrant=False, **kw)
         else:
-            x = _train_block(p_i, x, cfg, causal, kv_mask, enc_out)
+            x, a = _train_block(p_i, x, cfg, causal, kv_mask, enc_out)
+        if a is not None:
+            aux = aux + a
     x = L.apply_norm(params["final_norm"], x, norm_type=cfg.norm_type,
                      eps=cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, aux
     return _logits(params, x, cfg), aux
@@ -305,13 +395,13 @@ def lm_prefill(params, tokens, cfg: ModelConfig, state, *, enc_out=None,
     [B, M, d] feeds the cross-attention of an encoder-decoder model."""
     _check_supported(cfg)
     x = _embed(params, tokens, cfg, offset=offset)
-    st = state["blocks_0"]
-    for i in range(cfg.n_layers):
-        st_i = _layer_state(st, i)
-        x = _block(_layer(params["blocks_0"], i), x, cfg,
-                   lambda p, h: L.attention_prefill(
-                       p, h, st_i, cfg, kv_mask=kv_mask, offset=offset)[0],
-                   enc_out=enc_out)
+    for key, g, p_i in _layers(params, cfg):
+        st_i = _layer_state(state, key, g)
+        x, _ = _block(p_i, x, cfg,
+                      lambda p, h: L.attention_prefill(
+                          p, h, st_i, cfg, kv_mask=kv_mask,
+                          offset=offset)[0],
+                      enc_out=enc_out, full_capacity=True)
     x = L.apply_norm(params["final_norm"], x, norm_type=cfg.norm_type,
                      eps=cfg.norm_eps)
     return _logits(params, x, cfg), state
@@ -330,13 +420,12 @@ def lm_decode_step(params, state, token_t, cfg: ModelConfig, *, position,
     if cfg.pos_emb == "sinusoidal":
         pos = position.reshape(-1).to(_F32)          # [1] or [B]
         x = x + _sinusoidal_at(pos, cfg.d_model, x.dtype)[:, None]
-    st = state["blocks_0"]
-    for i in range(cfg.n_layers):
-        st_i = _layer_state(st, i)
-        x = _block(_layer(params["blocks_0"], i), x, cfg,
-                   lambda p, h: L.attention_decode(
-                       p, h, st_i, cfg, position=position)[0],
-                   enc_out=enc_out)
+    for key, g, p_i in _layers(params, cfg):
+        st_i = _layer_state(state, key, g)
+        x, _ = _block(p_i, x, cfg,
+                      lambda p, h: L.attention_decode(
+                          p, h, st_i, cfg, position=position)[0],
+                      enc_out=enc_out, full_capacity=True)
     x = L.apply_norm(params["final_norm"], x, norm_type=cfg.norm_type,
                      eps=cfg.norm_eps)
     return _logits(params, x, cfg)[:, 0], state

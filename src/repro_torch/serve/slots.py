@@ -16,8 +16,11 @@ pool is never reallocated as requests come and go.
 The slot axis of every leaf is found once per (config, pool) by building
 the state on the `meta` device at batch 2 and 3 (the counterpart of the
 reference's `jax.eval_shape`): the one axis whose extent changes is the
-slot axis. In the port's stacked layout ([n_layers, B, ...], a slotted
-length [n_layers, B]) it is axis 1 for every leaf.
+slot axis. In the port's layout it is axis 1 of every leaf of a stacked
+`blocks_i` state ([n_groups, B, ...], a slotted length [n_groups, B]) and
+axis 0 of a `dense_i` state ([B, ...], a slotted length [B]), the leading
+dense blocks of an MoE model; the pool handles each leaf by its own
+axis.
 
 Unlike the reference, whose states are immutable values, the port's pool
 is updated in place: `read_slot` returns views into the pool (the batch-1
@@ -39,9 +42,9 @@ __all__ = ["SlotManager", "to_slotted", "slot_batch_axes", "write_slot",
 
 def to_slotted(state: Any):
     """Give every `KVCache` in a fresh decode state a PER-SLOT cursor:
-    `length` [n_layers] -> [n_layers, B] (the softmax write cursor, the
-    hybrid window's token count), so slots can sit at different context
-    lengths inside one batched step."""
+    `length` [n_groups] -> [n_groups, B] ([] -> [B] in a `dense_i` state;
+    the softmax write cursor, the hybrid window's token count), so slots
+    can sit at different context lengths inside one batched step."""
     def fix(node):
         if isinstance(node, KVCache):
             b = node.k.shape[node.length.dim()]
@@ -84,7 +87,8 @@ def write_slot(pool_state, unit_state, slot: int, axes) -> None:
 def read_slot(pool_state, slot: int, axes):
     """Slot `slot` as a batch-1 unit state of VIEWS into the pool: what is
     written through it lands in the pool (clone it to keep a copy). Each
-    layer's view (`leaf[i]`) is contiguous."""
+    layer's view (a `dense_i` leaf, or `leaf[g]` of a stacked one) is
+    contiguous."""
     return map_state(lambda p, ax: p.narrow(ax, slot, 1), pool_state, axes)
 
 

@@ -250,8 +250,10 @@ def test_resumed_prefill_launches_the_kernel_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-# G = 1 (whisper-small), 4 and 16
-@pytest.mark.parametrize("heads", [(12, 12), (8, 2), (16, 1)])
+# G = 1 (whisper-small), 4 and 16; 17 and 48 (granite-20b) past the 16
+# queries one launch pair takes: the token is folded in once, by the first
+@pytest.mark.parametrize("heads", [(12, 12), (8, 2), (16, 1), (17, 1),
+                                   (48, 1)])
 @pytest.mark.parametrize("p", [1, 2])
 def test_decode_kernel_matches_plain_on_card(cuda_device, p, heads):
     gen = torch.Generator(device=cuda_device).manual_seed(10 + p)
@@ -275,6 +277,53 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, p, heads):
         _assert_as_close_as_plain(o, ro, o64, 1e-4)
     torch.cuda.synchronize()
     for a, r in zip(st, ref_state):
+        scale = max(1.0, r.abs().max().item())
+        torch.testing.assert_close(a / scale, r / scale, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_mla_widths_match_plain_on_card(cuda_device, dtype):
+    """deepseek-v2's MLA shapes: Hkv = Hq (G = 1), D = 192 (R = 18,721
+    feature rows), Dv = 128; a prefill with a mask and an init_state, then
+    chained decode steps from its state."""
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+
+    def rn(*s):
+        return torch.randn(s, generator=gen, device=cuda_device)
+
+    b, h, n, d, dv = 1, 4, 300, 192, 128
+    q, k = normalize_qk(rn(b, h, n, d)), normalize_qk(rn(b, h, n, d))
+    v = rn(b, h, n, dv)
+    mask = (torch.rand(b, h, n, generator=gen, device=cuda_device) > 0.2
+            ).float()
+    _, init = fastmax_causal_ref(normalize_qk(rn(b, h, 40, d)),
+                                 normalize_qk(rn(b, h, 40, d)),
+                                 rn(b, h, 40, dv), p=2, chunk_size=16)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    o, st = fastmax_causal_cuda(q, k, v, mask, p=2, init_state=init)
+    ro, rst = fastmax_causal_ref(q, k, v, mask, p=2, chunk_size=64,
+                                 init_state=init)
+    o64, _ = fastmax_causal_ref(q.double(), k.double(), v.double(), mask,
+                                p=2, chunk_size=64,
+                                init_state=[t.double() for t in init])
+    torch.cuda.synchronize()
+    _assert_as_close_as_plain(o, ro, o64, 1e-4 if dtype == torch.float32
+                              else 3e-2)
+    for a, r in zip(st, rst):
+        scale = max(1.0, r.abs().max().item())
+        torch.testing.assert_close(a / scale, r / scale, rtol=0, atol=1e-5)
+    state64 = tuple(x.double() for x in rst)
+    for _ in range(8):
+        qs, ks = normalize_qk(rn(b, h, 1, d)), normalize_qk(rn(b, h, 1, d))
+        vs = rn(b, h, 1, dv)
+        od = fastmax_decode_cuda(qs, ks, vs, st, p=2)
+        rd, rst = fastmax_decode_ref(qs, ks, vs, rst, p=2)
+        o64, state64 = fastmax_decode_ref(qs.double(), ks.double(),
+                                          vs.double(), state64, p=2)
+        _assert_as_close_as_plain(od, rd, o64, 1e-4)
+    torch.cuda.synchronize()
+    for a, r in zip(st, rst):
         scale = max(1.0, r.abs().max().item())
         torch.testing.assert_close(a / scale, r / scale, rtol=0, atol=1e-5)
 

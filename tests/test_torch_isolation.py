@@ -42,6 +42,16 @@ def test_scan_covers_the_package():
     assert (ROOT / "chip_smoke.py").exists()
 
 
+def test_scan_covers_the_moe_slice():
+    """The MoE module and the configs of the MoE slice are scanned."""
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in FILES
+             if "repro_torch" in p.parts}
+    assert {"models/moe.py", "models/layers.py", "models/transformer.py",
+            "configs/llama3_405b.py", "configs/qwen2_5_32b.py",
+            "configs/granite_20b.py", "configs/chameleon_34b.py",
+            "configs/deepseek_v2_236b.py", "configs/kimi_k2_1t.py"} <= names
+
+
 def test_scan_catches_a_reference_import(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text("import numpy\nfrom repro.core import fastmax\n"
