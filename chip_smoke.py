@@ -180,13 +180,41 @@ and power limit, and the result line last):
                 float32 (MLA_F32_LOGIT_TOL).
  20. archs    — the six configs added with the MoE family (llama3-405b,
                 qwen2.5-32b, granite-20b, chameleon-34b, deepseek-v2-236b,
-                kimi-k2-1t-a32b): each float32 smoke model's greedy tokens
-                equal on the kernel and plain paths, and the engine's
-                tokens equal generate()'s on the two MoE smoke models;
-                then the decode kernel at granite-20b's widths (Hq = 48 on
-                one kv head, B=4, D=Dv=128): a prefill N=1024 and 32
-                chained steps against the plain version in float32 and
-                bfloat16, timed against its plain version and bound.
+                kimi-k2-1t-a32b) and the two of the SSM slice
+                (jamba-v0.1-52b, xlstm-1.3b): each float32 smoke model's
+                greedy tokens equal on the kernel and plain paths; the
+                engine's tokens equal generate()'s on the two MoE smoke
+                models and, on the staggered ragged traffic of
+                tests/test_serve.py's SSM engine test (2 slots, prompts of
+                33 and 17 tokens, 5 new tokens), on the two SSM ones; one
+                loss and grad of the jamba smoke model on the kernel path
+                (its attention layer through the forward and §2.5
+                backward kernels) against the plain path, per leaf; then
+                the decode kernel at granite-20b's widths (Hq = 48 on one
+                kv head, B=4, D=Dv=128): a prefill N=1024 and 32 chained
+                steps against the plain version in float32 and bfloat16,
+                timed against its plain version and bound.
+ 21. ssm      — the prefill and decode kernels at jamba's attention shapes
+                (G = 4: B=4, Hq=32, Hkv=8, N=1024, D=Dv=128) against their
+                plain versions in float32 and bfloat16 (o and all six
+                moments, 31 chained decode steps), timed against their
+                plain versions and bounds, two calls of each bit for bit;
+                then full-width jamba-v0.1-52b with one cut, n_layers 32 ->
+                8 (one group of its pattern: 7 Mamba and 1 attention
+                layer, 4 MoE and 4 MLP ffns), bf16 weights from a seeded
+                generator, fastmax2-kernel: generate() at batch 4, prompt
+                1024, 32 new tokens (a warm-up, then a timed call with
+                exactly 1 prefill and 31 decode launches and nothing else;
+                prefill ms, decode ms per token, tok/s, peak memory, the
+                decode-state bytes of the Mamba and attention layers);
+                prompt 0's last logit row on the kernel and plain paths at
+                batch 1 in bf16 (a reading, with the share of router
+                choices that differ) and with the weights widened to
+                float32 (JAMBA_F32_LOGIT_TOL); then full-width xlstm-1.3b
+                at all 48 layers in bf16: generate() at the same shape
+                with no kernel launch (attention-free), and one sLSTM
+                layer's sequential prefill and one mLSTM layer's timed on
+                the host and on the card.
 Exits non-zero, printing no result line, when any phase fails.
 """
 from __future__ import annotations
@@ -316,8 +344,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_PHASE_T = [time.monotonic()]
+
+
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    """One phase's line, with the seconds since the previous one's."""
+    now = time.monotonic()
+    print(f"[{name}] {msg} ({now - _PHASE_T[0]:.1f}s)", flush=True)
+    _PHASE_T[0] = now
 
 
 def sync_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -953,7 +987,8 @@ def time_decode(gen, q_heads, state, dtype, reps=10):
     """The decode kernel and its plain version timed on `state` (the
     kernel's updates it in place; the plain version leaves it), with the
     bound of one step: the f32 state read and written once against the
-    step's operations at the f32 peak. Returns a dict of numbers."""
+    step's operations at the f32 peak. Two calls from copies of one state
+    must agree bit for bit (o and the state). Returns a dict of numbers."""
     from repro_torch.core.ref import normalize_qk
     from repro_torch.kernels.fastmax_decode import fastmax_decode_cuda
     from repro_torch.kernels.ref import fastmax_decode_ref
@@ -965,6 +1000,15 @@ def time_decode(gen, q_heads, state, dtype, reps=10):
     ks = normalize_qk(torch.randn(b, hkv, 1, d, generator=gen,
                                   device=dev)).to(dtype)
     vs = torch.randn(b, hkv, 1, dv, generator=gen, device=dev).to(dtype)
+    runs = []
+    for _ in range(2):
+        kst = tuple(t.clone() for t in state)
+        runs.append((fastmax_decode_cuda(qs, ks, vs, kst, p=2), kst))
+    (o1, s1), (o2, s2) = runs
+    if not (torch.equal(o1, o2) and all(torch.equal(x, y)
+                                        for x, y in zip(s1, s2))):
+        fail(f"decode kernel at G={q_heads // hkv}: two calls differ")
+    del runs, o1, o2, s1, s2
     kst = tuple(t.clone() for t in state)
     ms = sync_ms(lambda: fastmax_decode_cuda(qs, ks, vs, kst, p=2),
                  reps=reps)
@@ -978,6 +1022,51 @@ def time_decode(gen, q_heads, state, dtype, reps=10):
     del kst
     return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "bytes": nbytes}
+
+
+def time_prefill(tag, q, k, v, rst, reps=2) -> dict:
+    """The prefill kernel at q [B, Hq, N, D], k, v [B, Hkv, N, D|Dv] timed
+    against its plain version and its bound (bf16 inputs read and o
+    written once, the f32 state `rst` written once, the operations at the
+    bf16 peak); its segments, workspace and one call's peak memory; two
+    calls compared bit for bit. Returns a dict of numbers."""
+    from repro_torch.kernels.fastmax_causal import (fastmax_causal_cuda,
+                                                    fastmax_causal_ref,
+                                                    prefill_call)
+
+    b, hq, n, d = q.shape
+    hkv, dv = k.shape[1], v.shape[-1]
+    ms = sync_ms(lambda: fastmax_causal_cuda(q, k, v, p=2), reps=reps)
+    plain = sync_ms(lambda: fastmax_causal_ref(q, k, v, p=2,
+                                               chunk_size=512),
+                    reps=1, warmup=0)
+    call = prefill_call(q, k, v, p=2)
+    nseg, ws = len(call.segments), call.workspace_bytes
+    del call
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    o1, s1 = fastmax_causal_cuda(q, k, v, p=2)
+    torch.cuda.synchronize()
+    call_peak = torch.cuda.max_memory_allocated() - before
+    o2, s2 = fastmax_causal_cuda(q, k, v, p=2)
+    same = bool(torch.equal(o1, o2)) and all(
+        torch.equal(a, b_) for a, b_ in zip(s1, s2))
+    del o1, o2, s1, s2
+    if not same:
+        fail(f"{tag}: two prefill calls on the same inputs differ")
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + b * hq * n * dv) \
+        + 4 * sum(t.numel() for t in rst)
+    bms, by = bound_ms(prefill_ops(b * hkv, hq // hkv, n, d, dv), nbytes,
+                       H100_BF16_FLOPS)
+    print(f"  {tag} prefill kernel bf16 B={b} Hq={hq} Hkv={hkv} N={n}: "
+          f"{nseg} segment(s) of its two launches, workspace "
+          f"{ws / 1e9:.3f} GB, one call's peak {call_peak / 1e9:.3f} GB "
+          f"above what was allocated before it; {ms:.3f} ms (plain "
+          f"{plain:.2f}, bound {bms:.3f} by {by}); two calls bitwise equal")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "segments": nseg, "workspace_bytes": ws,
+            "call_peak_bytes": call_peak}
 
 
 def route_flips(routes_a, routes_b, e: int) -> float:
@@ -1003,16 +1092,9 @@ def moe_phase(dev) -> dict:
     reading, with the router flips) and in float32 weights (held)."""
     from repro_torch.attention import AttentionSpec
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.fastmax_causal import (fastmax_causal_cuda,
-                                                    fastmax_causal_ref,
-                                                    prefill_call)
-    from repro_torch.launch.serve import generate
-    from repro_torch.models import init_decode_state, init_model
-    from repro_torch.models import moe as MOE
+    from repro_torch.models import init_model
     from repro_torch.models.layers import _kv_dims
     from repro_torch.models.param import count_params
-    from repro_torch.models.transformer import lm_prefill
 
     full = get_config(MOE_ARCH)
     cfg = get_config(MOE_ARCH, n_layers=MOE_LAYERS,
@@ -1029,44 +1111,14 @@ def moe_phase(dev) -> dict:
         q, k, v, rst = kernel_pair_check(
             "MLA", gen, B, hq, hkv, P, d, dv, G - 1,
             (torch.float32, torch.bfloat16))
-        fc_ms = sync_ms(lambda: fastmax_causal_cuda(q, k, v, p=2), reps=2)
-        fc_plain = sync_ms(lambda: fastmax_causal_ref(q, k, v, p=2,
-                                                      chunk_size=512),
-                           reps=1, warmup=0)
-        call = prefill_call(q, k, v, p=2)
-        nseg, ws = len(call.segments), call.workspace_bytes
-        del call
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        o1, s1 = fastmax_causal_cuda(q, k, v, p=2)
-        torch.cuda.synchronize()
-        call_peak = torch.cuda.max_memory_allocated() - before
-        o2, s2 = fastmax_causal_cuda(q, k, v, p=2)
-        same = bool(torch.equal(o1, o2)) and all(
-            torch.equal(a, b) for a, b in zip(s1, s2))
-        del o1, o2, s1, s2
-        if not same:
-            fail("MLA: two prefill calls on the same inputs differ")
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + B * hq * P * dv) \
-            + 4 * sum(t.numel() for t in rst)
-        fc_bound, fc_by = bound_ms(prefill_ops(B * hkv, hq // hkv, P, d, dv),
-                                   nbytes, H100_BF16_FLOPS)
+        pf = time_prefill("MLA", q, k, v, rst)
         fd = time_decode(gen, hq, rst, torch.bfloat16)
-        print(f"  MLA prefill kernel bf16 B={B} N={P}: {nseg} segment(s) of "
-              f"its two launches, workspace {ws / 1e9:.3f} GB, one call's "
-              f"peak {call_peak / 1e9:.3f} GB above what was allocated "
-              f"before it; {fc_ms:.2f} ms (plain {fc_plain:.2f}, bound "
-              f"{fc_bound:.3f} by {fc_by}); two calls bitwise equal")
         print(f"  MLA decode kernel bf16 B={B}: {fd['ms']:.4f} ms (plain "
               f"{fd['plain_ms']:.4f}, bound {fd['bound_ms']:.4f} by "
               f"{fd['bound_by']}: {fd['bytes'] / 1e9:.3f} GB, "
               f"{fd['bytes'] / fd['ms'] / 1e6:.0f} GB/s)")
-        out.update(prefill_ms_mla=fc_ms, prefill_plain_ms_mla=fc_plain,
-                   prefill_bound_ms_mla=fc_bound, prefill_bound_by_mla=fc_by,
-                   prefill_segments_mla=nseg, prefill_workspace_bytes_mla=ws,
-                   prefill_call_peak_bytes_mla=call_peak,
-                   decode_ms_mla=fd["ms"], decode_plain_ms_mla=fd["plain_ms"],
+        out.update({f"prefill_{k}_mla": v for k, v in pf.items()})
+        out.update(decode_ms_mla=fd["ms"], decode_plain_ms_mla=fd["plain_ms"],
                    decode_bound_ms_mla=fd["bound_ms"],
                    decode_bound_by_mla=fd["bound_by"])
         del q, k, v, rst
@@ -1089,71 +1141,17 @@ def moe_phase(dev) -> dict:
         print(f"  weights: {n_params / 1e9:.3f} B params bf16 "
               f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) in "
               f"{time.monotonic() - t0:.1f}s")
-        generate(params, cfg, prompts, G, device=dev)   # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        timings = {}
-        t0 = time.monotonic()
-        toks = generate(params, cfg, prompts, G, device=dev, timings=timings)
-        torch.cuda.synchronize()
-        total_s = time.monotonic() - t0
-        launches = ops.launch_counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        want = {name: 0 for name in launches}
-        want.update(fastmax_causal=cfg.n_layers,
-                    fastmax_decode=cfg.n_layers * (G - 1))
-        if launches != want:
-            fail(f"[moe] launch counts {launches}, expected {want}")
-        if tuple(toks.shape) != (B, G) or not bool(
-                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
-            fail(f"[moe] bad tokens {tuple(toks.shape)}")
-        prefill_ms = timings["prefill_ms"]
-        decode_ms = timings["decode_ms"] / timings["decode_steps"]
-        print(f"  first tokens: {toks[0, :8].tolist()} {toks[1, :8].tolist()}")
-
-        # ---- prompt 0's last logit row, kernel and plain paths ----
-        routes = []
-        real_route = MOE._route
-
-        def recording(xf, router, k_):
-            r = real_route(xf, router, k_)
-            routes.append(r[2].clone())
-            return r
-
-        def last_rows(c):
-            """(kernel row, plain row, router flip share) at batch 1."""
-            rows, runs = [], []
-            for cc in (c, dataclasses.replace(
-                    c, attn=AttentionSpec.parse("fastmax2-chunked"))):
-                routes.clear()
-                st = init_decode_state(cc, 1, P, device=dev)
-                lg, _ = lm_prefill(params, prompts[:1], cc, st)
-                rows.append(lg[0, -1].float())
-                runs.append(list(routes))
-                del lg, st
-                torch.cuda.empty_cache()
-            return rows[0], rows[1], route_flips(*runs, cfg.n_experts)
-
-        MOE._route = recording
-        try:
-            lk, lp, flips16 = last_rows(cfg)
-            d16 = (lk - lp).abs().max().item()
-            agree16 = bool(lk.argmax() == lp.argmax())
-            if not bool(torch.isfinite(lk).all()):
-                fail("[moe] non-finite logits on the kernel path")
-            # the same weights widened to float32, leaf by leaf
-            for key in list(params):
-                params[key] = _widen(params[key])
-            torch.cuda.empty_cache()
-            cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                        activ_dtype="float32")
-            lk, lp, flips32 = last_rows(cfg32)
-            d32 = (lk - lp).abs().max().item()
-        finally:
-            MOE._route = real_route
+        sv = serve_timed("moe", params, cfg, prompts, G, dev,
+                         fastmax_causal=cfg.n_layers,
+                         fastmax_decode=cfg.n_layers * (G - 1))
+        gaps = logit_gaps("moe", params, cfg, prompts[:1], dev)
         del params
         torch.cuda.empty_cache()
+    launches, total_s, peak_gb = sv["launches"], sv["total_s"], sv["peak_gb"]
+    prefill_ms, decode_ms = sv["prefill_ms"], sv["decode_ms"]
+    d16, d32 = gaps["logit_gap_bf16"], gaps["logit_gap_f32"]
+    flips16, flips32 = gaps["route_flips_bf16"], gaps["route_flips_f32"]
+    agree16 = gaps["argmax_agree_bf16"]
     phase("moe", f"{MOE_ARCH} (n_layers {full.n_layers} -> {cfg.n_layers}) "
           f"fastmax2-kernel bf16 B={B} P={P} G={G}: {total_s:.3f}s total, "
           f"prefill {prefill_ms:.1f} ms, decode {decode_ms:.2f} ms/token "
@@ -1166,10 +1164,98 @@ def moe_phase(dev) -> dict:
     if not d32 <= MLA_F32_LOGIT_TOL:
         fail(f"[moe] float32 last-row logits differ by {d32:.3e}")
     out.update(launches_mla=launches, prefill_ms=prefill_ms,
-               decode_ms=decode_ms, tok_s=B * G / total_s, peak_gb=peak_gb,
-               logit_gap_bf16=d16, logit_gap_f32=d32, route_flips_bf16=flips16,
-               route_flips_f32=flips32, params=n_params)
+               decode_ms=decode_ms, tok_s=sv["tok_s"], peak_gb=peak_gb,
+               params=n_params, **gaps)
     return out
+
+
+def serve_timed(tag, params, cfg, prompts, n_gen, dev, **want) -> dict:
+    """generate() of `n_gen` tokens: a warm-up call, then a timed one
+    (CUDA events inside it, the host clock around it) whose kernel
+    launches must be exactly `want` (every kernel not named: none).
+    Returns its numbers and tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+
+    b = prompts.shape[0]
+    generate(params, cfg, prompts, n_gen, device=dev)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    timings = {}
+    t0 = time.monotonic()
+    toks = generate(params, cfg, prompts, n_gen, device=dev, timings=timings)
+    torch.cuda.synchronize()
+    total_s = time.monotonic() - t0
+    launches = ops.launch_counts()
+    expect = {name: 0 for name in launches}
+    expect.update(want)
+    if launches != expect:
+        fail(f"[{tag}] launch counts {launches}, expected {expect}")
+    if tuple(toks.shape) != (b, n_gen) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"[{tag}] bad tokens {tuple(toks.shape)}")
+    print(f"  {cfg.name} first tokens: {toks[0, :8].tolist()} "
+          f"{toks[1, :8].tolist()}")
+    return {"launches": launches, "total_s": total_s,
+            "prefill_ms": timings["prefill_ms"],
+            "decode_ms": timings["decode_ms"] / timings["decode_steps"],
+            "tok_s": b * n_gen / total_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def logit_gaps(tag, params, cfg, prompt, dev) -> dict:
+    """The last logit row of `prompt` [1, P] on the kernel path against the
+    plain (fastmax2-chunked) path, in the model's bf16 weights (a reading,
+    with the share of MoE router choices that differ) and with `params`
+    widened to float32 in place (the caller frees them after)."""
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.models import init_decode_state
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.transformer import lm_prefill
+
+    routes = []
+    real_route = MOE._route
+
+    def recording(xf, router, k_):
+        r = real_route(xf, router, k_)
+        routes.append(r[2].clone())
+        return r
+
+    def last_rows(c):
+        """(kernel row, plain row, router flip share) at batch 1."""
+        rows, runs = [], []
+        for cc in (c, dataclasses.replace(
+                c, attn=AttentionSpec.parse("fastmax2-chunked"))):
+            routes.clear()
+            st = init_decode_state(cc, 1, prompt.shape[1], device=dev)
+            lg, _ = lm_prefill(params, prompt, cc, st)
+            rows.append(lg[0, -1].float())
+            runs.append(list(routes))
+            del lg, st
+            torch.cuda.empty_cache()
+        return rows[0], rows[1], route_flips(*runs, max(cfg.n_experts, 1))
+
+    MOE._route = recording
+    try:
+        lk, lp, flips16 = last_rows(cfg)
+        d16 = (lk - lp).abs().max().item()
+        agree16 = bool(lk.argmax() == lp.argmax())
+        if not bool(torch.isfinite(lk).all()):
+            fail(f"[{tag}] non-finite logits on the kernel path")
+        # the same weights widened to float32, leaf by leaf
+        for key in list(params):
+            params[key] = _widen(params[key])
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    activ_dtype="float32")
+        lk, lp, flips32 = last_rows(cfg32)
+        d32 = (lk - lp).abs().max().item()
+    finally:
+        MOE._route = real_route
+    return {"logit_gap_bf16": d16, "argmax_agree_bf16": agree16,
+            "route_flips_bf16": flips16, "logit_gap_f32": d32,
+            "route_flips_f32": flips32}
 
 
 def _widen(tree):
@@ -1224,10 +1310,68 @@ def archs_phase(dev) -> dict:
                     sp, small, torch.as_tensor(r, device=dev)[None], 6,
                     max_len=64, device=dev)[0].tolist()
                 for rid, r in zip(rids, reqs))
+    # the SSM slice's two smoke models: tokens on both paths, and the
+    # engine on tests/test_serve.py's staggered ragged traffic (2 slots,
+    # prompts of 33 and 17 tokens, the second submitted two ticks later)
+    for arch in (SSM_ARCH, XLSTM_ARCH):
+        small = get_smoke_config(
+            arch, attn=AttentionSpec.parse("fastmax2-kernel"))
+        plain = dataclasses.replace(
+            small, attn=AttentionSpec.parse("fastmax2-chunked"))
+        sp = init_model(small, seed=0, device=dev)
+        prompts = torch.randint(0, small.vocab_size, (2, 40), generator=gen,
+                                device=dev)
+        same[arch] = bool(torch.equal(generate(sp, small, prompts, 8,
+                                               device=dev),
+                                      generate(sp, plain, prompts, 8,
+                                               device=dev)))
+        rng = np.random.default_rng(2)
+        reqs = [rng.integers(0, small.vocab_size, n) for n in (33, 17)]
+        eng = ServeEngine(sp, small, max_slots=2, max_len=64)
+        rids, outs = [eng.submit(reqs[0], 5)], {}
+        for _ in range(2):
+            outs.update({f.rid: f.tokens for f in eng.step()})
+        rids.append(eng.submit(reqs[1], 5))
+        outs.update(eng.run())
+        same[f"{arch} engine"] = all(
+            list(outs[rid]) == generate(
+                sp, small, torch.as_tensor(r, device=dev)[None], 5,
+                max_len=64, device=dev)[0].tolist()
+            for rid, r in zip(rids, reqs))
     print("  smoke f32 tokens kernel == plain (and engine == generate()): "
           + ", ".join(f"{a} {v}" for a, v in same.items()))
     if not all(same.values()):
         fail("[archs] a smoke model's kernel path or engine disagrees")
+
+    # jamba's smoke model: one loss and grad on the kernel path (its
+    # attention layer through the forward and §2.5 backward kernels)
+    # against the plain path, per leaf, at SMOKE_GRAD_TOL. The worst leaf
+    # is the attention's wq or wk (the float32 §2.5 backward's first
+    # chunk, ill-conditioned in any implementation): on an H100 5.37e-5
+    # on this batch, every run the same; 6.20e-5 and 9.71e-5 on the
+    # batches of seeds 2 and 3
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+
+    small = get_smoke_config(SSM_ARCH,
+                             attn=AttentionSpec.parse("fastmax2-kernel"))
+    sp = init_model(small, seed=0, device=dev)
+    sb = SyntheticLM(small.vocab_size, 256, seed=1).batch(0, 2)
+    sb = {k_: torch.as_tensor(v_, device=dev) for k_, v_ in sb.items()}
+    ops.reset_launch_counts()
+    jlk, jgk = loss_and_grads(sp, sb, small)
+    jl_launches = ops.launch_counts()
+    jlp, jgp = loss_and_grads(sp, sb, dataclasses.replace(
+        small, attn=AttentionSpec.parse("fastmax2-chunked")))
+    jleaf, jerr = worst_leaf(jgk, jgp)
+    print(f"  {SSM_ARCH} smoke f32 N=256 grads: loss |kernel - plain| "
+          f"{abs(jlk.item() - jlp.item()):.3e}, worst leaf {jleaf} "
+          f"|g_k - g_p|/|g_p| {jerr:.3e} (tol {SMOKE_GRAD_TOL:.0e}); "
+          f"kernel launches {jl_launches}")
+    if not (jerr <= SMOKE_GRAD_TOL and jl_launches["fastmax_causal_bwd"]
+            and jl_launches["fastmax_causal"]):
+        fail("[archs] jamba smoke grads: kernel and plain disagree, or the "
+             "kernels did not run")
 
     gcfg = get_config(GRANITE_ARCH)
     hq, (hkv, d), dv = gcfg.n_heads, _kv_dims(gcfg), gcfg.head_dim
@@ -1238,14 +1382,251 @@ def archs_phase(dev) -> dict:
         fd = time_decode(gen, hq, rst, torch.bfloat16, reps=20)
         del rst
     torch.cuda.empty_cache()
-    phase("archs", f"six smoke models' tokens equal on both paths, engines "
-          f"equal generate(); decode kernel at G={hq // hkv} (B="
+    phase("archs", f"eight smoke models' tokens equal on both paths, engines "
+          f"equal generate(), jamba smoke grads worst leaf {jerr:.2e}; "
+          f"decode kernel at G={hq // hkv} (B="
           f"{GRANITE_B}, D=Dv={d}) {fd['ms']:.4f} ms (plain "
           f"{fd['plain_ms']:.4f}, bound {fd['bound_ms']:.4f} by "
           f"{fd['bound_by']})")
     return {"decode_ms_g48": fd["ms"], "decode_plain_ms_g48": fd["plain_ms"],
             "decode_bound_ms_g48": fd["bound_ms"],
             "decode_bound_by_g48": fd["bound_by"]}
+
+
+# [ssm] phase: full-width jamba-v0.1-52b with one cut, n_layers 32 -> 8
+# (one group of its pattern: 7 Mamba layers and 1 attention layer, 4 MoE
+# and 4 MLP ffns), and full-width, full-depth xlstm-1.3b, each at batch 4,
+# prompt 1024, 32 new tokens. Jamba's attention layer has 32 query heads
+# on 8 kv heads: both kernels at G = 4, D = Dv = 128
+SSM_ARCH, SSM_LAYERS = "jamba-v0.1-52b", 8
+XLSTM_ARCH = "xlstm-1.3b"
+SSM_B, SSM_P, SSM_G = 4, 1024, 32
+# jamba's last logit row, kernel path against the plain path on prompt 0
+# at batch 1 with the bf16 weights widened to float32 (53 GB), by the rule
+# of MLA_F32_LOGIT_TOL: about four times the gap measured on an H100,
+# 1.001e-5 (no router choice differing; in bf16 3.125e-2 with 0.27 % of
+# the top-2 choices differing, a reading)
+JAMBA_F32_LOGIT_TOL = 4e-5   # absolute, max over the last row's logits
+
+
+def _state_bytes_by_mixer(cfg, batch: int, max_len: int) -> dict:
+    """Decode-state bytes of each mixer kind, from a `meta` build."""
+    from repro_torch.attention.state import state_leaves
+    from repro_torch.models import init_decode_state
+
+    st = init_decode_state(cfg, batch, max_len, device="meta")
+    out = {}
+    for i, kind in enumerate(cfg.pattern):
+        mixer = kind.split(":")[0]
+        out[mixer] = out.get(mixer, 0) + sum(
+            t.numel() * t.element_size()
+            for t in state_leaves(st[f"blocks_{i}"]))
+    return out
+
+
+def _host_bound_ms(fn) -> tuple:
+    """(ms until `fn` returns on the host, ms until the card has run what
+    it queued): equal when the host, not the card, sets the pace."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    t1 = time.monotonic()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3, (time.monotonic() - t0) * 1e3
+
+
+def _jamba_layer_ms(params, cfg, b, n, gen, dev) -> dict:
+    """Device ms of one call of each kind of jamba layer part at a
+    prefill of [b, n] tokens (bf16 activations from `gen`): a Mamba
+    mixer's stateful prefill, the attention mixer's (the prefill kernel
+    and its projections), a routed MoE ffn at full capacity, an MLP."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba as M
+    from repro_torch.models import moe as MOE
+
+    kinds = [k.split(":") for k in cfg.pattern]
+    first = {}
+    for i, (mixer, ffn) in enumerate(kinds):
+        first.setdefault(mixer, i)
+        first.setdefault(ffn, i)
+    layer = {key: {k: v[0] for k, v in params[f"blocks_{i}"][part].items()}
+             for key, i, part in (("mamba", first["mamba"], "mixer"),
+                                  ("attn", first["attn"], "mixer"),
+                                  ("moe", first["moe"], "ffn"),
+                                  ("mlp", first["mlp"], "ffn"))}
+    x = torch.randn(b, n, cfg.d_model, generator=gen,
+                    device=dev).to(cfg.adtype())
+    mst = M.init_mamba_state(cfg, b, cfg.adtype(), device=dev)
+    ast_ = L.init_attn_state(cfg, b, n, cfg.adtype(), device=dev)
+    calls = {
+        "Mamba mixer": lambda: M.mamba_prefill(layer["mamba"], x, cfg, mst),
+        "attention mixer": lambda: L.attention_prefill(layer["attn"], x,
+                                                       ast_, cfg),
+        "MoE ffn": lambda: MOE.apply_moe(layer["moe"], x, cfg,
+                                         full_capacity=True),
+        "MLP ffn": lambda: L.apply_mlp(layer["mlp"], x, act=cfg.mlp_act)}
+    out = {k: sync_ms(fn, reps=2) for k, fn in calls.items()}
+    counts = {m: sum(1 for k in kinds if m in k) for m in
+              ("mamba", "attn", "moe", "mlp")}
+    out["sum over the 8 layers"] = (
+        counts["mamba"] * out["Mamba mixer"]
+        + counts["attn"] * out["attention mixer"]
+        + counts["moe"] * out["MoE ffn"] + counts["mlp"] * out["MLP ffn"])
+    del x, mst, ast_
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_phase(dev) -> dict:
+    """[ssm]: the prefill and decode kernels at jamba's attention shapes
+    (G = 4) against their plain versions, timed against their bounds, two
+    calls of each bit for bit; then full-width jamba-v0.1-52b (depth cut
+    to SSM_LAYERS) on fastmax2-kernel in bf16: generate() with exactly one
+    prefill and G - 1 decode launches and nothing else, its times, tok/s,
+    peak memory and decode-state bytes by mixer, prompt 0's last logit row
+    against the plain path (bf16 a reading with the router flips; float32
+    weights held to JAMBA_F32_LOGIT_TOL); then full-width, full-depth
+    xlstm-1.3b: generate() with no kernel launch, and one sLSTM layer's
+    sequential prefill timed on the host and the card."""
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.param import count_params
+
+    full = get_config(SSM_ARCH)
+    cfg = get_config(SSM_ARCH, n_layers=SSM_LAYERS,
+                     attn=AttentionSpec.parse("fastmax2-kernel"))
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, P, G = SSM_B, SSM_P, SSM_G
+    gen = torch.Generator(device=dev).manual_seed(25)
+    out = {}
+    print(f"  card memory allocated before the phase: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    with torch.inference_mode():
+        # ---- both kernels at jamba's attention shapes (G = 4) ----
+        q, k, v, rst = kernel_pair_check(
+            "jamba", gen, B, hq, hkv, P, d, d, G - 1,
+            (torch.float32, torch.bfloat16))
+        pf = time_prefill("jamba", q, k, v, rst)
+        fd = time_decode(gen, hq, rst, torch.bfloat16, reps=20)
+        print(f"  jamba decode kernel bf16 B={B} G={hq // hkv}: "
+              f"{fd['ms']:.4f} ms (plain {fd['plain_ms']:.4f}, bound "
+              f"{fd['bound_ms']:.4f} by {fd['bound_by']}: "
+              f"{fd['bytes'] / 1e9:.3f} GB, "
+              f"{fd['bytes'] / fd['ms'] / 1e6:.0f} GB/s); two calls "
+              f"bitwise equal")
+        out.update({f"prefill_{k_}_g4": v_ for k_, v_ in pf.items()})
+        out.update({f"decode_{k_}_g4": fd[k_] for k_ in
+                    ("ms", "plain_ms", "bound_ms", "bound_by")})
+        del q, k, v, rst
+        torch.cuda.empty_cache()
+
+        # ---- full-width jamba, depth cut, bf16 ----
+        print(f"  {SSM_ARCH}: n_layers {full.n_layers} -> {cfg.n_layers} "
+              f"(one group: {cfg.pattern}), every width as published: "
+              f"d_model {cfg.d_model}, {hq} heads on {hkv} kv heads of "
+              f"{d}, Mamba d_inner {cfg.mamba_expand * cfg.d_model} "
+              f"d_state {cfg.mamba_d_state} d_conv {cfg.mamba_d_conv}, "
+              f"{cfg.n_experts} experts of {cfg.d_ff_expert} top-"
+              f"{cfg.moe_top_k}, MLP d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}, untied, no rope")
+        t0 = time.monotonic()
+        params = init_model(cfg, seed=0, device=dev)
+        prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                                device=dev)
+        torch.cuda.synchronize()
+        n_params = count_params(params)
+        print(f"  weights: {n_params / 1e9:.3f} B params bf16 "
+              f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) in "
+              f"{time.monotonic() - t0:.1f}s")
+        sb = _state_bytes_by_mixer(cfg, B, P + G)
+        sv = serve_timed("ssm", params, cfg, prompts, G, dev,
+                         fastmax_causal=1, fastmax_decode=G - 1)
+        layer_ms = _jamba_layer_ms(params, cfg, B, P, gen, dev)
+        print("  jamba prefill by layer at B=4 P=1024 (one call each, CUDA "
+              "events): " + ", ".join(f"{k} {v:.2f} ms"
+                                      for k, v in layer_ms.items()))
+        gaps = logit_gaps("ssm", params, cfg, prompts[:1], dev)
+        del params
+        torch.cuda.empty_cache()
+    phase("ssm", f"{SSM_ARCH} (n_layers {full.n_layers} -> {cfg.n_layers})"
+          f" fastmax2-kernel bf16 B={B} P={P} G={G}: {sv['total_s']:.3f}s "
+          f"total, prefill {sv['prefill_ms']:.1f} ms, decode "
+          f"{sv['decode_ms']:.2f} ms/token (CUDA events inside the call), "
+          f"{sv['tok_s']:.1f} tok/s, peak {sv['peak_gb']:.2f} GB, decode "
+          f"state {sb.get('mamba', 0) / 1e6:.1f} MB Mamba + "
+          f"{sb.get('attn', 0) / 1e6:.1f} MB attention, launches "
+          f"{sv['launches']}; prompt 0's last logit row |kernel - plain|: "
+          f"bf16 {gaps['logit_gap_bf16']:.3e} (argmax agree "
+          f"{gaps['argmax_agree_bf16']}, router choices differing "
+          f"{gaps['route_flips_bf16']:.4f}), float32 weights "
+          f"{gaps['logit_gap_f32']:.3e} (tol {JAMBA_F32_LOGIT_TOL:.0e}; "
+          f"choices differing {gaps['route_flips_f32']:.4f})")
+    if not gaps["logit_gap_f32"] <= JAMBA_F32_LOGIT_TOL:
+        fail(f"[ssm] float32 last-row logits differ by "
+             f"{gaps['logit_gap_f32']:.3e}")
+    out.update(jamba={"params": n_params, "state_bytes": sb,
+                      "prefill_layer_ms": layer_ms,
+                      **{k_: sv[k_] for k_ in ("prefill_ms", "decode_ms",
+                                               "tok_s", "peak_gb")},
+                      **gaps},
+               launches_jamba=sv["launches"])
+
+    # ---- full-width xlstm-1.3b, full depth, bf16: no attention ----
+    xcfg = get_config(XLSTM_ARCH)
+    with torch.inference_mode():
+        t0 = time.monotonic()
+        params = init_model(xcfg, seed=0, device=dev)
+        prompts = torch.randint(0, xcfg.vocab_size, (B, P), generator=gen,
+                                device=dev)
+        torch.cuda.synchronize()
+        n_params = count_params(params)
+        print(f"  {XLSTM_ARCH}: {xcfg.n_layers} layers ({xcfg.pattern[0]} x7 "
+              f"+ {xcfg.pattern[-1]}), d_model {xcfg.d_model}, "
+              f"{xcfg.n_heads} heads, vocab {xcfg.vocab_size}, tied; "
+              f"{n_params / 1e9:.3f} B params bf16 "
+              f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) in "
+              f"{time.monotonic() - t0:.1f}s")
+        xb = _state_bytes_by_mixer(xcfg, B, P + G)
+        xv = serve_timed("ssm", params, xcfg, prompts, G, dev)
+        # one sLSTM layer's prefill (a loop over the 1024 tokens) and one
+        # mLSTM layer's (8 chunks of 128), on the host and on the card
+        xin = torch.randn(B, P, xcfg.d_model, generator=gen,
+                          device=dev).to(torch.bfloat16)
+        last = f"blocks_{len(xcfg.pattern) - 1}"           # the sLSTM
+        sl = {k_: v_[0] for k_, v_ in params[last]["mixer"].items()}
+        ml = {k_: v_[0] for k_, v_ in params["blocks_0"]["mixer"].items()}
+        host = {}
+        for name, fn in (
+                ("slstm", lambda: X.apply_slstm_stateful(
+                    sl, xin, xcfg, X.init_slstm_state(
+                        xcfg, B, torch.bfloat16, device=dev))),
+                ("mlstm", lambda: X.apply_mlstm_stateful(
+                    ml, xin, xcfg, X.init_mlstm_state(xcfg, B,
+                                                      device=dev)))):
+            fn()
+            host[name] = _host_bound_ms(fn)
+        del params, xin, sl, ml
+        torch.cuda.empty_cache()
+    phase("ssm", f"{XLSTM_ARCH} (all {xcfg.n_layers} layers) bf16 B={B} "
+          f"P={P} G={G}: {xv['total_s']:.3f}s total, prefill "
+          f"{xv['prefill_ms']:.1f} ms, decode {xv['decode_ms']:.2f} "
+          f"ms/token, {xv['tok_s']:.1f} tok/s, peak {xv['peak_gb']:.2f} GB, "
+          f"decode state {xb.get('mlstm', 0) / 1e9:.3f} GB mLSTM + "
+          f"{xb.get('slstm', 0) / 1e6:.2f} MB sLSTM, launches "
+          f"{xv['launches']} (none: attention-free); one layer's prefill "
+          f"on the host / on the card: sLSTM {host['slstm'][0]:.1f} / "
+          f"{host['slstm'][1]:.1f} ms, mLSTM {host['mlstm'][0]:.1f} / "
+          f"{host['mlstm'][1]:.1f} ms")
+    out.update(xlstm={"params": n_params, "state_bytes": xb,
+                      **{k_: xv[k_] for k_ in ("prefill_ms", "decode_ms",
+                                               "tok_s", "peak_gb")},
+                      "slstm_layer_host_ms": host["slstm"][0],
+                      "slstm_layer_ms": host["slstm"][1],
+                      "mlstm_layer_host_ms": host["mlstm"][0],
+                      "mlstm_layer_ms": host["mlstm"][1]})
+    return out
 
 
 def main() -> None:
@@ -2314,7 +2695,7 @@ def main() -> None:
     from repro_torch.core.hybrid import hybrid_causal_chunked
 
     with torch.no_grad():
-        layer0 = _layers(params, hcfg)[0][2]
+        layer0 = _layers(params, hcfg)[0][3]
         x0 = params["embed"][tbatch["tokens"]].to(hcfg.adtype())
         h0 = L.apply_norm(layer0["norm1"], x0, norm_type=hcfg.norm_type,
                           eps=hcfg.norm_eps)
@@ -2541,6 +2922,10 @@ def main() -> None:
     moe = moe_phase(dev)
     arch = archs_phase(dev)
 
+    # ---- the SSM slice: full-width jamba (G = 4) and xlstm-1.3b ----
+    torch.cuda.empty_cache()
+    ssm = ssm_phase(dev)
+
     kernels = [
         {"name": "fastmax_causal_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_causal.cu",
@@ -2556,7 +2941,10 @@ def main() -> None:
          "launches_engine": eng_out["launches"]["fastmax_causal"],
          "launches_mla": moe["launches_mla"]["fastmax_causal"],
          **{k: moe[k] for k in moe if k.startswith("prefill_")
-            and k.endswith("_mla")}},
+            and k.endswith("_mla")},
+         "launches_jamba": ssm["launches_jamba"]["fastmax_causal"],
+         **{k: ssm[k] for k in ssm if k.startswith("prefill_")
+            and k.endswith("_g4")}},
         {"name": "fastmax_decode_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_decode.cu",
          "replaces": "src/repro/kernels/fastmax_decode.py:81",
@@ -2569,7 +2957,10 @@ def main() -> None:
          "launches_mla": moe["launches_mla"]["fastmax_decode"],
          **{k: moe[k] for k in moe if k.startswith("decode_")
             and k.endswith("_mla")},
-         **arch},
+         **arch,
+         "launches_jamba": ssm["launches_jamba"]["fastmax_decode"],
+         **{k: ssm[k] for k in ssm if k.startswith("decode_")
+            and k.endswith("_g4")}},
         {"name": "fastmax_causal_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_causal_bwd.cu",
          "replaces": "src/repro/kernels/fastmax_causal_bwd.py:280",
@@ -2635,6 +3026,8 @@ def main() -> None:
                             "logit_gap_bf16", "logit_gap_f32",
                             "route_flips_bf16", "route_flips_f32",
                             "params")}}))
+    print(json.dumps({"ssm": {"jamba_8_layers": ssm["jamba"],
+                              "xlstm_1_3b": ssm["xlstm"]}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

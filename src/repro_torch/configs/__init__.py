@@ -1,7 +1,7 @@
-"""Architecture registry of the port — mirrors `repro.configs`. Only the
-architectures whose mixers are ported are listed (attention with an MLP or
-MoE ffn, MLA, encoder-decoder); xlstm-1.3b and jamba-v0.1-52b (Mamba and
-xLSTM mixers) come with their slices."""
+"""Architecture registry of the port — mirrors `repro.configs`: all ten of
+the reference's architectures (attention with an MLP or MoE ffn, MLA,
+encoder-decoder, and since the SSM slice jamba-v0.1-52b's Mamba and
+attention mixers and xlstm-1.3b's mLSTM and sLSTM)."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,14 +21,16 @@ ARCH_IDS = {
     "deepseek-v2-236b": "deepseek_v2_236b",
     "kimi-k2-1t-a32b": "kimi_k2_1t",
     "chameleon-34b": "chameleon_34b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "jamba-v0.1-52b": "jamba_52b",
 }
 
 
 def _module(name: str):
     mod = ARCH_IDS.get(name, name)
     if mod not in ARCH_IDS.values():
-        raise KeyError(f"architecture {name!r} is not ported yet; "
-                       f"ported: {sorted(ARCH_IDS)}")
+        raise KeyError(f"unknown architecture {name!r}; known: "
+                       f"{sorted(ARCH_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -23,11 +23,15 @@ __all__ = ["init_fastmax_state", "fastmax_decode_step", "fastmax_prefill",
 def decode_state_bytes(cfg, batch: int, max_len: int) -> int:
     """Bytes of the whole model's decode state for `batch` sequences of up
     to `max_len` tokens, without allocating it (the state is built on the
-    `meta` device, the counterpart of the reference's `jax.eval_shape`).
-    Constant in `max_len` for the fastmax family, linear in it for the
-    softmax KV cache. Under MLA the state is per query head at D =
-    qk_nope_dim + qk_rope_dim (`models.layers._kv_dims`): deepseek-v2's is
-    2.45 GB per layer and sequence."""
+    `meta` device, the counterpart of the reference's `jax.eval_shape`),
+    every leaf of every layer's state counted: attention's, and the Mamba
+    (conv inputs, h) and xLSTM (mLSTM's C and n, sLSTM's c, n, m, h)
+    recurrent states. Constant in `max_len` for the fastmax family and
+    the SSM mixers, linear in it for the softmax KV cache. Under MLA the
+    state is per query head at D = qk_nope_dim + qk_rope_dim
+    (`models.layers._kv_dims`): deepseek-v2's is 2.45 GB per layer and
+    sequence; xlstm-1.3b's mLSTM memory is 16.8 MB per layer and
+    sequence."""
     # core must not import attention or models at top level
     from repro_torch.attention.state import state_leaves
     from repro_torch.models import init_decode_state

@@ -22,9 +22,12 @@ Usage (on the card; `--device cpu` runs the plain versions on the CPU):
       --attn fastmax2-kernel --serve-engine --slots 4 --batch 8 \
       --prompt-len 1024 --gen 32
 Any arch of `repro_torch.configs.ARCH_IDS` (`--smoke` for its small
-config; deepseek-v2-236b and kimi-k2-1t-a32b are MoE models):
+config; deepseek-v2-236b and kimi-k2-1t-a32b are MoE models, jamba-v0.1-52b
+mixes Mamba and attention, xlstm-1.3b is attention-free):
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v2-236b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch jamba-v0.1-52b --smoke --device cpu
 """
 from __future__ import annotations
 

@@ -2,9 +2,11 @@
 
   PYTHONPATH=src python -m repro_torch.launch.trace_decode [--out DIR]
       [--arch whisper-small --prompt-len 128]
+      [--arch jamba-v0.1-52b --n-layers 8] [--arch xlstm-1.3b]
 
 Builds the full-width arch (default qwen3-1.7b; attn fastmax2-kernel,
-bf16, random weights from seed 0) and prints one JSON line. An
+bf16, random weights from seed 0; `--n-layers` cuts its depth, as
+jamba's 52 B parameters need to fit one card) and prints one JSON line. An
 encoder-decoder arch first encodes seeded stub frames (batch 4, untraced)
 and every `generate()` call below decodes against that encoder output.
 
@@ -18,7 +20,8 @@ does not depend on the context): its host wall time and CUDA-event time;
 the device time its kernels and copies took and the device's idle share,
 over the call and over its decode steps, which begin where the last
 prefill kernel ends (the decode steps' device time per step is also held
-against the untraced decode time per token); the host's kernel launches
+against the untraced decode time per token; an attention-free arch runs
+no prefill kernel, so its decode split is null); the host's kernel launches
 per token; the host calls that wait on the device (stream syncs, copies,
 `.item()`) per decode step; and the top host operators and device kernels.
 `--out DIR` also writes the Chrome trace there.
@@ -58,11 +61,12 @@ PREFILL_KERNEL = "causal_combine_kernel"
 
 def _device_spans(prof):
     """(start, end) in us of every kernel and copy the card ran, and the
-    end of the last prefill-kernel launch (where decode begins)."""
+    end of the last prefill-kernel launch (where decode begins; None
+    without one)."""
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
     cut = max((e.time_range.end for e in evs if PREFILL_KERNEL in e.name),
-              default=spans[0][0] if spans else 0.0)
+              default=None)
     return spans, cut
 
 
@@ -86,11 +90,14 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth (default: the config's)")
     args = ap.parse_args(argv)
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config(args.arch),
-                              attn=AttentionSpec.parse("fastmax2-kernel"))
+    cfg = get_config(args.arch, attn=AttentionSpec.parse("fastmax2-kernel"))
+    if args.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     params = init_model(cfg, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     short = torch.randint(0, cfg.vocab_size, (BATCH, TRACE_PROMPT),
@@ -115,7 +122,7 @@ def main(argv=None):
         return sorted(times[1:])[REPS // 2]
 
     full_ms, first_ms = wall_ms(GEN), wall_ms(1)
-    untraced = {"arch": args.arch, "batch": BATCH,
+    untraced = {"arch": args.arch, "n_layers": cfg.n_layers, "batch": BATCH,
                 "prompt_len": args.prompt_len, "gen": GEN,
                 "median_of": REPS, "call_ms": full_ms,
                 "first_token_ms": first_ms,
@@ -138,9 +145,11 @@ def main(argv=None):
     ka = prof.key_averages()
     spans, cut = _device_spans(prof)
     steps = TRACE_GEN - 1
-    dec = [(s, e) for s, e in spans if s >= cut]
-    dec_busy = _union_us(dec) / 1e3 / steps
-    dec_wall = (max((e for _, e in dec), default=cut) - cut) / 1e3 / steps
+    dec_busy = dec_wall = None
+    if cut is not None:
+        dec = [(s, e) for s, e in spans if s >= cut]
+        dec_busy = _union_us(dec) / 1e3 / steps
+        dec_wall = (max((e for _, e in dec), default=cut) - cut) / 1e3 / steps
     busy_ms = _union_us(spans) / 1e3
     waits = {e.key: e.count for e in ka if e.key in WAITS}
     launches = sum(e.count for e in ka if e.key in LAUNCHES)
@@ -164,7 +173,8 @@ def main(argv=None):
         "decode_traced_idle_share": max(0.0, 1.0 - dec_busy / dec_wall)
         if dec_wall else None,
         "decode_idle_share_untraced": max(
-            0.0, 1.0 - dec_busy / untraced["decode_ms_per_token"]),
+            0.0, 1.0 - dec_busy / untraced["decode_ms_per_token"])
+        if dec_busy is not None else None,
         "host_launches_per_token": launches / TRACE_GEN,
         "waits_per_decode_step": {k: v / steps for k, v in waits.items()},
         "top_host_ms": [[e.key, e.count, e.self_cpu_time_total / 1e3]

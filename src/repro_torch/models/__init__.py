@@ -1,5 +1,7 @@
 """Model substrate of the port: layers (GQA and MLA attention, MLPs), the
-MoE FFN, the transformer LM and the encoder-decoder assembly."""
+MoE FFN, the Mamba and xLSTM mixers, the transformer LM and the
+encoder-decoder assembly."""
+from repro_torch.models import mamba, moe, xlstm  # noqa: F401
 from repro_torch.models.model import (  # noqa: F401
     decode_step,
     decoder_params,

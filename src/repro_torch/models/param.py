@@ -62,6 +62,14 @@ class Builder:
             raise ValueError(init)
         self.params[name] = val
 
+    def constant(self, name: str, value: torch.Tensor) -> None:
+        """A fixed parameter (Mamba's S4D `A_log`, mLSTM's forget bias):
+        `value` rounded to the param dtype, as the reference stores it,
+        and repeated over the builder's leading layer axis."""
+        val = value.to(device=self.device, dtype=self.dtype)
+        self.params[name] = val.expand(self.lead + tuple(val.shape)) \
+            .contiguous()
+
 
 def from_jax_params(tree, cfg, device) -> dict:
     """Convert a JAX `init_model` params tree (an `init_lm` tree, or the

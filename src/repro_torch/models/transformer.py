@@ -1,30 +1,41 @@
 """Transformer LM — port of `repro/models/transformer.py`.
 
-One `ModelConfig` expresses the ported architectures through a repeating
-`pattern` of blocks ("mixer:ffn"): `"attn:mlp"` (qwen3, qwen2.5, granite,
-llama3, chameleon, and both towers of whisper) and `"attn:moe"`
-(deepseek-v2 with MLA projections, kimi-k2), any number of blocks per
-group, with `first_k_dense` leading blocks whose ffn is an MLP at `d_ff`
-(`dense_i`, unstacked), then `n_groups` groups of the pattern, each
-entry's parameters stacked on a leading group axis (`blocks_i`): the
-reference's tree, so `from_jax_params` converts a JAX tree as it is. The
-config, initialization, the training forward and loss (the MoE blocks'
-aux added to the loss), prefill and one-token decode are ported; prefill
-and decode run the MoE at full capacity. Encoder towers take embeddings in
-place of tokens and attend noncausally; decoder blocks of an
-encoder-decoder model add a cross-attention to the encoder's output
-(`enc_out`), recomputed from it at every call as the reference does.
-Layers run as a Python loop (the reference scans the groups); under
-`remat="full"` each layer is recomputed in the backward
+One `ModelConfig` expresses every architecture of the reference through a
+repeating `pattern` of blocks ("mixer:ffn"): `"attn:mlp"` (qwen3,
+qwen2.5, granite, llama3, chameleon, and both towers of whisper),
+`"attn:moe"` (deepseek-v2 with MLA projections, kimi-k2), jamba's eight
+blocks of Mamba and attention mixers with MLP and MoE ffns, and xlstm's
+seven `"mlstm:none"` blocks and one `"slstm:none"` (an ffn of "none": no
+second norm, no ffn). Any number of blocks per group, with
+`first_k_dense` leading blocks whose ffn is an MLP at `d_ff` (`dense_i`,
+unstacked), then `n_groups` groups of the pattern, each entry's
+parameters stacked on a leading group axis (`blocks_i`): the reference's
+tree, so `from_jax_params` converts a JAX tree as it is. (The
+reference's module docstring shows jamba's pattern as attention at index
+3; its config, which decides, has it at index 4 and MoE at the odd
+indices.) The config, initialization, the training forward and loss (the
+MoE blocks' aux added to the loss), prefill and one-token decode are
+ported; prefill and decode run the MoE at full capacity. Encoder towers
+take embeddings in place of tokens and attend noncausally; decoder
+blocks of an encoder-decoder model add a cross-attention to the
+encoder's output (`enc_out`), recomputed from it at every call as the
+reference does. Layers run as a Python loop (the reference scans the
+groups); under `remat="full"` each layer is recomputed in the backward
 (`torch.utils.checkpoint`), as the reference checkpoints each scanned
 group with `nothing_saveable`; under `remat="dots"` the outputs of the
 un-batched matmuls (the projections, the MLP and the experts, `aten.mm`)
 are kept and everything else is recomputed, the reference's
 `checkpoint_dots_with_no_batch_dims`. The decode state has the same keys:
-`dense_i` [B, ...], `blocks_i` stacked [n_groups, B, ...] (the softmax KV
-cache, or the moments and a hybrid spec's window), and each layer's state
-is a contiguous view that the attention step updates in place. Mamba and
-xLSTM mixers come in later slices.
+`dense_i` [B, ...], `blocks_i` stacked [n_groups, B, ...] (an attention
+layer's `AttnState`: the softmax KV cache, or the moments and a hybrid
+spec's window; a `MambaState`, `MLSTMState` or `SLSTMState`), and each
+layer's state is a contiguous view that its prefill and decode steps
+update in place.
+
+A `kv_mask` with an SSM mixer (mamba, mlstm, slstm) raises: the SSM
+mixers take exact-length chunks (a padded token would enter their
+recurrent state). The reference drops the mask there silently; its
+engine never pads for SSM models, and the port's engine never pads.
 """
 from __future__ import annotations
 
@@ -37,11 +48,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.attention import AttentionSpec, AttnState, KVCache
-from repro_torch.core.fastmax import Moments
+from repro_torch.attention import AttentionSpec
+from repro_torch.attention.state import map_state
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as X
 from repro_torch.models.param import Builder
 
 _F32 = torch.float32
@@ -81,6 +94,10 @@ class ModelConfig:
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    # ssm (Mamba)
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
     norm_type: str = "rmsnorm"
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -119,15 +136,18 @@ class ModelConfig:
         return getattr(torch, self.activ_dtype)
 
 
+_SSM = ("mamba", "mlstm", "slstm")
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.pattern:
         mixer, ffn = kind.split(":")
-        if mixer != "attn" or ffn not in ("mlp", "moe"):
+        if mixer not in ("attn",) + _SSM or ffn not in ("mlp", "moe",
+                                                        "none"):
             raise NotImplementedError(
-                f"{cfg.name}: only 'attn:mlp' and 'attn:moe' blocks are "
-                f"ported (got {kind!r} in {cfg.pattern})")
+                f"{cfg.name}: unknown block {kind!r} in {cfg.pattern}")
         if ffn == "moe" and cfg.n_experts < 1:
-            raise ValueError(f"{cfg.name}: 'attn:moe' needs n_experts >= 1")
+            raise ValueError(f"{cfg.name}: {kind!r} needs n_experts >= 1")
     if cfg.norm_type not in ("rmsnorm", "layernorm") \
             or cfg.mlp_act not in ("swiglu", "gelu"):
         raise NotImplementedError(
@@ -139,6 +159,17 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise ValueError(
             f"{cfg.name}: n_layers - first_k_dense = {cfg.n_layers_scanned} "
             f"is not a whole number of {len(cfg.pattern)}-block groups")
+
+
+def _check_mask(cfg: ModelConfig, kv_mask) -> None:
+    """A kv_mask reaches only attention; an SSM mixer would take the
+    padded tokens into its recurrent state, so it raises."""
+    ssm = sorted({k.split(":")[0] for k in cfg.pattern} & set(_SSM))
+    if kv_mask is not None and ssm:
+        raise ValueError(
+            f"{cfg.name}: kv_mask with SSM mixers {ssm}: they take "
+            f"exact-length chunks (a padded token would enter their "
+            f"recurrent state); prefill a ragged chunk at its own length")
 
 
 def _block_keys(cfg: ModelConfig) -> list:
@@ -153,12 +184,18 @@ def _block_keys(cfg: ModelConfig) -> list:
 
 def _init_block(b: Builder, kind: str, cfg: ModelConfig,
                 force_mlp: bool = False) -> None:
-    ffn = kind.split(":")[1]
+    mixer, ffn = kind.split(":")
     L.init_norm(b, "norm1", cfg.d_model, cfg.norm_type)
-    L.init_attention(b, "mixer", cfg)
-    if cfg.cross_attention:
-        L.init_norm(b, "norm_x", cfg.d_model, cfg.norm_type)
-        L.init_attention(b, "cross", cfg)
+    if mixer == "attn":
+        L.init_attention(b, "mixer", cfg)
+        if cfg.cross_attention:
+            L.init_norm(b, "norm_x", cfg.d_model, cfg.norm_type)
+            L.init_attention(b, "cross", cfg)
+    else:
+        {"mamba": M.init_mamba, "mlstm": X.init_mlstm,
+         "slstm": X.init_slstm}[mixer](b, "mixer", cfg)
+    if ffn == "none":
+        return
     L.init_norm(b, "norm2", cfg.d_model, cfg.norm_type)
     if ffn == "moe" and not force_mlp:
         MOE.init_moe(b, "ffn", cfg)
@@ -205,41 +242,52 @@ def _unbind_layers(tree, n: int) -> list:
 
 
 def _layers(params, cfg: ModelConfig) -> list:
-    """(key, group, parameters) of every layer in the order they run: the
-    `dense_i` blocks (group None), then each group's pattern entries
-    (views into the stacked `blocks_i`; one unbind per stacked leaf, whose
-    backward stacks the layers' grads once where per-layer indexing would
-    scatter each into a full copy)."""
-    out = [(key, None, params[key])
-           for key, _, stacked in _block_keys(cfg) if not stacked]
-    stacked = [(key, _unbind_layers(params[key], cfg.n_groups))
-               for key, _, st in _block_keys(cfg) if st]
+    """(key, mixer, group, parameters) of every layer in the order they
+    run: the `dense_i` blocks (group None), then each group's pattern
+    entries (views into the stacked `blocks_i`; one unbind per stacked
+    leaf, whose backward stacks the layers' grads once where per-layer
+    indexing would scatter each into a full copy)."""
+    out = [(key, kind.split(":")[0], None, params[key])
+           for key, kind, stacked in _block_keys(cfg) if not stacked]
+    stacked = [(key, kind.split(":")[0],
+                _unbind_layers(params[key], cfg.n_groups))
+               for key, kind, st in _block_keys(cfg) if st]
     for g in range(cfg.n_groups):
-        out += [(key, g, per[g]) for key, per in stacked]
+        out += [(key, mixer, g, per[g]) for key, mixer, per in stacked]
     return out
 
 
-def _layer_state(state: dict, key: str, g) -> AttnState:
+def _layer_state(state: dict, key: str, g):
     """The state of layer (key, group): `state[key]` itself for a dense
-    block, else contiguous views of group g of the stacked leaves."""
+    block, else contiguous views of group g of the stacked leaves (any
+    state type: `AttnState`, `MambaState`, `MLSTMState`, `SLSTMState`)."""
     st = state[key]
-    if g is None:
-        return st
-    kv = None if st.kv is None else KVCache(*(t[g] for t in st.kv))
-    mom = None if st.moments is None else Moments(
-        *(t[g] for t in st.moments))
-    return AttnState(kv=kv, moments=mom)
+    return st if g is None else map_state(lambda t: t[g], st)
+
+
+def _init_block_state(kind: str, cfg: ModelConfig, batch: int,
+                      max_len: int, device):
+    mixer, dtype = kind.split(":")[0], cfg.adtype()
+    if mixer == "attn":
+        return L.init_attn_state(cfg, batch, max_len, dtype, device=device)
+    if mixer == "mamba":
+        return M.init_mamba_state(cfg, batch, dtype, device=device)
+    if mixer == "mlstm":
+        return X.init_mlstm_state(cfg, batch, device=device)
+    return X.init_slstm_state(cfg, batch, dtype, device=device)
 
 
 def init_lm_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                          device=None) -> dict:
     """Fresh decode state for `batch` sequences of up to `max_len` tokens,
-    one `AttnState` per key of the parameter tree: `dense_i` with leaves
-    [B, Hkv, ...] (each cache's length []), `blocks_i` with leaves stacked
-    [n_groups, B, Hkv, ...] (each cache's length [n_groups]); the softmax
-    KV cache, or the moments and a hybrid spec's window. On the `meta`
-    device it only describes the shapes
-    (`core.decode_state.decode_state_bytes`)."""
+    one per key of the parameter tree: `dense_i` with leaves [B, ...]
+    (each cache's length []), `blocks_i` with leaves stacked
+    [n_groups, B, ...] (each cache's length [n_groups]). An attention
+    layer's is an `AttnState` (the softmax KV cache, or the moments and a
+    hybrid spec's window), a Mamba layer's a `MambaState` (conv inputs in
+    the activation dtype, h float32), an xLSTM layer's an `MLSTMState` or
+    `SLSTMState` (float32 but sLSTM's h). On the `meta` device it only
+    describes the shapes (`core.decode_state.decode_state_bytes`)."""
     _check_supported(cfg)
     dev = device if str(device) == "meta" else resolve_device(device)
 
@@ -248,14 +296,9 @@ def init_lm_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
             .contiguous()
 
     state = {}
-    for key, _, stacked in _block_keys(cfg):
-        one = L.init_attn_state(cfg, batch, max_len, cfg.adtype(), device=dev)
-        if stacked:
-            one = AttnState(
-                kv=None if one.kv is None else KVCache(*map(stack, one.kv)),
-                moments=None if one.moments is None else Moments(
-                    *map(stack, one.moments)))
-        state[key] = one
+    for key, kind, stacked in _block_keys(cfg):
+        one = _init_block_state(kind, cfg, batch, max_len, dev)
+        state[key] = map_state(stack, one) if stacked else one
     return state
 
 
@@ -272,19 +315,22 @@ def _logits(params, x, cfg: ModelConfig):
     return logits
 
 
-def _block(params_b, x, cfg: ModelConfig, attn, enc_out=None, *,
+def _block(params_b, x, cfg: ModelConfig, mixer, enc_out=None, *,
            full_capacity: bool = False):
-    """One block; returns (x, the MoE's aux or None). A block whose ffn
-    has no router runs the MLP (the `dense_i` blocks of an "attn:moe"
-    pattern, as in the reference)."""
+    """One block, its mixer the callable `mixer(params, h)`; returns (x,
+    the MoE's aux or None). A block whose ffn has no router runs the MLP
+    (the `dense_i` blocks of an "attn:moe" pattern, as in the reference);
+    a block without an ffn ("none") has no second norm."""
     h = L.apply_norm(params_b["norm1"], x, norm_type=cfg.norm_type,
                      eps=cfg.norm_eps)
-    x = x + attn(params_b["mixer"], h)
-    if cfg.cross_attention and enc_out is not None:
+    x = x + mixer(params_b["mixer"], h)
+    if "cross" in params_b and enc_out is not None:
         h = L.apply_norm(params_b["norm_x"], x, norm_type=cfg.norm_type,
                          eps=cfg.norm_eps)
         x = x + L.apply_attention(params_b["cross"], h, cfg, causal=False,
                                   kv_x=enc_out)
+    if "ffn" not in params_b:
+        return x, None
     h = L.apply_norm(params_b["norm2"], x, norm_type=cfg.norm_type,
                      eps=cfg.norm_eps)
     if "router" in params_b["ffn"]:
@@ -292,6 +338,35 @@ def _block(params_b, x, cfg: ModelConfig, attn, enc_out=None, *,
                                full_capacity=full_capacity)
         return x + y, aux
     return x + L.apply_mlp(params_b["ffn"], h, act=cfg.mlp_act), None
+
+
+def _train_mixer(mixer: str, cfg: ModelConfig, causal, kv_mask):
+    if mixer == "attn":
+        return lambda p, h: L.apply_attention(p, h, cfg, causal=causal,
+                                              kv_mask=kv_mask)
+    fn = {"mamba": M.apply_mamba, "mlstm": X.apply_mlstm,
+          "slstm": X.apply_slstm}[mixer]
+    return lambda p, h: fn(p, h, cfg)
+
+
+def _prefill_mixer(mixer: str, st, cfg: ModelConfig, kv_mask, offset):
+    """The mixer of a prefill, priming the layer's state `st` in place.
+    The SSM mixers resume from their state whatever the offset."""
+    if mixer == "attn":
+        return lambda p, h: L.attention_prefill(
+            p, h, st, cfg, kv_mask=kv_mask, offset=offset)[0]
+    fn = {"mamba": M.mamba_prefill, "mlstm": X.apply_mlstm_stateful,
+          "slstm": X.apply_slstm_stateful}[mixer]
+    return lambda p, h: fn(p, h, cfg, st)[0]
+
+
+def _decode_mixer(mixer: str, st, cfg: ModelConfig, position):
+    if mixer == "attn":
+        return lambda p, h: L.attention_decode(p, h, st, cfg,
+                                               position=position)[0]
+    fn = {"mamba": M.mamba_decode, "mlstm": X.mlstm_decode,
+          "slstm": X.slstm_decode}[mixer]
+    return lambda p, h: fn(p, h, st, cfg)[0]
 
 
 # remat="dots": the un-batched matmuls' outputs are saved, everything else
@@ -309,10 +384,9 @@ _SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts,
                                _dots_policy)
 
 
-def _train_block(params_b, x, cfg: ModelConfig, causal, kv_mask, enc_out):
-    return _block(params_b, x, cfg,
-                  lambda p, h: L.apply_attention(p, h, cfg, causal=causal,
-                                                 kv_mask=kv_mask),
+def _train_block(params_b, x, cfg: ModelConfig, mixer: str, causal, kv_mask,
+                 enc_out):
+    return _block(params_b, x, cfg, _train_mixer(mixer, cfg, causal, kv_mask),
                   enc_out=enc_out)
 
 
@@ -341,6 +415,7 @@ def forward_lm(params, tokens, cfg: ModelConfig, *, causal=True,
     without a router), or the final-normed hidden states in place of the
     logits with `return_hidden`."""
     _check_supported(cfg)
+    _check_mask(cfg, kv_mask)
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
     x = _embed(params, tokens, cfg, embeddings)
@@ -349,12 +424,13 @@ def forward_lm(params, tokens, cfg: ModelConfig, *, causal=True,
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     kw = {"context_fn": _SAVE_DOTS} if cfg.remat == "dots" else {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for _, _, p_i in _layers(params, cfg):
+    for _, mixer, _, p_i in _layers(params, cfg):
         if remat:
-            x, a = checkpoint(_train_block, p_i, x, cfg, causal, kv_mask,
-                              enc_out, use_reentrant=False, **kw)
+            x, a = checkpoint(_train_block, p_i, x, cfg, mixer, causal,
+                              kv_mask, enc_out, use_reentrant=False, **kw)
         else:
-            x, a = _train_block(p_i, x, cfg, causal, kv_mask, enc_out)
+            x, a = _train_block(p_i, x, cfg, mixer, causal, kv_mask,
+                                enc_out)
         if a is not None:
             aux = aux + a
     x = L.apply_norm(params["final_norm"], x, norm_type=cfg.norm_type,
@@ -394,13 +470,12 @@ def lm_prefill(params, tokens, cfg: ModelConfig, state, *, enc_out=None,
     [offset, offset + n)); `kv_mask` [B, N] masks right-padding; `enc_out`
     [B, M, d] feeds the cross-attention of an encoder-decoder model."""
     _check_supported(cfg)
+    _check_mask(cfg, kv_mask)
     x = _embed(params, tokens, cfg, offset=offset)
-    for key, g, p_i in _layers(params, cfg):
+    for key, mixer, g, p_i in _layers(params, cfg):
         st_i = _layer_state(state, key, g)
         x, _ = _block(p_i, x, cfg,
-                      lambda p, h: L.attention_prefill(
-                          p, h, st_i, cfg, kv_mask=kv_mask,
-                          offset=offset)[0],
+                      _prefill_mixer(mixer, st_i, cfg, kv_mask, offset),
                       enc_out=enc_out, full_capacity=True)
     x = L.apply_norm(params["final_norm"], x, norm_type=cfg.norm_type,
                      eps=cfg.norm_eps)
@@ -420,11 +495,9 @@ def lm_decode_step(params, state, token_t, cfg: ModelConfig, *, position,
     if cfg.pos_emb == "sinusoidal":
         pos = position.reshape(-1).to(_F32)          # [1] or [B]
         x = x + _sinusoidal_at(pos, cfg.d_model, x.dtype)[:, None]
-    for key, g, p_i in _layers(params, cfg):
+    for key, mixer, g, p_i in _layers(params, cfg):
         st_i = _layer_state(state, key, g)
-        x, _ = _block(p_i, x, cfg,
-                      lambda p, h: L.attention_decode(
-                          p, h, st_i, cfg, position=position)[0],
+        x, _ = _block(p_i, x, cfg, _decode_mixer(mixer, st_i, cfg, position),
                       enc_out=enc_out, full_capacity=True)
     x = L.apply_norm(params["final_norm"], x, norm_type=cfg.norm_type,
                      eps=cfg.norm_eps)

@@ -20,8 +20,11 @@ eagerly (no graph capture):
 
 All backends run the same `init_state`/`prefill`/`step` protocol, so the
 engine serves the softmax KV cache, fastmax (chunked or kernel) and the
-hybrid family alike; greedy decoding gives `launch.serve.generate`'s
-tokens request by request (`tests/test_torch_serve.py`). On
+hybrid family alike, and the SSM mixers (jamba's Mamba layers, xlstm's
+mLSTM and sLSTM) resume a prefill chunk from their recurrent state, which
+needs the exact-length ragged chunk (they refuse a `kv_mask`); greedy
+decoding gives `launch.serve.generate`'s tokens request by request
+(`tests/test_torch_serve.py`, `tests/test_torch_ssm_archs.py`). On
 fastmax-kernel with CUDA weights every prefill chunk runs the prefill
 kernel seeded with the slot's carry and every decode part the decode
 kernel, one launch per layer each; CPU weights take the kernels' plain

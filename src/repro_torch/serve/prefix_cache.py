@@ -8,9 +8,10 @@ the same ``m`` tokens skip straight to ``offset=m``. Snapshots are taken at
 chunk boundaries during prefill, so keys are always prefixes of length
 ``k * chunk``.
 
-For fastmax backends a snapshot is the constant-size moment tuple, so a
-generous byte budget holds MANY prefixes; for the softmax baseline each
-snapshot carries full ``max_len`` KV rows — the same O(1)-vs-O(N)
+For fastmax backends a snapshot is the constant-size moment tuple (and
+an SSM layer's its recurrent state, which a resumed prefill continues
+from), so a generous byte budget holds MANY prefixes; for the softmax
+baseline each snapshot carries full ``max_len`` KV rows — the same O(1)-vs-O(N)
 asymmetry the engine's slot accounting reports.
 
 Entries are LRU-evicted once the byte budget is exceeded. All state stays

@@ -12,6 +12,9 @@ pool is never reallocated as requests come and go.
   softmax  -> a slot's state is `max_len` masked KV-cache rows with a
               per-slot write cursor (`KVCache.length` as a [B] lane): the
               O(N) baseline.
+  SSM      -> a Mamba layer's (conv inputs, h), an mLSTM layer's (C, n)
+              and an sLSTM layer's (c, n, m, h): constant-size recurrent
+              states, reset to their fresh fills (sLSTM's m to -1e9).
 
 The slot axis of every leaf is found once per (config, pool) by building
 the state on the `meta` device at batch 2 and 3 (the counterpart of the

@@ -74,10 +74,14 @@ def _shapes(tree):
 
 
 def test_registry_lists_the_ported_archs():
-    assert set(NEW) | {"qwen3-1.7b", "whisper-small"} == set(ARCH_IDS)
+    """All ten architectures are ported (the SSM slice added xlstm-1.3b
+    and jamba-v0.1-52b); an unknown name raises."""
+    assert set(NEW) | {"qwen3-1.7b", "whisper-small", "xlstm-1.3b",
+                       "jamba-v0.1-52b"} == set(ARCH_IDS)
     for arch in ("xlstm-1.3b", "jamba-v0.1-52b"):
-        with pytest.raises(KeyError):
-            get_smoke_config(arch)
+        assert get_smoke_config(arch).name == arch
+    with pytest.raises(KeyError):
+        get_smoke_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", NEW)

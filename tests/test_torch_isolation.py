@@ -52,6 +52,15 @@ def test_scan_covers_the_moe_slice():
             "configs/deepseek_v2_236b.py", "configs/kimi_k2_1t.py"} <= names
 
 
+def test_scan_covers_the_ssm_slice():
+    """The Mamba and xLSTM mixers and the configs built on them are
+    scanned."""
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in FILES
+             if "repro_torch" in p.parts}
+    assert {"models/mamba.py", "models/xlstm.py", "models/param.py",
+            "configs/jamba_52b.py", "configs/xlstm_1_3b.py"} <= names
+
+
 def test_scan_catches_a_reference_import(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text("import numpy\nfrom repro.core import fastmax\n"

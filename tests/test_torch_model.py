@@ -303,7 +303,12 @@ def test_decode_position_forms_agree(kind):
 
 
 def test_other_mixers_are_not_ported():
+    """Every mixer and ffn of the reference is ported (attn, mamba, mlstm,
+    slstm; mlp, moe, none); any other block kind is refused."""
     _, tcfg = _configs("fastmax2-kernel")
-    bad = dataclasses.replace(tcfg, pattern=("mamba:mlp",))
-    with pytest.raises(NotImplementedError):
-        TT.init_lm(bad, device="cpu")
+    for kind in ("rwkv:mlp", "attn:glu"):
+        bad = dataclasses.replace(tcfg, pattern=(kind,))
+        with pytest.raises(NotImplementedError):
+            TT.init_lm(bad, device="cpu")
+    ok = dataclasses.replace(tcfg, pattern=("mamba:mlp",))
+    assert "A_log" in TT.init_lm(ok, device="cpu")["blocks_0"]["mixer"]
