@@ -215,13 +215,35 @@ and power limit, and the result line last):
                 with no kernel launch (attention-free), and one sLSTM
                 layer's sequential prefill and one mLSTM layer's timed on
                 the host and on the card.
+ 22. autotune — the schedule autotuner (kernels/autotune.py): every
+                candidate schedule of every gate key (the shapes above:
+                qwen3's prefill, decode and hybrid, jamba's G = 4,
+                MLA's, granite's G = 48 decode, whisper's noncausal combine
+                at N = 1500, 128 and 1) against the plain version in float32
+                and bfloat16 at its kernel's limits, two calls bit for bit,
+                then timed (autotune.measure: the median of 5 samples of
+                back-to-back calls, bf16); per key the default's ms, the
+                winner's ms and schedule and their ratio, the winners
+                written to build/autotune_cuda.json as measured entries with
+                the card's name and power limit. With the autotuner off,
+                launch/kernel_digest.py's digests equal the parent's
+                (src/repro_torch/launch/kernel_digests.txt). The float32
+                smoke model under REPRO_TORCH_AUTOTUNE=1 and a fresh cache
+                (build/autotune_smoke.json) gives the plain path's tokens,
+                and a second process hits that cache on every lookup.
+                Full-width qwen3-1.7b generate() (bf16, B=4, prompt 1024, 32
+                new tokens) with the autotuner off, on, on, off: prefill ms
+                and decode ms per token as readings, and the tokens that
+                differ from the off run's.
 Exits non-zero, printing no result line, when any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1629,6 +1651,340 @@ def ssm_phase(dev) -> dict:
     return out
 
 
+# [autotune]: the schedule autotuner's caches under build/ (ignored by
+# git), and whisper's encoder length, the noncausal gate keys' key count
+AUTOTUNE_CACHE = Path(__file__).resolve().parent / "build" / \
+    "autotune_cuda.json"
+AUTOTUNE_SMOKE_CACHE = Path(__file__).resolve().parent / "build" / \
+    "autotune_smoke.json"
+AUTOTUNE_KEYS_M = 1500
+
+
+@contextlib.contextmanager
+def autotune_env(mode: str, cache=None):
+    """REPRO_TORCH_AUTOTUNE = `mode` (and its cache file, or none) inside
+    the block; the caller's values are restored after."""
+    names = ("REPRO_TORCH_AUTOTUNE", "REPRO_TORCH_AUTOTUNE_CACHE")
+    saved = {n: os.environ.get(n) for n in names}
+    os.environ[names[0]] = mode
+    if cache is None:
+        os.environ.pop(names[1], None)
+    else:
+        os.environ[names[1]] = str(cache)
+    try:
+        yield
+    finally:
+        for n, val in saved.items():
+            if val is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = val
+
+
+def tune_case(key, dtype, dev):
+    """(run, check) at an autotune key's shape (batch 1, `bh` kv heads) in
+    `dtype`, inputs from a seeded generator: run(schedule) is the kernel's
+    outputs under a schedule, check(outputs) their max error to the plain
+    version and whether it is within the kernel's limit (o: TOL_O32 or the
+    bf16 rule; moments TOL_MOMENTS of scale)."""
+    from repro_torch.core.ref import normalize_qk
+    from repro_torch.kernels.fastmax_causal import (fastmax_causal_cuda,
+                                                    fastmax_causal_ref)
+    from repro_torch.kernels.fastmax_decode import fastmax_decode_cuda
+    from repro_torch.kernels.fastmax_noncausal import (
+        noncausal_combine_cuda, noncausal_combine_ref, noncausal_moments_cuda,
+        noncausal_moments_ref)
+    from repro_torch.kernels.hybrid_causal import (hybrid_causal_cuda,
+                                                   hybrid_causal_ref)
+    from repro_torch.kernels.ref import fastmax_decode_ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    hkv, d, dv = key.bh, key.d, key.dv
+    hq = key.g * hkv
+
+    def rn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    def qkv(n, m):
+        return (normalize_qk(rn(1, hq, n, d)).to(dtype),
+                normalize_qk(rn(1, hkv, m, d)).to(dtype),
+                rn(1, hkv, m, dv).to(dtype))
+
+    def o_and_moments(ro, rst):
+        def check(outs):
+            eo, ok = o_err(outs[0], ro)
+            em = max(moment_err(a, r) for a, r in zip(outs[1:], rst))
+            return max(eo, em), ok and em <= TOL_MOMENTS
+        return check
+
+    if key.kernel == "noncausal":
+        q, k, v = qkv(key.n, AUTOTUNE_KEYS_M)
+        mom = noncausal_moments_cuda(k, v, p=2)
+        ro = noncausal_combine_ref(q, noncausal_moments_ref(k, v, p=2), p=2)
+        return ((lambda s: (noncausal_combine_cuda(q, mom, p=2,
+                                                   schedule=s),)),
+                lambda outs: o_err(outs[0], ro))
+    if key.kernel == "decode":
+        q0, k0, v0 = qkv(128, 128)
+        _, st = fastmax_causal_ref(q0, k0, v0, p=2, chunk_size=512)
+        q, k, v = qkv(1, 1)
+        ro, rst = fastmax_decode_ref(q, k, v, tuple(t.clone() for t in st),
+                                     p=2)
+
+        def run(s):
+            kst = tuple(t.clone() for t in st)
+            return (fastmax_decode_cuda(q, k, v, kst, p=2, schedule=s),
+                    *kst)
+        return run, o_and_moments(ro, rst)
+    q, k, v = qkv(key.n, key.n)
+    if key.kernel == "causal_fwd":
+        ro, rst = fastmax_causal_ref(q, k, v, p=2, chunk_size=512)
+
+        def run(s):
+            o, st = fastmax_causal_cuda(q, k, v, p=2, schedule=s)
+            return (o, *st)
+        return run, o_and_moments(ro, rst)
+    kw = dict(p=2, window=64, chunk_size=512, return_state=True)
+    ro, rst = hybrid_causal_ref(q, k, v, **kw)
+
+    def run(s):
+        o, st = hybrid_causal_cuda(q, k, v, **kw, schedule=s)
+        return (o, *st)
+    return run, o_and_moments(ro, rst)
+
+
+def knobs(s) -> str:
+    """A schedule's knobs that its kernel has, e.g. `rows=512 group=16`."""
+    return " ".join(f"{f}={x}" for f, x in s._asdict().items()
+                    if x is not None)
+
+
+def smoke_tokens(dev):
+    """The float32 qwen3 smoke model on fastmax2-kernel, seeded weights and
+    prompts: (greedy tokens of generate(), params, config, prompts)."""
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_model
+
+    small = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                                attn=AttentionSpec.parse("fastmax2-kernel"))
+    sp = init_model(small, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    prompts = torch.randint(0, small.vocab_size, (2, 40), generator=g,
+                            device=dev)
+    with torch.inference_mode():
+        return generate(sp, small, prompts, 8, device=dev), sp, small, prompts
+
+
+def autotune_child() -> None:
+    """The second process of [autotune]'s smoke run (the caller sets
+    REPRO_TORCH_AUTOTUNE and its cache): prints one JSON line, the smoke
+    model's tokens and the autotuner's provenance records."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import autotune as at
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    at.clear_lookups()
+    toks = smoke_tokens(torch.device("cuda"))[0]
+    print(json.dumps({"tokens": toks.tolist(),
+                      "lookups": at.snapshot_lookups()}))
+
+
+def autotune_candidates(dev, smi: str) -> list:
+    """[autotune] (1): every candidate of every gate key against the plain
+    version in float32 and bfloat16 and bit for bit, then timed in bf16;
+    the winners written to AUTOTUNE_CACHE. Returns one record per key."""
+    from repro_torch.kernels import autotune as at
+
+    rows = []
+    entries = dict(at.load_cache(str(AUTOTUNE_CACHE)))
+    for key in at.gate_keys("cuda"):
+        cands = at.candidate_schedules(key.kernel, key)
+        worst = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            run, check = tune_case(key, dtype, dev)
+            for s in cands:
+                a, b = run(s), run(s)
+                torch.cuda.synchronize()
+                err, ok = check(a)
+                same = all(torch.equal(x, y) for x, y in zip(a, b))
+                if not (ok and same):
+                    fail(f"autotune: {at.key_str(key)} {knobs(s)} "
+                         f"{str(dtype)[6:]}: max err {err:.3e} within its "
+                         f"limit {ok}, two calls bitwise {same}")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                del a, b
+            del run, check
+            torch.cuda.empty_cache()
+        ms = [at.measure(key, s) * 1e3 for s in cands]
+        win = min(range(len(cands)), key=ms.__getitem__)
+        entries[at.key_str(key)] = {
+            "schedule": dict(cands[win]._asdict()), "source": "measured",
+            "score": ms[win] / 1e3, "card": smi}
+        rows.append({
+            "key": at.key_str(key), "default": knobs(cands[0]),
+            "default_ms": ms[0], "winner": knobs(cands[win]),
+            "winner_ms": ms[win], "ratio": ms[0] / ms[win],
+            "candidates": {knobs(s): t for s, t in zip(cands, ms)},
+            "max_err_f32": worst[torch.float32],
+            "max_err_bf16": worst[torch.bfloat16]})
+        print(f"  {at.key_str(key)}: {len(cands)} candidate(s) within the "
+              f"limits and bit for bit (max err f32 "
+              f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e})"
+              f"; default {knobs(cands[0])} {ms[0]:.4f} ms, winner "
+              f"{knobs(cands[win])} {ms[win]:.4f} ms (default / winner "
+              f"{ms[0] / ms[win]:.3f}); "
+              + ", ".join(f"{knobs(s)} {t:.4f}" for s, t in zip(cands, ms)),
+              flush=True)
+        torch.cuda.empty_cache()
+    at.save_cache(str(AUTOTUNE_CACHE), entries)
+    return rows
+
+
+def autotune_digests() -> int:
+    """[autotune] (2): with the autotuner off, kernel_digest's lines equal
+    the parent's (`kernel_digests.txt`). Returns the count of lines."""
+    from repro_torch.launch import kernel_digest
+
+    with autotune_env("0"):
+        lines = kernel_digest.digest_lines()
+    bad = kernel_digest.compare(lines)
+    print(f"  kernel digests, autotuner off: {len(lines) - len(bad)} of "
+          f"{len(lines)} lines equal {kernel_digest.EXPECTED.name}")
+    if bad:
+        for got, want in bad[:5]:
+            print(f"  DIFFERS: {got} != {want}")
+        fail(f"autotune: {len(bad)} kernel digest(s) differ from the "
+             f"parent's with the autotuner off")
+    return len(lines)
+
+
+def autotune_smoke(dev) -> dict:
+    """[autotune] (3): the tuned smoke model in this process (fresh cache:
+    every key measured and written) against the plain path's tokens, then
+    a second process that hits the cache on every lookup."""
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.kernels import autotune as at
+    from repro_torch.launch.serve import generate
+
+    AUTOTUNE_SMOKE_CACHE.unlink(missing_ok=True)
+    with autotune_env("1", AUTOTUNE_SMOKE_CACHE):
+        at.clear_lookups()
+        tk, sp, small, prompts = smoke_tokens(dev)
+        recs = at.snapshot_lookups()
+    plain = dataclasses.replace(small,
+                                attn=AttentionSpec.parse("fastmax2-chunked"))
+    with torch.inference_mode():
+        tp = generate(sp, plain, prompts, 8, device=dev)
+    del sp
+    env = {**os.environ, "REPRO_TORCH_AUTOTUNE": "1",
+           "REPRO_TORCH_AUTOTUNE_CACHE": str(AUTOTUNE_SMOKE_CACHE)}
+    child = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke."
+         "autotune_child()"], cwd=Path(__file__).resolve().parent, env=env,
+        capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        fail(f"autotune: the second process failed:\n{child.stdout[-2000:]}"
+             f"\n{child.stderr[-4000:]}")
+    second = json.loads(child.stdout.strip().splitlines()[-1])
+    # each key was a miss, measured and persisted, at its first lookup (its
+    # later lookups read the entry back: the records show the last)
+    written = at.load_cache(str(AUTOTUNE_SMOKE_CACHE))
+    first_ok = bool(recs) and len(written) == len(recs) and all(
+        written.get(r["key"], {}).get("source") == "measured" for r in recs)
+    hits = sum(r["cache"] == "hit" for r in second["lookups"])
+    same = bool((tk == tp).all()) and second["tokens"] == tk.tolist()
+    print(f"  smoke model f32, REPRO_TORCH_AUTOTUNE=1, fresh cache: "
+          f"{len(recs)} keys, each measured and written {first_ok} ("
+          + "; ".join(f"{r['key']} {knobs(at.Schedule(**r['schedule']))}"
+                      for r in recs)
+          + f"); tokens == plain path's and == the second process's "
+          f"{same}; second process: {hits} of {len(second['lookups'])} "
+          f"lookups hit the cache")
+    if not (first_ok and same and hits == len(second["lookups"])
+            == len(recs)):
+        fail("autotune: the tuned smoke model's tokens differ, or the second "
+             "process missed the cache")
+    return {"keys": len(recs), "second_hits": hits}
+
+
+def autotune_qwen3(dev, cfg=None, shape=(4, 1024, 32)) -> list:
+    """[autotune] (4): qwen3-1.7b generate() with the autotuner off, on,
+    on, off after a warm-up: prefill and decode ms per token (readings),
+    the on runs' lookups (hits of AUTOTUNE_CACHE) and the tokens that
+    differ from the first off run's."""
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import autotune as at
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_model
+
+    cfg = cfg or dataclasses.replace(
+        get_config("qwen3-1.7b"), attn=AttentionSpec.parse("fastmax2-kernel"))
+    B, P, G = shape
+    params = init_model(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device=dev)
+    runs = []
+    with torch.inference_mode():
+        with autotune_env("0"):
+            generate(params, cfg, prompts, G, device=dev)   # warm-up
+        for mode in ("0", "1", "1", "0"):
+            with autotune_env(mode, AUTOTUNE_CACHE):
+                at.clear_lookups()
+                timings = {}
+                toks = generate(params, cfg, prompts, G, device=dev,
+                                timings=timings)
+                torch.cuda.synchronize()
+                recs = at.snapshot_lookups()
+            runs.append({"mode": "on" if mode == "1" else "off",
+                         "prefill_ms": timings["prefill_ms"],
+                         "decode_ms": timings["decode_ms"]
+                         / timings["decode_steps"],
+                         "tokens": toks, "lookups": recs})
+    del params
+    torch.cuda.empty_cache()
+    ref_toks = runs[0]["tokens"]
+    for r in runs:
+        r["tokens_differ"] = int((r.pop("tokens") != ref_toks).sum().item())
+        recs = r.pop("lookups")
+        r["hits"] = sum(x["cache"] == "hit" for x in recs)
+        r["schedules"] = {x["kernel"]: knobs(at.Schedule(**x["schedule"]))
+                          for x in recs}
+    if any(r["mode"] == "on" and r["hits"] != len(r["schedules"])
+           for r in runs):
+        fail(f"autotune: a tuned qwen3 run missed the cache: {runs}")
+    print(f"  qwen3-1.7b bf16 B={B} P={P} G={G} generate(), autotuner off / "
+          f"on / on / off (readings): " + "; ".join(
+              f"{r['mode']} prefill {r['prefill_ms']:.1f} ms, decode "
+              f"{r['decode_ms']:.3f} ms/token, {r['tokens_differ']} of "
+              f"{B * G} tokens differ from the first off run"
+              + (f", schedules {r['schedules']}" if r["mode"] == "on" else "")
+              for r in runs))
+    return runs
+
+
+def autotune_phase(dev, smi: str) -> dict:
+    """[autotune]: (1) `autotune_candidates`, (2) `autotune_digests`,
+    (3) `autotune_smoke`, (4) `autotune_qwen3` at full width."""
+    t0 = time.monotonic()
+    out = {"keys": autotune_candidates(dev, smi),
+           "digests_equal": autotune_digests(),
+           "smoke": autotune_smoke(dev),
+           "qwen3": autotune_qwen3(dev)}
+    out["seconds"] = time.monotonic() - t0
+    phase("autotune", f"{len(out['keys'])} gate keys, every candidate within "
+          f"its kernel's limits and bit for bit (default / winner ms: "
+          + ", ".join(f"{k['key'].split('|')[0]} {k['ratio']:.3f}"
+                      for k in out["keys"])
+          + f"); {out['digests_equal']} digests with the autotuner off equal "
+          f"the parent's; tuned smoke tokens == plain, second process "
+          f"{out['smoke']['second_hits']} hits; phase {out['seconds']:.1f}s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -2926,6 +3282,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     ssm = ssm_phase(dev)
 
+    # ---- the schedule autotuner: candidates, mode off, tuned models ----
+    torch.cuda.empty_cache()
+    tuned = autotune_phase(dev, smi)
+
     kernels = [
         {"name": "fastmax_causal_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_causal.cu",
@@ -3028,6 +3388,7 @@ def main() -> None:
                             "params")}}))
     print(json.dumps({"ssm": {"jamba_8_layers": ssm["jamba"],
                               "xlstm_1_3b": ssm["xlstm"]}}))
+    print(json.dumps({"autotune": tuned}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -537,12 +537,6 @@ causal_combine_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Column groups of a combine pass: two (128 columns, one pass across
-// Dv = 128: the query features are built once, not twice) above 64 value
-// columns, else one. Launch A keeps one: at two its 128 registers a thread
-// halve the blocks an SM holds, and on an H100 it ran 5.9 against 5.3 ms.
-inline int column_groups(int Dv) { return Dv > kCols ? 2 : 1; }
-
 template <typename T, typename A>
 int launch_prefix(const void* k, const void* v, const void* w,
                   const State& init, const State& out, const void* gin,
@@ -581,13 +575,14 @@ int launch_combine(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// Launch B's instantiation by the column groups of a pass.
+// Launch B's instantiation by the column groups of a pass, ncg (the
+// caller's: 1 or 2, checked by combine_dispatch).
 template <typename T, typename A, bool kBand>
-int combine_of(const void* q, const void* k, const void* v, const void* w,
-               const void* wsm, const void* wsg, void* o, int bh, int G,
-               int N, int t_begin, int n, int D, int Dv, int p, int w_eff,
-               float eps, cudaStream_t s) {
-  if (column_groups(Dv) == 2)
+int combine_of(int ncg, const void* q, const void* k, const void* v,
+               const void* w, const void* wsm, const void* wsg, void* o,
+               int bh, int G, int N, int t_begin, int n, int D, int Dv, int p,
+               int w_eff, float eps, cudaStream_t s) {
+  if (ncg == 2)
     return launch_combine<T, 2, A, kBand>(q, k, v, w, wsm, wsg, o, bh, G, N,
                                           t_begin, n, D, Dv, p, w_eff, eps,
                                           s);
@@ -609,28 +604,31 @@ State state_of(const void* m0, const void* m1, const void* m2,
 }
 
 // Launch B by dtype (0 = float32 q/k/v/o, 1 = bfloat16) and p: the
-// denominator in f64 at p = 1 (see the header), f32 at p = 2.
+// denominator in f64 at p = 1 (see the header), f32 at p = 2. ncg: the
+// column groups of a pass, 1, or 2 where Dv > 64 (a second group past Dv
+// would only compute padding).
 template <bool kBand>
 int combine_dispatch(int dtype, const void* q, const void* k, const void* v,
                      const void* w, const void* wsm, const void* wsg, void* o,
                      int bh, int G, int N, int t_begin, int n, int D, int Dv,
-                     int p, int w_eff, float eps, void* stream) {
-  if (!dims_ok(bh, G, N, t_begin, n, D, Dv, p))
+                     int p, int w_eff, int ncg, float eps, void* stream) {
+  if (!dims_ok(bh, G, N, t_begin, n, D, Dv, p) || ncg < 1 || ncg > 2 ||
+      (ncg - 1) * kCols >= Dv)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return p == 1 ? combine_of<float, double, kBand>(
-                        q, k, v, w, wsm, wsg, o, bh, G, N, t_begin, n, D, Dv,
-                        p, w_eff, eps, s)
+                        ncg, q, k, v, w, wsm, wsg, o, bh, G, N, t_begin, n, D,
+                        Dv, p, w_eff, eps, s)
                   : combine_of<float, float, kBand>(
-                        q, k, v, w, wsm, wsg, o, bh, G, N, t_begin, n, D, Dv,
-                        p, w_eff, eps, s);
+                        ncg, q, k, v, w, wsm, wsg, o, bh, G, N, t_begin, n, D,
+                        Dv, p, w_eff, eps, s);
   return p == 1 ? combine_of<__nv_bfloat16, double, kBand>(
-                      q, k, v, w, wsm, wsg, o, bh, G, N, t_begin, n, D, Dv, p,
-                      w_eff, eps, s)
+                      ncg, q, k, v, w, wsm, wsg, o, bh, G, N, t_begin, n, D,
+                      Dv, p, w_eff, eps, s)
                 : combine_of<__nv_bfloat16, float, kBand>(
-                      q, k, v, w, wsm, wsg, o, bh, G, N, t_begin, n, D, Dv, p,
-                      w_eff, eps, s);
+                      ncg, q, k, v, w, wsm, wsg, o, bh, G, N, t_begin, n, D,
+                      Dv, p, w_eff, eps, s);
 }
 
 }  // namespace
@@ -674,14 +672,15 @@ int fastmax_causal_prefix(int dtype, const void* k, const void* v,
 }
 
 // Launch B alone, on the workspace launch A wrote for the same tokens
-// [t_begin, t_begin + n) of N. dtype as above (q, k, v and o).
+// [t_begin, t_begin + n) of N. dtype as above (q, k, v and o); ncg the
+// column groups of a pass (64 value columns each).
 int fastmax_causal_combine(int dtype, const void* q, const void* k,
                            const void* v, const void* w, const void* wsm,
                            const void* wsg, void* o, int bh, int G, int N,
-                           int t_begin, int n, int D, int Dv, int p,
+                           int t_begin, int n, int D, int Dv, int p, int ncg,
                            float eps, void* stream) {
   return combine_dispatch<false>(dtype, q, k, v, w, wsm, wsg, o, bh, G, N,
-                                 t_begin, n, D, Dv, p, 0, eps, stream);
+                                 t_begin, n, D, Dv, p, 0, ncg, eps, stream);
 }
 
 // The hybrid's launch B: launch B with the band of w_eff >= 1 tokens (the
@@ -692,10 +691,11 @@ int hybrid_causal_combine(int dtype, const void* q, const void* k,
                           const void* v, const void* w, const void* wsm,
                           const void* wsg, void* o, int bh, int G, int N,
                           int t_begin, int n, int D, int Dv, int p,
-                          int w_eff, float eps, void* stream) {
+                          int w_eff, int ncg, float eps, void* stream) {
   if (w_eff < 1) return (int)cudaErrorInvalidValue;
   return combine_dispatch<true>(dtype, q, k, v, w, wsm, wsg, o, bh, G, N,
-                                t_begin, n, D, Dv, p, w_eff, eps, stream);
+                                t_begin, n, D, Dv, p, w_eff, ncg, eps,
+                                stream);
 }
 
 }  // extern "C"

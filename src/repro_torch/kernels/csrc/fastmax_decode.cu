@@ -33,11 +33,11 @@
 //
 // Any G (the Pallas kernel takes any): a block holds at most kMaxG = 16
 // queries' partials in registers, so the C entry runs the pair of launches
-// once per group of at most 16 queries of each head, in order. Only the
-// first group folds the token into the moments (`upd`); each later group
-// reads the updated moments and contracts with them. At G <= 16 that is
-// one pair, as before. The m2 scratch is reused from group to group (the
-// launches are ordered on the stream).
+// once per group of at most `group` (1..16, the caller's) queries of each
+// head, in order. Only the first group folds the token into the moments
+// (`upd`); each later group reads the updated moments and contracts with
+// them. At G <= group that is one pair. The m2 scratch is reused from
+// group to group (the launches are ordered on the stream).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -250,7 +250,7 @@ int launch(const void* q, const void* k, const void* v, void* m0, void* m1,
   return (int)cudaGetLastError();
 }
 
-// One group of GT = min(16, G - j0) queries at query j0 of each head.
+// One group of GT = min(group, G - j0) queries at query j0 of each head.
 template <typename T>
 int launch_group(int GT, const void* q, const void* k, const void* v,
                  void* m0, void* m1, void* m2, void* g0, void* g1, void* g2,
@@ -281,12 +281,12 @@ int launch_group(int GT, const void* q, const void* k, const void* v,
 }
 
 template <typename T>
-int launch_any_g(int G, const void* q, const void* k, const void* v,
-                 void* m0, void* m1, void* m2, void* g0, void* g1, void* g2,
-                 void* part, void* o, int bh, int D, int Dv, int p, int rows,
-                 float eps, cudaStream_t s) {
-  for (int j0 = 0; j0 < G; j0 += kMaxG) {
-    const int err = launch_group<T>(G - j0 < kMaxG ? G - j0 : kMaxG, q, k, v,
+int launch_any_g(int G, int group, const void* q, const void* k,
+                 const void* v, void* m0, void* m1, void* m2, void* g0,
+                 void* g1, void* g2, void* part, void* o, int bh, int D,
+                 int Dv, int p, int rows, float eps, cudaStream_t s) {
+  for (int j0 = 0; j0 < G; j0 += group) {
+    const int err = launch_group<T>(G - j0 < group ? G - j0 : group, q, k, v,
                                     m0, m1, m2, g0, g1, g2, part, o, bh, D,
                                     Dv, p, rows, eps, G, j0, s);
     if (err != 0) return err;
@@ -299,19 +299,23 @@ int launch_any_g(int G, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32 inputs/output, 1 = bfloat16. State is always f32.
+// rows: m2 rows a block of the first launch owns (>= 1); group: queries
+// of one head per launch pair (1..kMaxG); part holds
+// [bh, ceil(D*D / rows), min(G, group), Dv] f32.
 int fastmax_decode_step(int dtype, const void* q, const void* k,
                         const void* v, void* m0, void* m1, void* m2,
                         void* g0, void* g1, void* g2, void* part, void* o,
                         int bh, int G, int D, int Dv, int p, int rows,
-                        float eps, void* stream) {
-  if (G < 1 || Dv % 4 || Dv / 4 > kM2Threads)
+                        int group, float eps, void* stream) {
+  if (G < 1 || Dv % 4 || Dv / 4 > kM2Threads || rows < 1 || group < 1 ||
+      group > kMaxG)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_any_g<float>(G, q, k, v, m0, m1, m2, g0, g1, g2, part, o,
-                               bh, D, Dv, p, rows, eps, s);
-  return launch_any_g<__nv_bfloat16>(G, q, k, v, m0, m1, m2, g0, g1, g2,
-                                     part, o, bh, D, Dv, p, rows, eps, s);
+    return launch_any_g<float>(G, group, q, k, v, m0, m1, m2, g0, g1, g2,
+                               part, o, bh, D, Dv, p, rows, eps, s);
+  return launch_any_g<__nv_bfloat16>(G, group, q, k, v, m0, m1, m2, g0, g1,
+                                     g2, part, o, bh, D, Dv, p, rows, eps, s);
 }
 
 }  // extern "C"

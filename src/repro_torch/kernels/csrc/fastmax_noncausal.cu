@@ -72,7 +72,7 @@
 //     and runs four k8 steps; the same features are summed into the g
 //     column, written by the first column block. Both halves of a pair row
 //     are written.
-//   * combine, many query rows (`combine_rows_kernel`, G*N > 16): one block
+//   * combine, many query rows (`combine_rows_kernel`, G*N > split): one block
 //     of 4 warps per (64 query rows, bh); warp w owns 16 query rows. It walks
 //     the moment rows in stages of 32 from L2 (every block of a bh reads the
 //     same ones) by cp.async into a double buffer, split into B fragment
@@ -83,12 +83,13 @@
 //     loops over the column blocks and divides by the first one's
 //     denominators.
 //   * combine, few query rows (`combine_split_kernel` + `combine_sum_kernel`,
-//     G*N <= 16, every decode step's cross-attention; CUDA cores): one block
-//     per head would read its moments on only B*Hkv of 132 SMs, so the
+//     G*N <= split, every decode step's cross-attention; CUDA cores): one
+//     block per head would read its moments on only B*Hkv of 132 SMs, so the
 //     moment rows are split across blocks (float4 loads, coalesced across
 //     the warp); each block writes partial numerators and denominators, and
 //     the second launch sums them in a FIXED order (split 0, 1, ...) and
-//     divides.
+//     divides. `split` (at most kMaxQ = 16, the largest query tile) and
+//     the split combine's `rows` per block are the caller's launch knobs.
 // No float atomics: greedy tokens must not change from run to run. All
 // launches use the caller's stream; each C entry returns cudaGetLastError()
 // after its launches. Requires D % 4 == 0, Dv % 4 == 0, 4 <= D <= 255 and
@@ -476,7 +477,7 @@ combine_rows_kernel(const T* __restrict__ q, const float* __restrict__ m0,
 }
 
 // ---------------------------------------------------------------------------
-// Combine, few query rows (G*N <= kMaxQ). Launch 1: grid (nsplit, BH), each
+// Combine, few query rows (G*N <= split <= kMaxQ). Launch 1: grid (nsplit, BH), each
 // block owns `rows` consecutive feature rows and all Dv columns; a thread
 // owns 4 columns of every rpar-th row. part [BH, nsplit, QT, Dv + 1]: the
 // partial numerators, then the partial denominator.
@@ -669,9 +670,6 @@ extern "C" {
 // Number of feature rows R (the split combine's `rows` cut them).
 int fastmax_noncausal_rows(int D, int p) { return n_rows(D, p); }
 
-// Query rows per (batch, kv-head) up to which the combine is split.
-int fastmax_noncausal_max_split_rows(void) { return kMaxQ; }
-
 // dtype: 0 = float32 k/v, 1 = bfloat16. Moments are f32, written whole
 // (m2 and g2 only at p = 2).
 int fastmax_noncausal_moments(int dtype, const void* k, const void* v,
@@ -691,22 +689,23 @@ int fastmax_noncausal_moments(int dtype, const void* k, const void* v,
 }
 
 // dtype: 0 = float32 q/o, 1 = bfloat16. mom: the six f32 moment pointers
-// (m0, m1, m2, g0, g1, g2). With G*N <= 16 the split path runs and needs
-// `part`, f32 [bh, ceil(R / rows), QT, Dv + 1] with QT the power of two
-// >= G*N; otherwise `part` and `rows` are unused.
+// (m0, m1, m2, g0, g1, g2). With G*N <= split (the caller's, 0..kMaxQ) the
+// split path runs and needs `part`, f32 [bh, ceil(R / rows), QT, Dv + 1]
+// with QT the power of two >= G*N; otherwise `part` and `rows` are unused.
 int fastmax_noncausal_combine(int dtype, const void* q, void* m0, void* m1,
                               void* m2, void* g0, void* g1, void* g2,
                               void* part, void* o, int bh, int G, int N,
-                              int D, int Dv, int p, int rows, float eps,
-                              void* stream) {
-  if (!dims_ok(D, Dv, p) || G < 1 || N < 1) return (int)cudaErrorInvalidValue;
+                              int D, int Dv, int p, int rows, int split,
+                              float eps, void* stream) {
+  if (!dims_ok(D, Dv, p) || G < 1 || N < 1 || split < 0 || split > kMaxQ)
+    return (int)cudaErrorInvalidValue;
   if (!aligned(16, {m0, m1, m2, g0, g1, g2}) ||
       !aligned(dtype == 0 ? 8 : 4, {o}))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* mom[6] = {m0, m1, m2, g0, g1, g2};
   const int gn = G * N;
-  if (gn <= kMaxQ) {
+  if (gn <= split) {
     if (rows < 1 || Dv / 4 > kThreads) return (int)cudaErrorInvalidValue;
     int qt = 1;
     while (qt < gn) qt *= 2;

@@ -21,8 +21,8 @@ import torch
 from repro_torch.core.fastmax import Moments, _causal_scan
 
 __all__ = ["fastmax_causal_cuda", "fastmax_causal_ref", "prefill_call",
-           "CHUNK", "feature_rows", "segment_tokens", "workspace_bytes",
-           "check_kernel_inputs", "launches"]
+           "CHUNK", "COLS", "column_groups", "feature_rows", "segment_tokens",
+           "workspace_bytes", "check_kernel_inputs", "launches"]
 
 # calls of `fastmax_causal_cuda` that launched the kernel (one per call,
 # though each call makes two CUDA launches: prefix moments, then combine)
@@ -30,6 +30,8 @@ launches = 0
 
 # the prefill kernel's chunk L: keys per workspace slot (kL in the source)
 CHUNK = 128
+# value columns of one column group of the combine (kCols in the source)
+COLS = 64
 # bytes of workspace slots one call may hold: longer prompts run the two
 # launches over segments of the tokens, each seeded with the last's carry
 _WORKSPACE_BUDGET = 2 << 30
@@ -47,15 +49,27 @@ def _lib():
             + [ctypes.c_void_p])
         lib.fastmax_causal_prefix.restype = ctypes.c_int
         lib.fastmax_causal_combine.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_void_p])
         lib.fastmax_causal_combine.restype = ctypes.c_int
         lib.hybrid_causal_combine.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
             + [ctypes.c_float, ctypes.c_void_p])
         lib.hybrid_causal_combine.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def column_groups(dv: int) -> int:
+    """The combine's default launch knob, column groups of `COLS` value
+    columns a pass (the default of `kernels.autotune`'s `cols`, 64 x this;
+    a `schedule` overrides it per call). Two (128 columns, one pass across
+    Dv = 128: the query features are built once, not twice) above 64 value
+    columns, else one: two hold twice the accumulators in registers, so an
+    SM holds fewer blocks. Launch A keeps one: at two its 128 registers a
+    thread halve the blocks an SM holds, and on an H100 it ran 5.9 against
+    5.3 ms."""
+    return 2 if dv > COLS else 1
 
 
 def feature_rows(d: int, p: int) -> int:
@@ -147,9 +161,11 @@ class _Prefill:
     outputs and workspace allocated: `prefix(i)` and `combine(i)` make the
     two CUDA launches of segment i (timed apart by `chip_smoke.py`),
     `run()` every segment's in order. With `band` = w_eff >= 1 the combine
-    is the hybrid kernel's (no `init_state`)."""
+    is the hybrid kernel's (no `init_state`). `schedule.cols` (None:
+    `column_groups`) sets the combine's value columns a pass."""
 
-    def __init__(self, q, k, v, kv_mask, p, denom_eps, init_state, band=0):
+    def __init__(self, q, k, v, kv_mask, p, denom_eps, init_state, band=0,
+                 schedule=None):
         self.w = check_kernel_inputs(
             q, k, v, kv_mask, p,
             "hybrid_causal_cuda" if band else "fastmax_causal_cuda")
@@ -179,6 +195,11 @@ class _Prefill:
                              f"segment of as many, got "
                              f"{self.segments[0][1]}")
         self.band = band
+        cols = COLS * column_groups(dv) if schedule is None else schedule.cols
+        if cols % COLS:
+            raise ValueError(f"schedule cols must be a multiple of {COLS}, "
+                             f"got {cols}")
+        self.ncg = cols // COLS
         self.workspace_bytes = workspace_bytes(self.bh, n, d, dv, p)
         r = self.bh * feature_rows(d, p)
         rows = -(-min(n, seg) // CHUNK) * r
@@ -229,10 +250,11 @@ class _Prefill:
             stream = torch.cuda.current_stream().cuda_stream
             if self.band:
                 self._check(self.lib.hybrid_causal_combine(
-                    *args, self.band, self.eps, stream), "hybrid combine")
+                    *args, self.band, self.ncg, self.eps, stream),
+                    "hybrid combine")
             else:
                 self._check(self.lib.fastmax_causal_combine(
-                    *args, self.eps, stream), "combine")
+                    *args, self.ncg, self.eps, stream), "combine")
 
     def run(self):
         for i in range(len(self.segments)):
@@ -243,21 +265,25 @@ class _Prefill:
 
 def prefill_call(q, k, v, kv_mask=None, *, p: int = 2,
                  denom_eps: float = 1e-6, init_state=None,
-                 band: int = 0) -> _Prefill:
+                 band: int = 0, schedule=None) -> _Prefill:
     """The prefill kernel's call on these inputs, checked and allocated but
     not launched (its `prefix(i)`, `combine(i)` and `run()` launch; none of
     them counts in `launches`). Arguments as `fastmax_causal_cuda`; `band`
     >= 1 makes it the hybrid kernel's call with w_eff = `band`
     (`hybrid_causal.band_width`), which takes no `init_state`."""
-    return _Prefill(q, k, v, kv_mask, p, denom_eps, init_state, band)
+    return _Prefill(q, k, v, kv_mask, p, denom_eps, init_state, band,
+                    schedule)
 
 
 def fastmax_causal_cuda(q, k, v, kv_mask=None, *, p: int = 2,
-                        denom_eps: float = 1e-6, init_state=None):
+                        denom_eps: float = 1e-6, init_state=None,
+                        schedule=None):
     """Launch the CUDA prefill kernel on pre-normalized q̂ [B,Hq,N,D],
     k̂ [B,Hkv,N,D], v [B,Hkv,N,Dv] (float32 or bfloat16, contiguous, on one
     CUDA device). `kv_mask` [B, Hkv|1, N] weights the keys; `init_state`
-    seeds the carry with a moment tuple in the state layout.
+    seeds the carry with a moment tuple in the state layout. `schedule`
+    (a `kernels.autotune.Schedule`, or None for `column_groups`) sets the
+    combine's value columns a pass (`cols`).
 
     Returns (o [B,Hq,N,Dv] in q's dtype, state): the final carry
     (m0, m1, m2, g0, g1, g2) in float32, m2 m-major [B,Hkv,D,D,Dv]; at
@@ -269,7 +295,7 @@ def fastmax_causal_cuda(q, k, v, kv_mask=None, *, p: int = 2,
     """
     global launches
     out = prefill_call(q, k, v, kv_mask, p=p, denom_eps=denom_eps,
-                       init_state=init_state).run()
+                       init_state=init_state, schedule=schedule).run()
     launches += 1
     return out
 

@@ -16,14 +16,21 @@ __all__ = ["fastmax_decode_cuda", "launches", "M2_ROWS_PER_BLOCK", "GROUP"]
 # kernel launches made by `fastmax_decode_cuda` (one per call)
 launches = 0
 
-# m2 rows each block of the first launch streams (16384 / 512 = 32 blocks
-# per (batch, kv-head) at D = 128)
+# Launch knobs, the defaults of `kernels.autotune`'s `rows` and `group`
+# (a `schedule` overrides them per call):
+# - m2 rows each block of the first launch streams (16384 / 512 = 32 blocks
+#   per (batch, kv-head) at D = 128). Fewer rows: more blocks against the
+#   132 SMs (at B * Hkv = 4, 128 of them), but more partial numerators for
+#   the second launch, one block per (batch, kv-head), to read and sum.
 M2_ROWS_PER_BLOCK = 512
+# - queries of one head a launch pair contracts at once (1..16, every group
+#   size is compiled): a larger G runs the pair once per group of at most
+#   this many, the token folded in by the first. A smaller group holds
+#   fewer partials in registers (more blocks an SM) but re-reads m2 once
+#   per group.
+GROUP = 16
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# queries of one head a launch pair contracts at once: a larger G runs the
-# pair once per group of at most this many, the token folded in by the first
-GROUP = 16
 
 
 def _lib():
@@ -32,7 +39,7 @@ def _lib():
     lib = build.load("fastmax_decode")
     if not getattr(lib, "_typed", False):
         lib.fastmax_decode_step.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+            [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_void_p])
         lib.fastmax_decode_step.restype = ctypes.c_int
         lib._typed = True
@@ -40,7 +47,7 @@ def _lib():
 
 
 def fastmax_decode_cuda(q, k, v, state, *, p: int = 2,
-                        denom_eps: float = 1e-6):
+                        denom_eps: float = 1e-6, schedule=None):
     """Launch the CUDA decode step on pre-normalized q̂ [B,Hq,1,D],
     k̂ [B,Hkv,1,D], v [B,Hkv,1,Dv] (float32 or bfloat16).
 
@@ -49,9 +56,12 @@ def fastmax_decode_cuda(q, k, v, state, *, p: int = 2,
     token folded in), never copied, so a leaf may be a view into a stacked
     per-layer state. Any G = Hq / Hkv: past `GROUP` queries per head the
     kernel's launch pair runs once per group of queries, and only the
-    first folds the token in. At p=1, m2 and g2 are left as they are. Returns
-    o [B,Hq,1,Dv] in q's dtype. Raises on any input the kernel does not
-    take and on a failed build or launch.
+    first folds the token in. At p=1, m2 and g2 are left as they are.
+    `schedule` (a `kernels.autotune.Schedule`, or None for
+    `M2_ROWS_PER_BLOCK` and `GROUP`) sets the launch's `rows` and `group`.
+    Returns o [B,Hq,1,Dv] in q's dtype. Raises on any input the kernel does
+    not take (a knob out of range included) and on a failed build or
+    launch.
     """
     global launches
     if p not in (1, 2):
@@ -90,9 +100,13 @@ def fastmax_decode_cuda(q, k, v, state, *, p: int = 2,
                 f"float32 {shp} on {dev}")
 
     g = hq // hkv
-    rows = min(M2_ROWS_PER_BLOCK, d * d)
+    rows, group = ((M2_ROWS_PER_BLOCK, GROUP) if schedule is None
+                   else (schedule.rows, schedule.group))
+    if rows < 1:
+        raise ValueError(f"schedule rows must be >= 1, got {rows}")
+    rows = min(rows, d * d)
     nsplit = -(-d * d // rows) if p >= 2 else 0
-    part = torch.empty(max(1, b * hkv * nsplit * min(g, GROUP) * dv),
+    part = torch.empty(max(1, b * hkv * nsplit * min(g, group) * dv),
                        dtype=torch.float32, device=dev)
     o = torch.empty(b, hq, 1, dv, dtype=q.dtype, device=dev)
     lib = _lib()
@@ -101,7 +115,7 @@ def fastmax_decode_cuda(q, k, v, state, *, p: int = 2,
         err = lib.fastmax_decode_step(
             _KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             *[t.data_ptr() for t in state], part.data_ptr(), o.data_ptr(),
-            b * hkv, g, d, dv, p, rows, float(denom_eps), stream)
+            b * hkv, g, d, dv, p, rows, group, float(denom_eps), stream)
     if err != 0:
         raise RuntimeError(f"fastmax_decode_step launch failed: CUDA error "
                            f"{err}")

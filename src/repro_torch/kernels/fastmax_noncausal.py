@@ -24,15 +24,25 @@ from repro_torch.core.fastmax import (Moments, _combine_grouped,
 __all__ = ["noncausal_moments_cuda", "noncausal_combine_cuda",
            "fastmax_noncausal_cuda", "noncausal_moments_ref",
            "noncausal_combine_ref", "fastmax_noncausal_ref",
-           "moment_launches", "combine_launches", "SPLIT_ROWS"]
+           "moment_launches", "combine_launches", "SPLIT_ROWS",
+           "MAX_SPLIT_ROWS"]
 
 # launches made by `noncausal_moments_cuda` / `noncausal_combine_cuda`
 # (one per call each)
 moment_launches = 0
 combine_launches = 0
 
-# feature rows each block of the split combine (few query rows) reads
+# Launch knobs of the combine, the defaults of `kernels.autotune`'s `rows`
+# and `split` (a `schedule` overrides them per call):
+# - feature rows each block of the split combine (few query rows) reads:
+#   fewer rows give more blocks against the 132 SMs (17 a (batch, kv-head)
+#   at whisper's R = 2145), and more partials for the sum launch to read.
 SPLIT_ROWS = 128
+# - the largest G·N (query rows a (batch, kv-head)) sent to the split
+#   combine rather than `combine_rows_kernel` (tensor cores, one block per
+#   64 query rows, each reading all R moment rows): kMaxQ in
+#   csrc/fastmax_noncausal.cu, the split combine's largest query tile.
+MAX_SPLIT_ROWS = 16
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,13 +57,11 @@ def _lib():
             + [ctypes.c_void_p])
         lib.fastmax_noncausal_moments.restype = ctypes.c_int
         lib.fastmax_noncausal_combine.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+            [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_void_p])
         lib.fastmax_noncausal_combine.restype = ctypes.c_int
         lib.fastmax_noncausal_rows.argtypes = [ctypes.c_int] * 2
         lib.fastmax_noncausal_rows.restype = ctypes.c_int
-        lib.fastmax_noncausal_max_split_rows.argtypes = []
-        lib.fastmax_noncausal_max_split_rows.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -131,12 +139,16 @@ def noncausal_moments_cuda(k, v, *, p: int = 2) -> Moments:
     return mom
 
 
-def noncausal_combine_cuda(q, mom, *, p: int = 2, denom_eps: float = 1e-6):
+def noncausal_combine_cuda(q, mom, *, p: int = 2, denom_eps: float = 1e-6,
+                           schedule=None):
     """Launch the combine kernel: pre-normalized q̂ [B,Hq,N,D] (float32 or
     bfloat16) against the moments `mom` (six contiguous float32 leaves in
-    `compute_moments`'s layout, Hq % Hkv == 0). Returns o [B,Hq,N,Dv] in
-    q's dtype. Raises on any input the kernel does not take and on a failed
-    build or launch."""
+    `compute_moments`'s layout, Hq % Hkv == 0). `schedule` (a
+    `kernels.autotune.Schedule`, or None for `SPLIT_ROWS` and
+    `MAX_SPLIT_ROWS`) sets the launch's `rows` and `split`. Returns
+    o [B,Hq,N,Dv] in q's dtype. Raises on any input the kernel does not
+    take (a knob out of range included) and on a failed build or
+    launch."""
     global combine_launches
     _check_p(p)
     if q.dim() != 4:
@@ -158,11 +170,15 @@ def noncausal_combine_cuda(q, mom, *, p: int = 2, denom_eps: float = 1e-6):
                 f"(contiguous={t.is_contiguous()}); expected contiguous "
                 f"float32 {shp} on {dev}")
     g = hq // hkv
+    rows, split = ((SPLIT_ROWS, MAX_SPLIT_ROWS) if schedule is None
+                   else (schedule.rows, schedule.split))
+    if rows < 1:
+        raise ValueError(f"schedule rows must be >= 1, got {rows}")
     lib = _lib()
     part = None
-    if g * n <= lib.fastmax_noncausal_max_split_rows():
+    if g * n <= split:
         qt = 1 << (g * n - 1).bit_length()
-        nsplit = -(-lib.fastmax_noncausal_rows(d, p) // SPLIT_ROWS)
+        nsplit = -(-lib.fastmax_noncausal_rows(d, p) // rows)
         part = torch.empty(b * hkv * nsplit * qt * (dv + 1),
                            dtype=torch.float32, device=dev)
     o = torch.empty(b, hq, n, dv, dtype=q.dtype, device=dev)
@@ -172,7 +188,7 @@ def noncausal_combine_cuda(q, mom, *, p: int = 2, denom_eps: float = 1e-6):
             _KERNEL_DTYPES[q.dtype], q.data_ptr(),
             *[t.data_ptr() for t in mom],
             None if part is None else part.data_ptr(), o.data_ptr(),
-            b * hkv, g, n, d, dv, p, SPLIT_ROWS, float(denom_eps), stream)
+            b * hkv, g, n, d, dv, p, rows, split, float(denom_eps), stream)
     if err != 0:
         raise RuntimeError(f"fastmax_noncausal_combine launch failed: CUDA "
                            f"error {err}")
@@ -180,10 +196,12 @@ def noncausal_combine_cuda(q, mom, *, p: int = 2, denom_eps: float = 1e-6):
     return o
 
 
-def fastmax_noncausal_cuda(q, k, v, *, p: int = 2, denom_eps: float = 1e-6):
+def fastmax_noncausal_cuda(q, k, v, *, p: int = 2, denom_eps: float = 1e-6,
+                           schedule=None):
     """Both launches: o [B,Hq,N,Dv] in q's dtype for pre-normalized
     q̂ [B,Hq,N,D], k̂ [B,Hkv,M,D], v [B,Hkv,M,Dv] (one dtype, float32 or
-    bfloat16)."""
+    bfloat16). `schedule` sets the combine's knobs (the moments have
+    none)."""
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q/k/v must share one dtype, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -191,7 +209,8 @@ def fastmax_noncausal_cuda(q, k, v, *, p: int = 2, denom_eps: float = 1e-6):
         raise ValueError(f"shape mismatch q{tuple(q.shape)} "
                          f"k{tuple(k.shape)}")
     mom = noncausal_moments_cuda(k, v, p=p)
-    return noncausal_combine_cuda(q, mom, p=p, denom_eps=denom_eps)
+    return noncausal_combine_cuda(q, mom, p=p, denom_eps=denom_eps,
+                                  schedule=schedule)
 
 
 def noncausal_moments_ref(k, v, *, p: int = 2,

@@ -39,7 +39,8 @@ def band_width(window: int, chunk_size: int, n: int) -> int:
 
 def hybrid_causal_cuda(q, k, v, kv_mask=None, *, p: int = 2,
                        window: int = 64, chunk_size: int = 128,
-                       denom_eps: float = 1e-6, return_state: bool = False):
+                       denom_eps: float = 1e-6, return_state: bool = False,
+                       schedule=None):
     """Launch the CUDA hybrid kernel on pre-normalized q̂ [B,Hq,N,D],
     k̂ [B,Hkv,N,D], v [B,Hkv,N,Dv] (float32 or bfloat16, contiguous, on
     one CUDA device); `kv_mask` [B, Hkv|1, N] removes keys from both legs.
@@ -48,7 +49,9 @@ def hybrid_causal_cuda(q, k, v, kv_mask=None, *, p: int = 2,
     Returns o [B,Hq,N,Dv] in q's dtype, or (o, state) with
     `return_state`: the final moment carry (m0, m1, m2, g0, g1, g2) in
     float32, m2 m-major [B,Hkv,D,D,Dv], zeros for m2 and g2 at p=1. At
-    w_eff = 0 this is `fastmax_causal_cuda`. Raises on any input the
+    w_eff = 0 this is `fastmax_causal_cuda`. `schedule` sets the band
+    combine's value columns a pass, as `fastmax_causal_cuda`'s sets its
+    combine's. Raises on any input the
     kernel does not take and on a failed build or launch. Each call with
     a band adds one to `launches` (not to `fastmax_causal.launches`); its
     workspace (`fastmax_causal.workspace_bytes`) is freed on return.
@@ -58,10 +61,11 @@ def hybrid_causal_cuda(q, k, v, kv_mask=None, *, p: int = 2,
     w_eff = band_width(window, chunk_size, q.shape[2])
     if w_eff == 0:
         o, state = _fc.fastmax_causal_cuda(q, k, v, kv_mask, p=p,
-                                           denom_eps=denom_eps)
+                                           denom_eps=denom_eps,
+                                           schedule=schedule)
         return (o, state) if return_state else o
     o, state = _fc.prefill_call(q, k, v, kv_mask, p=p, denom_eps=denom_eps,
-                                band=w_eff).run()
+                                band=w_eff, schedule=schedule).run()
     launches += 1
     return (o, state) if return_state else o
 

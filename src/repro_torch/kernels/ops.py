@@ -13,6 +13,15 @@ carry, with the plain band-extended §2.5 reverse scan
 (`core.hybrid.hybrid_bwd_scan`) seeded by that carry, as the reference
 does (it has no hybrid backward kernel). `hybrid_prefill_kernel` is the
 hybrid kernel's serving route: the prompt's o and final moments.
+
+Every kernel launch consults the schedule autotuner once
+(`kernels.autotune.lookup_schedule`, as the reference's ops do): with
+REPRO_TORCH_AUTOTUNE off it returns None and the wrappers launch with their
+own constants. A `schedule=` forces one `autotune.Schedule` on the call's
+forward launches (tests); one the kernel does not take at the launch's
+shape raises ValueError. The backward kernel has no knob, so it makes no
+lookup and takes no schedule. CPU tensors take the plain versions: the
+schedule is chosen but has no effect.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import torch
 
 from repro_torch.core import hybrid as _hy
 from repro_torch.core.fastmax import Moments
+from repro_torch.kernels import autotune as _at
 from repro_torch.kernels import fastmax_causal as _fc
 from repro_torch.kernels import fastmax_causal_bwd as _fb
 from repro_torch.kernels import fastmax_decode as _fd
@@ -40,14 +50,27 @@ def _route(x: torch.Tensor) -> str:
     raise ValueError(f"no fastmax kernel for device {x.device}")
 
 
+def _lookup(kernel: str, q, k, v, p: int, schedule):
+    """The launch's schedule: the forced one (checked against the kernel
+    and shape), else the autotuner's (None when it is off: the wrapper's
+    constants)."""
+    shape = dict(n=q.shape[2], d=q.shape[3], dv=v.shape[-1],
+                 g=q.shape[1] // k.shape[1], bh=q.shape[0] * k.shape[1], p=p,
+                 dtype=q.dtype, device=q.device)
+    if schedule is not None:
+        return _at.check_schedule(kernel, schedule, **shape)
+    return _at.lookup_schedule(kernel, **shape)
+
+
 class _FastmaxCausal(torch.autograd.Function):
     """Causal fastmax on pre-normalized q̂/k̂: the forward kernel (which
     emits its final carry) paired with the §2.5 backward kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, p, chunk_size, denom_eps):
+    def forward(ctx, q, k, v, p, chunk_size, denom_eps, schedule):
         o, state = fastmax_prefill_kernel(q, k, v, p=p, chunk_size=chunk_size,
-                                          denom_eps=denom_eps)
+                                          denom_eps=denom_eps,
+                                          schedule=schedule)
         if p < 2:
             # don't hold the [B,Hkv,D,D,Dv] zeros placeholder as a residual
             state = state[:2] + (None,) + state[3:5] + (None,)
@@ -63,7 +86,7 @@ class _FastmaxCausal(torch.autograd.Function):
             st = st[:2] + [None] + st[2:] + [None]
         dq, dk, dv = fastmax_bwd(q, k, v, tuple(st), do, p=p,
                                  chunk_size=chunk_size, denom_eps=denom_eps)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 class _FastmaxNoncausal(torch.autograd.Function):
@@ -73,11 +96,13 @@ class _FastmaxNoncausal(torch.autograd.Function):
     as the reference's `_fnc_bwd` is."""
 
     @staticmethod
-    def forward(ctx, q, k, v, p, chunk_size, denom_eps):
+    def forward(ctx, q, k, v, p, chunk_size, denom_eps, schedule):
+        schedule = _lookup("noncausal", q, k, v, p, schedule)
         if _route(q) == "cuda":
             o = _fn.fastmax_noncausal_cuda(q.contiguous(), k.contiguous(),
                                            v.contiguous(), p=p,
-                                           denom_eps=denom_eps)
+                                           denom_eps=denom_eps,
+                                           schedule=schedule)
         else:
             o = _fn.fastmax_noncausal_ref(q, k, v, p=p,
                                           chunk_size=chunk_size,
@@ -95,18 +120,20 @@ class _FastmaxNoncausal(torch.autograd.Function):
                                           chunk_size=max(chunk_size, 512),
                                           denom_eps=denom_eps)
             dq, dk, dv = torch.autograd.grad(o, prim, do)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def fastmax(q, k, v, *, p: int = 2, causal: bool = True,
-            chunk_size: int = 128, denom_eps: float = 1e-6):
+            chunk_size: int = 128, denom_eps: float = 1e-6, schedule=None):
     """Trainable kernel-backed fastmax on pre-normalized q̂/k̂ (GQA-aware),
     o in q's dtype. Noncausal k, v may hold M != N keys (cross-attention).
     `chunk_size` is the plain versions' chunk; the kernels pick their
-    own."""
+    own. `schedule` forces one schedule on the forward's launches (the
+    backward kernel has none)."""
     if not causal:
-        return _FastmaxNoncausal.apply(q, k, v, p, chunk_size, denom_eps)
-    return _FastmaxCausal.apply(q, k, v, p, chunk_size, denom_eps)
+        return _FastmaxNoncausal.apply(q, k, v, p, chunk_size, denom_eps,
+                                       schedule)
+    return _FastmaxCausal.apply(q, k, v, p, chunk_size, denom_eps, schedule)
 
 
 class _HybridCausal(torch.autograd.Function):
@@ -116,12 +143,14 @@ class _HybridCausal(torch.autograd.Function):
     `chunk_size` (the band w_eff depends on it)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, p, window, chunk_size, denom_eps):
+    def forward(ctx, q, k, v, p, window, chunk_size, denom_eps, schedule):
         kw = dict(p=p, window=window, chunk_size=chunk_size,
                   denom_eps=denom_eps, return_state=True)
+        schedule = _lookup("hybrid_fwd", q, k, v, p, schedule)
         if _route(q) == "cuda":
             o, state = _hc.hybrid_causal_cuda(q.contiguous(), k.contiguous(),
-                                              v.contiguous(), **kw)
+                                              v.contiguous(), **kw,
+                                              schedule=schedule)
         else:
             o, state = _hc.hybrid_causal_ref(q, k, v, **kw)
         if p < 2:
@@ -142,20 +171,22 @@ class _HybridCausal(torch.autograd.Function):
                   g1.new_zeros(g1.shape[:2] + (d, d))]
         dq, dk, dv = _hy.hybrid_bwd_scan(q, k, v, Moments(*st), do,
                                          **ctx.cfg)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def hybrid(q, k, v, *, p: int = 2, window: int = 64, causal: bool = True,
-           chunk_size: int = 128, denom_eps: float = 1e-6):
+           chunk_size: int = 128, denom_eps: float = 1e-6, schedule=None):
     """Trainable kernel-backed hybrid attention on pre-normalized q̂/k̂
     (causal only), o in q's dtype. The band is w_eff = min(window,
-    chunk_size); at w_eff = 0 this is `fastmax()`."""
+    chunk_size); at w_eff = 0 this is `fastmax()`. `schedule` forces one
+    schedule on the hybrid kernel's launch."""
     if not causal:
         raise ValueError("hybrid kernels are causal-only")
     if _hy.effective_window(window, chunk_size) == 0:
         return fastmax(q, k, v, p=p, causal=True, chunk_size=chunk_size,
-                       denom_eps=denom_eps)
-    return _HybridCausal.apply(q, k, v, p, window, chunk_size, denom_eps)
+                       denom_eps=denom_eps, schedule=schedule)
+    return _HybridCausal.apply(q, k, v, p, window, chunk_size, denom_eps,
+                               schedule)
 
 
 def fastmax_bwd(q, k, v, state, do, *, p: int = 2, chunk_size: int = 128,
@@ -177,17 +208,18 @@ def fastmax_bwd(q, k, v, state, do, *, p: int = 2, chunk_size: int = 128,
 
 def fastmax_prefill_kernel(q, k, v, *, p: int = 2, chunk_size: int = 128,
                            denom_eps: float = 1e-6, kv_mask=None,
-                           init_state=None):
+                           init_state=None, schedule=None):
     """Causal prefill on pre-normalized q̂/k̂. Returns (o, state): o in q's
     dtype and the final moment carry (m0, m1, m2, g0, g1, g2), m2 m-major
     [B,Hkv,D,D,Dv] — the layout `fastmax_decode` reads. `init_state`
     seeds the carry (resumable prefill); `kv_mask` [B, Hkv|1, N] weights
     the keys. `chunk_size` is the plain version's chunk; the kernel picks
     its own (the fold is associative: only rounding differs)."""
+    schedule = _lookup("causal_fwd", q, k, v, p, schedule)
     if _route(q) == "cuda":
         return _fc.fastmax_causal_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), kv_mask, p=p,
-            denom_eps=denom_eps, init_state=init_state)
+            denom_eps=denom_eps, init_state=init_state, schedule=schedule)
     return _fc.fastmax_causal_ref(q, k, v, kv_mask, p=p,
                                   chunk_size=chunk_size, denom_eps=denom_eps,
                                   init_state=init_state)
@@ -195,7 +227,7 @@ def fastmax_prefill_kernel(q, k, v, *, p: int = 2, chunk_size: int = 128,
 
 def hybrid_prefill_kernel(q, k, v, *, p: int = 2, window: int = 64,
                           chunk_size: int = 128, denom_eps: float = 1e-6,
-                          kv_mask=None):
+                          kv_mask=None, schedule=None):
     """Hybrid causal prefill on pre-normalized q̂/k̂ (no carried state).
     Returns (o, state): o in q's dtype and the final moment carry in the
     layout of `fastmax_prefill_kernel`. `kv_mask` [B, Hkv|1, N] removes
@@ -204,20 +236,24 @@ def hybrid_prefill_kernel(q, k, v, *, p: int = 2, window: int = 64,
     `chunk_size`)."""
     kw = dict(p=p, window=window, chunk_size=chunk_size,
               denom_eps=denom_eps, return_state=True)
+    schedule = _lookup("hybrid_fwd", q, k, v, p, schedule)
     if _route(q) == "cuda":
         return _hc.hybrid_causal_cuda(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), kv_mask, **kw)
+                                      v.contiguous(), kv_mask, **kw,
+                                      schedule=schedule)
     return _hc.hybrid_causal_ref(q, k, v, kv_mask, **kw)
 
 
-def fastmax_decode(q, k, v, state, *, p: int = 2, denom_eps: float = 1e-6):
+def fastmax_decode(q, k, v, state, *, p: int = 2, denom_eps: float = 1e-6,
+                   schedule=None):
     """One decode step on pre-normalized q̂/k̂: folds (k̂, v) into `state`
     IN PLACE (the tensors of the moment tuple are mutated) and returns
     o [B,Hq,1,Dv] in q's dtype, computed against the updated moments."""
+    schedule = _lookup("decode", q, k, v, p, schedule)
     if _route(q) == "cuda":
         return _fd.fastmax_decode_cuda(q.contiguous(), k.contiguous(),
                                        v.contiguous(), tuple(state), p=p,
-                                       denom_eps=denom_eps)
+                                       denom_eps=denom_eps, schedule=schedule)
     o, new = fastmax_decode_ref(q, k, v, tuple(state), p=p,
                                 denom_eps=denom_eps)
     for dst, src in zip(state, new):

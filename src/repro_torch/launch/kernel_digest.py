@@ -1,6 +1,6 @@
 """Digests of the port's kernels' outputs on the card.
 
-  python3 src/repro_torch/launch/kernel_digest.py [--src DIR]
+  python3 src/repro_torch/launch/kernel_digest.py [--src DIR] [--expect FILE]
 
 Runs the causal prefill kernel (o and all six moments; float32 and
 bfloat16 inputs, p = 1 and 2, with a kv_mask and an init_state, at
@@ -16,7 +16,11 @@ sha256 of its bytes, then one line of the digest of all of them.
 Two trees whose kernels give the same bits print the same lines: run it
 once with `--src` pointing at the other tree's `src` directory (its
 `repro_torch` is imported instead of this one's) and compare the output.
-Needs a CUDA card.
+`--expect FILE` compares the lines with a file of them instead, and exits
+non-zero on any difference: `kernel_digests.txt` beside this script holds
+the lines of the commit that last changed a kernel's outputs, on an
+NVIDIA H100. The wrappers run with their own constants (no schedule), as
+the kernel ops do with the autotuner off. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -33,12 +37,15 @@ def _digest(t) -> str:
     return hashlib.sha256(raw.tobytes()).hexdigest()
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]),
-                    help="the `src` directory whose repro_torch to import")
-    args = ap.parse_args(argv)
-    sys.path.insert(0, args.src)
+EXPECTED = Path(__file__).resolve().parent / "kernel_digests.txt"
+
+
+def digest_lines(src=None) -> list:
+    """One `name sha256` line per output tensor, then the digest of them
+    all; `src` (default: this tree's) is the `src` directory whose
+    repro_torch to import."""
+    if src is not None:
+        sys.path.insert(0, str(src))
     import torch
 
     from repro_torch.core.ref import normalize_qk
@@ -128,9 +135,37 @@ def main(argv=None) -> None:
                     emit(f"noncausal combine N={n} p={p} {str(dtype)[6:]}",
                          (noncausal_combine_cuda(q, mom, p=p),))
     torch.cuda.synchronize()
-    print("\n".join(lines))
     whole = hashlib.sha256("\n".join(lines).encode()).hexdigest()
-    print(f"all {len(lines)} tensors {whole}")
+    return lines + [f"all {len(lines)} tensors {whole}"]
+
+
+def compare(lines, expected_path=EXPECTED) -> list:
+    """The lines of `lines` that differ from the file's (by position),
+    as (got, expected) pairs; a length mismatch counts as one."""
+    want = Path(expected_path).read_text().splitlines()
+    bad = [(a, b) for a, b in zip(lines, want) if a != b]
+    if len(lines) != len(want):
+        bad.append((f"{len(lines)} lines", f"{len(want)} lines"))
+    return bad
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]),
+                    help="the `src` directory whose repro_torch to import")
+    ap.add_argument("--expect", default=None,
+                    help="a file of expected lines: exit 1 on a difference")
+    args = ap.parse_args(argv)
+    lines = digest_lines(args.src)
+    print("\n".join(lines))
+    if args.expect:
+        bad = compare(lines, args.expect)
+        for got, want in bad:
+            print(f"DIFFERS: {got} != {want}")
+        if bad:
+            raise SystemExit(f"kernel_digest: {len(bad)} line(s) differ "
+                             f"from {args.expect}")
+        print(f"kernel_digest: all {len(lines)} lines equal {args.expect}")
 
 
 if __name__ == "__main__":

@@ -934,3 +934,113 @@ def test_hybrid_generate_on_card_matches_cpu(cuda_device):
     assert counts.pop("hybrid_causal") == cfg.n_layers
     assert not any(counts.values())
     assert torch.equal(got.cpu(), want)
+
+
+# the schedule autotuner's candidates (kernels/autotune.py): at small
+# shapes that have launch knobs to sweep (D = Dv = 128 for the combines'
+# column groups, G = 48 for the decode groups, G·N = 1 for the split
+# combine), every candidate against the plain version at the kernel's
+# limits, and each a launch bit for bit repeatable
+AUTOTUNE_SHAPES = {   # kernel: (B, Hq, Hkv, N, D, Dv)
+    "causal_fwd": (1, 4, 2, 300, 128, 128),
+    "hybrid_fwd": (1, 4, 2, 300, 128, 128),
+    "decode": (1, 48, 1, 1, 128, 128),
+    "noncausal": (2, 2, 2, 1, 64, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(AUTOTUNE_SHAPES))
+def test_autotune_candidates_match_plain_on_card(cuda_device, kernel):
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels.fastmax_noncausal import (
+        noncausal_combine_cuda, noncausal_combine_ref, noncausal_moments_cuda)
+    from repro_torch.kernels.hybrid_causal import (hybrid_causal_cuda,
+                                                   hybrid_causal_ref)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(25)
+
+    def rn(*s):
+        return torch.randn(s, generator=gen, device=cuda_device)
+
+    b, hq, hkv, n, d, dv = AUTOTUNE_SHAPES[kernel]
+    key = at.ShapeKey(kernel, n, d, dv, hq // hkv, b * hkv, 2, "float32",
+                      "cuda")
+    cands = at.candidate_schedules(kernel, key)
+    m = 300 if kernel == "noncausal" else n
+    q = normalize_qk(rn(b, hq, n, d))
+    k, v = normalize_qk(rn(b, hkv, m, d)), rn(b, hkv, m, dv)
+    assert len(cands) > 1
+    if kernel == "decode":
+        _, st0 = fastmax_causal_ref(q, k, v, p=2, chunk_size=64)
+        q1, k1, v1 = (normalize_qk(rn(b, hq, 1, d)),
+                      normalize_qk(rn(b, hkv, 1, d)), rn(b, hkv, 1, dv))
+        ro, rst = fastmax_decode_ref(q1, k1, v1, tuple(t.clone()
+                                                       for t in st0), p=2)
+
+        def run(s):
+            st = tuple(t.clone() for t in st0)
+            return (fastmax_decode_cuda(q1, k1, v1, st, p=2, schedule=s),
+                    *st)
+        want = (ro, *rst)
+    elif kernel == "noncausal":
+        mom = noncausal_moments_cuda(k, v, p=2)
+        want = (noncausal_combine_ref(q, mom, p=2),)
+
+        def run(s):
+            return (noncausal_combine_cuda(q, mom, p=2, schedule=s),)
+    elif kernel == "hybrid_fwd":
+        kw = dict(p=2, window=64, chunk_size=128, return_state=True)
+        ro, rst = hybrid_causal_ref(q, k, v, **kw)
+        want = (ro, *rst)
+
+        def run(s):
+            o, st = hybrid_causal_cuda(q, k, v, **kw, schedule=s)
+            return (o, *st)
+    else:
+        ro, rst = fastmax_causal_ref(q, k, v, p=2, chunk_size=64)
+        want = (ro, *rst)
+
+        def run(s):
+            o, st = fastmax_causal_cuda(q, k, v, p=2, schedule=s)
+            return (o, *st)
+    for s in cands:
+        got, again = run(s), run(s)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, x) for a, x in zip(got, again)), s
+        assert (got[0] - want[0]).abs().max().item() <= 1e-4, s
+        for a, r in zip(got[1:], want[1:]):
+            scale = max(1.0, r.abs().max().item())
+            assert (a - r).abs().max().item() <= 1e-4 * scale, s
+
+
+@pytest.mark.cuda
+def test_autotune_refused_knobs_raise_on_card(cuda_device):
+    """A knob out of range reaches the C entry point, which refuses it:
+    the wrapper raises (nothing falls back)."""
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels.fastmax_noncausal import (
+        noncausal_combine_cuda, noncausal_moments_cuda)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(26)
+
+    def rn(*s):
+        return torch.randn(s, generator=gen, device=cuda_device)
+
+    q, k, v = normalize_qk(rn(1, 17, 1, 64)), normalize_qk(
+        rn(1, 1, 50, 64)), rn(1, 1, 50, 64)
+    mom = noncausal_moments_cuda(k, v, p=2)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        noncausal_combine_cuda(q, mom, p=2,
+                               schedule=at.Schedule(rows=128, split=17))
+    _, st = fastmax_causal_ref(normalize_qk(rn(1, 17, 8, 64)),
+                               normalize_qk(rn(1, 1, 8, 64)),
+                               rn(1, 1, 8, 64), p=2, chunk_size=8)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fastmax_decode_cuda(q, k[:, :, :1].contiguous(),
+                            v[:, :, :1].contiguous(), st, p=2,
+                            schedule=at.Schedule(rows=512, group=17))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fastmax_causal_cuda(normalize_qk(rn(1, 2, 40, 64)),
+                            normalize_qk(rn(1, 1, 40, 64)), rn(1, 1, 40, 64),
+                            p=2, schedule=at.Schedule(cols=128))

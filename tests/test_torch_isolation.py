@@ -61,6 +61,15 @@ def test_scan_covers_the_ssm_slice():
             "configs/jamba_52b.py", "configs/xlstm_1_3b.py"} <= names
 
 
+def test_scan_covers_the_autotuner():
+    """The schedule autotuner and the digest script it is checked with are
+    scanned."""
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in FILES
+             if "repro_torch" in p.parts}
+    assert {"kernels/autotune.py", "kernels/ops.py",
+            "launch/kernel_digest.py"} <= names
+
+
 def test_scan_catches_a_reference_import(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text("import numpy\nfrom repro.core import fastmax\n"
