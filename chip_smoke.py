@@ -66,7 +66,14 @@ and power limit, and the result line last):
                 calls compared bit for bit), one p=1 case, G=48 (Hq=48,
                 Hkv=1) and B=2 N=4096 in two segments; dq, dk, dv row by
                 row past the kernel's first chunk, that chunk's rows
-                against float64.
+                against float64. Then at MLA's widths (D=192, Dv=128;
+                deepseek-v2 and kimi-k2): B=2 N=1024 on 8/8 heads in
+                float32 and bfloat16, B=2 N=1000 seeded with dstate at
+                p=2 and p=1, 16 q on 8 kv heads (G=2); and timed at the
+                [moe train] path's own shape (B=2, 128/128 heads, N=1024,
+                bf16: 8 segments of one chunk): the call, its four
+                launches summed over the segments, plain, the bound, the
+                workspace, one call's peak memory, two calls bit for bit.
   8. train    — full-width qwen3-1.7b, attn fastmax2-kernel, bfloat16,
                 remat="full", AdamW from pick_optimizer, B=4, N=1024,
                 batches from SyntheticLM: one loss and grad on the kernel
@@ -178,6 +185,17 @@ and power limit, and the result line last):
                 batch 1 in bf16 (a reading, with the share of router
                 choices that differ) and with the weights widened to
                 float32 (MLA_F32_LOGIT_TOL).
+ 19b. moe train — full-width deepseek-v2-236b with one cut, n_layers 60
+                -> 1 (its first_k_dense layer: MLA, 128 heads at D=192,
+                Dv=128, and the dense SwiGLU), bf16, AdamW, remat none,
+                B=2, N=1024, one SyntheticLM batch: the loss and every
+                leaf's grad on fastmax2-kernel and the plain
+                fastmax2-chunked path before any update (TRAIN_LOSS_TOL,
+                TRAIN_GRAD_TOL), then a warm-up and 3 timed steps on each
+                path from the same weights (their losses within
+                TRAIN_LOSS_TOL; exactly 1 forward and 1 backward launch
+                per kernel step); step ms, tokens/s, peak memory, the
+                backward kernel's share of the step.
  20. archs    — the six configs added with the MoE family (llama3-405b,
                 qwen2.5-32b, granite-20b, chameleon-34b, deepseek-v2-236b,
                 kimi-k2-1t-a32b) and the two of the SSM slice
@@ -347,6 +365,20 @@ def prefill_ops(bh: int, g: int, n: int, d: int, dv: int) -> int:
                  + g * pairs * 2 * (d + dv))                # intra-chunk
 
 
+def bwd_ops(bh: int, g: int, n: int, d: int, dv: int) -> int:
+    """Operations of the §2.5 backward over `bh` (b, kv-head) pairs of `g`
+    query heads each: the six degree-2 passes on the symmetric half (g2
+    and its cotangent ride along as one more column, as in the forward's
+    count), the degree-0/1 terms of the same six passes, and six products
+    per causal pair inside chunks of BOUND_CHUNK (scores, F.v, u.v, ds.k,
+    ds^T.q, F^T.u)."""
+    c = BOUND_CHUNK
+    pairs = (n // c) * c * (c + 1) // 2 + (n % c) * (n % c + 1) // 2
+    return bh * ((3 * g + 3) * n * d * (d + 1) * (dv + 1)
+                 + 2 * (3 * g + 3) * n * (d + 1) * (dv + 1)
+                 + g * pairs * 2 * (3 * d + 3 * dv))
+
+
 def decode_ops(bh: int, g: int, d: int, dv: int) -> int:
     """Operations of one decode step: the token folded into the moments
     and `g` queries contracted with them, per (b, kv-head)."""
@@ -445,7 +477,12 @@ def loss_and_grads(params, batch, cfg):
     for _, x in named:
         x.requires_grad_(True)
     loss, _ = model_loss(params, batch, cfg)
-    grads = torch.autograd.grad(loss, [x for _, x in named])
+    # allow_unused: a config cut to its first_k_dense layers keeps an empty
+    # stacked block, which the loss does not use (its grads: zeros)
+    grads = torch.autograd.grad(loss, [x for _, x in named],
+                                allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, (_, x) in zip(grads, named)]
     for _, x in named:
         x.requires_grad_(False)
     return loss.detach().float(), dict(zip([n for n, _ in named], grads))
@@ -937,6 +974,24 @@ MOE_B, MOE_P, MOE_G = 2, 1024, 32
 # share. So the bf16 gap is printed beside the share of (token, slot)
 # choices that differ, and the float32 gap is held
 MLA_F32_LOGIT_TOL = 1e-2     # absolute, max over the last row's logits
+# [moe train] phase: full-width deepseek-v2-236b with one cut, n_layers 60
+# -> 1: its first_k_dense layer (MLA, 128 heads at D = 192, Dv = 128, and
+# the dense SwiGLU, d_ff 12288), 1.467 B params, trained at B=2, N=1024
+# with AdamW. The 2-layer cut (one MoE layer more) is 5.519 B params: with
+# the bf16 weights and grads, AdamW's float32 master, m and v (16 B a
+# parameter) about 88 GB, more than the card holds. remat "none": one
+# layer's activations fit, and each step then runs exactly one forward and
+# one backward launch. The plain path runs its scan at chunks of
+# MOE_TRAIN_PLAIN_CHUNK tokens (the same function): its §2.5 backward holds
+# several m2-sized carries of 4.8 GB beside each chunk's features, and with
+# AdamW's state at chunks of 128 it ran out of the card's memory
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_N, MOE_TRAIN_STEPS = 1, 2, 1024, 3
+MOE_TRAIN_PLAIN_CHUNK = 64
+# MLA's attention widths (qk_nope + qk_rope = 128 + 64; v 128) and heads;
+# the backward's checks against float64 run at MLA_BWD_HEADS heads, its
+# plain version at MLA's train shape at chunks of CHUNK_MLA tokens (the
+# kernel's L; 512 would hold ~10 GB of features a chunk)
+MLA_D, MLA_DV, MLA_HEADS, MLA_BWD_HEADS, CHUNK_MLA = 192, 128, 128, 8, 128
 # [archs] phase: the decode kernel at granite-20b's widths (48 query heads
 # on one kv head, G = 48: three groups of 16 queries per launch pair)
 GRANITE_ARCH, GRANITE_B, GRANITE_N, GRANITE_STEPS = "granite-20b", 4, 1024, 32
@@ -1089,6 +1144,294 @@ def time_prefill(tag, q, k, v, rst, reps=2) -> dict:
     return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "segments": nseg, "workspace_bytes": ws,
             "call_peak_bytes": call_peak}
+
+
+def bwd_case(gen, b, n, dtype, p, seeded, heads, d, dv=None):
+    """The backward kernel against its plain version (at the kernel's
+    chunk) on fresh seeded inputs, q̂ [B, Hq, N, D], k̂ [B, Hkv, N, D], v
+    [B, Hkv, N, Dv]; `seeded`: the forward starts from an init_state and
+    dstate is compared too. Rows past the first chunk against plain, that
+    chunk against float64 (the rules of TOL_GRAD); fails the run on a
+    disagreement. Returns (max |kernel - plain| over dq, dk, dv, the
+    kernel's segments, the inputs)."""
+    from repro_torch.core.ref import normalize_qk
+    from repro_torch.kernels.fastmax_causal import (CHUNK,
+                                                    fastmax_causal_cuda,
+                                                    fastmax_causal_ref)
+    from repro_torch.kernels.fastmax_causal_bwd import (
+        bwd_call, fastmax_causal_bwd_cuda, fastmax_causal_bwd_ref)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device)
+
+    bhq, bhkv = heads
+    dv = dv or d
+    cb = CHUNK   # the backward's chunk, as the prefill's
+    # at p=1, f(s) = 1 + s is sign-indefinite at the model's scale
+    # (|s| up to D): denominators can nearly cancel, and which
+    # float32 summation order lands nearer float64 is luck; q̂/D
+    # keeps |s| <= 1 and f >= 0
+    qs = 1.0 / d if p == 1 else 1.0
+    q = (normalize_qk(randn(b, bhq, n, d)) * qs).to(dtype)
+    k = normalize_qk(randn(b, bhkv, n, d)).to(dtype)
+    v = randn(b, bhkv, n, dv).to(dtype)
+    do = randn(b, bhq, n, dv).to(dtype)
+    init = None
+    if seeded:
+        _, init = fastmax_causal_ref(
+            normalize_qk(randn(b, bhq, 200, d)) * qs,
+            normalize_qk(randn(b, bhkv, 200, d)),
+            randn(b, bhkv, 200, dv), p=p, chunk_size=512)
+    _, state = fastmax_causal_cuda(q, k, v, p=p, init_state=init)
+    nseg = len(bwd_call(q, k, v, state, do, p=p).segments)
+    got = fastmax_causal_bwd_cuda(q, k, v, state, do, p=p,
+                                  return_dstate=seeded)
+    ref = fastmax_causal_bwd_ref(q, k, v, state, do, p=p,
+                                 chunk_size=cb, return_dstate=seeded)
+    # float64, for the first chunk's rows of an unseeded forward only
+    exact = None if seeded else fastmax_causal_bwd_ref(
+        q.double(), k.double(), v.double(),
+        [t.double() for t in state], do.double(), p=p, chunk_size=cb)
+    torch.cuda.synchronize()
+
+    def flat(r):
+        return list(r[:3]) + (list(r[3]) if seeded else [])
+
+    # a seeded forward's carry before chunk 0 is the seed, not a
+    # near-zero rebuild: every row is held to the tight limit
+    first = 0 if seeded else cb
+    errs = [grad_err(a, r, e, first) for a, r, e in
+            zip(flat(got), flat(ref), flat(exact) if exact else
+                [None] * len(flat(ref)))]
+    del exact
+    tag = (f"bwd p={p} {str(dtype)[6:]} B={b} N={n}"
+           + (f" D={d} Dv={dv} Hq={bhq} Hkv={bhkv}" if dv != d else "")
+           + (f" G={bhq // bhkv}" if bhq != 2 * bhkv else "")
+           + (f" {nseg} segments" if nseg > 1 else "")
+           + (" seeded+dstate" if seeded else ""))
+    names = ["dq", "dk", "dv"] + (["dm0", "dm1", "dm2", "dg0", "dg1",
+                                   "dg2"] if seeded else [])
+    tight = (f"{TOL_GRAD:.0e} of scale" if dtype == torch.float32 else
+             f"2^-7|plain| + {TOL_GRAD:.0e} of scale per element")
+    msg = (f"  {tag}: max |kernel - plain| "
+           + ("" if seeded else f"on rows >= {cb} ") + ", ".join(
+               f"{nm} {x[0]:.2e}" for nm, x in zip(names, errs))
+           + f" (limit {tight}")
+    if not seeded:
+        msg += (f"); rows < {cb}, max error vs float64 kernel / plain: "
+                + ", ".join(f"{nm} {x[1]:.2e}/{x[2]:.2e}"
+                            for nm, x in zip(names, errs))
+                + f" (limit {GRAD_MARGIN}x plain or {TOL_GRAD:.0e} of "
+                f"scale")
+    print(msg + ")")
+    if not all(x[3] for x in errs):
+        fail(f"{tag}: the backward kernel disagrees with its plain "
+             f"version")
+    whole = max((a.float() - r.float()).abs().max().item()
+                for a, r in zip(got[:3], ref[:3]))
+    return whole, nseg, (q, k, v, state, do)
+
+
+def bwd_mla(gen, dev) -> dict:
+    """[bwd] at MLA's widths (deepseek-v2: D = 192, Dv = 128, one query
+    head per kv head): the kernel against its plain version by
+    `bwd_case`'s rules at MLA_BWD_HEADS heads (the float64 reference at
+    128 heads would hold ~10 GB of m2 alone), then timed at the train
+    path's own shape (B=2, 128/128 heads, N=1024, bf16): the call, its
+    four launches apart (summed over its segments), plain, the bound, the
+    workspace, one call's peak memory, two calls bit for bit."""
+    from repro_torch.core.ref import normalize_qk
+    from repro_torch.kernels.fastmax_causal import fastmax_causal_cuda
+    from repro_torch.kernels.fastmax_causal_bwd import (
+        bwd_call, fastmax_causal_bwd_cuda, fastmax_causal_bwd_ref)
+
+    d, dv, h, b, n = MLA_D, MLA_DV, MLA_BWD_HEADS, MOE_B, MOE_P
+    for dtype in (torch.float32, torch.bfloat16):
+        bwd_case(gen, b, n, dtype, 2, False, (h, h), d, dv)
+    bwd_case(gen, b, 1000, torch.float32, 2, True, (h, h), d, dv)
+    bwd_case(gen, b, 1000, torch.float32, 1, True, (h, h), d, dv)
+    bwd_case(gen, b, n, torch.float32, 2, False, (2 * h, h), d, dv)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    hq = MLA_HEADS
+    q = normalize_qk(rn(b, hq, n, d)).bfloat16()
+    k = normalize_qk(rn(b, hq, n, d)).bfloat16()
+    v = rn(b, hq, n, dv).bfloat16()
+    do = rn(b, hq, n, dv).bfloat16()
+    _, st = fastmax_causal_cuda(q, k, v, p=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    g1 = fastmax_causal_bwd_cuda(q, k, v, st, do, p=2)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    g2 = fastmax_causal_bwd_cuda(q, k, v, st, do, p=2)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(g1, g2))
+    del g2
+    if not same:
+        fail("two backward calls at MLA's train shape differ")
+    ms = sync_ms(lambda: fastmax_causal_bwd_cuda(q, k, v, st, do, p=2),
+                 reps=2)
+    t0 = time.monotonic()
+    ref = fastmax_causal_bwd_ref(q, k, v, st, do, p=2, chunk_size=CHUNK_MLA)
+    torch.cuda.synchronize()
+    plain = (time.monotonic() - t0) * 1e3
+    # kernel against plain at this shape too, by rows past the first chunk
+    err = max((x[..., CHUNK_MLA:, :].float() - r[..., CHUNK_MLA:, :].float())
+              .abs().max().item() for x, r in zip(g1, ref))
+    del ref, g1
+    torch.cuda.empty_cache()
+    call = bwd_call(q, k, v, st, do, p=2)
+    nseg = len(call.segments)
+    call.run()
+    parts = {f: sync_ms(lambda f=f: [getattr(call, f)(i) for i in
+                                     reversed(range(nseg))], reps=2)
+             for f in ("slots", "queries", "cot", "keys")}
+    ws = call.workspace_bytes
+    del call
+    ops_n = bwd_ops(b * hq, 1, n, d, dv)
+    nbytes = (2 * (q.numel() + k.numel() + v.numel()) + do.numel()) * 2 \
+        + sum(t.numel() for t in st) * 4
+    bms, by = bound_ms(ops_n, nbytes, H100_BF16_FLOPS)
+    print(f"  timing (bwd MLA, bf16 B={b} Hq=Hkv={hq} N={n} D={d} Dv={dv}):"
+          f" kernel {ms:.3f} ms (launches summed over its {nseg} segments: "
+          f"A' carry slots {parts['slots']:.3f}, B' queries "
+          f"{parts['queries']:.3f}, C cotangent slots {parts['cot']:.3f}, D "
+          f"keys {parts['keys']:.3f}; plain {plain:.1f} at chunk "
+          f"{CHUNK_MLA}, one call; bound {bms:.3f} by {by} "
+          f"({ops_n:.3e} operations; {ops_n / H100_F32_FLOPS * 1e3:.3f} ms "
+          f"at the f32 peak), {ops_n / ms / 1e9:.2f} TFLOP/s; workspace "
+          f"{ws / 1e9:.3f} GB, one call's peak {peak / 1e9:.3f} GB above "
+          f"what was allocated before it; max |kernel - plain| past the "
+          f"first chunk {err:.3e}; two calls bitwise equal)")
+    del q, k, v, do, st
+    torch.cuda.empty_cache()
+    return {"ms_mla": ms, "plain_ms_mla": plain, "bound_ms_mla": bms,
+            "bound_by_mla": by, "segments_mla": nseg,
+            "workspace_bytes_mla": ws, "call_peak_bytes_mla": peak,
+            "max_abs_err_mla": err,
+            **{f"{f}_ms_mla": t for f, t in parts.items()}}
+
+
+def moe_train_phase(dev, bwd_ms: float) -> dict:
+    """[moe train]: full-width deepseek-v2-236b cut to MOE_TRAIN_LAYERS
+    layer (its first_k_dense layer: MLA at D = 192, Dv = 128, and the
+    dense SwiGLU), bf16, AdamW, B x N of one SyntheticLM batch, on
+    fastmax2-kernel and on plain fastmax2-chunked from the same weights:
+    the loss and every leaf's grad before any update, then a warm-up and
+    MOE_TRAIN_STEPS timed steps on each path (CUDA events; the kernel
+    path's launches counted per step: exactly MOE_TRAIN_LAYERS forward and
+    MOE_TRAIN_LAYERS backward). `bwd_ms`: the backward kernel's ms at this
+    shape ([bwd]), for its share of the step."""
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step, pick_optimizer
+    from repro_torch.models import init_model
+    from repro_torch.models.param import count_params
+
+    full = get_config(MOE_ARCH)
+    cfg = get_config(MOE_ARCH, n_layers=MOE_TRAIN_LAYERS, remat="none",
+                     attn=AttentionSpec.parse("fastmax2-kernel"))
+    plain_cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+        AttentionSpec.parse("fastmax2-chunked"),
+        chunk_size=MOE_TRAIN_PLAIN_CHUNK))
+    b, n, steps = MOE_TRAIN_B, MOE_TRAIN_N, MOE_TRAIN_STEPS
+    print(f"  card memory allocated before the phase: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    t0 = time.monotonic()
+    params0 = init_model(cfg, seed=0, device=dev)
+    n_params = count_params(params0)
+    batch = SyntheticLM(cfg.vocab_size, n, seed=0).batch(0, b)
+    tbatch = {k_: torch.as_tensor(v_, device=dev) for k_, v_ in batch.items()}
+    torch.cuda.synchronize()
+    print(f"  {MOE_ARCH}: n_layers {full.n_layers} -> {cfg.n_layers} (its "
+          f"first_k_dense layer: MLA {cfg.n_heads} heads, D = "
+          f"{cfg.qk_nope_dim + cfg.qk_rope_dim}, Dv = {cfg.head_dim}, "
+          f"kv_lora {cfg.kv_lora_rank}; dense SwiGLU d_ff {cfg.d_ff}; "
+          f"d_model {cfg.d_model}; vocab {cfg.vocab_size} untied), "
+          f"{n_params / 1e9:.3f} B params bf16 in "
+          f"{time.monotonic() - t0:.1f}s")
+    lk, gk = loss_and_grads(params0, tbatch, cfg)
+    lp, gp = loss_and_grads(params0, tbatch, plain_cfg)
+    dloss = abs(lk.item() - lp.item())
+    leaf, gerr = worst_leaf(gk, gp)
+    # each path below trains its own copy of the weights, drawn again from
+    # the seed (the same bits), so that no third copy takes card memory
+    del gk, gp, params0
+    torch.cuda.empty_cache()
+    print(f"  parity before any update: loss kernel {lk.item():.5f} plain "
+          f"{lp.item():.5f} |diff| {dloss:.3e} (tol {TRAIN_LOSS_TOL}); "
+          f"worst leaf {leaf} |g_k - g_p|/|g_p| {gerr:.3e} (tol "
+          f"{TRAIN_GRAD_TOL})")
+    ok = (math.isfinite(lk.item()) and dloss <= TRAIN_LOSS_TOL
+          and gerr <= TRAIN_GRAD_TOL)
+    want = {"fastmax_causal": cfg.n_layers, "fastmax_causal_bwd":
+            cfg.n_layers, "fastmax_decode": 0,
+            "fastmax_noncausal_moments": 0, "fastmax_noncausal_combine": 0,
+            "hybrid_causal": 0}
+    runs = {}
+    for tag, c in (("kernel", cfg), ("plain", plain_cfg)):
+        params = init_model(cfg, seed=0, device=dev)
+        _, opt = pick_optimizer(c, n_params, lr=3e-4, total_steps=1 + steps)
+        opt_state = opt[0](params)
+        train_step = make_train_step(c, opt)
+        params, opt_state, m = train_step(params, opt_state, batch)
+        losses = [m["loss"].item()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, counts = [], []
+        for _ in range(steps):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ops.reset_launch_counts()
+            ev0.record()
+            params, opt_state, m = train_step(params, opt_state, batch)
+            ev1.record()
+            ev1.synchronize()
+            counts.append(ops.launch_counts())
+            step_ms.append(ev0.elapsed_time(ev1))
+            losses.append(m["loss"].item())
+        runs[tag] = {"step_ms": step_ms, "losses": losses, "launches": counts,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"  {tag} path: step ms "
+              f"{', '.join(f'{x:.1f}' for x in step_ms)}, peak "
+              f"{runs[tag]['peak_gb']:.2f} GB, launches {counts[-1]}",
+              flush=True)
+        del params, opt_state, train_step, opt
+        torch.cuda.empty_cache()
+    rk, rp = runs["kernel"], runs["plain"]
+    med = {t: sorted(r["step_ms"])[len(r["step_ms"]) // 2]
+           for t, r in runs.items()}
+    gap = max(abs(x - y) for x, y in zip(rk["losses"], rp["losses"]))
+    ok = ok and all(c == want for c in rk["launches"]) and all(
+        math.isfinite(x) for x in rk["losses"]) and gap <= TRAIN_LOSS_TOL
+    phase("moe train", f"{MOE_ARCH} (n_layers {full.n_layers} -> "
+          f"{cfg.n_layers}) bf16 AdamW B={b} N={n}: step ms kernel "
+          f"{', '.join(f'{x:.1f}' for x in rk['step_ms'])}, plain "
+          f"{', '.join(f'{x:.1f}' for x in rp['step_ms'])} (CUDA events); "
+          f"tokens/s at the median {b * n / (med['kernel'] / 1e3):.1f} / "
+          f"{b * n / (med['plain'] / 1e3):.1f}; peak {rk['peak_gb']:.2f} / "
+          f"{rp['peak_gb']:.2f} GB; the backward kernel ({bwd_ms:.1f} ms at "
+          f"this shape in [bwd]) {bwd_ms / med['kernel']:.1%} of the kernel "
+          f"path's median step; loss kernel "
+          f"{', '.join(f'{x:.5f}' for x in rk['losses'])}, plain "
+          f"{', '.join(f'{x:.5f}' for x in rp['losses'])} (max |diff| "
+          f"{gap:.3e}, tol {TRAIN_LOSS_TOL}); launches per step "
+          f"{rk['launches'][-1]}")
+    if not ok:
+        fail(f"[moe train]: kernel and plain paths disagree, or the kernel "
+             f"path launched {rk['launches']} (expected {want} per step)")
+    return {"step_ms": rk["step_ms"], "plain_step_ms": rp["step_ms"],
+            "peak_gb": rk["peak_gb"], "plain_peak_gb": rp["peak_gb"],
+            "losses": rk["losses"], "plain_losses": rp["losses"],
+            "loss_diff": dloss, "worst_leaf": leaf, "grad_err": gerr,
+            "launches": rk["launches"][-1], "params": n_params,
+            "bwd_share": bwd_ms / med["kernel"]}
 
 
 def route_flips(routes_a, routes_b, e: int) -> float:
@@ -2396,83 +2739,21 @@ def main() -> None:
     # inference mode: the plain version differentiates with autograd) ----
     cb = CHUNK   # the backward's chunk, as the prefill's
 
-    def bwd_case(b, n, dtype, p, seeded, heads=(hq, hkv)):
-        bhq, bhkv = heads
-        # at p=1, f(s) = 1 + s is sign-indefinite at the model's scale
-        # (|s| up to D): denominators can nearly cancel, and which
-        # float32 summation order lands nearer float64 is luck; q̂/D
-        # keeps |s| <= 1 and f >= 0
-        qs = 1.0 / d if p == 1 else 1.0
-        q = (normalize_qk(randn(b, bhq, n, d)) * qs).to(dtype)
-        k = normalize_qk(randn(b, bhkv, n, d)).to(dtype)
-        v = randn(b, bhkv, n, d).to(dtype)
-        do = randn(b, bhq, n, d).to(dtype)
-        init = None
-        if seeded:
-            _, init = fastmax_causal_ref(
-                normalize_qk(randn(b, bhq, 200, d)) * qs,
-                normalize_qk(randn(b, bhkv, 200, d)),
-                randn(b, bhkv, 200, d), p=p, chunk_size=512)
-        _, state = fastmax_causal_cuda(q, k, v, p=p, init_state=init)
-        nseg = len(bwd_call(q, k, v, state, do, p=p).segments)
-        got = fastmax_causal_bwd_cuda(q, k, v, state, do, p=p,
-                                      return_dstate=seeded)
-        ref = fastmax_causal_bwd_ref(q, k, v, state, do, p=p,
-                                     chunk_size=cb, return_dstate=seeded)
-        # float64, for the first chunk's rows of an unseeded forward only
-        exact = None if seeded else fastmax_causal_bwd_ref(
-            q.double(), k.double(), v.double(),
-            [t.double() for t in state], do.double(), p=p, chunk_size=cb)
-        torch.cuda.synchronize()
-
-        def flat(r):
-            return list(r[:3]) + (list(r[3]) if seeded else [])
-
-        # a seeded forward's carry before chunk 0 is the seed, not a
-        # near-zero rebuild: every row is held to the tight limit
-        first = 0 if seeded else cb
-        errs = [grad_err(a, r, e, first) for a, r, e in
-                zip(flat(got), flat(ref), flat(exact) if exact else
-                    [None] * len(flat(ref)))]
-        del exact
-        tag = (f"bwd p={p} {str(dtype)[6:]} B={b} N={n}"
-               + (f" G={bhq // bhkv}" if heads != (hq, hkv) else "")
-               + (f" {nseg} segments" if nseg > 1 else "")
-               + (" seeded+dstate" if seeded else ""))
-        names = ["dq", "dk", "dv"] + (["dm0", "dm1", "dm2", "dg0", "dg1",
-                                       "dg2"] if seeded else [])
-        tight = (f"{TOL_GRAD:.0e} of scale" if dtype == torch.float32 else
-                 f"2^-7|plain| + {TOL_GRAD:.0e} of scale per element")
-        msg = (f"  {tag}: max |kernel - plain| "
-               + ("" if seeded else f"on rows >= {cb} ") + ", ".join(
-                   f"{nm} {x[0]:.2e}" for nm, x in zip(names, errs))
-               + f" (limit {tight}")
-        if not seeded:
-            msg += (f"); rows < {cb}, max error vs float64 kernel / plain: "
-                    + ", ".join(f"{nm} {x[1]:.2e}/{x[2]:.2e}"
-                                for nm, x in zip(names, errs))
-                    + f" (limit {GRAD_MARGIN}x plain or {TOL_GRAD:.0e} of "
-                    f"scale")
-        print(msg + ")")
-        if not all(x[3] for x in errs):
-            fail(f"{tag}: the backward kernel disagrees with its plain "
-                 f"version")
-        whole = max((a.float() - r.float()).abs().max().item()
-                    for a, r in zip(got[:3], ref[:3]))
-        return whole, nseg, (q, k, v, state, do)
+    def qwen_case(b, n, dtype, p, seeded, heads=(hq, hkv)):
+        return bwd_case(gen, b, n, dtype, p, seeded, heads, d)
 
     for dtype in (torch.float32, torch.bfloat16):
-        bwd_case(2, 1024, dtype, 2, False)
-        bwd_case(2, 1000, dtype, 2, True)
-    bwd_case(2, 1000, torch.float32, 1, True)
+        qwen_case(2, 1024, dtype, 2, False)
+        qwen_case(2, 1000, dtype, 2, True)
+    qwen_case(2, 1000, torch.float32, 1, True)
     # granite's grouping: 48 query heads on one kv head
-    bwd_case(1, 512, torch.float32, 2, False, heads=(48, 1))
+    qwen_case(1, 512, torch.float32, 2, False, heads=(48, 1))
     # past one segment (3840 tokens at B=2): two, the last seeding the first
-    _, nseg, _ = bwd_case(2, 4096, torch.float32, 2, True)
+    _, nseg, _ = qwen_case(2, 4096, torch.float32, 2, True)
     if nseg != 2:
         fail(f"the backward at B=2 N=4096 ran in {nseg} segments, not 2")
-    bwd_case(4, P, torch.float32, 2, False)
-    fb_err, nseg, bargs = bwd_case(4, P, torch.bfloat16, 2, False)
+    qwen_case(4, P, torch.float32, 2, False)
+    fb_err, nseg, bargs = qwen_case(4, P, torch.bfloat16, 2, False)
     if nseg != 1:
         fail(f"the backward at the train path's shapes ran in {nseg} "
              f"segments (the launch times below are one segment's)")
@@ -2507,16 +2788,7 @@ def main() -> None:
                 for f in ("slots", "queries", "cot", "keys")}
     bws_bytes = call.workspace_bytes
     del call
-    c = BOUND_CHUNK
-    pairs_b = (P // c) * c * (c + 1) // 2 + (P % c) * (P % c + 1) // 2
-    # per (b, kv-head): the six degree-2 passes on the symmetric half
-    # (g2 and gg2 ride along as one more column, as in the forward's
-    # count), the degree-0/1 terms of the same six passes, and six
-    # products per causal pair inside chunks of BOUND_CHUNK (scores, F.v,
-    # u.v, ds.k, ds^T.q, F^T.u)
-    fb_ops = bh * ((3 * gq + 3) * P * d * (d + 1) * (d + 1)
-                   + 2 * (3 * gq + 3) * P * (d + 1) * (d + 1)
-                   + gq * pairs_b * 2 * (3 * d + 3 * d))
+    fb_ops = bwd_ops(bh, gq, P, d, d)
     # q, k, v read and dq, dk, dv written (bf16), do read, carry read
     fb_bytes = (2 * (bq.numel() + bk.numel() + bv.numel())
                 + bdo.numel()) * 2 + sum(t.numel() for t in bst) * 4
@@ -2533,6 +2805,7 @@ def main() -> None:
           f"{bwd_peak / 1e9:.3f} GB above what was allocated before it)")
     del bargs, bq, bk, bv, bst, bdo
     torch.cuda.empty_cache()
+    mla_bwd = bwd_mla(gen, dev)
 
     # ---- 8. training path: full-width qwen3-1.7b, bf16 ----
     from repro_torch.data import SyntheticLM
@@ -3276,6 +3549,7 @@ def main() -> None:
     # ---- the MoE family: full-width deepseek-v2 (MLA), the new configs ----
     torch.cuda.empty_cache()
     moe = moe_phase(dev)
+    moe_train = moe_train_phase(dev, mla_bwd["ms_mla"])
     arch = archs_phase(dev)
 
     # ---- the SSM slice: full-width jamba (G = 4) and xlstm-1.3b ----
@@ -3332,7 +3606,9 @@ def main() -> None:
          "library_ms": None, "slots_ms": fb_parts["slots"],
          "queries_ms": fb_parts["queries"], "cot_ms": fb_parts["cot"],
          "keys_ms": fb_parts["keys"], "chunk": cb,
-         "workspace_bytes": bws_bytes, "call_peak_bytes": bwd_peak},
+         "workspace_bytes": bws_bytes, "call_peak_bytes": bwd_peak,
+         "launches_mla": moe_train["launches"]["fastmax_causal_bwd"],
+         **mla_bwd},
         {"name": "fastmax_noncausal_moments", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_noncausal.cu",
          "replaces": "src/repro/kernels/fastmax_noncausal.py:160",
@@ -3386,6 +3662,7 @@ def main() -> None:
                             "logit_gap_bf16", "logit_gap_f32",
                             "route_flips_bf16", "route_flips_f32",
                             "params")}}))
+    print(json.dumps({"moe_train_deepseek_v2": moe_train}))
     print(json.dumps({"ssm": {"jamba_8_layers": ssm["jamba"],
                               "xlstm_1_3b": ssm["xlstm"]}}))
     print(json.dumps({"autotune": tuned}))

@@ -77,8 +77,19 @@
 // launch C's total, kept in a table [BH, R, Dv + 1] f32, seeds its C.
 // Every sum runs in a fixed order (no float atomics): two calls give the
 // same bits. Ragged chunks (N not a multiple of L, N = 1) are masked in the
-// kernels. Requires D % 4 == 0, Dv % 4 == 0, 4 <= D <= 128, 4 <= Dv <= 128
-// (checked by the wrapper and here).
+// kernels.
+// Widths: B' and D hold their accumulators in column groups of 64, NCV
+// over Dv (num and u in B', dv in D) and NCK over D (dq's and dk's
+// products with the chunk's keys or queries): NCV = NCK = 1 or 2 up to
+// D, Dv = 128, and NCV = 2, NCK = 3 above (MLA: D = 192, Dv = 128). At
+// that width launch D's shared memory is the one that binds: u is kept
+// once, at a padded stride that serves both its product and its dots
+// (217,984 of the 232,448 bytes a block may have), and launch B' holds
+// 208,384; A' and C take D only in their keys' rows. At D, Dv <= 128 the
+// launches are the ones before MLA's width (the same sums in the same
+// order, the same layout), so those outputs are the same bits.
+// Requires D % 4 == 0, Dv % 4 == 0, 4 <= D <= 192, 4 <= Dv <= 128 (checked
+// by the wrapper and here).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -92,7 +103,8 @@ namespace {
 constexpr int kL = 128;      // the chunk L: tokens per slot
 constexpr int kRT = 64;      // table rows a tile of the y products
 constexpr int kYS = 68;      // padded row stride of y [kRT, 64]
-constexpr int kMaxW = 128;   // D, Dv at most
+constexpr int kMaxD = 192;   // D at most (MLA's 128 + 64)
+constexpr int kMaxDv = 128;  // Dv at most
 // blocks an SM holds of the two slot launches (A', C): the registers a
 // thread may use are capped to fit them
 constexpr int kMomentBlocks = 3;
@@ -371,20 +383,21 @@ carry_slots_kernel(const T* __restrict__ k, const T* __restrict__ v,
 // Launch B', over tokens [t_begin, t_begin + n) of N. q [BH*G, N, D], k, v
 // as launch A', do [BH*G, N, Dv]; wsm, wsg the carry slots; dq [BH*G, N, D];
 // uws [BH*G, N, Dv], sws [BH*G, N] (f32): u and sden. grid (ceil(G*L / 64),
-// nc, BH). NCG column groups of 64 cover D and Dv. A: the denominator's
-// accumulator.
+// nc, BH). NCV column groups of 64 cover Dv (num, u), NCK cover D (dq's
+// product with the chunk's keys). A: the denominator's accumulator.
 // ---------------------------------------------------------------------------
-__host__ __device__ inline int query_smem_floats(int D, int Dv, int ncg) {
-  const int QS = D + 1, BC = kCols * ncg;
-  const int pass1 = kChunk * (BC + kPS + QS);
+__host__ __device__ inline int query_smem_floats(int D, int Dv, int ncv,
+                                                 int nck) {
+  const int QS = D + 1, BCV = kCols * ncv, BCK = kCols * nck;
+  const int pass1 = kChunk * (BCV + kPS + QS);
   const int pass2 = kRT * (Dv + 4 + kYS);
-  const int intra = kChunk * (QS + BC + Dv + 1 + kPS);
+  const int intra = kChunk * (QS + BCK + Dv + 1 + kPS);
   int x = pass1 > pass2 ? pass1 : pass2;
   x = x > intra ? x : intra;
   return 2 * kTile * QS + (Dv + 4) * kTile + kTile + x;
 }
 
-template <typename T, int NCG, typename A>
+template <typename T, int NCV, int NCK, typename A>
 __global__ void __launch_bounds__(kThreads)
 query_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
@@ -392,7 +405,7 @@ query_kernel(const T* __restrict__ q, const T* __restrict__ k,
              T* __restrict__ dq, float* __restrict__ uws,
              float* __restrict__ sws, int G, int N, int t_begin, int n,
              int D, int Dv, int p, float eps) {
-  constexpr int BC = kCols * NCG;
+  constexpr int BC = kCols * NCV, BCK = kCols * NCK;
   constexpr bool kF64 = std::is_same<A, double>::value;
   static_assert(kChunk * (BC + kPS) * sizeof(float) >=
                 kChunk * kTile * sizeof(A), "den partials overflow");
@@ -410,8 +423,8 @@ query_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sMt = sX;                      //  2: [64, Dv + 4] slot rows | g
   float* sY = sMt + kRT * TS;           //     [64, kYS] y
   float* sKs = sX;                      //  3: [32, D + 1] keys (scores)
-  float* sKB = sKs + kChunk * QS;       //     [32, BC] keys (product)
-  float* sVs = sKB + kChunk * BC;       //     [32, Dv + 1] values
+  float* sKB = sKs + kChunk * QS;       //     [32, BCK] keys (product)
+  float* sVs = sKB + kChunk * BCK;      //     [32, Dv + 1] values
   float* sDS = sVs + kChunk * (Dv + 1); //     [32, kPS] ds
   __shared__ int sPos[kTile];           // query position in the chunk, or -1
   __shared__ int sCode[kRT];
@@ -444,11 +457,11 @@ query_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   // ---- pass 1: num and den, as the prefill's combine ----
-  float acc[4][4 * NCG];
+  float acc[4][4 * NCV];
 #pragma unroll
   for (int ri = 0; ri < 4; ++ri)
 #pragma unroll
-    for (int ci = 0; ci < 4 * NCG; ++ci) acc[ri][ci] = 0.f;
+    for (int ci = 0; ci < 4 * NCV; ++ci) acc[ri][ci] = 0.f;
   A dp[kTile / 8];
 #pragma unroll
   for (int i = 0; i < kTile / 8; ++i) dp[i] = A(0);
@@ -478,7 +491,7 @@ query_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ncode = fetch_row(pm, ms, (const double*)nullptr, r, D, R, Dv, BC, l8);
       ng = ncode >= 0 ? (A)gs[r] : A(0);
     }
-    tile_product<NCG>(acc, sP, sM, BC, ty, tx);
+    tile_product<NCV>(acc, sP, sM, BC, ty, tx);
     __syncthreads();
   }
   for (int j0 = 0; j0 < len; j0 += kChunk) {
@@ -514,7 +527,7 @@ query_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dp[i] += f;
     }
     __syncthreads();
-    tile_product<NCG>(acc, sP, sM, BC, ty, tx);
+    tile_product<NCV>(acc, sP, sM, BC, ty, tx);
     __syncthreads();
   }
 #pragma unroll
@@ -536,7 +549,7 @@ query_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float deni = 1.f / sDen[r];
     float part = 0.f;
 #pragma unroll
-    for (int j = 0; j < NCG; ++j) {
+    for (int j = 0; j < NCV; ++j) {
       const int cq = kCols * j + 4 * tx;
       if (cq >= Dv) continue;
 #pragma unroll
@@ -562,7 +575,7 @@ query_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // ---- pass 2: dq through slot c, tile by tile ----
   // the next tile's rows rl and rl + 32, in flight
-  float4 pt[2][(kMaxW + 4 + 31) / 32];
+  float4 pt[2][(kMaxDv + 4 + 31) / 32];
   ncode = fetch_row(pt[0], ms, gs, rl, D, R, Dv, TS, l8);
   int ncode1 = fetch_row(pt[1], ms, gs, rl + kChunk, D, R, Dv, TS, l8);
   for (int r0 = 0; r0 < R; r0 += kRT) {
@@ -585,16 +598,16 @@ query_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // ---- the chunk's own keys: dq += ds k, ds = f'(s)(u.v + sden) ----
-  float acc2[4][4 * NCG];
+  float acc2[4][4 * NCK];
 #pragma unroll
   for (int ri = 0; ri < 4; ++ri)
 #pragma unroll
-    for (int ci = 0; ci < 4 * NCG; ++ci) acc2[ri][ci] = 0.f;
+    for (int ci = 0; ci < 4 * NCK; ++ci) acc2[ri][ci] = 0.f;
   const int VS = Dv + 1;
   for (int j0 = 0; j0 < len; j0 += kChunk) {
     const int jn = min(kChunk, len - j0);
-    for (int e = tid; e < kChunk * BC; e += kThreads) {
-      const int t = e / BC, a = e - t * BC;
+    for (int e = tid; e < kChunk * BCK; e += kThreads) {
+      const int t = e / BCK, a = e - t * BCK;
       const float x =
           (t < jn && a < D) ? ld(kb + (size_t)(j0 + t) * D + a) : 0.f;
       sKB[e] = x;
@@ -633,13 +646,13 @@ query_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sDS[rl * kPS + qi] = ds;
     }
     __syncthreads();
-    tile_product<NCG>(acc2, sDS, sKB, BC, ty, tx);
+    tile_product<NCK>(acc2, sDS, sKB, BCK, ty, tx);
     __syncthreads();
   }
 #pragma unroll
   for (int ri = 0; ri < 4; ++ri)
 #pragma unroll
-    for (int j = 0; j < NCG; ++j)
+    for (int j = 0; j < NCK; ++j)
 #pragma unroll
       for (int ci = 0; ci < 4; ++ci) {
         const int a = kCols * j + 4 * tx + ci;
@@ -804,17 +817,21 @@ cot_slots_kernel(const T* __restrict__ q, const float* __restrict__ uws,
 // ---------------------------------------------------------------------------
 // Launch D, over tokens [t_begin, t_begin + n) of N. q, k, v as launch B';
 // uws, sws as it writes them; wzm, wzg the cotangent slots; dk [BH, N, D],
-// dv [BH, N, Dv]. grid (ceil(L / 64), nc, BH).
+// dv [BH, N, Dv]. grid (ceil(L / 64), nc, BH). NCV column groups of 64
+// cover Dv (dv, u), NCK cover D (dk's product with the chunk's queries).
 // ---------------------------------------------------------------------------
-__host__ __device__ inline int key_smem_floats(int D, int Dv, int ncg) {
-  const int QS = D + 1, BC = kCols * ncg;
-  const int ZS = BC > Dv + 4 ? BC : Dv + 4;
+__host__ __device__ inline int key_smem_floats(int D, int Dv, int ncv,
+                                               int nck) {
+  const int QS = D + 1, BCV = kCols * ncv, BCK = kCols * nck;
+  const int ZS = BCV > Dv + 4 ? BCV : Dv + 4;
   const int zpass = kRT * (ZS + kPS + kYS);
-  const int intra = kChunk * (QS + 2 * BC + Dv + 1 + 2 * kPS) + kChunk;
+  // u: [32, BCV] and [32, Dv + 1], or once, [32, BCV + 4] (see key_kernel)
+  const int us = nck > ncv ? BCV + 4 : BCV + Dv + 1;
+  const int intra = kChunk * (QS + BCK + us + 2 * kPS) + kChunk;
   return 2 * kTile * QS + (Dv + 4) * kTile + (zpass > intra ? zpass : intra);
 }
 
-template <typename T, int NCG>
+template <typename T, int NCV, int NCK>
 __global__ void __launch_bounds__(kThreads)
 key_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const float* __restrict__ uws,
@@ -822,10 +839,17 @@ key_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const float* __restrict__ wzg, T* __restrict__ dk,
            T* __restrict__ dv, int G, int N, int t_begin, int n, int D,
            int Dv, int p) {
-  constexpr int BC = kCols * NCG;
+  constexpr int BC = kCols * NCV, BCK = kCols * NCK;
+  // at D > 128 (NCK > NCV) u is kept once, for its product (64 NCV
+  // columns) and its u.v dots, so that the block fits in shared memory:
+  // the stride's 4 extra floats put the 4 rows a warp reads on other
+  // banks. Below, u is kept twice (product; dots at the odd stride Dv + 1)
+  constexpr bool kOneU = NCK > NCV;
+  constexpr int US = kOneU ? BC + 4 : BC;
   extern __shared__ __align__(16) float smem[];
-  const int QS = D + 1, TS = Dv + 4, VS = Dv + 1;
+  const int QS = D + 1, TS = Dv + 4;
   const int ZS = BC > TS ? BC : TS;
+  const int VS = kOneU ? US : Dv + 1;
   float* sKq = smem;                    // [64, D + 1] keys
   float* sDK = sKq + kTile * QS;        // [64, D + 1] dk
   float* sVT = sDK + kTile * QS;        // [Dv + 4, 64] v^T, then 1, 0
@@ -834,9 +858,9 @@ key_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sP = sZ + kRT * ZS;            //     [64, kPS] weighted features
   float* sY = sP + kRT * kPS;           //     [64, kYS] y
   float* sQs = sX;                      //  2: [32, D + 1] queries (scores)
-  float* sQB = sQs + kChunk * QS;       //     [32, BC] queries (product)
-  float* sUB = sQB + kChunk * BC;       //     [32, BC] u (product)
-  float* sUs = sUB + kChunk * BC;       //     [32, Dv + 1] u (dots)
+  float* sQB = sQs + kChunk * QS;       //     [32, BCK] queries (product)
+  float* sUB = sQB + kChunk * BCK;      //     [32, US] u (product)
+  float* sUs = kOneU ? sUB : sUB + kChunk * US;   // [32, VS] u (dots)
   float* sF = sUs + kChunk * VS;        //     [32, kPS] f(s)
   float* sDS = sF + kChunk * kPS;       //     [32, kPS] ds
   float* sSd = sDS + kChunk * kPS;      //     [32] sden
@@ -874,13 +898,13 @@ key_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   // ---- one walk over Z_c: dv's product and dk's scatter ----
-  float acc[4][4 * NCG];
+  float acc[4][4 * NCV];
 #pragma unroll
   for (int ri = 0; ri < 4; ++ri)
 #pragma unroll
-    for (int ci = 0; ci < 4 * NCG; ++ci) acc[ri][ci] = 0.f;
+    for (int ci = 0; ci < 4 * NCV; ++ci) acc[ri][ci] = 0.f;
   // the next tile's rows rl and rl + 32, in flight
-  float4 pz[2][(kMaxW + 4 + 31) / 32];
+  float4 pz[2][(kMaxDv + 4 + 31) / 32];
   int ncode[2] = {fetch_row(pz[0], zs, zg, rl, D, R, Dv, ZS, l8),
                   fetch_row(pz[1], zs, zg, rl + kChunk, D, R, Dv, ZS, l8)};
   for (int r0 = 0; r0 < R; r0 += kRT) {
@@ -903,8 +927,8 @@ key_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ncode[0] = fetch_row(pz[0], zs, zg, r, D, R, Dv, ZS, l8);
       ncode[1] = fetch_row(pz[1], zs, zg, r + kChunk, D, R, Dv, ZS, l8);
     }
-    tile_product<NCG>(acc, sP, sZ, ZS, ty, tx);
-    tile_product<NCG>(acc, sP + kChunk * kPS, sZ + kChunk * ZS, ZS, ty, tx);
+    tile_product<NCV>(acc, sP, sZ, ZS, ty, tx);
+    tile_product<NCV>(acc, sP + kChunk * kPS, sZ + kChunk * ZS, ZS, ty, tx);
     rows_times(sZ, ZS, TS, sVT, sY, tid);
     __syncthreads();
     jacobian_scatter(sDK, sKq, sY, sCode, QS, tid);
@@ -912,11 +936,11 @@ key_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // ---- the chunk's queries i >= j (all G heads): f(s) u and ds q ----
-  float acc2[4][4 * NCG];
+  float acc2[4][4 * NCK];
 #pragma unroll
   for (int ri = 0; ri < 4; ++ri)
 #pragma unroll
-    for (int ci = 0; ci < 4 * NCG; ++ci) acc2[ri][ci] = 0.f;
+    for (int ci = 0; ci < 4 * NCK; ++ci) acc2[ri][ci] = 0.f;
   for (int q0 = 0; q0 < GL; q0 += kChunk) {
     const int qn = min(kChunk, GL - q0);
     // rows whose position is below the block's first key add nothing
@@ -930,13 +954,13 @@ key_kernel(const T* __restrict__ q, const T* __restrict__ k,
         pos = qr - g * len;
         row = ((size_t)bh * G + g) * N + t0 + pos;
       }
-      for (int a = lane; a < BC; a += 32) {
+      for (int a = lane; a < BCK; a += 32) {
         const float xq = (pos >= 0 && a < D) ? ld(q + row * D + a) : 0.f;
         const float xu = (pos >= 0 && a < Dv) ? uws[row * Dv + a] : 0.f;
-        sQB[t * BC + a] = xq;
-        sUB[t * BC + a] = xu;
+        sQB[t * BCK + a] = xq;
+        if (a < BC) sUB[t * US + a] = xu;
         if (a < D) sQs[t * QS + a] = xq;
-        if (a < Dv) sUs[t * VS + a] = xu;
+        if (!kOneU && a < Dv) sUs[t * VS + a] = xu;
       }
       if (lane == 0) {
         sSd[t] = pos >= 0 ? sws[row] : 0.f;
@@ -974,8 +998,8 @@ key_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sDS[rl * kPS + ki] = ds;
     }
     __syncthreads();
-    tile_product<NCG>(acc, sF, sUB, BC, ty, tx);
-    tile_product<NCG>(acc2, sDS, sQB, BC, ty, tx);
+    tile_product<NCV>(acc, sF, sUB, US, ty, tx);
+    tile_product<NCK>(acc2, sDS, sQB, BCK, ty, tx);
     __syncthreads();
   }
 
@@ -984,11 +1008,11 @@ key_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int ri = 0; ri < 4; ++ri) {
     const int r = 4 * ty + ri, j = k0 + r;
 #pragma unroll
-    for (int jj = 0; jj < NCG; ++jj)
+    for (int jj = 0; jj < NCK; ++jj)
 #pragma unroll
       for (int ci = 0; ci < 4; ++ci) {
         const int cc = kCols * jj + 4 * tx + ci;
-        if (j < len && cc < Dv)
+        if (jj < NCV && j < len && cc < Dv)
           st(dv + ((size_t)bh * N + t0 + j) * Dv + cc, acc[ri][4 * jj + ci]);
         if (cc < D) sDK[r * QS + cc] += acc2[ri][4 * jj + ci];
       }
@@ -1021,17 +1045,17 @@ int launch_slots(const void* k, const void* v, const State& fin,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NCG, typename A>
+template <typename T, int NCV, int NCK, typename A>
 int launch_queries(const void* q, const void* k, const void* v,
                    const void* dout, const void* wsm, const void* wsg,
                    void* dq, void* uws, void* sws, int bh, int G, int N,
                    int t_begin, int n, int D, int Dv, int p, float eps,
                    cudaStream_t s) {
-  const size_t sm = sizeof(float) * query_smem_floats(D, Dv, NCG);
-  int err = set_smem(query_kernel<T, NCG, A>, sm);
+  const size_t sm = sizeof(float) * query_smem_floats(D, Dv, NCV, NCK);
+  int err = set_smem(query_kernel<T, NCV, NCK, A>, sm);
   if (err) return err;
   const dim3 grid((G * kL + kTile - 1) / kTile, (n + kL - 1) / kL, bh);
-  query_kernel<T, NCG, A><<<grid, kThreads, sm, s>>>(
+  query_kernel<T, NCV, NCK, A><<<grid, kThreads, sm, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
       (const float*)wsm, (const double*)wsg, (T*)dq, (float*)uws,
       (float*)sws, G, N, t_begin, n, D, Dv, p, eps);
@@ -1055,16 +1079,16 @@ int launch_cot(const void* q, const void* uws, const void* sws, void* zcm,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NCG>
+template <typename T, int NCV, int NCK>
 int launch_keys(const void* q, const void* k, const void* v, const void* uws,
                 const void* sws, const void* wzm, const void* wzg, void* dk,
                 void* dv, int bh, int G, int N, int t_begin, int n, int D,
                 int Dv, int p, cudaStream_t s) {
-  const size_t sm = sizeof(float) * key_smem_floats(D, Dv, NCG);
-  int err = set_smem(key_kernel<T, NCG>, sm);
+  const size_t sm = sizeof(float) * key_smem_floats(D, Dv, NCV, NCK);
+  int err = set_smem(key_kernel<T, NCV, NCK>, sm);
   if (err) return err;
   const dim3 grid((kL + kTile - 1) / kTile, (n + kL - 1) / kL, bh);
-  key_kernel<T, NCG><<<grid, kThreads, sm, s>>>(
+  key_kernel<T, NCV, NCK><<<grid, kThreads, sm, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)uws,
       (const float*)sws, (const float*)wzm, (const float*)wzg, (T*)dk,
       (T*)dv, G, N, t_begin, n, D, Dv, p);
@@ -1074,8 +1098,8 @@ int launch_keys(const void* q, const void* k, const void* v, const void* uws,
 bool dims_ok(int bh, int G, int N, int t_begin, int n, int D, int Dv,
              int p) {
   return bh >= 1 && bh <= 65535 && G >= 1 && n >= 1 && t_begin >= 0 &&
-         t_begin <= N - n && D >= 4 && D % 4 == 0 && D <= kMaxW && Dv >= 4 &&
-         Dv % 4 == 0 && Dv <= kMaxW && (p == 1 || p == 2) &&
+         t_begin <= N - n && D >= 4 && D % 4 == 0 && D <= kMaxD && Dv >= 4 &&
+         Dv % 4 == 0 && Dv <= kMaxDv && (p == 1 || p == 2) &&
          (n + kL - 1) / kL <= 65535 && (long)G * kL / kTile < (1L << 31);
 }
 
@@ -1085,7 +1109,14 @@ State state_of(const void* m0, const void* m1, const void* m2,
                (float*)g0, (float*)g1, (float*)g2};
 }
 
-int groups_of(int D, int Dv) { return (D > kCols || Dv > kCols) ? 2 : 1; }
+// The column groups of launches B' and D: one (both widths at most 64),
+// two (at most 128: one class for D and Dv, as before MLA), or at D > 128
+// two over Dv and three over D (MLA's D = 192, Dv = 128).
+enum class Width { k1, k2, k23 };
+Width width_of(int D, int Dv) {
+  if (D > 2 * kCols) return Width::k23;
+  return (D > kCols || Dv > kCols) ? Width::k2 : Width::k1;
+}
 
 }  // namespace
 
@@ -1134,20 +1165,20 @@ int fastmax_causal_bwd_queries(int dtype, const void* q, const void* k,
   if (!dims_ok(bh, G, N, t_begin, n, D, Dv, p))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QUERIES(T, NCG, A)                                                   \
-  launch_queries<T, NCG, A>(q, k, v, dout, wsm, wsg, dq, uws, sws, bh, G, N, \
-                            t_begin, n, D, Dv, p, eps, s)
-  const bool two = groups_of(D, Dv) == 2;
+#define QUERIES(T, NCV, NCK, A)                                              \
+  launch_queries<T, NCV, NCK, A>(q, k, v, dout, wsm, wsg, dq, uws, sws, bh,  \
+                                 G, N, t_begin, n, D, Dv, p, eps, s)
+#define BY_WIDTH(T, A)                                                       \
+  (w == Width::k23 ? QUERIES(T, 2, 3, A)                                     \
+                   : w == Width::k2 ? QUERIES(T, 2, 2, A)                    \
+                                    : QUERIES(T, 1, 1, A))
+  const Width w = width_of(D, Dv);
   // the denominator in f64 at p = 1 (as the prefill's combine)
-  if (dtype == 0) {
-    if (p == 1) return two ? QUERIES(float, 2, double)
-                           : QUERIES(float, 1, double);
-    return two ? QUERIES(float, 2, float) : QUERIES(float, 1, float);
-  }
-  if (p == 1) return two ? QUERIES(__nv_bfloat16, 2, double)
-                         : QUERIES(__nv_bfloat16, 1, double);
-  return two ? QUERIES(__nv_bfloat16, 2, float)
-             : QUERIES(__nv_bfloat16, 1, float);
+  if (dtype == 0)
+    return p == 1 ? BY_WIDTH(float, double) : BY_WIDTH(float, float);
+  return p == 1 ? BY_WIDTH(__nv_bfloat16, double)
+                : BY_WIDTH(__nv_bfloat16, float);
+#undef BY_WIDTH
 #undef QUERIES
 }
 
@@ -1182,18 +1213,16 @@ int fastmax_causal_bwd_keys(int dtype, const void* q, const void* k,
   if (!dims_ok(bh, G, N, t_begin, n, D, Dv, p))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool two = groups_of(D, Dv) == 2;
-  if (dtype == 0)
-    return two ? launch_keys<float, 2>(q, k, v, uws, sws, wzm, wzg, dk, dv,
-                                       bh, G, N, t_begin, n, D, Dv, p, s)
-               : launch_keys<float, 1>(q, k, v, uws, sws, wzm, wzg, dk, dv,
-                                       bh, G, N, t_begin, n, D, Dv, p, s);
-  return two ? launch_keys<__nv_bfloat16, 2>(q, k, v, uws, sws, wzm, wzg, dk,
-                                             dv, bh, G, N, t_begin, n, D, Dv,
-                                             p, s)
-             : launch_keys<__nv_bfloat16, 1>(q, k, v, uws, sws, wzm, wzg, dk,
-                                             dv, bh, G, N, t_begin, n, D, Dv,
-                                             p, s);
+#define KEYS(T, NCV, NCK)                                                    \
+  launch_keys<T, NCV, NCK>(q, k, v, uws, sws, wzm, wzg, dk, dv, bh, G, N,    \
+                           t_begin, n, D, Dv, p, s)
+#define BY_WIDTH(T)                                                          \
+  (w == Width::k23 ? KEYS(T, 2, 3)                                           \
+                   : w == Width::k2 ? KEYS(T, 2, 2) : KEYS(T, 1, 1))
+  const Width w = width_of(D, Dv);
+  return dtype == 0 ? BY_WIDTH(float) : BY_WIDTH(__nv_bfloat16);
+#undef BY_WIDTH
+#undef KEYS
 }
 
 }  // extern "C"

@@ -25,13 +25,59 @@ from repro_torch.kernels.fastmax_causal import (CHUNK, _KERNEL_DTYPES,
                                                 segment_tokens)
 
 __all__ = ["fastmax_causal_bwd_cuda", "fastmax_causal_bwd_ref", "bwd_call",
-           "bwd_workspace_bytes", "launches"]
+           "bwd_workspace_bytes", "check_widths", "column_groups",
+           "launch_smem_bytes", "launches", "MAX_D", "MAX_DV", "SMEM_LIMIT"]
 
 # calls of `fastmax_causal_bwd_cuda` that launched the kernel (one per call,
 # though each call makes four CUDA launches per segment)
 launches = 0
 
-_MAX_WIDTH = 128     # D and Dv the kernel takes at most
+MAX_D, MAX_DV = 192, 128   # D and Dv the kernel takes at most (kMaxD, kMaxDv)
+# shared memory one block may have on an H100 (227 KB, opt-in)
+SMEM_LIMIT = 232_448
+# the source's tiling constants (feature_table.cuh, fastmax_causal_bwd.cu)
+_THREADS, _TILE, _COLS, _STEP, _PS, _RT, _YS = 256, 64, 64, 32, 72, 64, 68
+
+
+def check_widths(d: int, dv: int) -> None:
+    """Raise unless the kernel takes D = `d` and Dv = `dv`."""
+    if d % 4 or dv % 4 or not (4 <= d <= MAX_D and 4 <= dv <= MAX_DV):
+        raise ValueError(f"the backward kernel needs D and Dv divisible by "
+                         f"4, 4 <= D <= {MAX_D} and 4 <= Dv <= {MAX_DV}, "
+                         f"got D={d}, Dv={dv}")
+
+
+def column_groups(d: int, dv: int) -> tuple:
+    """(NCV, NCK): the column groups of 64 over Dv and over D that launches
+    B' and D are instantiated with (`width_of` in the source)."""
+    if d > 2 * _COLS:
+        return 2, 3
+    g = 2 if d > _COLS or dv > _COLS else 1
+    return g, g
+
+
+def launch_smem_bytes(d: int, dv: int, p: int) -> dict:
+    """Shared memory per block of each of the four launches, static and
+    dynamic, by the source's formulas (`query_smem_floats`,
+    `key_smem_floats` and the arrays each kernel declares)."""
+    ncv, nck = column_groups(d, dv)
+    qs, bcv, bck = d + 1, _COLS * ncv, _COLS * nck
+    keys_rows = 4 * _STEP * qs                      # [32, D + 1] keys
+    acc = 8 if p == 1 else 4                        # the g partials' type
+    slots = 4 * 2 * _STEP * _TILE + acc * _THREADS + 4 * _TILE + keys_rows
+    cot = 4 * 2 * _STEP * _TILE + 4 * (_THREADS + _STEP + _TILE) + keys_rows
+    pass1 = _STEP * (bcv + _PS + qs)
+    pass2 = _RT * (dv + 4 + _YS)
+    intra_q = _STEP * (qs + bck + dv + 1 + _PS)
+    queries = 4 * (2 * _TILE * qs + (dv + 4) * _TILE + _TILE
+                   + max(pass1, pass2, intra_q) + _TILE + _RT)
+    zs = max(bcv, dv + 4)
+    zpass = _RT * (zs + _PS + _YS)
+    us = bcv + 4 if nck > ncv else bcv + dv + 1     # u once, or twice
+    intra_k = _STEP * (qs + bck + us + 2 * _PS) + _STEP
+    keys = 4 * (2 * _TILE * qs + (dv + 4) * _TILE + max(zpass, intra_k)
+                + _TILE + _STEP + _RT)
+    return {"slots": slots, "queries": queries, "cot": cot, "keys": keys}
 
 
 def _lib():
@@ -91,6 +137,7 @@ class _Backward:
         _check_inputs(q, k, v)
         if p not in (1, 2):
             raise ValueError(f"p must be 1 or 2, got {p}")
+        check_widths(q.shape[-1], v.shape[-1])
         dev = q.device
         if dev.type != "cuda":
             raise ValueError(f"fastmax_causal_bwd_cuda needs CUDA tensors, "
@@ -109,9 +156,6 @@ class _Backward:
                 raise ValueError(f"{name} on {t.device}, q on {dev}")
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
-        if d % 4 or dv % 4 or d > _MAX_WIDTH or dv > _MAX_WIDTH:
-            raise ValueError(f"the kernel needs D and Dv divisible by 4 and "
-                             f"at most {_MAX_WIDTH}, got D={d}, Dv={dv}")
         f32 = torch.float32
         # read only: the residual is never written; m2, g2 unused at p=1
         self.fin = []
@@ -237,17 +281,18 @@ def fastmax_causal_bwd_cuda(q, k, v, state, do, *, p: int = 2,
                             return_dstate: bool = False):
     """Launch the CUDA §2.5 backward on pre-normalized q̂ [B,Hq,N,D],
     k̂ [B,Hkv,N,D], v [B,Hkv,N,Dv] (float32 or bfloat16, contiguous, one
-    CUDA device, D and Dv at most 128), the forward's final carry `state`
-    (f32, m2 m-major [B,Hkv,D,D,Dv], as `fastmax_causal_cuda` emits it;
-    m2/g2 may be None at p=1) and the output cotangent `do` [B,Hq,N,Dv] in
-    q's dtype.
+    CUDA device, D at most 192 and Dv at most 128), the forward's final
+    carry `state` (f32, m2 m-major [B,Hkv,D,D,Dv], as `fastmax_causal_cuda`
+    emits it; m2/g2 may be None at p=1) and the output cotangent `do`
+    [B,Hq,N,Dv] in q's dtype.
 
     Returns (dq, dk, dv) in q's, k's and v's dtypes; with `return_dstate`
     also the cotangent of the scan's initial carry (f32 moment tuple). The
     residual `state` is never written. Raises on any input the kernel does
     not take and on a failed build or launch. Each call adds one to
     `launches`: the kernel is its four CUDA launches per segment of
-    `segment_tokens` (one at qwen3's training shapes), with a workspace of
+    `segment_tokens` (one at qwen3's training shapes, eight of one chunk
+    each at MLA's, B = 2 with 128 kv heads at D = 192), with a workspace of
     `bwd_workspace_bytes`, freed on return.
     """
     global launches

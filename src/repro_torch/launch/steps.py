@@ -48,7 +48,11 @@ def make_train_step(cfg: ModelConfig, optimizer, *, clip_norm: float = 1.0):
         finally:
             for _, x in named:
                 x.requires_grad_(False)
-        grads = tree_map(lambda x: x.grad, params)
+        # a leaf the loss does not use (the empty stacked block of a config
+        # cut to its first_k_dense layers) gets a zero gradient, as
+        # jax.grad gives it in the reference
+        grads = tree_map(lambda x: torch.zeros_like(x) if x.grad is None
+                         else x.grad, params)
         for _, x in named:
             x.grad = None
         grads, gnorm = clip_by_global_norm(grads, clip_norm)

@@ -37,16 +37,22 @@ def encoder_config(cfg: ModelConfig) -> ModelConfig:
 
 def init_encdec(cfg: ModelConfig, *, seed: int = 0,
                 generator: Optional[torch.Generator] = None,
-                device=None) -> dict:
+                device=None, with_axes: bool = False):
     """{"encoder", "decoder"} parameters, both towers drawn in turn from
     one `generator` (or a fresh one seeded with `seed`) on `device`
-    (default cuda)."""
-    dev = resolve_device(device)
+    (default cuda; `meta`: shapes only). With `with_axes`, (params, their
+    logical axes) as the reference's `init_encdec` returns them."""
+    dev = device if str(device) == "meta" else resolve_device(device)
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(seed)
-    enc = init_lm(encoder_config(cfg), generator=generator, device=dev)
-    dec = init_lm(cfg, generator=generator, device=dev)
-    return {"encoder": enc, "decoder": dec}
+        generator = torch.Generator(
+            device="cpu" if str(dev) == "meta" else dev).manual_seed(seed)
+    enc = init_lm(encoder_config(cfg), generator=generator, device=dev,
+                  with_axes=True)
+    dec = init_lm(cfg, generator=generator, device=dev, with_axes=True)
+    params = {"encoder": enc[0], "decoder": dec[0]}
+    if with_axes:
+        return params, {"encoder": enc[1], "decoder": dec[1]}
+    return params
 
 
 def encode(params, frames, cfg: ModelConfig):

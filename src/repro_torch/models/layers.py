@@ -39,9 +39,9 @@ def _dense(x, w, n_in: int = 1):
 
 def init_norm(b: Builder, name: str, dim: int, norm_type: str = "rmsnorm"):
     sub = b.sub(name)
-    sub.add("scale", (dim,), init="ones")
+    sub.add("scale", (dim,), ("embed",), init="ones")
     if norm_type == "layernorm":
-        sub.add("bias", (dim,), init="zeros")
+        sub.add("bias", (dim,), ("embed",), init="zeros")
 
 
 def apply_norm(params, x, *, norm_type: str = "rmsnorm", eps: float = 1e-5):
@@ -98,11 +98,11 @@ def init_mlp(b: Builder, name: str, d_model: int, d_ff: int,
              act: str = "swiglu"):
     sub = b.sub(name)
     if act == "swiglu":
-        sub.add("wi_gate", (d_model, d_ff))
-        sub.add("wi_up", (d_model, d_ff))
+        sub.add("wi_gate", (d_model, d_ff), ("embed", "ff"))
+        sub.add("wi_up", (d_model, d_ff), ("embed", "ff"))
     else:
-        sub.add("wi", (d_model, d_ff))
-    sub.add("wo", (d_ff, d_model))
+        sub.add("wi", (d_model, d_ff), ("embed", "ff"))
+    sub.add("wo", (d_ff, d_model), ("ff", "embed"))
 
 
 def apply_mlp(params, x, *, act: str = "swiglu"):
@@ -128,24 +128,27 @@ def init_attention(b: Builder, name: str, cfg) -> None:
     if cfg.use_mla:
         rank = cfg.kv_lora_rank
         qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
-        sub.add("wq", (d, hq, qk_dim))
-        sub.add("w_dkv", (d, rank + cfg.qk_rope_dim))
-        sub.add("w_uk", (rank, hq, cfg.qk_nope_dim))
-        sub.add("w_uv", (rank, hq, hd))
-        sub.add("wo", (hq, hd, d), fan_in=hq * hd)
+        sub.add("wq", (d, hq, qk_dim), ("embed", "heads", "head_dim"))
+        sub.add("w_dkv", (d, rank + cfg.qk_rope_dim), ("embed", None))
+        sub.add("w_uk", (rank, hq, cfg.qk_nope_dim),
+                (None, "heads", "head_dim"))
+        sub.add("w_uv", (rank, hq, hd), (None, "heads", "head_dim"))
+        sub.add("wo", (hq, hd, d), ("heads", "head_dim", "embed"),
+                fan_in=hq * hd)
     else:
-        sub.add("wq", (d, hq, hd))
-        sub.add("wk", (d, hkv, hd))
-        sub.add("wv", (d, hkv, hd))
-        sub.add("wo", (hq, hd, d), fan_in=hq * hd)
+        sub.add("wq", (d, hq, hd), ("embed", "heads", "head_dim"))
+        sub.add("wk", (d, hkv, hd), ("embed", "kv_heads", "head_dim"))
+        sub.add("wv", (d, hkv, hd), ("embed", "kv_heads", "head_dim"))
+        sub.add("wo", (hq, hd, d), ("heads", "head_dim", "embed"),
+                fan_in=hq * hd)
         if cfg.qkv_bias:
-            sub.add("bq", (hq, hd), init="zeros")
-            sub.add("bk", (hkv, hd), init="zeros")
-            sub.add("bv", (hkv, hd), init="zeros")
+            sub.add("bq", (hq, hd), ("heads", "head_dim"), init="zeros")
+            sub.add("bk", (hkv, hd), ("kv_heads", "head_dim"), init="zeros")
+            sub.add("bv", (hkv, hd), ("kv_heads", "head_dim"), init="zeros")
     if cfg.qk_norm:
         _, dq = _kv_dims(cfg)
-        sub.add("q_norm_scale", (dq,), init="ones")
-        sub.add("k_norm_scale", (dq,), init="ones")
+        sub.add("q_norm_scale", (dq,), (None,), init="ones")
+        sub.add("k_norm_scale", (dq,), (None,), init="ones")
 
 
 def _project_q(params, x, cfg, positions):

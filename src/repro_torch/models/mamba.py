@@ -64,17 +64,17 @@ def init_mamba(b: Builder, name: str, cfg) -> None:
     sub = b.sub(name)
     d = cfg.d_model
     di, dt_rank, ds, dc = _dims(cfg)
-    sub.add("in_proj", (d, 2 * di))
-    sub.add("conv_w", (dc, di), scale=1.0 / math.sqrt(dc))
-    sub.add("conv_b", (di,), init="zeros")
-    sub.add("x_proj", (di, dt_rank + 2 * ds))
-    sub.add("dt_proj", (dt_rank, di), scale=dt_rank ** -0.5)
-    sub.add("dt_bias", (di,), init="zeros")
+    sub.add("in_proj", (d, 2 * di), ("embed", "ff"))
+    sub.add("conv_w", (dc, di), (None, "ff"), scale=1.0 / math.sqrt(dc))
+    sub.add("conv_b", (di,), ("ff",), init="zeros")
+    sub.add("x_proj", (di, dt_rank + 2 * ds), ("ff", None))
+    sub.add("dt_proj", (dt_rank, di), (None, "ff"), scale=dt_rank ** -0.5)
+    sub.add("dt_bias", (di,), ("ff",), init="zeros")
     # S4D-real init: A = -[1..ds] per channel (the log taken in float32)
     a = torch.arange(1, ds + 1, dtype=_F32).expand(di, ds)
-    sub.constant("A_log", torch.log(a))
-    sub.add("D", (di,), init="ones")
-    sub.add("out_proj", (di, d))
+    sub.constant("A_log", torch.log(a), ("ff", None))
+    sub.add("D", (di,), ("ff",), init="ones")
+    sub.add("out_proj", (di, d), ("ff", "embed"))
 
 
 def _causal_conv(x, w, b_, *, state=None):

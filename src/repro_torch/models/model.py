@@ -1,6 +1,14 @@
 """Model entry points — port of `repro/models/model.py`: decoder-only LMs
-and encoder-decoder models (a config with `encoder_layers > 0`)."""
+and encoder-decoder models (a config with `encoder_layers > 0`).
+
+`param_axes`, `input_specs` and `decode_state_specs` describe a model
+without allocating it (`meta` tensors, the reference's ShapeDtypeStructs):
+the placement layer (`repro_torch.sharding`) maps them to a mesh."""
 from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
 
 from repro_torch.models import encdec as ED
 from repro_torch.models.transformer import (ModelConfig, forward_lm, init_lm,
@@ -8,7 +16,8 @@ from repro_torch.models.transformer import (ModelConfig, forward_lm, init_lm,
                                             lm_decode_step, lm_loss)
 
 __all__ = ["init_model", "model_loss", "model_forward", "init_decode_state",
-           "decode_step", "decoder_params"]
+           "decode_step", "decoder_params", "param_axes", "input_specs",
+           "decode_state_specs"]
 
 
 def _is_encdec(cfg: ModelConfig) -> bool:
@@ -22,11 +31,50 @@ def decoder_params(params, cfg: ModelConfig) -> dict:
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0, generator=None,
-               device=None) -> dict:
+               device=None, with_axes: bool = False):
+    """The model's parameters; with `with_axes`, (params, logical axes)."""
     if _is_encdec(cfg):
         return ED.init_encdec(cfg, seed=seed, generator=generator,
-                              device=device)
-    return init_lm(cfg, seed=seed, generator=generator, device=device)
+                              device=device, with_axes=with_axes)
+    return init_lm(cfg, seed=seed, generator=generator, device=device,
+                   with_axes=with_axes)
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every parameter (a tuple of names per leaf, the
+    tree of `init_model`), built on the `meta` device."""
+    return init_model(cfg, device="meta", with_axes=True)[1]
+
+
+def input_specs(cfg: ModelConfig, *, global_batch: int, seq_len: int,
+                kind: str = "train") -> Dict[str, Any]:
+    """`meta` tensors of the inputs of a train step (kind "train": tokens
+    and targets, an encoder-decoder model's frames) or of a decode step's
+    per-step inputs (kind "decode": one token per sequence, the encoder
+    output), with the reference's shapes and dtypes."""
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    enc = (global_batch, cfg.encoder_seq, cfg.d_model)
+    if kind == "train":
+        tok = (global_batch, seq_len)
+        specs = {"tokens": meta(tok, torch.int32),
+                 "targets": meta(tok, torch.int32)}
+        if _is_encdec(cfg):
+            specs["frames"] = meta(enc, cfg.adtype())
+        return specs
+    if kind == "decode":
+        specs = {"token": meta((global_batch,), torch.int32)}
+        if _is_encdec(cfg):
+            specs["enc_out"] = meta(enc, cfg.adtype())
+        return specs
+    raise ValueError(kind)
+
+
+def decode_state_specs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The decode state's tree with `meta` leaves: its shapes and dtypes
+    without allocating it."""
+    return init_lm_decode_state(cfg, batch, max_len, device="meta")
 
 
 def model_loss(params, batch, cfg: ModelConfig):

@@ -38,15 +38,15 @@ _F32 = torch.float32
 def init_moe(b: Builder, name: str, cfg) -> None:
     sub = b.sub(name)
     d, e, ff = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
-    sub.add("router", (d, e), scale=0.02)
-    sub.add("wi_gate", (e, d, ff), fan_in=d)
-    sub.add("wi_up", (e, d, ff), fan_in=d)
-    sub.add("wo", (e, ff, d), fan_in=ff)
+    sub.add("router", (d, e), ("embed", "experts"), scale=0.02)
+    sub.add("wi_gate", (e, d, ff), ("experts", "embed", "ff"), fan_in=d)
+    sub.add("wi_up", (e, d, ff), ("experts", "embed", "ff"), fan_in=d)
+    sub.add("wo", (e, ff, d), ("experts", "ff", "embed"), fan_in=ff)
     if cfg.n_shared_experts > 0:
         sff = ff * cfg.n_shared_experts
-        sub.add("shared_wi_gate", (d, sff))
-        sub.add("shared_wi_up", (d, sff))
-        sub.add("shared_wo", (sff, d))
+        sub.add("shared_wi_gate", (d, sff), ("embed", "ff"))
+        sub.add("shared_wi_up", (d, sff), ("embed", "ff"))
+        sub.add("shared_wo", (sff, d), ("ff", "embed"))
 
 
 def capacity(t: int, cfg, full_capacity: bool) -> int:

@@ -7,6 +7,19 @@ explicit `torch.Generator` with the reference Builder's scales: normal x
 "ones"/"zeros" inits, explicit `scale` where set (embed: 1.0). The numbers
 differ from JAX's for the same seed; parity tests instead convert a JAX
 params tree with `from_jax_params`.
+
+Beside the values the Builder records the reference's logical axes, one
+tuple of names per parameter in a parallel `axes` tree (a stacked block's
+prefixed with "layers"), which `repro_torch.sharding` maps to mesh axes:
+  "embed"    model width (d_model)        -> the FSDP axis
+  "heads"    attention heads              -> tensor parallel
+  "kv_heads" kv heads (GQA)               -> tensor parallel iff it divides
+  "head_dim" per-head dim                 -> replicated
+  "ff"       MLP hidden                   -> tensor parallel
+  "vocab"    embedding / logit vocab      -> tensor parallel
+  "experts"  MoE experts                  -> expert parallel
+  "layers"   the stacked layer axis       -> replicated
+  None       replicated
 """
 from __future__ import annotations
 
@@ -20,8 +33,9 @@ __all__ = ["Builder", "from_jax_params", "count_params"]
 
 
 class Builder:
-    """Fills a nested dict of parameters. `lead` is a shape prefix (the
-    stacked layer axis) added to every parameter of this builder."""
+    """Fills a nested dict of parameters and the parallel tree of their
+    logical axes. `lead` is a shape prefix (the stacked layer axis) added
+    to every parameter of this builder, and "layers" to its axes."""
 
     def __init__(self, generator: torch.Generator, dtype: torch.dtype,
                  device, lead: tuple = ()):
@@ -30,22 +44,32 @@ class Builder:
         self.device = device
         self.lead = tuple(lead)
         self.params: dict = {}
+        self.axes: dict = {}
+
+    def _child(self, name: str, lead: tuple) -> "Builder":
+        child = Builder(self.generator, self.dtype, self.device, lead)
+        self.params[name] = child.params
+        self.axes[name] = child.axes
+        return child
 
     def sub(self, name: str) -> "Builder":
-        child = Builder(self.generator, self.dtype, self.device, self.lead)
-        self.params[name] = child.params
-        return child
+        return self._child(name, self.lead)
 
     def stacked(self, name: str, n: int) -> "Builder":
         """A sub-builder whose parameters carry a leading axis of n layers."""
-        child = Builder(self.generator, self.dtype, self.device,
-                        self.lead + (n,))
-        self.params[name] = child.params
-        return child
+        return self._child(name, self.lead + (n,))
 
-    def add(self, name: str, shape: Sequence[int], init: str = "normal",
+    def _record(self, name: str, shape: tuple, axes) -> None:
+        axes = tuple(axes)
+        if len(axes) != len(shape):
+            raise ValueError(f"{name}: axes {axes} for shape {shape}")
+        self.axes[name] = ("layers",) * len(self.lead) + axes
+
+    def add(self, name: str, shape: Sequence[int],
+            axes: Sequence[Optional[str]], init: str = "normal",
             scale: Optional[float] = None,
             fan_in: Optional[int] = None) -> None:
+        self._record(name, tuple(shape), axes)
         full = self.lead + tuple(shape)
         if init == "zeros":
             val = torch.zeros(full, dtype=self.dtype, device=self.device)
@@ -62,10 +86,12 @@ class Builder:
             raise ValueError(init)
         self.params[name] = val
 
-    def constant(self, name: str, value: torch.Tensor) -> None:
+    def constant(self, name: str, value: torch.Tensor,
+                 axes: Sequence[Optional[str]]) -> None:
         """A fixed parameter (Mamba's S4D `A_log`, mLSTM's forget bias):
         `value` rounded to the param dtype, as the reference stores it,
         and repeated over the builder's leading layer axis."""
+        self._record(name, tuple(value.shape), axes)
         val = value.to(device=self.device, dtype=self.dtype)
         self.params[name] = val.expand(self.lead + tuple(val.shape)) \
             .contiguous()

@@ -204,10 +204,14 @@ def _init_block(b: Builder, kind: str, cfg: ModelConfig,
 
 
 def init_lm(cfg: ModelConfig, *, seed: int = 0,
-            generator: Optional[torch.Generator] = None, device=None) -> dict:
+            generator: Optional[torch.Generator] = None, device=None,
+            with_axes: bool = False):
     """Random parameters at the config's widths, drawn from `generator` (or
     a fresh one seeded with `seed`) on `device` (default cuda). On the
-    `meta` device it only describes the shapes (`param.count_params`)."""
+    `meta` device it only describes the shapes (`param.count_params`).
+    With `with_axes`, (params, their logical axes): the reference's
+    `init_lm` return, a tuple of axis names per leaf in a parallel tree
+    (the draws are the same either way)."""
     _check_supported(cfg)
     dev = device if str(device) == "meta" else resolve_device(device)
     if generator is None:
@@ -215,14 +219,15 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0,
             device="cpu" if str(dev) == "meta" else dev).manual_seed(seed)
     b = Builder(generator, cfg.dtype(), dev)
     if not cfg.input_embeddings_only:
-        b.add("embed", (cfg.vocab_size, cfg.d_model), scale=1.0)
+        b.add("embed", (cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+              scale=1.0)
     for key, kind, stacked in _block_keys(cfg):
         sub = b.stacked(key, cfg.n_groups) if stacked else b.sub(key)
         _init_block(sub, kind, cfg, force_mlp=not stacked)
     L.init_norm(b, "final_norm", cfg.d_model, cfg.norm_type)
     if not cfg.tie_embeddings and not cfg.input_embeddings_only:
-        b.add("unembed", (cfg.d_model, cfg.vocab_size))
-    return b.params
+        b.add("unembed", (cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    return (b.params, b.axes) if with_axes else b.params
 
 
 def _sinusoidal_at(pos, d: int, dtype):

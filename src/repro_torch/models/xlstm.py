@@ -73,18 +73,18 @@ def init_mlstm(b: Builder, name: str, cfg) -> None:
     sub = b.sub(name)
     d = cfg.d_model
     di, nh, hd = _dims(cfg)
-    sub.add("up_proj", (d, 2 * di))
+    sub.add("up_proj", (d, 2 * di), ("embed", "ff"))
     # headwise (block-diagonal) q/k/v projections, per the xLSTM paper
-    sub.add("wq", (nh, hd, hd), fan_in=hd)
-    sub.add("wk", (nh, hd, hd), fan_in=hd)
-    sub.add("wv", (nh, hd, hd), fan_in=hd)
-    sub.add("wi", (di, nh), scale=0.02)
-    sub.add("wf", (di, nh), scale=0.02)
-    sub.add("bi", (nh,), init="zeros")
+    sub.add("wq", (nh, hd, hd), ("heads", None, "head_dim"), fan_in=hd)
+    sub.add("wk", (nh, hd, hd), ("heads", None, "head_dim"), fan_in=hd)
+    sub.add("wv", (nh, hd, hd), ("heads", None, "head_dim"), fan_in=hd)
+    sub.add("wi", (di, nh), ("ff", "heads"), scale=0.02)
+    sub.add("wf", (di, nh), ("ff", "heads"), scale=0.02)
+    sub.add("bi", (nh,), ("heads",), init="zeros")
     # positive forget bias -> long memory at init (paper init)
-    sub.constant("bf", torch.full((nh,), 3.0, dtype=_F32))
-    sub.add("gn_scale", (di,), init="ones")
-    sub.add("down_proj", (di, d))
+    sub.constant("bf", torch.full((nh,), 3.0, dtype=_F32), ("heads",))
+    sub.add("gn_scale", (di,), ("ff",), init="ones")
+    sub.add("down_proj", (di, d), ("ff", "embed"))
 
 
 def _mlstm_gates(params, xi):
@@ -219,12 +219,14 @@ def init_slstm(b: Builder, name: str, cfg) -> None:
     d = cfg.d_model
     di, nh, hd = _sdims(cfg)
     for gate in _GATES:
-        sub.add(f"w{gate}", (d, di))
+        sub.add(f"w{gate}", (d, di), ("embed", "ff"))
         # recurrent weights: block-diagonal per head [H, hd, hd]
-        sub.add(f"r{gate}", (nh, hd, hd), fan_in=hd)
-        sub.add(f"b{gate}", (di,), init="zeros" if gate != "f" else "ones")
-    sub.add("gn_scale", (di,), init="ones")
-    sub.add("down_proj", (di, d))
+        sub.add(f"r{gate}", (nh, hd, hd), ("heads", None, None),
+                fan_in=hd)
+        sub.add(f"b{gate}", (di,), ("ff",),
+                init="zeros" if gate != "f" else "ones")
+    sub.add("gn_scale", (di,), ("ff",), init="ones")
+    sub.add("down_proj", (di, d), ("ff", "embed"))
 
 
 def _slstm_scan(params, x, cfg, state: SLSTMState):

@@ -371,14 +371,15 @@ def _assert_bwd_close(a, plain, exact, first):
                                   exact[..., :first, :], 1e-4)
 
 
-def _check_bwd_on_card(dev, seed, heads, n, p, dtype, seeded, d=64, b=2):
+def _check_bwd_on_card(dev, seed, heads, n, p, dtype, seeded, d=64, b=2,
+                       dv=None):
     from repro_torch.kernels.fastmax_causal import CHUNK
     from repro_torch.kernels.fastmax_causal_bwd import (
         fastmax_causal_bwd_cuda, fastmax_causal_bwd_ref)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, do, st = _bwd_inputs(dev, gen, b, *heads, n, d, d, p, seeded,
-                                  dtype)
+    q, k, v, do, st = _bwd_inputs(dev, gen, b, *heads, n, d, dv or d, p,
+                                  seeded, dtype)
     c = CHUNK   # the kernel's chunk at any G and D
     before = [x.clone() for x in st]
     got = fastmax_causal_bwd_cuda(q, k, v, st, do, p=p,
@@ -464,6 +465,18 @@ def test_bwd_kernel_other_head_dims_on_card(cuda_device, d):
     a copy, not the residual) and three (D = 96)."""
     _check_bwd_on_card(cuda_device, 8, (4, 2), 200, 2, torch.float32, True,
                        d=d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p, heads, seeded", [(2, (2, 2), False),
+                                              (2, (4, 2), True),
+                                              (1, (2, 1), True)])
+def test_bwd_kernel_mla_width_on_card(cuda_device, p, heads, seeded):
+    """MLA's widths, D = 192 and Dv = 128: three column groups over D in
+    the queries' and keys' launches, two over Dv; N = 300 (three chunks,
+    the last ragged), G = 1 and 2, p = 1 and 2."""
+    _check_bwd_on_card(cuda_device, 12 + p, heads, 300, p, torch.float32,
+                       seeded, d=192, b=1, dv=128)
 
 
 @pytest.mark.cuda
