@@ -253,6 +253,35 @@ and power limit, and the result line last):
                 new tokens) with the autotuner off, on, on, off: prefill ms
                 and decode ms per token as readings, and the tokens that
                 differ from the off run's.
+ 23. shard    — the kernel plans (kernels/sharded.py) on two ranks of a
+                gloo group sharing the card (launch/ranks.py spawns them
+                after the parent's build): heads mode at qwen3's layer
+                (B=4, 16/8 heads, N=1024, 4 kv heads a rank), feature mode
+                at granite's MQA layer (48/1 heads, Dv = 64 a rank), each
+                prefill (o, carry), 32 lockstep decode steps and the
+                trainable forward and backward; seq mode (cp = 2) at N =
+                2048, B = 2 (the ring) and B = 1 (the allgather), forward
+                and backward; the hybrid kernel in heads and feature mode,
+                forward; float32 and bfloat16, p = 2. Each rank checks its
+                shards against one single-process kernel call on the
+                whole inputs: o at the o limits, the carry at
+                TOL_MOMENTS, grads by shard_grad_err (each shard's first
+                chunk against float64); heads mode bit for bit where its
+                segments match the single call's. Per rank: the kernels'
+                ms, the exchange's ms and bytes per boundary, which ran.
+ 24. cp train — full-width qwen3-1.7b cut to 4 layers, float32 weights
+                and activations, AdamW, B=2, N=2048, remat none: --cp 2
+                on two ranks of the card against --cp 1 in one process:
+                the loss and per-leaf grads of the seeded weights and 3
+                steps' losses (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL), beside
+                the same readings of the plain fastmax2-chunked path
+                against --cp 1 (a control), exactly 4 prefill and 4 backward
+                launches per rank per step, step ms, global tokens/s, peak
+                memory per rank, the carry bytes per boundary per layer;
+                then `torch.distributed.run --nproc-per-node 2 -m
+                repro_torch.launch.train --cp 2` on the smoke model, two
+                steps, loss printed. Two ranks share one card: no time
+                here is a multi-card speedup.
 Exits non-zero, printing no result line, when any phase fails.
 """
 from __future__ import annotations
@@ -2328,6 +2357,502 @@ def autotune_phase(dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [shard] and [cp train]: the kernel plans on two ranks of the one card
+# ---------------------------------------------------------------------------
+
+RANKS_DIR = Path(__file__).resolve().parent / "build" / "ranks"
+SHARD_STEPS = 32            # lockstep decode steps after each prefill
+# (name, (B, Hq, Hkv, N, D, Dv), mesh axes, mode, what runs): qwen3's
+# layer, granite's MQA layer, qwen3's layer at N = 2048 under cp = 2 at
+# B = 2 (the auto pick is the ring: 2 x 136.3 MB > 256 MiB) and B = 1
+# (allgather: 2 x 68.2 MB), and the hybrid kernel at qwen3's layer
+SHARD_CASES = (
+    ("heads", (4, 16, 8, 1024, 128, 128), ("data", "model"), "heads",
+     ("serve", "train")),
+    ("feature", (4, 48, 1, 1024, 128, 128), ("data", "model"), "feature",
+     ("serve", "train")),
+    ("seq B=2", (2, 16, 8, 2048, 128, 128), ("data", "seq"), "seq",
+     ("train",)),
+    ("seq B=1", (1, 16, 8, 2048, 128, 128), ("data", "seq"), "seq",
+     ("train",)),
+    ("hybrid heads", (4, 16, 8, 1024, 128, 128), ("data", "model"), "heads",
+     ("hybrid",)),
+    ("hybrid feature", (4, 16, 8, 1024, 128, 128), ("data", "model"),
+     "feature", ("hybrid",)),
+)
+HYBRID_WINDOW = 64
+CP_ARCH, CP_LAYERS, CP_B, CP_N, CP_STEPS = "qwen3-1.7b", 4, 2, 2048, 3
+
+
+def _rank_setup():
+    """A spawned rank: the card (both ranks share it), TF32 off, the port
+    importable. Returns the device."""
+    src = str(Path(__file__).resolve().parent / "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def shard_grad_err(k, s, plain, exact, firsts, partials=False):
+    """A sharded backward output `k` on the rank's rows against the single
+    kernel call's `s`, the plain versions' `plain` on the same shards and
+    float64 `exact`. Rows past each shard's first chunk (`firsts`, a slice
+    of the rows axis -2): the TOL_GRAD rule against `s`. Where `k` is a
+    sum of bf16-rounded parts (`partials`: feature mode's dq, dk over the
+    ranks' Dv columns; seq mode's dk, dv, the local kernel's plus the
+    moment fold's), which may cancel, those rows may instead be as close
+    to float64 as `s` is (GRAD_MARGIN x its error). The first chunk's rows
+    rebuild the carry before them by subtraction (the reference's
+    carry_before = carry_after - delta): there `k` is held against float64
+    within GRAD_MARGIN x the larger error of `s` and `plain` on those
+    rows. Returns (tail max |k - s|, first-chunk errors of k, s and
+    plain, ok)."""
+    rows = torch.ones(k.shape[-2], dtype=torch.bool, device=k.device)
+    rows[firsts] = False
+
+    def err(a, sel):
+        return (a[..., sel, :].double() - exact[..., sel, :]).abs().max(
+        ).item()
+
+    tk, ts = k[..., rows, :].float(), s[..., rows, :].float()
+    diff = (tk - ts).abs()
+    lim = TOL_GRAD * max(1.0, ts.abs().max().item())
+    ok = (bool((diff <= ts.abs() * TOL_BF16_REL + lim).all())
+          if k.dtype == torch.bfloat16 else diff.max().item() <= lim)
+    if not ok and partials and k.dtype == torch.bfloat16:
+        ok = err(k, rows) <= GRAD_MARGIN * err(s, rows)
+    e_k, e_s, e_p = err(k, firsts), err(s, firsts), err(plain, firsts)
+    head = exact[..., firsts, :]
+    ok = ok and e_k <= max(GRAD_MARGIN * max(e_s, e_p),
+                           TOL_GRAD * max(1.0, head.abs().max().item()))
+    return diff.max().item(), e_k, e_s, e_p, ok
+
+
+def _shard_case(case, mesh, dev):
+    """One [shard] case on this rank, float32 then bfloat16: the gathered
+    kernel results checked on the rank's shards against one
+    single-process kernel call on the whole inputs (every rank makes the
+    same call, so each checks its own shard). Returns its readings."""
+    from repro_torch.core.fastmax import (compute_moments_chunked,
+                                          fastmax_causal_chunked)
+    from repro_torch.core.hybrid import hybrid_causal_chunked
+    from repro_torch.core.ref import normalize_qk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sharded as S
+    from repro_torch.kernels.fastmax_causal import CHUNK, segment_tokens
+    from repro_torch.sharding.rules import _batch_entry, mesh_axes
+
+    name, (b, hq, hkv, n, d, dv), _, mode, what = case
+    gen = torch.Generator(device=dev).manual_seed(27)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    sizes = mesh_axes(mesh)
+    if mode == "feature" and hkv % 2 == 0:
+        # qwen3's heads would take heads mode: force the feature plan
+        plan = S.ShardPlan(mesh, _batch_entry(sizes, b)[0], "feature", 2)
+    else:
+        plan = S.plan_kernel_sharding(mesh, batch=b, hq=hq, hkv=hkv, dv=dv,
+                                      seq_len=n if mode == "seq" else None)
+    assert plan.mode == mode, (name, plan)
+    sp = S.plan_specs(plan)
+
+    def loc(key, t):
+        return S.shard_local(t, sp[key], mesh)
+
+    rank_n = n // plan.cp
+    # each shard's first chunk of the kernel (the rank's first rows)
+    firsts = slice(0, min(CHUNK, rank_n))
+    q0 = normalize_qk(randn(b, hq, n, d))
+    k0 = normalize_qk(randn(b, hkv, n, d))
+    v0, do0 = randn(b, hkv, n, dv), randn(b, hq, n, dv)
+    steps = [(normalize_qk(randn(b, hq, 1, d)),
+              normalize_qk(randn(b, hkv, 1, d)), randn(b, hkv, 1, dv))
+             for _ in range(SHARD_STEPS)]
+    kw = dict(p=2, denom_eps=1e-6)
+    out = {"case": name, "mode": mode, "ok": True, "dtypes": {}}
+    same_segments = (segment_tokens(b * hkv, d, dv, 2) >= n
+                     and segment_tokens(b * hkv // plan.tp, d, dv, 2) >= n)
+    for dtype in (torch.float32, torch.bfloat16):
+        r = {}
+        q, k, v, do = (t.to(dtype) for t in (q0, k0, v0, do0))
+        bitwise = []
+        if "serve" in what:
+            ok_, st_ = S.fastmax_prefill_sharded(
+                loc("q", q), loc("k", k), loc("v", v), chunk_size=CHUNK,
+                plan=plan, **kw)
+            os_, sts = ops.fastmax_prefill_kernel(q, k, v, **kw)
+            eo, o_ok = o_err(ok_, loc("o", os_))
+            em = max(moment_err(a, loc_m) for a, loc_m in zip(
+                st_, (S.shard_local(t, s, mesh)
+                      for t, s in zip(sts, sp["moments"]))))
+            bitwise.append(torch.equal(ok_, loc("o", os_)))
+            ed, d_ok = 0.0, True
+            kst, sst = tuple(st_), tuple(sts)
+            for qs, ks, vs in steps:
+                qs, ks, vs = (t.to(dtype) for t in (qs, ks, vs))
+                o1, kst = S.fastmax_decode_sharded(
+                    loc("q", qs), loc("k", ks), loc("v", vs), kst, plan=plan,
+                    **kw)
+                s1 = ops.fastmax_decode(qs, ks, vs, sst, **kw)
+                e, ok1 = o_err(o1, loc("o", s1))
+                ed, d_ok = max(ed, e), d_ok and ok1
+                bitwise.append(torch.equal(o1, loc("o", s1)))
+            emd = max(moment_err(a, S.shard_local(t, s, mesh))
+                      for a, t, s in zip(kst, sst, sp["moments"]))
+            r["prefill_ms"] = sync_ms(lambda: S.fastmax_prefill_sharded(
+                loc("q", q), loc("k", k), loc("v", v), chunk_size=CHUNK,
+                plan=plan, **kw), reps=3)
+            r.update(prefill_o_err=eo, carry_err=em, decode_o_err=ed,
+                     decode_state_err=emd)
+            r["ok_serve"] = o_ok and d_ok and em <= TOL_MOMENTS \
+                and emd <= TOL_MOMENTS
+        if "hybrid" in what:
+            hk = dict(p=2, window=HYBRID_WINDOW, chunk_size=512,
+                      denom_eps=1e-6)
+            with torch.no_grad():
+                ok_ = S.hybrid_sharded(loc("q", q), loc("k", k), loc("v", v),
+                                       plan=plan, **hk)
+                os_ = ops.hybrid(q, k, v, **hk)
+                op_ = hybrid_causal_chunked(q, k, v, p=2,
+                                            window=HYBRID_WINDOW,
+                                            chunk_size=512)
+            eo, o_ok = o_err(ok_, loc("o", os_))
+            ep, p_ok = o_err(ok_, loc("o", op_))
+            bitwise.append(torch.equal(ok_, loc("o", os_)))
+            with torch.no_grad():
+                r["hybrid_ms"] = sync_ms(lambda: S.hybrid_sharded(
+                    loc("q", q), loc("k", k), loc("v", v), plan=plan, **hk),
+                    reps=3)
+            r.update(hybrid_o_err=eo, hybrid_o_err_plain=ep)
+            r["ok_hybrid"] = o_ok and p_ok
+        if "train" in what:
+            def sharded(qq, kk, vv, dd, plain=False):
+                a, b_, c = (loc(n_, t).requires_grad_(True)
+                            for n_, t in (("q", qq), ("k", kk), ("v", vv)))
+                o = S.fastmax_sharded(a, b_, c, causal=True,
+                                      chunk_size=CHUNK, plan=plan,
+                                      plain=plain, **kw)
+                o.backward(loc("o", dd))
+                return [o.detach(), a.grad, b_.grad, c.grad]
+
+            def single(qq, kk, vv, dd, kernel=True):
+                a, b_, c = (t.clone().requires_grad_(True)
+                            for t in (qq, kk, vv))
+                if kernel:
+                    o = ops.fastmax(a, b_, c, causal=True, **kw)
+                else:
+                    o = fastmax_causal_chunked(a, b_, c, p=2,
+                                               chunk_size=CHUNK,
+                                               custom_grad=True)
+                o.backward(dd)
+                return [loc(n_, t) for n_, t in zip(
+                    ("o", "q", "k", "v"), (o.detach(), a.grad, b_.grad,
+                                           c.grad))]
+
+            kg = sharded(q, k, v, do)
+            sg = single(q, k, v, do)
+            wide = [t.double() for t in (q, k, v, do)]
+            # float64: the single-process plain call, cut to the shard
+            eg = single(*wide, kernel=False)
+            # the plain versions at the input dtype: on the seq plan's
+            # shards (each rebuilds its own carry, the first chunk's
+            # conditioning there), else on the whole inputs
+            pg = (sharded(q, k, v, do, plain=True) if mode == "seq"
+                  else single(q, k, v, do, kernel=False))
+            eo, o_ok = o_err(kg[0], sg[0])
+            bitwise.append(torch.equal(kg[0], sg[0]))
+            gerr, g_ok = {}, True
+            for gname, a, s_, p_, e_ in zip(("dq", "dk", "dv"), kg[1:],
+                                            sg[1:], pg[1:], eg[1:]):
+                tail, e_k, e_s, e_p, ok1 = shard_grad_err(
+                    a, s_, p_, e_, firsts,
+                    partials=(mode, gname) in (("feature", "dq"),
+                                               ("feature", "dk"),
+                                               ("seq", "dk"), ("seq", "dv")))
+                gerr[gname] = (tail, e_k, e_s, e_p)
+                g_ok = g_ok and ok1
+                bitwise.append(torch.equal(a, s_))
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            sharded(q, k, v, do)
+            t1.record()
+            t1.synchronize()
+            r.update(train_o_err=eo, grad_errs=gerr,
+                     fwd_bwd_ms=t0.elapsed_time(t1))
+            r["ok_train"] = o_ok and g_ok
+            if mode == "seq":
+                with torch.no_grad():
+                    mom = compute_moments_chunked(loc("k", k), loc("v", v),
+                                                  p=2, chunk_size=CHUNK)
+                impl = S._seq_impl(loc("q", q), loc("k", k), loc("v", v), 2,
+                                   plan)
+                r["exchange"] = impl
+                r["exchange_ms"] = sync_ms(
+                    lambda: S._cp_prefix_sum(tuple(mom), mesh, impl),
+                    reps=3)
+                r["carry_bytes"] = S.cp_carry_bytes(b=b, hkv=hkv, d=d,
+                                                    dv=dv, p=2)
+        r["bitwise"] = all(bitwise)
+        r["same_segments"] = same_segments
+        if mode == "heads" and same_segments and not r["bitwise"]:
+            r["ok_bitwise"] = False
+        r["ok"] = all(v_ for k_, v_ in r.items() if k_.startswith("ok_"))
+        out["ok"] = out["ok"] and r["ok"]
+        out["dtypes"][str(dtype)[6:]] = r
+    torch.cuda.synchronize()
+    return out
+
+
+def shard_rank(rank, world, cases):
+    """A [shard] rank: every case on its (data 1, model 2) or (data 1,
+    seq 2) mesh over the gloo group."""
+    del world
+    dev = _rank_setup()
+    from repro_torch.launch.mesh import make_test_mesh
+
+    meshes = {}
+    out = []
+    for case in cases:
+        axes = case[2]
+        if axes not in meshes:
+            meshes[axes] = make_test_mesh((1, 2), axes)
+        out.append(_shard_case(case, meshes[axes], dev))
+    out.append({"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "rank": rank})
+    return out
+
+
+def shard_phase() -> dict:
+    """[shard]: two ranks on the one card over gloo, the kernel plans'
+    gathered results against one single-process kernel call."""
+    from repro_torch.launch.ranks import run_ranks
+
+    t0 = time.monotonic()
+    ranks = run_ranks(shard_rank, 2, args=(SHARD_CASES,),
+                      workdir=RANKS_DIR / "shard", timeout=600, threads=0)
+    secs = time.monotonic() - t0
+    ok = True
+    for rank, res in enumerate(ranks):
+        for c in res[:-1]:
+            ok = ok and c["ok"]
+            for dt, r in c["dtypes"].items():
+                parts = [f"{k}={v:.3e}" if isinstance(v, float) else
+                         f"{k}={v}" for k, v in r.items()
+                         if k.endswith("_err") or k.endswith("_ms")
+                         or k in ("exchange", "carry_bytes", "bitwise",
+                                  "same_segments")]
+                parts += [f"{g} tail {t:.3e} first {ek:.3e} (single "
+                          f"{es:.3e}, plain {ep:.3e})" for g, (t, ek, es, ep)
+                          in r.get("grad_errs", {}).items()]
+                print(f"  rank {rank} {c['case']} {dt}: {'; '.join(parts)}"
+                      f"; ok={r['ok']}")
+    summary = {
+        "cases": [{"case": c["case"], "mode": c["mode"], **{
+            f"{dt}_{k}": v for dt, r in c["dtypes"].items()
+            for k, v in r.items() if k.endswith("_ms") or k in (
+                "exchange", "carry_bytes", "bitwise")}}
+            for c in ranks[0][:-1]],
+        "rank1_ms": [{f"{dt}_{k}": v for dt, r in c["dtypes"].items()
+                      for k, v in r.items() if k.endswith("_ms")}
+                     for c in ranks[1][:-1]],
+        "peak_gb": [res[-1]["peak_gb"] for res in ranks],
+        "seconds": secs, "ranks_on_one_card": 2}
+    phase("shard", f"{len(SHARD_CASES)} cases on 2 gloo ranks sharing the "
+          f"card, f32/bf16 p=2: every gathered result within its limit of "
+          f"one single-process kernel call = {ok}; peak per rank "
+          f"{', '.join(f'{x:.2f}' for x in summary['peak_gb'])} GB (times "
+          f"are per rank on a shared card, not a multi-card speedup)")
+    if not ok:
+        fail("shard: a sharded kernel result disagrees with the "
+             "single-process call")
+    return summary
+
+
+def cp_train_rank(rank, world, n_steps):
+    """A [cp train] rank: rank 0 first takes the --cp 1 references alone
+    (one loss and grad, then n_steps AdamW steps, on the kernel path and
+    on the plain fastmax2-chunked path), then both ranks the same under
+    --cp 2 on the kernel path; rank 0 compares."""
+    dev = _rank_setup()
+    import torch.distributed as dist
+
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sharded as S
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import (make_grad_fn, make_train_step,
+                                          pick_optimizer)
+    from repro_torch.models import init_model
+    from repro_torch.models.param import count_params
+    from repro_torch.optim.grad_utils import leaves
+
+    del world
+    # float32: after an AdamW update a bf16 model's losses move apart by
+    # more than TRAIN_LOSS_TOL between any two paths that sum in other
+    # orders (the first update is about lr x sign(grad), and bf16 weights
+    # round it), so the comparison is made where the update is resolved
+    cfg = get_config(CP_ARCH, n_layers=CP_LAYERS, remat="none",
+                     param_dtype="float32", activ_dtype="float32",
+                     attn=AttentionSpec.parse("fastmax2-kernel"))
+    data = SyntheticLM(cfg.vocab_size, CP_N, seed=0)
+    batches = [data.batch(i, CP_B) for i in range(n_steps)]
+    mesh = make_test_mesh((1, 2), ("data", "seq"))
+
+    def run(mesh_, cfg=cfg):
+        params = init_model(cfg, seed=0, device=dev)
+        loss, _, grads = make_grad_fn(cfg, mesh=mesh_)(params, batches[0])
+        grads = dict(leaves(grads))
+        _, opt = pick_optimizer(cfg, count_params(params), lr=3e-4,
+                                total_steps=n_steps)
+        state = opt[0](params)
+        step = make_train_step(cfg, opt, mesh=mesh_)
+        losses, ms, launches = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(n_steps):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            ops.reset_launch_counts()
+            e0.record()
+            params, state, m = step(params, state, batches[i])
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            launches.append(ops.launch_counts())
+            losses.append(m["loss"].item())
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del params, state
+        return loss.item(), grads, losses, ms, launches, peak
+
+    ref = plain = None
+    if rank == 0:
+        ref = run(None)
+        # the control: a second single-process path that sums in other
+        # orders, read against --cp 1 as --cp 2 is
+        plain = run(None, dataclasses.replace(
+            cfg, attn=AttentionSpec.parse("fastmax2-chunked")))
+        plain = (plain[0], worst_leaf(plain[1], ref[1]), plain[2])
+    dist.barrier()
+    torch.cuda.empty_cache()
+    loss, grads, losses, ms, launches, peak = run(mesh)
+    want = {"fastmax_causal": CP_LAYERS, "fastmax_causal_bwd": CP_LAYERS,
+            "fastmax_decode": 0, "fastmax_noncausal_moments": 0,
+            "fastmax_noncausal_combine": 0, "hybrid_causal": 0}
+    out = {"rank": rank, "step_ms": ms, "peak_gb": peak,
+           "launches": launches[-1],
+           "launches_ok": all(c == want for c in launches)}
+    if rank == 0:
+        leaf, gerr = worst_leaf(grads, ref[1])
+        out.update(
+            loss_cp2=loss, loss_cp1=ref[0], losses_cp2=losses,
+            losses_cp1=ref[2], step_ms_cp1=ref[3], peak_gb_cp1=ref[5],
+            loss_plain=plain[0], losses_plain=plain[2],
+            worst_leaf=leaf, worst_grad_err=gerr,
+            worst_leaf_plain=plain[1][0], worst_grad_err_plain=plain[1][1],
+            carry_bytes=S.cp_carry_bytes(b=CP_B, hkv=cfg.n_kv_heads,
+                                         d=cfg.head_dim, dv=cfg.head_dim,
+                                         p=2))
+    return out
+
+
+def cp_train_phase() -> dict:
+    """[cp train]: full-width qwen3 cut to CP_LAYERS layers, --cp 2 on
+    two ranks of the card against --cp 1, then the CLI under torchrun."""
+    from repro_torch.launch.ranks import run_ranks
+
+    t0 = time.monotonic()
+    r0, r1 = run_ranks(cp_train_rank, 2, args=(CP_STEPS,),
+                       workdir=RANKS_DIR / "cp_train", timeout=600,
+                       threads=0)
+    secs = time.monotonic() - t0
+    # every loss (the seeded weights' grad fn's, then each step's) within
+    # TRAIN_LOSS_TOL of --cp 1, the grads within TRAIN_GRAD_TOL per leaf;
+    # the plain path's readings against --cp 1 are printed beside them
+    dloss = abs(r0["loss_cp2"] - r0["loss_cp1"])
+    steps_diff = [abs(a - b) for a, b in zip(r0["losses_cp2"],
+                                            r0["losses_cp1"])]
+    control = [abs(r0["loss_plain"] - r0["loss_cp1"])] + [
+        abs(a - b) for a, b in zip(r0["losses_plain"], r0["losses_cp1"])]
+    ok = (max([dloss] + steps_diff) <= TRAIN_LOSS_TOL
+          and r0["worst_grad_err"] <= TRAIN_GRAD_TOL
+          and len(steps_diff) == CP_STEPS
+          and r0["launches_ok"] and r1["launches_ok"]
+          and all(math.isfinite(x) for x in r0["losses_cp2"]))
+    med = [sorted(r["step_ms"])[len(r["step_ms"]) // 2] for r in (r0, r1)]
+    med_cp1 = sorted(r0["step_ms_cp1"])[len(r0["step_ms_cp1"]) // 2]
+    out = {"arch": CP_ARCH, "n_layers": CP_LAYERS, "batch": CP_B,
+           "seq": CP_N, "steps": CP_STEPS, "dtype": "float32",
+           "loss_diff": dloss, "step_loss_diff": steps_diff,
+           "plain_loss_diffs": control,
+           "losses_plain": r0["losses_plain"],
+           "worst_leaf": r0["worst_leaf"],
+           "worst_grad_err": r0["worst_grad_err"],
+           "worst_leaf_plain": r0["worst_leaf_plain"],
+           "worst_grad_err_plain": r0["worst_grad_err_plain"],
+           "losses_cp2": r0["losses_cp2"], "losses_cp1": r0["losses_cp1"],
+           "step_ms_ranks": [r0["step_ms"], r1["step_ms"]],
+           "step_ms_cp1": r0["step_ms_cp1"],
+           "tokens_per_s_cp2": CP_B * CP_N / (max(med) / 1e3),
+           "tokens_per_s_cp1": CP_B * CP_N / (med_cp1 / 1e3),
+           "peak_gb_ranks": [r0["peak_gb"], r1["peak_gb"]],
+           "peak_gb_cp1": r0["peak_gb_cp1"],
+           "launches_per_rank_step": r0["launches"],
+           "carry_bytes_per_boundary_per_layer": r0["carry_bytes"],
+           "seconds": secs, "ranks_on_one_card": 2}
+    phase("cp train", f"{CP_ARCH} cut to {CP_LAYERS} layers, float32, "
+          f"AdamW B={CP_B} N={CP_N}: --cp 2 on 2 ranks of the card against "
+          f"--cp 1: loss |diff| at the seeded weights {dloss:.3e}, at each "
+          f"step {', '.join(f'{d:.3e}' for d in steps_diff)} (tol "
+          f"{TRAIN_LOSS_TOL}); worst leaf {r0['worst_leaf']} "
+          f"{r0['worst_grad_err']:.3e} (tol {TRAIN_GRAD_TOL}); the plain "
+          f"path against --cp 1 (control, not held): loss |diff| "
+          f"{', '.join(f'{d:.3e}' for d in control)}, worst leaf "
+          f"{r0['worst_leaf_plain']} {r0['worst_grad_err_plain']:.3e}; "
+          f"step ms "
+          f"per rank {r0['step_ms']} / {r1['step_ms']} against "
+          f"{r0['step_ms_cp1']} at --cp 1; {out['tokens_per_s_cp2']:.0f} global tokens/s "
+          f"against {out['tokens_per_s_cp1']:.0f}; peak GB per rank "
+          f"{r0['peak_gb']:.2f}, {r1['peak_gb']:.2f} ({r0['peak_gb_cp1']:.2f}"
+          f" at --cp 1); launches per rank per step {r0['launches']}; "
+          f"carry {r0['carry_bytes'] / 1e6:.1f} MB per boundary per layer "
+          f"(two ranks share the card: not a multi-card speedup)")
+    if not ok:
+        fail(f"cp train: --cp 2 disagrees with --cp 1, or its launches per "
+             f"step are not one prefill and one backward per layer: {out}")
+    # the CLI, as a user starts it
+    t0 = time.monotonic()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+           "--cp", "2", "--smoke", "--attn", "fastmax2-kernel", "--steps",
+           "2", "--batch", "2", "--seq", "256", "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    cli = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=300)
+    lines = [ln for ln in cli.stdout.splitlines()
+             if ln.startswith(("context parallelism", "step", "final"))]
+    for ln in lines:
+        print(f"  torchrun: {ln}")
+    if cli.returncode != 0 or not any(ln.startswith("final loss")
+                                      for ln in lines):
+        print(cli.stdout[-4000:], cli.stderr[-4000:])
+        fail("cp train: torchrun --nproc-per-node 2 ... --cp 2 failed")
+    out["cli_seconds"] = time.monotonic() - t0
+    phase("cp train", f"torchrun --nproc-per-node 2 -m "
+          f"repro_torch.launch.train --cp 2 --smoke: 2 steps, loss printed "
+          f"({out['cli_seconds']:.1f} s)")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -3560,6 +4085,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     tuned = autotune_phase(dev, smi)
 
+    # ---- the kernel plans: two gloo ranks on the one card ----
+    torch.cuda.empty_cache()
+    shard = shard_phase()
+    cp_train = cp_train_phase()
+
     kernels = [
         {"name": "fastmax_causal_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_causal.cu",
@@ -3666,6 +4196,8 @@ def main() -> None:
     print(json.dumps({"ssm": {"jamba_8_layers": ssm["jamba"],
                               "xlstm_1_3b": ssm["xlstm"]}}))
     print(json.dumps({"autotune": tuned}))
+    print(json.dumps({"shard": shard}))
+    print(json.dumps({"cp_train": cp_train}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

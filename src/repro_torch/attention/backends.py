@@ -29,6 +29,14 @@
 All fns share one signature: fn(q, k, v, spec, *, causal, kv_mask, rng)
 -> o, with q [B,Hq,N,D], k/v [B,Hkv,M,*], Hq % Hkv == 0 (M = N when
 causal); `rng` (a torch.Generator) reaches only the dropout backend.
+Under an active mesh (`sharding.rules.use_mesh`) the kernel backends plan
+each call (`kernels.sharded.plan_call`): heads, feature or, for a causal
+fastmax call, seq mode, and run the kernels on the plan's shards; under a
+mesh that neither heads nor Dv divide, every rank holds the whole heads
+and runs the single-device kernels on them. The chunked
+fastmax backend takes the seq plan too (its plain versions), since its
+tokens are sharded as well; with no mesh, or one whose axes are all of
+size 1, every call is as before.
 The decode-state protocol (`attention.state`) routes on the capabilities;
 both hybrid backends decode through the plain two-leg state, as in the
 reference (neither declares `decode_kernel`), and hybrid-kernel runs a
@@ -40,6 +48,7 @@ from __future__ import annotations
 
 from repro_torch.attention.registry import Backend, Capabilities, register
 from repro_torch.attention.spec import AttentionSpec
+from repro_torch.kernels import sharded as S
 
 __all__ = []
 
@@ -72,6 +81,16 @@ def _chunked_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask, rng):
     spec = spec.resolved()
     qh = normalize_qk(q) if spec.normalize else q
     kh = normalize_qk(k) if spec.normalize else k
+    _, plan = S.plan_call(q, k, v, causal=causal, seq=True)
+    if plan is not None and plan.mode == "seq":
+        # the rank holds a token shard: the plain versions under the seq
+        # plan's carry exchange (any other plan runs the whole heads here)
+        if kv_mask is not None:
+            raise ValueError("context-parallel fastmax takes no kv_mask")
+        return S.fastmax_sharded(qh, kh, v, p=spec.p, causal=True,
+                                 chunk_size=spec.chunk_size,
+                                 denom_eps=spec.denom_eps, plan=plan,
+                                 plain=True)
     if causal:
         return fastmax_causal_chunked(
             qh, kh, v, p=spec.p, chunk_size=spec.chunk_size, kv_mask=kv_mask,
@@ -97,6 +116,18 @@ def _kernel_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask, rng):
     spec = spec.resolved()
     qh = normalize_qk(q) if spec.normalize else q
     kh = normalize_qk(k) if spec.normalize else k
+    _, plan = S.plan_call(q, k, v, causal=causal, seq=True)
+    if plan is not None:
+        # heads: the kernels per local (batch, kv head), no collectives;
+        # feature: per Dv slice, the backward's partial dq/dk added across
+        # "model"; seq: the rank's token shard, one carry exchange per
+        # direction
+        return S.run_in_model_layout(
+            plan, lambda a, b, c: S.fastmax_sharded(
+                a, b, c, p=spec.p, causal=causal, chunk_size=spec.chunk_size,
+                denom_eps=spec.denom_eps, plan=plan), qh, kh, v)
+    # no mesh, or kv heads and Dv both indivisible by "model": the kernels
+    # on the whole heads every rank holds
     return kernel_ops.fastmax(qh, kh, v, p=spec.p, causal=causal,
                               chunk_size=spec.chunk_size,
                               denom_eps=spec.denom_eps)
@@ -200,6 +231,14 @@ def _hybrid_kernel_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask,
     spec = spec.resolved()
     qh = normalize_qk(q) if spec.normalize else q
     kh = normalize_qk(k) if spec.normalize else k
+    # no seq mode for the hybrid family, as in the reference
+    _, plan = S.plan_call(q, k, v, causal=True)
+    if plan is not None:
+        return S.run_in_model_layout(
+            plan, lambda a, b, c: S.hybrid_sharded(
+                a, b, c, p=spec.p, window=spec.window,
+                chunk_size=spec.chunk_size, denom_eps=spec.denom_eps,
+                plan=plan), qh, kh, v)
     return kernel_ops.hybrid(qh, kh, v, p=spec.p, window=spec.window,
                              causal=causal, chunk_size=spec.chunk_size,
                              denom_eps=spec.denom_eps)

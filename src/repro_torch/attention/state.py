@@ -26,6 +26,16 @@ backend declaring `prefill_kernel` (hybrid-kernel) runs the hybrid kernel
 scan), otherwise the plain scan; both then `roll_window`. The softmax
 cache is plain torch (`core.softmax`), as in the reference.
 
+Under an active mesh (`sharding.rules.use_mesh`) the kernel paths plan
+each call as the reference does (`kernels.sharded`): a fresh prefill and
+each step run the sharded wrappers on the plan's shards of q, k, v (the
+rank's kv heads, or its slice of Dv), o is gathered back, and the moments
+stay in the plan's layout, which `init_state` allocates. Under a mesh
+that neither kv heads nor Dv divide, every rank holds the whole heads and
+runs the single-device kernels on them. A resumed (`offset`) prefill under a plan seeds the prefill
+kernel on the same shards with the carried local moments (the reference
+runs its jnp scan there).
+
 Unlike the functional reference, the port updates a layer's state IN
 PLACE: `prefill` copies the new carry, cache rows and window into the
 given tensors and `step` folds the token into them, so the state may be a
@@ -138,6 +148,19 @@ def init_state(spec: AttentionSpec, *, batch: int, n_kv_heads: int,
             mask=torch.ones(batch, n_kv_heads, max_len, dtype=torch.float32,
                             device=device))
         return AttnState(kv=kv, moments=None)
+    if backend.caps.decode_kernel:
+        # under a mesh the kernel paths keep the moments in their plan's
+        # layout: the rank's kv heads, or its slice of Dv (heads mode
+        # needs Hq % tp too: Hq = G·Hkv, so Hkv stands in for it)
+        from repro_torch.kernels import sharded as S
+
+        mesh = S.nontrivial_mesh()
+        plan = None if mesh is None else S.plan_kernel_sharding(
+            mesh, batch=batch, hq=n_kv_heads, hkv=n_kv_heads,
+            dv=v_head_dim)
+        if plan is not None:
+            n_kv_heads, v_head_dim = S.local_kv_dims(plan, n_kv_heads,
+                                                     v_head_dim)
     mom = init_fastmax_state(batch, n_kv_heads, q_head_dim, v_head_dim,
                              p=spec.p,
                              dtype=torch.promote_types(dtype, torch.float32),
@@ -282,16 +305,51 @@ def prefill(q, k, v, spec: AttentionSpec, *, state: AttnState,
                     kv_mask)
     elif resolve(spec).caps.prefill_kernel:
         from repro_torch.kernels import ops
+        from repro_torch.kernels import sharded as S
 
-        o, final = ops.fastmax_prefill_kernel(
-            qh, kh, v, p=spec.p, chunk_size=spec_r.chunk_size,
-            denom_eps=spec.denom_eps, kv_mask=kv_mask, init_state=init)
+        _, plan = S.plan_call(q, k, v)
+        if plan is not None:
+            o, final = _prefill_sharded(qh, kh, v, spec, kv_mask, plan, init)
+        else:
+            o, final = ops.fastmax_prefill_kernel(
+                qh, kh, v, p=spec.p, chunk_size=spec_r.chunk_size,
+                denom_eps=spec.denom_eps, kv_mask=kv_mask, init_state=init)
     else:
         o, final = _causal_scan(qh, kh, v, p=spec.p,
                                 chunk_size=spec_r.chunk_size, kv_mask=kv_mask,
                                 denom_eps=spec.denom_eps, init=init)
     _copy_into(state.moments, final)
     return o.to(q.dtype), state
+
+
+def _prefill_sharded(qh, kh, v, spec: AttentionSpec, kv_mask, plan, init):
+    """A kernel prefill under a plan: o in the model's layout and the
+    final moments in the plan's (the state's layout under a mesh). A
+    resumed one (`init`, the carried local moments) seeds the prefill
+    kernel on the same shards (the reference runs its jnp scan there)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sharded as S
+
+    if (kv_mask is not None and kv_mask.shape[1] > 1 and plan.mode == "heads"
+            and plan.tp > 1):
+        kv_mask = S.model_slice(kv_mask, 1, plan)
+    out = {}
+
+    kw = dict(p=spec.p, chunk_size=spec.resolved().chunk_size,
+              denom_eps=spec.denom_eps, kv_mask=kv_mask)
+
+    def fn(a, b, c):
+        if init is None:
+            o, out["final"] = S.fastmax_prefill_sharded(a, b, c, **kw,
+                                                        plan=plan)
+        else:
+            o, out["final"] = ops.fastmax_prefill_kernel(a, b, c, **kw,
+                                                         init_state=init)
+        return o
+
+    with torch.no_grad():      # the decode-state paths run without autograd
+        o = S.run_in_model_layout(plan, fn, qh, kh, v)
+    return o, out["final"]
 
 
 def _hybrid_step(state: AttnState, qh, kh, v, spec: AttentionSpec):
@@ -343,9 +401,18 @@ def step(state: AttnState, q, k, v, spec: AttentionSpec):
         return _hybrid_step(state, qh, kh, v, spec).to(q.dtype), state
     if resolve(spec).caps.decode_kernel:
         from repro_torch.kernels import ops
+        from repro_torch.kernels import sharded as S
 
-        o = ops.fastmax_decode(qh, kh, v, state.moments, p=spec.p,
-                               denom_eps=spec.denom_eps)
+        _, plan = S.plan_call(q, k, v)
+        if plan is None:
+            o = ops.fastmax_decode(qh, kh, v, state.moments, p=spec.p,
+                                   denom_eps=spec.denom_eps)
+        else:
+            with torch.no_grad():
+                o = S.run_in_model_layout(
+                    plan, lambda a, b, c: S.fastmax_decode_sharded(
+                        a, b, c, state.moments, p=spec.p,
+                        denom_eps=spec.denom_eps, plan=plan)[0], qh, kh, v)
         return o.to(q.dtype), state
     o, new = fastmax_decode_ref(qh, kh, v, tuple(state.moments), p=spec.p,
                                 denom_eps=spec.denom_eps)

@@ -214,10 +214,14 @@ def _out_proj(o, wo):
 
 
 def apply_attention(params, x, cfg, *, causal=True, kv_mask=None,
-                    kv_x=None):
-    """Full-sequence attention. x [B, N, d]; `kv_x` [B, M, d] makes it
-    cross-attention: q from x, k/v from kv_x at positions arange(M)."""
+                    kv_x=None, offset=None):
+    """Full-sequence attention. x [B, N, d] at positions offset ..
+    offset+N-1 (offset None: 0; a context-parallel rank's token shard
+    starts past 0); `kv_x` [B, M, d] makes it cross-attention: q from x,
+    k/v from kv_x at positions arange(M)."""
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    if offset is not None:
+        positions = positions + offset
     if kv_x is None:
         q, k, v = _project_qkv(params, x, cfg, positions)
     else:

@@ -345,10 +345,11 @@ def _block(params_b, x, cfg: ModelConfig, mixer, enc_out=None, *,
     return x + L.apply_mlp(params_b["ffn"], h, act=cfg.mlp_act), None
 
 
-def _train_mixer(mixer: str, cfg: ModelConfig, causal, kv_mask):
+def _train_mixer(mixer: str, cfg: ModelConfig, causal, kv_mask,
+                 offset=None):
     if mixer == "attn":
         return lambda p, h: L.apply_attention(p, h, cfg, causal=causal,
-                                              kv_mask=kv_mask)
+                                              kv_mask=kv_mask, offset=offset)
     fn = {"mamba": M.apply_mamba, "mlstm": X.apply_mlstm,
           "slstm": X.apply_slstm}[mixer]
     return lambda p, h: fn(p, h, cfg)
@@ -390,8 +391,9 @@ _SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts,
 
 
 def _train_block(params_b, x, cfg: ModelConfig, mixer: str, causal, kv_mask,
-                 enc_out):
-    return _block(params_b, x, cfg, _train_mixer(mixer, cfg, causal, kv_mask),
+                 enc_out, offset=None):
+    return _block(params_b, x, cfg,
+                  _train_mixer(mixer, cfg, causal, kv_mask, offset),
                   enc_out=enc_out)
 
 
@@ -412,18 +414,20 @@ def _embed(params, tokens, cfg: ModelConfig, embeddings=None, offset=None):
 
 def forward_lm(params, tokens, cfg: ModelConfig, *, causal=True,
                kv_mask=None, embeddings=None, enc_out=None,
-               return_hidden=False):
+               return_hidden=False, offset=None):
     """Full-sequence forward. tokens [B, N] int, or `embeddings`
     [B, N, d] (stub frontends, encoder towers); `enc_out` [B, M, d] feeds
-    the cross-attention of a decoder tower. Returns (logits [B, N, vocab],
-    aux loss — the float32 sum of the MoE blocks' load-balance terms, zero
-    without a router), or the final-normed hidden states in place of the
-    logits with `return_hidden`."""
+    the cross-attention of a decoder tower. `offset` (an int) places the
+    tokens at positions offset .. offset+N-1: a context-parallel rank's
+    shard of the sequence. Returns (logits [B, N, vocab], aux loss — the
+    float32 sum of the MoE blocks' load-balance terms, zero without a
+    router), or the final-normed hidden states in place of the logits
+    with `return_hidden`."""
     _check_supported(cfg)
     _check_mask(cfg, kv_mask)
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
-    x = _embed(params, tokens, cfg, embeddings)
+    x = _embed(params, tokens, cfg, embeddings, offset=offset)
     # recompute only where a backward will run: without grad there is
     # nothing to save
     remat = cfg.remat != "none" and torch.is_grad_enabled()
@@ -432,10 +436,11 @@ def forward_lm(params, tokens, cfg: ModelConfig, *, causal=True,
     for _, mixer, _, p_i in _layers(params, cfg):
         if remat:
             x, a = checkpoint(_train_block, p_i, x, cfg, mixer, causal,
-                              kv_mask, enc_out, use_reentrant=False, **kw)
+                              kv_mask, enc_out, offset, use_reentrant=False,
+                              **kw)
         else:
             x, a = _train_block(p_i, x, cfg, mixer, causal, kv_mask,
-                                enc_out)
+                                enc_out, offset)
         if a is not None:
             aux = aux + a
     x = L.apply_norm(params["final_norm"], x, norm_type=cfg.norm_type,
@@ -443,6 +448,14 @@ def forward_lm(params, tokens, cfg: ModelConfig, *, causal=True,
     if return_hidden:
         return x, aux
     return _logits(params, x, cfg), aux
+
+
+def token_nll(logits, targets):
+    """Each token's next-token cross-entropy [B, N], in float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return logz - gold
 
 
 def lm_loss(params, batch, cfg: ModelConfig):
@@ -456,10 +469,7 @@ def lm_loss(params, batch, cfg: ModelConfig):
     logits, aux = forward_lm(params, tokens, cfg,
                              embeddings=batch.get("embeddings"),
                              enc_out=batch.get("enc_out"))
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    nll = logz - gold
+    nll = token_nll(logits, targets)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones_like(nll)

@@ -3,9 +3,11 @@
 from repro_torch.sharding.rules import (  # noqa: F401
     DEFAULT_RULES,
     Spec,
+    active_mesh,
     batch_spec,
     decode_state_shardings,
     param_shardings,
     spec_for,
     to_placements,
+    use_mesh,
 )

@@ -22,20 +22,71 @@ a mesh axis name or a tuple of names. The planning functions take a
 shape) or a plain mapping from axis name to size, and `to_placements`
 turns a spec into the DTensor placements of one tensor on a DeviceMesh.
 
-The reference's in-graph helpers (`maybe_constraint`, `replicate`,
-`shard_stacked`, `constrain_kv_cache`, `active_mesh`) are XLA partitioning
-hints and numerically a no-op; the port adds them with the sharded kernels
-that consume a placement inside a step.
+`use_mesh(mesh)` activates a mesh for the code inside it and
+`active_mesh()` returns it (the reference's `jax.sharding.use_mesh` and
+`active_mesh`): the attention backends and the decode-state protocol plan
+their kernel calls on it (`kernels.sharded`). The reference's in-graph
+helpers (`maybe_constraint`, `replicate`, `shard_stacked`,
+`constrain_kv_cache`) are XLA layout hints that change no number. The
+port runs SPMD over local shards: each rank's tensors already are its
+shard, and nothing lays them out afterwards, so the helpers are identity
+functions kept for the reference's call sites.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from collections.abc import Mapping
 from typing import Optional
 
 __all__ = ["DEFAULT_RULES", "NO_FSDP_RULES", "Spec", "spec_for",
            "param_shardings", "batch_spec", "kv_cache_spec",
            "decode_state_shardings", "model_axis_size", "mesh_axes",
-           "to_placements"]
+           "to_placements", "active_mesh", "use_mesh", "maybe_constraint",
+           "replicate", "shard_stacked", "constrain_kv_cache"]
+
+_ACTIVE = []    # the stack of meshes `use_mesh` activated
+
+
+def active_mesh():
+    """The mesh `use_mesh` activated, innermost first, or None."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Activate `mesh` (a DeviceMesh, or a mapping from axis name to
+    size for planning only) for the code inside the block."""
+    _ACTIVE.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE.pop()
+
+
+def maybe_constraint(x, *want_axes):
+    """Identity: the reference's graceful `with_sharding_constraint`."""
+    del want_axes
+    return x
+
+
+def replicate(x, *, batch_dim=None):
+    """Identity: the reference pins x model-replicated."""
+    del batch_dim
+    return x
+
+
+def shard_stacked(x, *, batch_dim=1, model_dim=None, seq_dim=None):
+    """Identity: the reference pins a scan-stacked chunk tensor to one
+    layout."""
+    del batch_dim, model_dim, seq_dim
+    return x
+
+
+def constrain_kv_cache(x, *, lead: int = 0):
+    """Identity: the reference pins a KV cache to `kv_cache_spec`."""
+    del lead
+    return x
 
 
 class Spec(tuple):
@@ -262,24 +313,33 @@ def decode_state_shardings(state_shapes, mesh, *, batch: int):
 def to_placements(spec, mesh, name: str = "") -> tuple:
     """The DTensor placements of a tensor with this spec on `mesh`, one
     per mesh dim in its order: `Shard(d)` on the mesh dims tensor dim d is
-    split over, else `Replicate()`. DTensor splits a dim over several mesh
-    dims in mesh-dim order only, so a spec naming them in another order
-    (("model", "data") on a ("data", "model") mesh) raises, with `name`
-    (the leaf) in the message."""
+    split over, else `Replicate()`. A dim split over several mesh dims
+    takes the spec's order, the first named axis the major one, as a
+    `PartitionSpec` does: where that is not the mesh's order (("model",
+    "data") on a ("data", "model") mesh) a mesh dim processed before a
+    more major axis of the spec gets `_StridedShard(d, split_factor=...)`,
+    the product of the sizes of those axes. `name` (the leaf) goes into
+    the message of a spec naming an axis the mesh lacks."""
     from torch.distributed.tensor import Replicate, Shard
+    # a private DTensor placement (torch 2.13): a shard taken within each
+    # of split_factor equal parts of the dim, as FSDP2 + TP lays one out
+    from torch.distributed.tensor.placement_types import _StridedShard
 
-    order = list(mesh_axes(mesh))
+    sizes = mesh_axes(mesh)
+    order = list(sizes)
     placements = [Replicate()] * len(order)
     for d, entry in enumerate(spec):
         if entry is None:
             continue
         axes = (entry,) if isinstance(entry, str) else tuple(entry)
-        idx = [order.index(a) for a in axes]
-        if idx != sorted(idx):
-            raise ValueError(
-                f"{name or 'leaf'}: spec {tuple(spec)} splits dim {d} over "
-                f"{axes}, but DTensor splits a dim over mesh dims in the "
-                f"mesh's order {tuple(order)} only")
-        for i in idx:
-            placements[i] = Shard(d)
+        missing = [a for a in axes if a not in sizes]
+        if missing:
+            raise ValueError(f"{name or 'leaf'}: spec {tuple(spec)} names "
+                             f"{missing}, not in the mesh {tuple(order)}")
+        for pos, a in enumerate(axes):
+            i = order.index(a)
+            sf = math.prod(sizes[b] for b in axes[:pos]
+                           if order.index(b) > i)
+            placements[i] = (Shard(d) if sf == 1
+                             else _StridedShard(d, split_factor=sf))
     return tuple(placements)

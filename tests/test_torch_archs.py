@@ -31,6 +31,7 @@ from repro_torch.configs import ARCH_IDS, get_smoke_config  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.param import count_params, from_jax_params  # noqa
+from torch_threads import share_cores  # noqa: F401,E402
 
 NEW = ["llama3-405b", "qwen2.5-32b", "granite-20b", "chameleon-34b",
        "deepseek-v2-236b", "kimi-k2-1t-a32b"]

@@ -20,6 +20,7 @@ from repro_torch.attention import AttentionSpec, get_backend  # noqa: E402
 from repro_torch.attention import list_backends, resolve  # noqa: E402
 from repro_torch.attention import state as TS  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10
 B, HQ, HKV, D, N, CUT = 2, 4, 2, 8, 30, 13   # CUT splits the prompt

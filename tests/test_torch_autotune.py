@@ -35,6 +35,7 @@ from repro_torch.kernels import fastmax_noncausal as _fn
 from repro_torch.kernels import ops
 from repro_torch.kernels import tiling
 from repro_torch.kernels.autotune import Schedule, ShapeKey
+from torch_threads import share_cores  # noqa: F401,E402
 
 CSRC = Path(_fc.__file__).resolve().parent / "csrc"
 

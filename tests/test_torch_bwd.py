@@ -26,6 +26,7 @@ from repro_torch.kernels.fastmax_causal_bwd import (  # noqa: E402
     fastmax_causal_bwd_cuda, fastmax_causal_bwd_ref)
 from repro_torch.kernels.fastmax_noncausal import (  # noqa: E402
     fastmax_noncausal_cuda, fastmax_noncausal_ref)
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10
 

@@ -30,6 +30,7 @@ from repro.core.ref import normalize_qk as jnormalize  # noqa: E402
 from repro_torch.kernels import fastmax_causal_bwd as fb  # noqa: E402
 from repro_torch.kernels.fastmax_causal import (  # noqa: E402
     CHUNK, fastmax_causal_ref, feature_rows, segment_tokens)
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10
 D, DV = 192, 128

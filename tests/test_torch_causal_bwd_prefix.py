@@ -39,6 +39,7 @@ from repro_torch.kernels.fastmax_causal import (  # noqa: E402
     CHUNK, feature_rows)
 from repro_torch.kernels.fastmax_causal_bwd import (  # noqa: E402
     bwd_workspace_bytes)
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10
 F64 = torch.float64

@@ -27,6 +27,7 @@ from repro.core.ref import normalize_qk as jnormalize  # noqa: E402
 from repro.kernels.fastmax_causal import fastmax_causal_pallas  # noqa: E402
 from repro_torch.kernels.fastmax_causal import (  # noqa: E402
     CHUNK, feature_rows, segment_tokens, workspace_bytes)
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10
 

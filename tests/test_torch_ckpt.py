@@ -4,8 +4,10 @@ same on-disk format, so a (params, opt_state) checkpoint written by either
 restores in the other, bfloat16 leaves bit for bit.
 
 The reference's elastic-resharding case (`test_elastic_restore_resharding`,
-restore onto another mesh) waits for the port's multi-device slice (ROADMAP
-queue 1 item 9): `load_checkpoint` places leaves on devices, not meshes.
+restore onto another mesh) is part of `tests/test_torch_cp_train.py`: a
+checkpoint written by a context-parallel run (`--cp 2`, two gloo ranks)
+resumes in a single-process one and the other way round, the weights and
+optimizer state being replicated on every rank.
 """
 import dataclasses
 import json
@@ -34,6 +36,7 @@ from repro_torch.launch import steps as TS
 from repro_torch.models import init_model
 from repro_torch.models.param import from_jax_params
 from repro_torch.optim import OptState
+from torch_threads import share_cores  # noqa: F401,E402
 
 
 def _tree(seed=0):
@@ -267,3 +270,4 @@ def test_model_checkpoint_carries_across_both_ways(tmp_path, dtype):
                     jax.tree.leaves(back)):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(_bits(a), _bits(b))
+

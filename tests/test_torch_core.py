@@ -20,6 +20,7 @@ from repro_torch.core import fastmax as tfm  # noqa: E402
 from repro_torch.core import ref as tref  # noqa: E402
 from repro_torch.kernels import ref as tkref  # noqa: E402
 from repro_torch.kernels import tiling as ttiling  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10
 B, HKV, N, D, DV, CHUNK = 2, 2, 37, 8, 6, 16   # N not a multiple of CHUNK

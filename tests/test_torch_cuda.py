@@ -16,6 +16,7 @@ from repro_torch.kernels.fastmax_causal import (fastmax_causal_cuda,
                                                 workspace_bytes)
 from repro_torch.kernels.fastmax_decode import fastmax_decode_cuda
 from repro_torch.kernels.ref import fastmax_decode_ref
+from torch_threads import share_cores  # noqa: F401,E402
 
 
 @pytest.fixture
@@ -1057,3 +1058,126 @@ def test_autotune_refused_knobs_raise_on_card(cuda_device):
         fastmax_causal_cuda(normalize_qk(rn(1, 2, 40, 64)),
                             normalize_qk(rn(1, 1, 40, 64)), rn(1, 1, 40, 64),
                             p=2, schedule=at.Schedule(cols=128))
+
+
+@pytest.mark.cuda
+def test_sharded_wrappers_on_two_ranks_of_the_card(cuda_device, tmp_path):
+    """`kernels.sharded` on two gloo ranks sharing the card (float32,
+    p = 2, D = Dv = 128, N = 512), the heads, feature and seq plans in
+    one spawn: the gathered o and grads against one single-process kernel
+    call. o within 1e-4; grads within 1e-4 of scale on the rows past each
+    shard's first kernel chunk; on each shard's first chunk (its carry
+    rebuilt by subtraction) against float64, within 4x the single call's
+    error there."""
+    import numpy as np
+
+    import torch_rank_cases
+    from repro_torch.core.fastmax import fastmax_causal_chunked
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.fastmax_causal import CHUNK
+    from repro_torch.launch.ranks import run_ranks
+
+    build.build_all()           # here, not once per rank
+    b, hq, n, d = 2, 4, 512, 128
+    gen = torch.Generator().manual_seed(3)
+
+    def inputs(hkv, dv):
+        return dict(q=normalize_qk(torch.randn(b, hq, n, d, generator=gen)),
+                    k=normalize_qk(torch.randn(b, hkv, n, d,
+                                               generator=gen)),
+                    v=torch.randn(b, hkv, n, dv, generator=gen),
+                    do=torch.randn(b, hq, n, dv, generator=gen))
+
+    xs = {"heads": inputs(2, d), "feature": inputs(1, d),
+          "seq": inputs(2, d)}
+    cases = [dict(name=mode, kind="train", shape=(1, 2), device="cuda",
+                  p=2, cs=CHUNK,
+                  axes=("data", "seq") if mode == "seq" else
+                  ("data", "model"),
+                  inputs={k: t.numpy() for k, t in x.items()})
+             for mode, x in xs.items()]
+    res = run_ranks(torch_rank_cases.sharded_cases, 2, args=(cases,),
+                    workdir=tmp_path, timeout=300, threads=0)[0]
+
+    def grads(x, kernel, dtype):
+        a, b_, c = (x[k].to(cuda_device, dtype).requires_grad_(True)
+                    for k in "qkv")
+        o = (ops.fastmax(a, b_, c, p=2, causal=True) if kernel else
+             fastmax_causal_chunked(a, b_, c, p=2, chunk_size=CHUNK,
+                                    custom_grad=True))
+        o.backward(x["do"].to(cuda_device, dtype))
+        return [t.detach().double().cpu() for t in (o, a.grad, b_.grad,
+                                                    c.grad)]
+
+    for mode in ("heads", "feature", "seq"):
+        got, x = res[mode], xs[mode]
+        assert got["mode"] == mode
+        single = grads(x, True, torch.float32)
+        exact = grads(x, False, torch.float64)
+        shard_n = n // 2 if mode == "seq" else n
+        first = torch.zeros(n, dtype=torch.bool)
+        for start in range(0, n, shard_n):
+            first[start:start + CHUNK] = True
+        o = torch.from_numpy(got["o"]).double()
+        assert (o - single[0]).abs().max().item() <= 1e-4, mode
+        for name, s_, e_ in zip(("dq", "dk", "dv"), single[1:], exact[1:]):
+            g = torch.from_numpy(np.asarray(got[name])).double()
+            scale = max(1.0, s_.abs().max().item())
+            tail = (g - s_)[..., ~first, :].abs().max().item()
+            assert tail <= 1e-4 * scale, (mode, name, tail, scale)
+            e_k = (g - e_)[..., first, :].abs().max().item()
+            e_s = (s_ - e_)[..., first, :].abs().max().item()
+            assert e_k <= max(4 * e_s, 1e-4 * scale), (mode, name, e_k, e_s)
+
+
+@pytest.mark.cuda
+def test_routing_without_a_plan_launches_the_kernels_on_the_card(
+        cuda_device, tmp_path):
+    """Three gloo ranks sharing the card under a (data 1, model 3) mesh,
+    which neither the 2 kv heads nor Dv = 128 divide (no plan): every
+    rank holds the whole heads, and attention() (fastmax and hybrid),
+    prefill and 32 steps launch the single-device kernels once per call,
+    call no sharded wrapper, and equal the mesh-less calls bit for bit
+    (float32, p = 2, N = 512)."""
+    import collections
+
+    import numpy as np
+
+    import torch_rank_cases
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fastmax_causal import CHUNK
+    from repro_torch.launch.ranks import run_ranks
+
+    build.build_all()           # here, not once per rank
+    b, hq, hkv, n, d, steps = 2, 4, 2, 512, 128, 32
+    gen = torch.Generator().manual_seed(4)
+
+    def rn(*shape, unit=False):
+        t = torch.randn(*shape, generator=gen)
+        return normalize_qk(t) if unit else t
+
+    x = dict(q=rn(b, hq, n, d, unit=True), k=rn(b, hkv, n, d, unit=True),
+             v=rn(b, hkv, n, d), do=rn(b, hq, n, d),
+             qs=rn(steps, b, hq, 1, d, unit=True),
+             ks=rn(steps, b, hkv, 1, d, unit=True),
+             vs=rn(steps, b, hkv, 1, d))
+    case = dict(name="whole", kind="route", shape=(1, 3), device="cuda",
+                axes=("data", "model"), p=2, cs=CHUNK, window=64,
+                hybrid=True, inputs={k: t.numpy() for k, t in x.items()})
+    r = run_ranks(torch_rank_cases.sharded_cases, 3, args=([case],),
+                  workdir=tmp_path, timeout=300, threads=0)[0]["whole"]
+    for a, b_ in [*zip(r["attend"], r["attend_ref"]),
+                  *zip(r["hybrid"], r["hybrid_ref"]),
+                  *zip(r["serve"], r["serve_ref"])]:
+        assert np.array_equal(a, b_)
+    launches = collections.Counter()
+    for counts in (r["counts"], r["hybrid_counts"], r["serve_counts"]):
+        launches.update({k: c for k, c in counts.items()
+                         if k.startswith("launch:") and c})
+    assert launches == {"launch:fastmax_causal": 2,
+                        "launch:fastmax_causal_bwd": 1,
+                        "launch:hybrid_causal": 1,
+                        "launch:fastmax_decode": steps}, launches
+    assert not any(c for counts in (r["counts"], r["hybrid_counts"],
+                                    r["serve_counts"])
+                   for k, c in counts.items() if k.endswith("_sharded"))

@@ -40,6 +40,7 @@ from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.param import from_jax_params  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 E2E_TOL = 1e-5      # float32 islands computed by each framework
 ISLAND_TOL = 2e-6   # a few float32 ulps at unit scale

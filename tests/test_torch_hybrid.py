@@ -31,6 +31,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.fastmax_causal import fastmax_causal_ref  # noqa: E402
 from repro_torch.kernels.hybrid_causal import (  # noqa: E402
     band_width, hybrid_causal_cuda, hybrid_causal_ref)
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10
 # (B, Hq, Hkv, N, D, Dv): MHA and GQA, as tests/test_hybrid.py

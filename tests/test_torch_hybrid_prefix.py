@@ -34,6 +34,7 @@ from repro_torch.kernels import hybrid_causal as _hc  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.fastmax_causal import feature_rows  # noqa: E402
 from repro_torch.kernels.hybrid_causal import band_width  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10
 F64 = torch.float64

@@ -33,6 +33,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.param import from_jax_params  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10
 # float32 islands in a float64 model (tests/test_torch_train.py,

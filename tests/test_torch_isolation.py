@@ -5,6 +5,7 @@ import ast
 from pathlib import Path
 
 import pytest
+from torch_threads import share_cores  # noqa: F401,E402
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -76,3 +77,12 @@ def test_scan_catches_a_reference_import(tmp_path):
                    "import jax.numpy as jnp\nfrom repro_torch import core\n")
     assert [m for m in _imported_modules(bad) if _forbidden(m)] == [
         "repro.core", "jax.numpy"]
+
+
+def test_scan_covers_the_kernel_plans():
+    """The kernel plans, the mesh context and the rank spawner are
+    scanned."""
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in FILES
+             if "repro_torch" in p.parts}
+    assert {"kernels/sharded.py", "sharding/rules.py", "launch/ranks.py",
+            "launch/train.py", "launch/steps.py"} <= names

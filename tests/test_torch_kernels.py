@@ -21,6 +21,7 @@ from repro_torch.kernels.fastmax_causal import (  # noqa: E402
     fastmax_causal_cuda, fastmax_causal_ref, prefill_call)
 from repro_torch.kernels.fastmax_decode import fastmax_decode_cuda  # noqa: E402
 from repro_torch.kernels.ref import fastmax_decode_ref  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10
 

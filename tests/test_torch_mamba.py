@@ -33,6 +33,7 @@ from repro.models.param import Builder as JBuilder  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import mamba as TM  # noqa: E402
 from repro_torch.models.param import Builder, from_jax_params  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10            # float64, no float32 island in the way
 ISLAND_TOL = 2e-5      # relative to the output's scale: float32 islands

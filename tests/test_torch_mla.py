@@ -32,6 +32,7 @@ from repro_torch.attention import AttentionSpec  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models.param import from_jax_params  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 LOGIT_TOL = 1e-8
 F64 = dict(param_dtype="float64", activ_dtype="float64")

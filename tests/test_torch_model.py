@@ -38,6 +38,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.param import from_jax_params  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 LOGIT_TOL = 1e-8        # float64 paths, float32 islands shared
 E2E_LOGIT_TOL = 1e-5    # float32 islands computed by each framework

@@ -31,6 +31,7 @@ from repro.configs import get_smoke_config as jsmoke  # noqa: E402
 from repro.models import moe as JM  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10          # float64 past the router island
 ISLAND_TOL = 2e-6    # a few float32 ulps at unit scale

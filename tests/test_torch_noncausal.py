@@ -27,6 +27,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.fastmax_noncausal import (  # noqa: E402
     fastmax_noncausal_cuda, fastmax_noncausal_ref, noncausal_combine_cuda,
     noncausal_combine_ref, noncausal_moments_cuda, noncausal_moments_ref)
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10
 ZERO_LAUNCHES = {"fastmax_causal": 0, "fastmax_causal_bwd": 0,

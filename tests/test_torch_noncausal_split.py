@@ -30,6 +30,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core.fastmax import Moments  # noqa: E402
 from repro_torch.kernels.fastmax_noncausal import (  # noqa: E402
     noncausal_combine_ref, noncausal_moments_ref)
+from torch_threads import share_cores  # noqa: F401,E402
 
 STAGE = 32         # keys (moments) / moment rows (combine) a stage
 K_STEP = 8         # the k of m16n8k8

@@ -19,6 +19,7 @@ from repro import attention as JA  # noqa: E402
 from repro_torch import attention as TA  # noqa: E402
 from repro_torch.attention import state as TS  # noqa: E402
 from repro_torch.core import fastmax as TF  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10
 B, HKV, N, M, D, DV = 2, 2, 12, 10, 8, 6

@@ -31,6 +31,7 @@ from repro_torch.serve import (PrefixCache, Request, Scheduler,  # noqa: E402
                                ServeEngine)
 from repro_torch.attention.state import map_state, state_leaves  # noqa: E402,E501
 from repro_torch.serve.slots import SlotManager, to_slotted  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 pytestmark = pytest.mark.serve
 

@@ -29,6 +29,7 @@ from repro_torch.serve import (EngineOverloaded, EngineStalled, FaultInjector,
 from repro_torch.serve.faults import burst, exploding_callback, poison_slot
 from repro_torch.attention.state import state_leaves
 from repro_torch.serve.slots import SlotManager
+from torch_threads import share_cores  # noqa: F401,E402
 
 pytestmark = pytest.mark.faults
 

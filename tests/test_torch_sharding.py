@@ -34,6 +34,7 @@ from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
 from repro_torch.models import (decode_state_specs, init_model, input_specs,
                                 param_axes)
 from repro_torch.sharding import rules as R
+from torch_threads import share_cores  # noqa: F401,E402
 
 ARCHS = sorted(ARCH_IDS)
 # (axis names, shape): one pod, two pods, a small mesh, context parallel
@@ -262,8 +263,13 @@ def test_placements():
     m3 = _mesh("two-pods")
     assert R.to_placements(R.Spec(("pod", "data"), "model"), m3) == (
         Shard(0), Shard(0), Shard(1))
-    with pytest.raises(ValueError, match=r"blocks_0/h: .* mesh's order"):
-        R.to_placements(R.Spec(None, ("model", "data")), m,
+    # the spec's order against the mesh's: the mesh dim processed first
+    # splits within the 16 parts of the more major "model"
+    from torch.distributed.tensor.placement_types import _StridedShard
+    assert R.to_placements(R.Spec(None, ("model", "data")), m) == (
+        _StridedShard(1, split_factor=16), Shard(1))
+    with pytest.raises(ValueError, match=r"blocks_0/h: .* not in the mesh"):
+        R.to_placements(R.Spec(None, ("model", "seq")), m,
                         name="blocks_0/h")
 
 
@@ -281,11 +287,17 @@ def test_reference_specs_that_dtensor_cannot_place():
     """The reference's generic decode-state leaves (Mamba, xLSTM) take dim
     0 as the batch, which on a stacked state is the layer axis: the batch
     stays unsharded and the last dim, taking "model" first, then takes
-    ("model", "data") wherever 256 divides it, against the mesh's order,
-    which DTensor cannot express. On one pod that is every Mamba conv
-    buffer [4, B, 3, 8192] of jamba and the mLSTM c, n and sLSTM leaves of
-    xlstm-1.3b, at batch 1 and 32; no other state leaf, and no parameter
-    spec (its rules' order is the mesh's)."""
+    ("model", "data") wherever 256 divides it, against the mesh's order.
+    DTensor's `Shard` splits a dim in mesh order only; the port places
+    these leaves with `_StridedShard` (`test_strided_shards_hold_the_
+    reference_chunks` checks the chunks). On one pod that is every Mamba
+    conv buffer [4, B, 3, 8192] of jamba and the mLSTM c, n and sLSTM
+    leaves of xlstm-1.3b, at batch 1 and 32; no other state leaf, and no
+    parameter spec (its rules' order is the mesh's). Every one of them
+    now places."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
     m = _mesh("pod")
     hits = {}
     for arch in ARCHS:
@@ -293,14 +305,17 @@ def test_reference_specs_that_dtensor_cannot_place():
             st = decode_state_specs(get_config(arch), batch, 4096)
             specs = R.decode_state_shardings(st, m, batch=batch)
             for spec, leaf in zip(_state_leaves(specs), _state_leaves(st)):
-                try:
-                    R.to_placements(spec, m)
-                except ValueError:
+                placed = R.to_placements(spec, m)
+                if any(isinstance(x, _StridedShard) for x in placed):
                     hits.setdefault((arch, batch), set()).add(
                         (tuple(leaf.shape), tuple(spec)))
+                    last = leaf.dim() - 1
+                    assert placed == (_StridedShard(last, split_factor=16),
+                                      Shard(last))
         params, axes = _params(arch)
         for _, spec in _leaves(R.param_shardings(axes, params, m)):
-            R.to_placements(spec, m)
+            assert not any(isinstance(x, _StridedShard)
+                           for x in R.to_placements(spec, m))
     assert set(hits) == {(a, b) for a in ("jamba-v0.1-52b", "xlstm-1.3b")
                          for b in (1, 32)}
     assert hits[("jamba-v0.1-52b", 1)] == {
@@ -363,6 +378,50 @@ def test_specs_on_a_device_mesh(fake_group):
     assert R.to_placements(wq, mesh) == (Shard(1), Shard(2))
     assert R.to_placements(on_mesh["final_norm"]["scale"], mesh) == (
         Shard(0), Replicate())
+
+
+@pytest.mark.parametrize("spec", [("model", "data"), ("data", "model"),
+                                  ("model",), ("data",)])
+@pytest.mark.parametrize("axes, shape", [
+    (("data", "model"), (2, 4)),
+    (("data", "model"), (4, 2)),
+    (("pod", "data", "model"), (2, 2, 2))])
+def test_strided_shards_hold_the_reference_chunks(fake_group, axes, shape,
+                                                  spec):
+    """A rank's local chunk under `to_placements` is the PartitionSpec
+    rule's, the first named axis the major one: for ("model", "data") the
+    rank at (data = i, model = j) holds chunk j·|data| + i. Checked at
+    every rank of the mesh (one fake process group per rank), against
+    DTensor's own local shape and offset and `sharded.shard_local`."""
+    import math
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro_torch.kernels.sharded import shard_local
+
+    sizes = dict(zip(axes, shape))
+    world, n = math.prod(shape), 3 * math.prod(shape)
+    x = torch.arange(n)
+    chunks = math.prod(sizes[a] for a in spec)
+    for rank in range(world):
+        fake_group(world)
+        dist.destroy_process_group()
+        dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                world_size=world)
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=axes)
+        at = dict(zip(axes, mesh.get_coordinate()))
+        idx = 0
+        for a in spec:
+            idx = idx * sizes[a] + at[a]
+        placed = R.to_placements(R.Spec(spec), mesh)
+        size, off = compute_local_shape_and_global_offset((n,), mesh,
+                                                          placed)
+        assert (size, off) == ((n // chunks,), (idx * (n // chunks),)), (
+            rank, at)
+        assert torch.equal(shard_local(x, R.Spec(spec), mesh),
+                           x[off[0]:off[0] + size[0]])
 
 
 @pytest.mark.parametrize("arch", ARCHS)

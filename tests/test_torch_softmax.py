@@ -36,6 +36,7 @@ from repro_torch.attention import (AttentionSpec, attention,  # noqa: E402
 from repro_torch.core import decode_state as TD  # noqa: E402
 from repro_torch.core.ref import softmax_attention_ref  # noqa: E402
 from repro_torch.core.softmax import softmax_attention  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL64 = 1e-10
 TOL32 = 2e-6     # float32 scores summed in another order

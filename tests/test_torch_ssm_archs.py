@@ -52,6 +52,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.param import count_params  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 SSM = ["jamba-v0.1-52b", "xlstm-1.3b"]
 E2E_TOL = 1e-5

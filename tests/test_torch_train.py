@@ -39,6 +39,7 @@ from repro_torch.launch import steps as TS  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.param import from_jax_params  # noqa: E402
 from repro_torch.optim.grad_utils import leaves as leaves_of  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 TOL = 1e-10
 # lm_loss and grads: float32 islands (norms, RoPE) in a float64 model;

@@ -26,6 +26,7 @@ import torch  # noqa: E402
 from repro.launch import train as JT  # noqa: E402
 from repro_torch.launch import train as TT  # noqa: E402
 from repro_torch.optim.grad_utils import leaves  # noqa: E402
+from torch_threads import share_cores  # noqa: F401,E402
 
 # the step-3 loss of a run the port continues from the reference's
 # checkpoint, against the reference's own: float32 models on both sides,
