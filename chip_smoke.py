@@ -282,6 +282,22 @@ and power limit, and the result line last):
                 repro_torch.launch.train --cp 2` on the smoke model, two
                 steps, loss printed. Two ranks share one card: no time
                 here is a multi-card speedup.
+ 25. dryrun   — the dry run (launch/dryrun.py) against the real step: full-
+                width qwen3-1.7b, fastmax2-kernel, bf16, one device: the
+                train step as the train phase runs it (B=4, N=1024, remat
+                full, AdamW), a prefill (B=4, P=1024) and one decode step,
+                each counted on meta (`run_cell(..., mesh=None)`) and then
+                run for real on the card under the same count
+                (launch/op_analysis.py) after reset_peak_memory_stats():
+                the launches per kernel (28 + 56, 28, 28), each kernel's
+                recorded operations and bytes, the matmul flops and the
+                argument bytes equal exactly, the executed peak (arguments
+                + temp) within DRYRUN_PEAK_TOL of max_memory_allocated(),
+                the roofline time printed beside the step's time; then
+                `python -m repro_torch.launch.dryrun --arch qwen3-1.7b
+                --shape train_1M --cp 16 --attn fastmax2-kernel
+                --assert-kernel-route` in a subprocess (the reference's
+                dry-run gate cell) exits 0.
 Exits non-zero, printing no result line, when any phase fails.
 """
 from __future__ import annotations
@@ -298,14 +314,13 @@ from pathlib import Path
 
 import torch
 
-H100_BYTES_PER_S = 3.35e12   # HBM3, SXM data sheet
-H100_BF16_FLOPS = 989e12     # dense tensor-core peak
-H100_F32_FLOPS = 67e12       # CUDA-core float32 peak
-H100_TF32_FLOPS = 495e12     # dense tensor-core TF32 peak
-# the causal prefill's bound counts its exact in-chunk pairs at chunks of
-# this many tokens, a fixed count (the function needs none of them: the
-# feature-row combine covers every key), so no kernel's chunk moves it
-BOUND_CHUNK = 64
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# the card's constants and each kernel's (operations, bytes), shared with
+# the kernel wrappers' launch record and the dry run's roofline
+from repro_torch.kernels.work import (  # noqa: E402
+    H100_BF16_FLOPS, H100_BYTES_PER_S, H100_F32_FLOPS, H100_TF32_FLOPS,
+    bound_ms, bwd_ops, decode_ops, feature_rows, hybrid_ops,
+    noncausal_combine_work, noncausal_moments_work, prefill_ops)
 
 # kernel vs plain version on the card: both accumulate in float32 but sum
 # in different orders and chunk lengths (the fold is associative), so only
@@ -379,47 +394,6 @@ ENGINE_PROMPTS = (256, 1025)  # prompt lengths: default_rng(0).integers
 # kernel 9.43e-5 from plain, so an absolute limit against plain would
 # measure both versions' rounding
 NC_F64_MARGIN = 4
-
-
-def prefill_ops(bh: int, g: int, n: int, d: int, dv: int) -> int:
-    """Operations the causal prefill needs over `bh` (b, kv-head) pairs of
-    `g` query heads each: m2 and g2 are symmetric in (a, b), as is
-    q_a q_b, so the degree-2 fold and combine need D(D+1)/2 rows, not D^2;
-    plus the degree-0/1 terms and the causal intra-chunk block, counted at
-    chunks of BOUND_CHUNK whatever chunk a kernel takes."""
-    c = BOUND_CHUNK
-    pairs = (n // c) * c * (c + 1) // 2 + (n % c) * (n % c + 1) // 2
-    return bh * ((g + 1) * n * d * (d + 1) * (dv + 1)       # m2, g2
-                 + 2 * (g + 1) * n * (d + 1) * (dv + 1)     # m1 g1 m0 g0
-                 + g * pairs * 2 * (d + dv))                # intra-chunk
-
-
-def bwd_ops(bh: int, g: int, n: int, d: int, dv: int) -> int:
-    """Operations of the §2.5 backward over `bh` (b, kv-head) pairs of `g`
-    query heads each: the six degree-2 passes on the symmetric half (g2
-    and its cotangent ride along as one more column, as in the forward's
-    count), the degree-0/1 terms of the same six passes, and six products
-    per causal pair inside chunks of BOUND_CHUNK (scores, F.v, u.v, ds.k,
-    ds^T.q, F^T.u)."""
-    c = BOUND_CHUNK
-    pairs = (n // c) * c * (c + 1) // 2 + (n % c) * (n % c + 1) // 2
-    return bh * ((3 * g + 3) * n * d * (d + 1) * (dv + 1)
-                 + 2 * (3 * g + 3) * n * (d + 1) * (dv + 1)
-                 + g * pairs * 2 * (3 * d + 3 * dv))
-
-
-def decode_ops(bh: int, g: int, d: int, dv: int) -> int:
-    """Operations of one decode step: the token folded into the moments
-    and `g` queries contracted with them, per (b, kv-head)."""
-    return bh * (g + 1) * (d * (d + 1) * (dv + 1) + 2 * (d + 1) * (dv + 1))
-
-
-def bound_ms(ops: float, nbytes: float, peak: float) -> tuple:
-    """(bound ms, what bounds it): the larger of the bytes over the memory
-    rate and the operations over `peak`."""
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def fail(msg: str) -> None:
@@ -2853,6 +2827,138 @@ def cp_train_phase() -> dict:
     return out
 
 
+# dryrun phase: the executed peak the meta count predicts (arguments + the
+# temp peak of live storages) against the card's max_memory_allocated() of
+# the same step; the rest (launches, kernel work, matmul flops, argument
+# bytes) must be equal
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_B, DRYRUN_N = 4, 1024
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "dryrun_gate"
+
+
+def dryrun_phase(dev) -> dict:
+    """The dry run's count of full-width qwen3-1.7b on one device against
+    the same steps run on the card (phase 25)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.op_analysis import OpCount, tree_bytes
+    from repro_torch.models import init_model
+
+    t_phase = time.monotonic()
+    extra = {"remat": "full"}
+    cfg = get_config("qwen3-1.7b", attn=AttentionSpec.parse(
+        "fastmax2-kernel"), **extra)
+    n_l = cfg.n_layers
+    want = {"train": {"fastmax_causal": 2 * n_l, "fastmax_causal_bwd": n_l},
+            "prefill": {"fastmax_causal": n_l},
+            "decode": {"fastmax_decode": n_l}}
+    torch.cuda.empty_cache()
+    params = init_model(cfg, seed=0, device=dev)
+    out = {}
+    for kind in ("train", "prefill", "decode"):
+        shape = ShapeSpec(DRYRUN_N, DRYRUN_B, kind)
+        meta = D.run_cell("qwen3-1.7b", shape, attn="fastmax2-kernel",
+                          extra_cfg=extra, mesh=None)
+        fn, args, parts = D.cell_step(cfg, shape, device=dev, params=params)
+        arg_bytes = tree_bytes(args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        with OpCount("cuda") as count:
+            ev0.record()
+            fn(*args)
+            ev1.record()
+        ev1.synchronize()
+        step_ms = ev0.elapsed_time(ev1)
+        # the card's peak with only the step's arguments held before it
+        peak = torch.cuda.max_memory_allocated() - (held - arg_bytes)
+        counted = {k: v for k, v in ops.launch_counts().items() if v}
+        real = count.result()
+        pred = meta["executed"]["total"]
+        roof = meta["roofline"]
+        roof_ms = max(roof["compute_s"], roof["memory_s"],
+                      roof["collective_s"]) * 1e3
+        row = {"launches": count.launches(),
+               "matmul_flops": real["matmul_flops"],
+               "meta_matmul_flops": meta["ops"]["matmul_flops"],
+               "argument_bytes": arg_bytes,
+               "meta_argument_bytes": meta["executed"]["argument_bytes"],
+               "peak_bytes": peak, "meta_peak_bytes": pred,
+               "temp_peak_bytes": real["temp_peak_bytes"],
+               "meta_temp_peak_bytes": meta["executed"]["temp_peak_bytes"],
+               "held_before_bytes": held, "step_ms": step_ms,
+               "roofline_ms": roof_ms, "dominant": roof["dominant"],
+               "hbm_bytes": real["hbm_bytes"],
+               "meta_hbm_bytes": meta["ops"]["hbm_bytes"]}
+        out[kind] = row
+        print(f"  {kind} B={DRYRUN_B} N={DRYRUN_N}: launches "
+              f"{row['launches']} (meta {meta['launches']}), matmul flops "
+              f"{real['matmul_flops']:.6e} (meta "
+              f"{meta['ops']['matmul_flops']:.6e}), argument bytes "
+              f"{arg_bytes} (meta {meta['executed']['argument_bytes']}), "
+              f"peak {peak / 1e9:.4f} GB against max_memory_allocated "
+              f"(meta {pred / 1e9:.4f} GB, {pred / peak - 1:+.2%}; temp "
+              f"{real['temp_peak_bytes'] / 1e9:.4f} counted on the card, "
+              f"{meta['executed']['temp_peak_bytes'] / 1e9:.4f} on meta); "
+              f"step {step_ms:.1f} ms, roofline {roof_ms:.1f} ms "
+              f"({roof['dominant']}); HBM bytes counted "
+              f"{real['hbm_bytes']:.4e} (meta {meta['ops']['hbm_bytes']:.4e})")
+        if not (count.launches() == meta["launches"] == want[kind]
+                == counted):
+            fail(f"dryrun {kind}: launches on the card {count.launches()} "
+                 f"(launch_counts {counted}), on meta {meta['launches']}, "
+                 f"expected {want[kind]}")
+        if count.kernel_work() != meta["kernel_work"]:
+            fail(f"dryrun {kind}: kernel work on the card "
+                 f"{count.kernel_work()} != meta {meta['kernel_work']}")
+        if real["matmul_flops"] != meta["ops"]["matmul_flops"]:
+            fail(f"dryrun {kind}: matmul flops differ")
+        if arg_bytes != meta["executed"]["argument_bytes"]:
+            fail(f"dryrun {kind}: argument bytes differ")
+        if abs(pred - peak) > DRYRUN_PEAK_TOL * peak:
+            fail(f"dryrun {kind}: the counted peak {pred} is not within "
+                 f"{DRYRUN_PEAK_TOL:.0%} of max_memory_allocated {peak}")
+        del fn, args, parts, count
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    # the reference's dry-run gate cell, on meta in a process of its own
+    t0 = time.monotonic()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    gate = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-1.7b", "--shape", "train_1M", "--cp", "16", "--attn",
+         "fastmax2-kernel", "--assert-kernel-route", "--out",
+         str(DRYRUN_DIR)], capture_output=True, text=True, env=env,
+        timeout=300)
+    gate_s = time.monotonic() - t0
+    print("  gate: " + gate.stdout.strip().replace("\n", "\n  gate: "))
+    if gate.returncode != 0:
+        fail(f"dryrun gate (train_1M --cp 16) exited {gate.returncode}: "
+             f"{gate.stderr[-2000:]}")
+    res = json.loads((DRYRUN_DIR / "qwen3-1.7b__train_1M__single__"
+                      "fastmax2-kernel__cp16.json").read_text())
+    out["gate"] = {"seconds": gate_s, "cell_seconds": res["seconds"],
+                   "launches": res["launches"],
+                   "attn_routing": res["attn_routing"],
+                   "cp_boundary": res["cp_boundary"],
+                   "planned_gb": res["planned"]["total"] / 1e9,
+                   "executed_gb": res["executed"]["total"] / 1e9}
+    phase("dryrun", f"meta counts = the card's for train, prefill and "
+          f"decode (launches, kernel work, matmul flops, argument bytes; "
+          f"peaks within {DRYRUN_PEAK_TOL:.0%}); train_1M --cp 16 gate "
+          f"exit 0 in {gate_s:.1f} s; phase "
+          f"{time.monotonic() - t_phase:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
@@ -3652,7 +3758,7 @@ def main() -> None:
 
     # the noncausal launches timed at the whisper path's shapes, bf16
     bhw = B * wh
-    rows = 1 + wd + wd * (wd + 1) // 2       # feature rows, symmetric m2
+    rows = feature_rows(wd, 2)               # feature rows, symmetric m2
     with torch.inference_mode():
         _, _, (q, k, v, mom, rmom) = nc_case(B, wh, wh, WM, WM, wd,
                                              torch.bfloat16)
@@ -3679,19 +3785,14 @@ def main() -> None:
                            for x in (q, q128, q1)))
     if not nc_same:
         fail("nc: two calls of a noncausal launch differ")
-    # per (b, head): each feature row (the constant, the linear ones, the
-    # pairs a <= b) is one FMA per value column and one for the g column;
-    # bytes: k, v read and the moments written; q read, the feature rows
-    # of the moments read and o written. The tensor cores run the value
-    # columns' products in passes of the TF32 split: 2 for the moments of
-    # bf16 keys and values, 3 for the combine
-    nm_ops = bhw * WM * rows * 2 * (wd + 1)
-    nm_bytes = (k.numel() + v.numel()) * 2 + sum(t.numel() for t in mom) * 4
+    # operations and bytes of each launch (kernels/work.py). The tensor
+    # cores run the value columns' products in passes of the TF32 split: 2
+    # for the moments of bf16 keys and values, 3 for the combine
+    nm_ops, nm_bytes = noncausal_moments_work(B, wh, WM, wd, wd, 2)
     nm_tc = 2 * bhw * WM * rows * 2 * wd
 
     def combine_bound(n):
-        ops_ = bhw * n * rows * 2 * (wd + 1)
-        bytes_ = 2 * bhw * n * wd * 2 + bhw * rows * (wd + 1) * 4
+        ops_, bytes_ = noncausal_combine_work(B, wh, wh, n, wd, wd, 2)
         return ops_, bytes_, max(ops_ / H100_BF16_FLOPS,
                                  bytes_ / H100_BYTES_PER_S) * 1e3
 
@@ -3803,20 +3904,9 @@ def main() -> None:
     if hy_nseg != 1:
         fail(f"the hybrid kernel at the main path's shapes ran in {hy_nseg} "
              f"segments (the launch times above are one segment's)")
-    # operations: the prefill's (its in-chunk pairs at BOUND_CHUNK), plus
-    # 2(D + Dv) per query head for each band pair before its query's chunk
-    # of BOUND_CHUNK (its score and its product with v; a band pair inside
-    # that chunk is one of the causal pairs already, weighed exp instead
-    # of f); bytes as the prefill's
-    def band_pairs(n, w):
-        """Pairs (i, j) with 0 <= i - j < w among n consecutive tokens."""
-        m = min(n, w)
-        return m * n - m * (m - 1) // 2
-
-    far_band = band_pairs(P, w_eff) \
-        - (P // BOUND_CHUNK) * band_pairs(BOUND_CHUNK, w_eff) \
-        - band_pairs(P % BOUND_CHUNK, w_eff)
-    hy_ops = fc_ops + bh * gq * far_band * 2 * (d + d)
+    # operations: the prefill's plus the band pairs before each query's
+    # chunk of BOUND_CHUNK (kernels/work.py); bytes as the prefill's
+    hy_ops = hybrid_ops(bh, gq, P, d, d, w_eff)
     hy_bound = max(fc_bytes / H100_BYTES_PER_S,
                    hy_ops / H100_BF16_FLOPS) * 1e3
     del q, k, v
@@ -4090,6 +4180,10 @@ def main() -> None:
     shard = shard_phase()
     cp_train = cp_train_phase()
 
+    # ---- the dry run against the real step ----
+    torch.cuda.empty_cache()
+    dryrun = dryrun_phase(dev)
+
     kernels = [
         {"name": "fastmax_causal_prefill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fastmax_causal.cu",
@@ -4198,6 +4292,7 @@ def main() -> None:
     print(json.dumps({"autotune": tuned}))
     print(json.dumps({"shard": shard}))
     print(json.dumps({"cp_train": cp_train}))
+    print(json.dumps({"dryrun": dryrun}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,8 +55,10 @@ __all__ = []
 
 def _softmax_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask, rng):
     from repro_torch.core.softmax import softmax_attention
+    from repro_torch.kernels.ops import note_route
 
     del spec, rng
+    note_route("plain attention: softmax")
     # grouped queries per kv head, no Hq-broadcast copies of k/v; the mask
     # is per kv head: [B, Hkv|1, M]
     if kv_mask is not None and kv_mask.shape[1] not in (1, k.shape[1]):
@@ -76,12 +78,16 @@ register(Backend(
 def _chunked_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask, rng):
     from repro_torch.core.fastmax import (fastmax_causal_chunked,
                                           fastmax_noncausal, normalize_qk)
+    from repro_torch.kernels.ops import note_route
 
     del rng
     spec = spec.resolved()
     qh = normalize_qk(q) if spec.normalize else q
     kh = normalize_qk(k) if spec.normalize else k
     _, plan = S.plan_call(q, k, v, causal=causal, seq=True)
+    note_route("plain attention: fastmax-chunked"
+               + (f" {plan.describe()}" if plan is not None
+                  and plan.mode == "seq" else ""))
     if plan is not None and plan.mode == "seq":
         # the rank holds a token shard: the plain versions under the seq
         # plan's carry exchange (any other plan runs the whole heads here)
@@ -199,10 +205,12 @@ def _hybrid_chunked_fn(q, k, v, spec: AttentionSpec, *, causal, kv_mask,
                        rng):
     from repro_torch.core.fastmax import normalize_qk
     from repro_torch.core.hybrid import hybrid_causal_chunked
+    from repro_torch.kernels.ops import note_route
 
     del rng
     if not causal:
         raise ValueError("hybrid attention is causal-only")
+    note_route("plain attention: hybrid-chunked")
     spec = spec.resolved()
     qh = normalize_qk(q) if spec.normalize else q
     kh = normalize_qk(k) if spec.normalize else k

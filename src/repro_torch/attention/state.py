@@ -59,6 +59,7 @@ from repro_torch.core.fastmax import (Moments, _causal_scan,
 from repro_torch.core.hybrid import _hybrid_scan, effective_window, roll_window
 from repro_torch.core.ref import normalize_qk, poly_kernel
 from repro_torch.core.softmax import softmax_attention
+from repro_torch.kernels.ops import note_route
 from repro_torch.kernels.ref import fastmax_decode_ref
 
 __all__ = ["KVCache", "AttnState", "init_state", "prefill", "step",
@@ -267,6 +268,7 @@ def prefill(q, k, v, spec: AttentionSpec, *, state: AttnState,
     if kv_mask is not None and kv_mask.dim() == 2:
         kv_mask = kv_mask[:, None].expand(b, hkv, n)
     if spec.family == "softmax":
+        note_route("plain prefill: softmax KV cache")
         o = _softmax_prefill(q, k, v, state.kv, kv_mask, offset)
         return o, state
     spec_r = spec.resolved()
@@ -290,6 +292,7 @@ def prefill(q, k, v, spec: AttentionSpec, *, state: AttnState,
                 chunk_size=spec_r.chunk_size, denom_eps=spec.denom_eps,
                 kv_mask=kv_mask)
         else:
+            note_route("plain prefill: hybrid scan")
             o, final = _hybrid_scan(qh, kh, v, p=spec.p,
                                     window=spec_r.window,
                                     chunk_size=spec_r.chunk_size,
@@ -315,6 +318,7 @@ def prefill(q, k, v, spec: AttentionSpec, *, state: AttnState,
                 qh, kh, v, p=spec.p, chunk_size=spec_r.chunk_size,
                 denom_eps=spec.denom_eps, kv_mask=kv_mask, init_state=init)
     else:
+        note_route("plain prefill: fastmax chunked scan")
         o, final = _causal_scan(qh, kh, v, p=spec.p,
                                 chunk_size=spec_r.chunk_size, kv_mask=kv_mask,
                                 denom_eps=spec.denom_eps, init=init)
@@ -343,8 +347,9 @@ def _prefill_sharded(qh, kh, v, spec: AttentionSpec, kv_mask, plan, init):
             o, out["final"] = S.fastmax_prefill_sharded(a, b, c, **kw,
                                                         plan=plan)
         else:
-            o, out["final"] = ops.fastmax_prefill_kernel(a, b, c, **kw,
-                                                         init_state=init)
+            with ops.under_plan(plan.describe()):
+                o, out["final"] = ops.fastmax_prefill_kernel(
+                    a, b, c, **kw, init_state=init)
         return o
 
     with torch.no_grad():      # the decode-state paths run without autograd
@@ -394,10 +399,12 @@ def step(state: AttnState, q, k, v, spec: AttentionSpec):
     place, and returns (o [B,Hq,1,Dv], state)."""
     _check_state(state, spec)
     if spec.family == "softmax":
+        note_route("plain decode: softmax KV cache")
         return _softmax_step(state.kv, q, k, v), state
     qh = normalize_qk(q) if spec.normalize else q
     kh = normalize_qk(k) if spec.normalize else k
     if _window_slots(spec) > 0:
+        note_route("plain decode: hybrid two-leg step")
         return _hybrid_step(state, qh, kh, v, spec).to(q.dtype), state
     if resolve(spec).caps.decode_kernel:
         from repro_torch.kernels import ops
@@ -414,6 +421,7 @@ def step(state: AttnState, q, k, v, spec: AttentionSpec):
                         a, b, c, state.moments, p=spec.p,
                         denom_eps=spec.denom_eps, plan=plan)[0], qh, kh, v)
         return o.to(q.dtype), state
+    note_route("plain decode: fastmax moment step")
     o, new = fastmax_decode_ref(qh, kh, v, tuple(state.moments), p=spec.p,
                                 denom_eps=spec.denom_eps)
     _copy_into(state.moments, new)

@@ -1,15 +1,31 @@
 """Architecture registry of the port — mirrors `repro.configs`: all ten of
 the reference's architectures (attention with an MLP or MoE ffn, MLA,
 encoder-decoder, and since the SSM slice jamba-v0.1-52b's Mamba and
-attention mixers and xlstm-1.3b's mLSTM and sLSTM)."""
+attention mixers and xlstm-1.3b's mLSTM and sLSTM), and the reference's
+table of shapes (`SHAPES`), which the dry run (`launch/dryrun.py`) reads."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import NamedTuple
 
 from repro_torch.models.transformer import ModelConfig
 
-__all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_NAMES", "ARCH_IDS", "ShapeSpec", "SHAPES", "get_config",
+           "get_smoke_config", "all_arch_ids"]
+
+ARCH_NAMES = [
+    "qwen2_5_32b",
+    "granite_20b",
+    "qwen3_1_7b",
+    "llama3_405b",
+    "whisper_small",
+    "deepseek_v2_236b",
+    "kimi_k2_1t",
+    "chameleon_34b",
+    "xlstm_1_3b",
+    "jamba_52b",
+]
 
 # public ids used on the CLI (--arch) mapped to module names
 ARCH_IDS = {
@@ -23,6 +39,23 @@ ARCH_IDS = {
     "chameleon-34b": "chameleon_34b",
     "xlstm-1.3b": "xlstm_1_3b",
     "jamba-v0.1-52b": "jamba_52b",
+}
+
+
+class ShapeSpec(NamedTuple):
+    seq_len: int
+    global_batch: int
+    kind: str          # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec(4096, 256, "train"),
+    "prefill_32k": ShapeSpec(32768, 32, "prefill"),
+    "decode_32k": ShapeSpec(32768, 128, "decode"),
+    "long_500k": ShapeSpec(524288, 1, "decode"),
+    # context-parallel training: 1M tokens across a "seq" mesh axis
+    # (dryrun --cp; each rank's step sees seq_len / cp tokens)
+    "train_1M": ShapeSpec(1048576, 16, "train"),
 }
 
 
@@ -43,3 +76,6 @@ def get_smoke_config(name: str, **overrides) -> ModelConfig:
     cfg = _module(name).smoke_config()
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
+
+def all_arch_ids():
+    return list(ARCH_IDS.keys())

@@ -74,6 +74,7 @@ import torch.distributed as dist
 
 from repro_torch.core.fastmax import compute_moments_chunked
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.tiling import SCAN_BM_BUDGET, pick_bm
 from repro_torch.sharding.rules import Spec, _batch_entry, mesh_axes
 
 __all__ = ["ShardPlan", "nontrivial_mesh", "plan_kernel_sharding",
@@ -417,6 +418,22 @@ def _live(mom, p: int) -> tuple:
     return tuple(mom) if p >= 2 else (mom[0], mom[1], mom[3], mom[4])
 
 
+# bytes of the seq plan's moment fold's intermediate per chunk: the fold
+# (`core.fastmax.compute_moments_chunked`, plain torch on every device)
+# holds [B, Hkv, c, bm, D] float32 products per chunk of c tokens, and
+# takes chunks of as many tokens as keep them within this budget (at
+# least the model's chunk): a long shard is folded in a few chunks, not
+# N / chunk_size turns of its Python loop
+_CP_FOLD_BUDGET = 256 * 1024 * 1024
+
+
+def _fold_chunk(k, chunk_size: int) -> int:
+    """Tokens per chunk of the seq plan's moment fold of `k`'s shard."""
+    b, hkv, _, d = k.shape
+    per_token = b * hkv * pick_bm(d, SCAN_BM_BUDGET) * d * 4
+    return max(chunk_size, _CP_FOLD_BUDGET // per_token)
+
+
 def _seq_impl(q, k, v, p: int, plan: ShardPlan) -> str:
     b, _, _, d = q.shape
     return pick_cp_exchange(plan.cp, cp_carry_bytes(
@@ -447,7 +464,8 @@ def _seq_fwd_launch(q, k, v, p, chunk_size, denom_eps, plan, schedule,
     causal outputs of the whole sequence on this shard."""
     prefill, _ = _seq_fns(plain)
     with torch.no_grad():
-        mom = compute_moments_chunked(k, v, p=p, chunk_size=chunk_size)
+        mom = compute_moments_chunked(k, v, p=p,
+                                      chunk_size=_fold_chunk(k, chunk_size))
     carry = _cp_prefix_sum(_live(mom, p), plan.mesh,
                            _seq_impl(q, k, v, p, plan))
     if p < 2:
@@ -483,15 +501,17 @@ class _SeqCausal(torch.autograd.Function):
         if p < 2:
             st = st[:2] + [None] + st[2:] + [None]
         _, bwd = _seq_fns(plain)
-        dq, dk, dv, dC = bwd(q, k, v, tuple(st), do, p=p,
-                             chunk_size=chunk_size, denom_eps=denom_eps,
-                             return_dstate=True)
+        with kernel_ops.under_plan(plan.describe()):
+            dq, dk, dv, dC = bwd(q, k, v, tuple(st), do, p=p,
+                                 chunk_size=chunk_size, denom_eps=denom_eps,
+                                 return_dstate=True)
         dM = _cp_prefix_sum(_live(dC, p), plan.mesh,
                             _seq_impl(q, k, v, p, plan), reverse=True)
         with torch.enable_grad():
             kk, vv = (x.detach().requires_grad_(True) for x in (k, v))
             prim = _live(compute_moments_chunked(kk, vv, p=p,
-                                                 chunk_size=chunk_size), p)
+                                                 chunk_size=_fold_chunk(
+                                                     kk, chunk_size)), p)
             # g0 (the token count) depends on neither k nor v
             pairs = [(x, g.to(x.dtype)) for x, g in zip(prim, dM)
                      if x.requires_grad]
@@ -533,15 +553,17 @@ def fastmax_sharded(q, k, v, *, p: int, causal: bool, chunk_size: int,
         if not causal:
             raise ValueError(
                 "seq-mode (context-parallel) attention is causal-only")
-        return _SeqCausal.apply(q, k, v, p, chunk_size, denom_eps, plan,
-                                schedule, plain)
+        with kernel_ops.under_plan(plan.describe()):
+            return _SeqCausal.apply(q, k, v, p, chunk_size, denom_eps, plan,
+                                    schedule, plain)
     if plan.mode == "feature":
         q, k = _feature_qk(q, k, plan)
     elif plan.mode != "heads":
         raise ValueError(f"unknown plan mode {plan.mode!r}")
-    return kernel_ops.fastmax(q, k, v, p=p, causal=causal,
-                              chunk_size=chunk_size, denom_eps=denom_eps,
-                              schedule=schedule)
+    with kernel_ops.under_plan(plan.describe()):
+        return kernel_ops.fastmax(q, k, v, p=p, causal=causal,
+                                  chunk_size=chunk_size, denom_eps=denom_eps,
+                                  schedule=schedule)
 
 
 def hybrid_sharded(q, k, v, *, p: int, window: int, chunk_size: int,
@@ -558,9 +580,10 @@ def hybrid_sharded(q, k, v, *, p: int, window: int, chunk_size: int,
                          f"{plan.mode!r}")
     if plan.mode == "feature":
         q, k = _feature_qk(q, k, plan)
-    return kernel_ops.hybrid(q, k, v, p=p, window=window, causal=True,
-                             chunk_size=chunk_size, denom_eps=denom_eps,
-                             schedule=schedule)
+    with kernel_ops.under_plan(plan.describe()):
+        return kernel_ops.hybrid(q, k, v, p=p, window=window, causal=True,
+                                 chunk_size=chunk_size, denom_eps=denom_eps,
+                                 schedule=schedule)
 
 
 def fastmax_prefill_sharded(q, k, v, *, p: int, chunk_size: int,
@@ -575,9 +598,10 @@ def fastmax_prefill_sharded(q, k, v, *, p: int, chunk_size: int,
     if plan.mode not in ("heads", "feature"):
         raise ValueError(f"prefill plans heads/feature modes, got "
                          f"{plan.mode!r}")
-    return kernel_ops.fastmax_prefill_kernel(
-        q, k, v, p=p, chunk_size=chunk_size, denom_eps=denom_eps,
-        kv_mask=kv_mask, schedule=schedule)
+    with kernel_ops.under_plan(plan.describe()):
+        return kernel_ops.fastmax_prefill_kernel(
+            q, k, v, p=p, chunk_size=chunk_size, denom_eps=denom_eps,
+            kv_mask=kv_mask, schedule=schedule)
 
 
 def fastmax_decode_sharded(q, k, v, state, *, p: int, denom_eps: float,
@@ -590,8 +614,9 @@ def fastmax_decode_sharded(q, k, v, state, *, p: int, denom_eps: float,
     if plan.mode not in ("heads", "feature"):
         raise ValueError(f"decode plans heads/feature modes, got "
                          f"{plan.mode!r}")
-    o = kernel_ops.fastmax_decode(q, k, v, state, p=p, denom_eps=denom_eps,
-                                  schedule=schedule)
+    with kernel_ops.under_plan(plan.describe()):
+        o = kernel_ops.fastmax_decode(q, k, v, state, p=p,
+                                      denom_eps=denom_eps, schedule=schedule)
     return o, tuple(state)
 
 

@@ -19,9 +19,19 @@ zeroed row of the buffer does in the reference, and the padded rows the
 reference computes are never used there. No [T, k, E] tensor is made.
 The loop over experts needs their counts on the host: one read-back per
 call.
+
+On the `meta` device (the dry run, `launch/dryrun.py`) there are no counts
+to read back: `apply_moe` dispatches the balanced load instead, the t·k
+pairs spread evenly over the E experts (t·k // E each, one more for the
+first t·k mod E), each expert keeping at most C of them
+(`balanced_counts`). That is the load `model_flops`' active-parameter
+count assumes. The reference compiles a static capacity instead (every
+expert runs C rows, padding included), which costs E·C rows where this
+costs Σ_e min(C, load_e).
 """
 from __future__ import annotations
 
+import itertools
 from typing import Tuple
 
 import torch
@@ -30,7 +40,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import _dense
 from repro_torch.models.param import Builder
 
-__all__ = ["init_moe", "apply_moe", "capacity"]
+__all__ = ["init_moe", "apply_moe", "capacity", "balanced_counts"]
 
 _F32 = torch.float32
 
@@ -61,6 +71,14 @@ def capacity(t: int, cfg, full_capacity: bool) -> int:
     return max(1, int(k * t * cfg.capacity_factor / e))
 
 
+def balanced_counts(t: int, k: int, e: int) -> list:
+    """The balanced load of `t` tokens' top-`k` choices over `e` experts:
+    t·k // e pairs each, one more for the first t·k mod e experts (the
+    dry run's dispatch on `meta`, before the capacity cut)."""
+    per, extra = divmod(t * k, e)
+    return [per + (1 if ex < extra else 0) for ex in range(e)]
+
+
 def _route(xf, router, k: int):
     """The router, a float32 island as in the reference: probs [T, E],
     renormalized top-k gates [T, k] and their experts [T, k]."""
@@ -87,10 +105,16 @@ def apply_moe(params, x, cfg, *, full_capacity: bool = False
     # (a token's k experts are distinct, and the sort is stable)
     flat_e = idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=e)
-    starts = torch.cumsum(counts, 0) - counts
+    if x.device.type == "meta":
+        # no values to count on meta: the balanced load
+        n_e = balanced_counts(t, k, e)
+        s_e = list(itertools.accumulate([0] + n_e[:-1]))
+        counts = torch.empty(e, dtype=torch.int64, device=x.device)
+    else:
+        counts = torch.bincount(flat_e, minlength=e)
+        starts = torch.cumsum(counts, 0) - counts
+        n_e, s_e = counts.tolist(), starts.tolist()
     gate_flat = gates.reshape(-1)
-    n_e, s_e = counts.tolist(), starts.tolist()
     wg, wu, wo = (params[w].unbind(0) for w in ("wi_gate", "wi_up", "wo"))
     y = torch.zeros_like(xf)
     for ex in range(e):

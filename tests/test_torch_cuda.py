@@ -1181,3 +1181,40 @@ def test_routing_without_a_plan_launches_the_kernels_on_the_card(
     assert not any(c for counts in (r["counts"], r["hybrid_counts"],
                                     r["serve_counts"])
                    for k, c in counts.items() if k.endswith("_sharded"))
+
+
+@pytest.mark.cuda
+def test_dryrun_meta_count_is_the_card_s(cuda_device):
+    """The smoke qwen3-1.7b train step on fastmax2-kernel, counted by the
+    dry run on meta (`launch/dryrun.py`, `op_analysis.py`) and on the
+    card: the same launches, kernel work (operations and bytes of each
+    launch), matmul flops and argument bytes."""
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import ShapeSpec, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.op_analysis import OpCount, tree_bytes
+
+    cfg = get_smoke_config("qwen3-1.7b",
+                           attn=AttentionSpec.parse("fastmax2-kernel"))
+    shape = ShapeSpec(64, 2, "train")
+    counts, args_bytes = {}, {}
+    for dev in ("meta", "cuda"):
+        fn, args, _ = D.cell_step(cfg, shape, device=dev)
+        args_bytes[dev] = tree_bytes(args)
+        ops.reset_launch_counts()
+        with OpCount(dev) as count:
+            fn(*args)
+        counts[dev] = count
+    meta, card = counts["meta"], counts["cuda"]
+    want = {"fastmax_causal": 2 * cfg.n_layers,
+            "fastmax_causal_bwd": cfg.n_layers}
+    assert meta.launches() == card.launches() == want
+    assert {k: v for k, v in ops.launch_counts().items() if v} == want
+    assert meta.kernel_work() == card.kernel_work()
+    assert [(r["kernel"], r["shape"], r["ops"], r["bytes"])
+            for r in meta.record["launches"]] \
+        == [(r["kernel"], r["shape"], r["ops"], r["bytes"])
+            for r in card.record["launches"]]
+    assert meta.matmul_flops == card.matmul_flops > 0
+    assert args_bytes["meta"] == args_bytes["cuda"]
