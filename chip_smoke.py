@@ -2668,6 +2668,7 @@ def cp_train_rank(rank, world, n_steps):
     from repro_torch.models import init_model
     from repro_torch.models.param import count_params
     from repro_torch.optim.grad_utils import leaves
+    from repro_torch.sharding import placed as P
 
     del world
     # float32: after an AdamW update a bf16 model's losses move apart by
@@ -2683,11 +2684,20 @@ def cp_train_rank(rank, world, n_steps):
 
     def run(mesh_, cfg=cfg):
         params = init_model(cfg, seed=0, device=dev)
-        loss, _, grads = make_grad_fn(cfg, mesh=mesh_)(params, batches[0])
-        grads = dict(leaves(grads))
         _, opt = pick_optimizer(cfg, count_params(params), lr=3e-4,
                                 total_steps=n_steps)
-        state = opt[0](params)
+        rows = batches
+        if mesh_ is None:
+            state = opt[0](params)
+        else:
+            # the placed step over "data" (of size 1 here) and "seq"
+            placement = P.Placement(cfg, mesh_)
+            params = placement.place(params)
+            state = placement.init_opt_state(opt[0], params)
+            rows = [P.shard_batch(b, mesh_) for b in batches]
+        loss, _, grads = make_grad_fn(cfg, mesh=mesh_)(params, rows[0])
+        grads = dict(leaves(grads if mesh_ is None
+                            else P.full(grads, mesh_)))
         step = make_train_step(cfg, opt, mesh=mesh_)
         losses, ms, launches = [], [], []
         torch.cuda.synchronize()
@@ -2697,7 +2707,7 @@ def cp_train_rank(rank, world, n_steps):
             e1 = torch.cuda.Event(enable_timing=True)
             ops.reset_launch_counts()
             e0.record()
-            params, state, m = step(params, state, batches[i])
+            params, state, m = step(params, state, rows[i])
             e1.record()
             e1.synchronize()
             ms.append(e0.elapsed_time(e1))
@@ -2827,6 +2837,396 @@ def cp_train_phase() -> dict:
     return out
 
 
+# placed phases: full-width qwen3 cut to PLACED_LAYERS layers, float32,
+# on two gloo ranks of the card: (data 2, model 1) is FSDP, (data 1,
+# model 2) tensor parallelism (8 kv heads over 2: the heads plan)
+PLACED_ARCH, PLACED_LAYERS, PLACED_B, PLACED_N, PLACED_STEPS = (
+    "qwen3-1.7b", 4, 2, 2048, 3)
+PLACED_MESHES = ((2, 1), (1, 2))
+PLACED_PROMPT, PLACED_GEN = 1024, 17      # a prefill and 16 decode tokens
+
+
+def placed_cfg():
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_config
+
+    return get_config(PLACED_ARCH, n_layers=PLACED_LAYERS,
+                      param_dtype="float32", activ_dtype="float32",
+                      attn=AttentionSpec.parse("fastmax2-kernel"))
+
+
+def leaf_sums(local, ref) -> dict:
+    """{leaf: (|local - ref's slice|², |ref's slice|², split)} of a tree
+    of placed shards against the whole tree `ref` on the host: the
+    slices by each leaf's spec, `split` whether a mesh axis of size > 1
+    cuts it (the ranks' sums then add up to the whole leaf's)."""
+    from repro_torch.kernels.sharded import shard_local
+    from repro_torch.optim.grad_utils import leaves
+    from repro_torch.sharding import placed as P
+
+    out = {}
+    for name, x in leaves(local):
+        spec, mesh = P.spec_of(x), P.active().mesh
+        want = ref[name] if spec is None else shard_local(ref[name], spec,
+                                                          mesh)
+        got = x.detach().float().cpu()
+        split = any(P.active().sizes[a] > 1 for a in P.split_axes(spec))
+        out[name] = (float((got - want).square().sum()),
+                     float(want.square().sum()), split)
+    return out
+
+
+def placed_train_rank(rank, world, n_steps):
+    """A [placed train] rank: each rank in turn first takes one process's
+    AdamW steps alone (the reference, kept on the host), then both the
+    placed step
+    on each mesh of PLACED_MESHES: the first step's grads and the final
+    parameters are held to the reference's slices on each rank (no
+    gather), the last step counted (`OpCount`)."""
+    dev = _rank_setup()
+    import contextlib
+
+    import torch.distributed as dist
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.op_analysis import OpCount, tree_bytes
+    from repro_torch.models import init_model
+    from repro_torch.models.param import count_params
+    from repro_torch.optim.grad_utils import leaves
+    from repro_torch.sharding import placed as P
+
+    del world
+    cfg = placed_cfg()
+    raw = SyntheticLM(cfg.vocab_size, PLACED_N, seed=0).batch(0, PLACED_B)
+    batch = {k: torch.as_tensor(raw[k], dtype=torch.int32, device=dev)
+             for k in ("tokens", "targets")}
+    # the train step's grad fn, recording its first call's loss and grads
+    first = {}
+    make_grad_fn = ST.make_grad_fn
+
+    def recording(*a, **kw):
+        fn = make_grad_fn(*a, **kw)
+
+        def grad_fn(params, b):
+            loss, metrics, grads = fn(params, b)
+            if not first:
+                first.update(loss=loss.item(), grads=grads)
+            return loss, metrics, grads
+        return grad_fn
+
+    ST.make_grad_fn = recording
+
+    def run(shape, ref=None):
+        mesh = None if shape is None else make_test_mesh(
+            shape, ("data", "model"))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        first.clear()
+        params = init_model(cfg, seed=0, device=dev)
+        _, opt = ST.pick_optimizer(cfg, count_params(params), lr=3e-4,
+                                   total_steps=n_steps)
+        b = batch
+        if mesh is None:
+            state = opt[0](params)
+        else:
+            placement = P.Placement(cfg, mesh)
+            params = placement.place(params)
+            state = placement.init_opt_state(opt[0], params)
+            b = P.shard_batch(batch, mesh)
+        step = ST.make_train_step(cfg, opt, mesh=mesh)
+        arg_bytes = tree_bytes((params, state, b))
+        P.reset_asked()
+        losses, ms, launches, count = [], [], [], None
+        for i in range(n_steps):
+            # the placed step's last step is counted (`OpCount`, whose
+            # Python mode lengthens it): [dryrun] holds it to meta
+            counted = mesh is not None and i == n_steps - 1
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            ops.reset_launch_counts()
+            with OpCount("cuda") if counted else contextlib.nullcontext() \
+                    as c:
+                e0.record()
+                params, state, m = step(params, state, b)
+                e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            launches.append({k: v for k, v in ops.launch_counts().items()
+                             if v})
+            losses.append(m["loss"].item())
+            if counted:
+                count = {"launches": c.launches(),
+                         "kernel_work": c.kernel_work(),
+                         "matmul_flops": c.result()["matmul_flops"],
+                         "argument_bytes": arg_bytes}
+        out = dict(loss=first["loss"], losses=losses, ms=ms,
+                   launches=launches, count=count, arg_bytes=arg_bytes,
+                   peak=torch.cuda.max_memory_allocated() / 1e9,
+                   coll={k: (P.asked[k] / n_steps, P.asked_ms[k] / n_steps)
+                         for k in P.asked})
+        if mesh is None:
+            out.update(grads={n: x.detach().float().cpu()
+                              for n, x in leaves(first["grads"])},
+                       final={n: x.detach().float().cpu()
+                              for n, x in leaves(params)})
+        else:
+            with placement.active():
+                out.update(grads=leaf_sums(first["grads"], ref["grads"]),
+                           final=leaf_sums(params, ref["final"]))
+        first.clear()
+        del params, state, b
+        return out
+
+    ref = None
+    for r in range(2):          # one process at a time holds the card
+        if rank == r:
+            ref = run(None)
+        dist.barrier()
+    want = {"fastmax_causal": 2 * PLACED_LAYERS,
+            "fastmax_causal_bwd": PLACED_LAYERS}
+    out = {"rank": rank, "meshes": {}, "step_ms_one": ref["ms"],
+           "peak_gb_one": ref["peak"], "argument_bytes_one": ref["arg_bytes"],
+           "launches_one": ref["launches"][-1], "loss_one": ref["loss"],
+           "losses_one": ref["losses"]}
+    for shape in PLACED_MESHES:
+        r = run(shape, ref)
+        out["meshes"]["x".join(map(str, shape))] = {
+            "step_ms": r["ms"], "peak_gb": r["peak"],
+            "argument_bytes": r["arg_bytes"], "collectives": r["coll"],
+            "launches": r["launches"][-1],
+            "launches_ok": all(c == want for c in r["launches"]),
+            "count": r["count"], "loss": r["loss"], "losses": r["losses"],
+            "grad_sums": r["grads"], "param_sums": r["final"]}
+        del r
+        dist.barrier()
+    return out
+
+
+def worst_sums(ranks, key) -> tuple:
+    """(leaf, relative Frobenius error) of the leaf that differs most, its
+    squared sums added over the ranks where a mesh axis splits it."""
+    errs = {}
+    for name, (d2, r2, split) in ranks[0][key].items():
+        if split:
+            d2 = sum(r[key][name][0] for r in ranks)
+            r2 = sum(r[key][name][1] for r in ranks)
+        errs[name] = math.sqrt(d2 / max(r2, 1e-60))
+    name = max(errs, key=errs.get)
+    return name, errs[name]
+
+
+def placed_train_phase() -> dict:
+    """[placed train]: the placed step on two ranks of the card, on an
+    FSDP mesh and a tensor-parallel one, against one process's step."""
+    from repro_torch.launch.ranks import run_ranks
+
+    t0 = time.monotonic()
+    ranks = run_ranks(placed_train_rank, 2, args=(PLACED_STEPS,),
+                      workdir=RANKS_DIR / "placed_train", timeout=900,
+                      threads=0)
+    secs = time.monotonic() - t0
+    r0 = ranks[0]
+    ok = True
+    out = {"arch": PLACED_ARCH, "n_layers": PLACED_LAYERS,
+           "batch": PLACED_B, "seq": PLACED_N, "steps": PLACED_STEPS,
+           "dtype": "float32", "seconds": secs,
+           "step_ms_one": r0["step_ms_one"], "peak_gb_one": r0["peak_gb_one"],
+           "argument_bytes_one": r0["argument_bytes_one"],
+           "launches_one": r0["launches_one"], "meshes": {}}
+    for key in r0["meshes"]:
+        m0 = r0["meshes"][key]
+        rows = [r["meshes"][key] for r in ranks]
+        gleaf, gerr = worst_sums(rows, "grad_sums")
+        pleaf, perr = worst_sums(rows, "param_sums")
+        diffs = [abs(m0["loss"] - r0["loss_one"])] + [
+            abs(a - b) for a, b in zip(m0["losses"], r0["losses_one"])]
+        m0.update(worst_grad_leaf=gleaf, worst_grad_err=gerr,
+                  worst_param_leaf=pleaf, worst_param_err=perr,
+                  losses_one=r0["losses_one"])
+        good = (max(diffs) <= TRAIN_LOSS_TOL
+                and gerr <= TRAIN_GRAD_TOL and perr <= TRAIN_GRAD_TOL
+                and len(m0["losses"]) == PLACED_STEPS
+                and all(r["launches_ok"] for r in rows)
+                and all(math.isfinite(x) for x in m0["losses"]))
+        ok = ok and good
+        out["meshes"][key] = {
+            "loss_diffs": diffs, "losses": m0["losses"],
+            "losses_one": m0["losses_one"],
+            "worst_grad_leaf": gleaf, "worst_grad_err": gerr,
+            "worst_param_leaf": pleaf, "worst_param_err": perr,
+            "step_ms_ranks": [r["step_ms"] for r in rows],
+            "peak_gb_ranks": [r["peak_gb"] for r in rows],
+            "argument_bytes_ranks": [r["argument_bytes"] for r in rows],
+            "collectives_ranks": [r["collectives"] for r in rows],
+            "launches_per_rank_step": [r["launches"] for r in rows],
+            "count_ranks": [r["count"] for r in rows]}
+        coll = ", ".join(f"{k} {b / 1e6:.1f} MB {t:.1f} ms"
+                         for k, (b, t) in sorted(rows[0]["collectives"]
+                                                  .items()))
+        phase("placed train", f"{PLACED_ARCH} cut to {PLACED_LAYERS} "
+              f"layers, float32, AdamW B={PLACED_B} N={PLACED_N}, mesh "
+              f"(data, model) = ({key.replace('x', ', ')}) on 2 ranks of "
+              f"the card against one process: loss |diff| "
+              f"{', '.join(f'{d:.3e}' for d in diffs)} (tol "
+              f"{TRAIN_LOSS_TOL}); worst grad {m0['worst_grad_leaf']} "
+              f"{m0['worst_grad_err']:.3e}, worst updated parameter "
+              f"{m0['worst_param_leaf']} {m0['worst_param_err']:.3e} (tol "
+              f"{TRAIN_GRAD_TOL}); argument bytes per rank "
+              f"{[r['argument_bytes'] for r in rows]} (one process "
+              f"{r0['argument_bytes_one']}); peak GB per rank "
+              f"{[round(r['peak_gb'], 3) for r in rows]} (one process "
+              f"{r0['peak_gb_one']:.3f}); step ms per rank (the last "
+              f"under the count) {[r['step_ms'] for r in rows]} (one process "
+              f"{r0['step_ms_one']}); rank 0's collectives per step: "
+              f"{coll}; launches per rank per step "
+              f"{[r['launches'] for r in rows]}")
+    if not ok:
+        fail(f"placed train: the placed step disagrees with one process, "
+             f"or its launches per step are not two prefills and one "
+             f"backward per layer: {out}")
+    return out
+
+
+def placed_serve_rank(rank, world):
+    """A [placed serve] rank: rank 0 first takes one process's generate()
+    alone, then both ranks prefill and decode on the (data 1, model 2)
+    mesh with the placed steps."""
+    dev = _rank_setup()
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import init_decode_state, init_model
+    from repro_torch.sharding import placed as P
+    from repro_torch.sharding.rules import use_mesh
+
+    del world
+    cfg = placed_cfg()
+    gen = torch.Generator().manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (PLACED_B, PLACED_PROMPT),
+                            generator=gen).to(dev)
+    params = init_model(cfg, seed=0, device=dev)
+    ref = launches_one = None
+    if rank == 0:
+        ops.reset_launch_counts()
+        ref = generate(params, cfg, prompts, PLACED_GEN).cpu()
+        launches_one = {k: v for k, v in ops.launch_counts().items() if v}
+    dist.barrier()
+    mesh = make_test_mesh((1, 2), ("data", "model"))
+    placed = P.Placement(cfg, mesh).place(params)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with use_mesh(mesh):
+        state = init_decode_state(cfg, PLACED_B, PLACED_PROMPT + PLACED_GEN,
+                                  device=dev)
+    m2 = state["blocks_0"].moments[2]
+    prefill = make_prefill_step(cfg, mesh=mesh)
+    step = make_serve_step(cfg, mesh=mesh)
+    positions = PLACED_PROMPT + torch.arange(PLACED_GEN - 1, device=dev)
+    ops.reset_launch_counts()
+    P.reset_asked()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    tok, state = prefill(placed, state, prompts)
+    ev[1].record()
+    toks = [tok]
+    for i in range(PLACED_GEN - 1):
+        tok, state = step(placed, state, tok, positions[i])
+        toks.append(tok)
+    ev[2].record()
+    ev[2].synchronize()
+    out = torch.stack(toks, 1).cpu()
+    return {"rank": rank, "launches": {k: v for k, v in
+                                       ops.launch_counts().items() if v},
+            "launches_one": launches_one,
+            "equal": None if ref is None else bool(torch.equal(out, ref)),
+            "tokens": out.tolist(),
+            "prefill_ms": ev[0].elapsed_time(ev[1]),
+            "decode_ms_per_token": ev[1].elapsed_time(ev[2])
+            / (PLACED_GEN - 1),
+            "moments_m2_shape": list(m2.shape),
+            "collectives": {k: (P.asked[k], P.asked_ms[k])
+                            for k in P.asked},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def placed_serve_phase() -> dict:
+    """[placed serve]: prefill and decode on (data 1, model 2), the decode
+    kernel on each rank's kv heads, against one process's generate()."""
+    from repro_torch.launch.ranks import run_ranks
+
+    t0 = time.monotonic()
+    r0, r1 = run_ranks(placed_serve_rank, 2, workdir=RANKS_DIR /
+                       "placed_serve", timeout=600, threads=0)
+    want = {"fastmax_causal": PLACED_LAYERS,
+            "fastmax_decode": (PLACED_GEN - 1) * PLACED_LAYERS}
+    ok = (r0["equal"] and r1["tokens"] == r0["tokens"]
+          and r0["launches"] == r1["launches"] == want
+          and r0["launches_one"] == want)
+    coll = r0["collectives"]
+    out = {"arch": PLACED_ARCH, "n_layers": PLACED_LAYERS,
+           "batch": PLACED_B, "prompt": PLACED_PROMPT, "gen": PLACED_GEN,
+           "tokens_equal": r0["equal"],
+           "launches_ranks": [r0["launches"], r1["launches"]],
+           "launches_one": r0["launches_one"],
+           "prefill_ms_ranks": [r0["prefill_ms"], r1["prefill_ms"]],
+           "decode_ms_per_token_ranks": [r0["decode_ms_per_token"],
+                                         r1["decode_ms_per_token"]],
+           "moments_m2_shape": r0["moments_m2_shape"],
+           "collectives_ranks": [r0["collectives"], r1["collectives"]],
+           "peak_gb_ranks": [r0["peak_gb"], r1["peak_gb"]],
+           "seconds": time.monotonic() - t0}
+    phase("placed serve", f"{PLACED_ARCH} cut to {PLACED_LAYERS} layers, "
+          f"float32, (data 1, model 2) on 2 ranks of the card: B="
+          f"{PLACED_B} prompt {PLACED_PROMPT}, a prefill and "
+          f"{PLACED_GEN - 1} decode tokens; greedy tokens equal one "
+          f"process's generate(): {r0['equal']}; launches per rank "
+          f"{r0['launches']} (one process {r0['launches_one']}); each "
+          f"rank's m2 moments {r0['moments_m2_shape']} (4 of 8 kv heads); "
+          f"prefill ms {out['prefill_ms_ranks']}, decode ms/token "
+          f"{out['decode_ms_per_token_ranks']}; peak GB "
+          f"{out['peak_gb_ranks']}; rank 0's collectives MB "
+          f"{ {k: round(v[0] / 1e6, 2) for k, v in coll.items()} }")
+    if not ok:
+        fail(f"placed serve: tokens differ from generate(), or the launches "
+             f"per rank are not one prefill per layer and one decode per "
+             f"layer and token: {out}")
+    return out
+
+
+def placed_meta_counts() -> dict:
+    """The placed train step of [placed train] counted on meta as rank 0
+    of a fake two-rank world, per mesh: launches, kernel work, matmul
+    flops, argument bytes."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.op_analysis import OpCount, tree_bytes
+
+    out = {}
+    cfg = placed_cfg()
+    with D.fake_world(2):
+        for shape in PLACED_MESHES:
+            mesh = make_test_mesh(shape, ("data", "model"))
+            fn, args, _ = D.cell_step(cfg, ShapeSpec(PLACED_N, PLACED_B,
+                                                     "train"),
+                                      device="meta", mesh=mesh)
+            with OpCount("meta") as c:
+                fn(*args)
+            out["x".join(map(str, shape))] = {
+                "launches": c.launches(), "kernel_work": c.kernel_work(),
+                "matmul_flops": c.result()["matmul_flops"],
+                "argument_bytes": tree_bytes(args)}
+    return out
+
+
 # dryrun phase: the executed peak the meta count predicts (arguments + the
 # temp peak of live storages) against the card's max_memory_allocated() of
 # the same step; the rest (launches, kernel work, matmul flops, argument
@@ -2836,9 +3236,11 @@ DRYRUN_B, DRYRUN_N = 4, 1024
 DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "dryrun_gate"
 
 
-def dryrun_phase(dev) -> dict:
+def dryrun_phase(dev, placed=None) -> dict:
     """The dry run's count of full-width qwen3-1.7b on one device against
-    the same steps run on the card (phase 25)."""
+    the same steps run on the card (phase 25); with `placed` ([placed
+    train]'s result), the placed step's meta count on the two-rank world
+    against each rank's count on the card."""
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.attention import AttentionSpec
     from repro_torch.kernels import ops
@@ -2928,6 +3330,19 @@ def dryrun_phase(dev) -> dict:
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
+    if placed is not None:
+        meta = placed_meta_counts()
+        out["placed"] = meta
+        for key, want in meta.items():
+            for r, got in enumerate(placed["meshes"][key]["count_ranks"]):
+                if got != want:
+                    fail(f"dryrun placed {key} rank {r}: the card's "
+                         f"{got} != meta {want}")
+            print(f"  placed (data, model) = ({key.replace('x', ', ')}): "
+                  f"meta = each rank's card count: launches "
+                  f"{want['launches']}, matmul flops "
+                  f"{want['matmul_flops']:.6e}, argument bytes "
+                  f"{want['argument_bytes']}")
     # the reference's dry-run gate cell, on meta in a process of its own
     t0 = time.monotonic()
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
@@ -4180,9 +4595,14 @@ def main() -> None:
     shard = shard_phase()
     cp_train = cp_train_phase()
 
+    # ---- the placed step: FSDP and tensor parallelism, two ranks ----
+    torch.cuda.empty_cache()
+    placed_train = placed_train_phase()
+    placed_serve = placed_serve_phase()
+
     # ---- the dry run against the real step ----
     torch.cuda.empty_cache()
-    dryrun = dryrun_phase(dev)
+    dryrun = dryrun_phase(dev, placed_train)
 
     kernels = [
         {"name": "fastmax_causal_prefill", "route": "cuda",
@@ -4292,6 +4712,8 @@ def main() -> None:
     print(json.dumps({"autotune": tuned}))
     print(json.dumps({"shard": shard}))
     print(json.dumps({"cp_train": cp_train}))
+    print(json.dumps({"placed_train": placed_train}))
+    print(json.dumps({"placed_serve": placed_serve}))
     print(json.dumps({"dryrun": dryrun}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

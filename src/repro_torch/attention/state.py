@@ -335,7 +335,7 @@ def _prefill_sharded(qh, kh, v, spec: AttentionSpec, kv_mask, plan, init):
     from repro_torch.kernels import sharded as S
 
     if (kv_mask is not None and kv_mask.shape[1] > 1 and plan.mode == "heads"
-            and plan.tp > 1):
+            and plan.tp > 1 and not S.in_local_heads()):
         kv_mask = S.model_slice(kv_mask, 1, plan)
     out = {}
 

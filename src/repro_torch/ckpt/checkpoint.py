@@ -20,9 +20,13 @@ Layout (the reference's, byte for byte in its manifest's keys):
     bfloat16 / float8 leaves are stored as a same-width unsigned view with
     the logical dtype in the manifest.
 
-The reference's `shardings=` (elastic restore onto another mesh) has no
-counterpart until the port has multiple devices: `load_checkpoint` places
-each leaf on the device of the matching leaf of `like`, or on `device`.
+  * PLACED STATES (`sharding.placed`): with a `mesh`, a save gathers each
+    placed leaf whole (one leaf at a time, on every rank: every rank
+    calls it) and rank 0 writes the reference's format; a restore with a
+    `mesh` and the model's logical `axes` cuts each leaf into the rank's
+    shard by its spec on that mesh — the reference's
+    `load_checkpoint(..., shardings=)`, elastic restore: a run saved on
+    one mesh resumes on another, or on one device.
 """
 from __future__ import annotations
 
@@ -120,11 +124,26 @@ def _structure(tree) -> str:
     return "*"
 
 
-def _snapshot(tree):
+def _snapshot(tree, mesh=None):
     """Every leaf copied to the host, [(path, saveable array, logical
-    dtype)], and the tree's rendering."""
-    leaves = [(path, *_to_host(x)) for path, x in _flatten(tree)]
+    dtype)], and the tree's rendering. With a `mesh`, each placed leaf is
+    gathered whole first (a collective)."""
+    if mesh is not None:
+        from repro_torch.sharding.placed import full_leaf
+
+        leaves = [(path, *_to_host(full_leaf(x, mesh)))
+                  for path, x in _flatten(tree)]
+    else:
+        leaves = [(path, *_to_host(x)) for path, x in _flatten(tree)]
     return leaves, _structure(tree)
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the
+    only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _write(ckpt_dir: str, step: int, snapshot, extra: Optional[dict]) -> str:
@@ -157,9 +176,14 @@ def _write(ckpt_dir: str, step: int, snapshot, extra: Optional[dict]) -> str:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
-                    extra: Optional[dict] = None) -> str:
-    """Synchronous atomic save. Returns the final checkpoint path."""
-    return _write(ckpt_dir, step, _snapshot(tree), extra)
+                    extra: Optional[dict] = None, *, mesh=None):
+    """Synchronous atomic save. Returns the final checkpoint path. With a
+    `mesh`, a placed tree: every rank calls it, rank 0 writes (the other
+    ranks return None)."""
+    snapshot = _snapshot(tree, mesh)
+    if mesh is not None and not _writer():
+        return None
+    return _write(ckpt_dir, step, snapshot, extra)
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -173,13 +197,37 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return int(tag.split("_")[1])
 
 
+def _axes_for(path: str, flat_axes: dict):
+    """The logical axes of the parameter whose path is the longest
+    suffix of `path` (an optimizer state's m, v and master mirror the
+    parameters), or None (replicated: the optimizer's step)."""
+    parts = path.split("/")
+    for i in range(len(parts)):
+        hit = flat_axes.get("/".join(parts[i:]))
+        if hit is not None:
+            return hit
+    return None
+
+
+def _flat_axes(axes, prefix: str = "") -> dict:
+    if isinstance(axes, dict):
+        out = {}
+        for k, v in axes.items():
+            out.update(_flat_axes(v, f"{prefix}/{k}" if prefix else str(k)))
+        return out
+    return {prefix: tuple(axes)}
+
+
 def load_checkpoint(ckpt_dir: str, like: Any, *, step: Optional[int] = None,
-                    device=None):
+                    device=None, mesh=None, axes=None):
     """Restore into the structure of `like` (a tree of tensors: nested
     dicts, tuples, NamedTuples such as `OptState`, None leaves skipped).
     Each leaf keeps the dtype it was saved with and goes to `device`, or
-    else to the device of `like`'s leaf at its path. Returns (tree, step,
-    extra)."""
+    else to the device of `like`'s leaf at its path. With a `mesh` and
+    `axes` (the model's logical axes, `models.param_axes`), each leaf
+    whose path ends in a parameter's path is cut into the rank's shard by
+    its spec on that mesh and recorded as placed (`sharding.placed`); the
+    rest (the optimizer's step) whole. Returns (tree, step, extra)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -188,12 +236,22 @@ def load_checkpoint(ckpt_dir: str, like: Any, *, step: Optional[int] = None,
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {m["path"]: m for m in manifest["leaves"]}
+    flat_axes = {} if mesh is None else _flat_axes(axes)
     values = {}
     for path, leaf in _flatten(like):
         m = by_path[path]
         t = _from_saved(np.load(os.path.join(d, "arrays", m["file"])),
                         m["dtype"])
-        values[path] = t.to(device if device is not None else leaf.device)
+        t = t.to(device if device is not None else leaf.device)
+        ax = _axes_for(path, flat_axes) if mesh is not None else None
+        if ax is not None:
+            from repro_torch.kernels.sharded import shard_local
+            from repro_torch.sharding.placed import tag
+            from repro_torch.sharding.rules import spec_for
+
+            spec = spec_for(ax, tuple(t.shape), mesh)
+            t = tag(shard_local(t, spec, mesh), spec)
+        values[path] = t
     return _unflatten(like, values), step, manifest.get("extra", {})
 
 
@@ -210,9 +268,13 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
 
     def save(self, step: int, tree: Any, extra: Optional[dict] = None,
-             block: bool = True):
-        snapshot = _snapshot(tree)
+             block: bool = True, mesh=None):
+        """Save `tree` as `step`. With a `mesh`, a placed tree: every rank
+        calls it (the snapshot gathers each leaf) and rank 0 writes."""
+        snapshot = _snapshot(tree, mesh)
         self.wait()
+        if mesh is not None and not _writer():
+            return
 
         def work():
             _write(self.dir, step, snapshot, extra)
@@ -234,8 +296,10 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def restore(self, like, *, step=None, device=None):
-        return load_checkpoint(self.dir, like, step=step, device=device)
+    def restore(self, like, *, step=None, device=None, mesh=None,
+                axes=None):
+        return load_checkpoint(self.dir, like, step=step, device=device,
+                               mesh=mesh, axes=axes)
 
     def latest_step(self):
         return latest_step(self.dir)

@@ -52,8 +52,16 @@ decode-state protocol route through them under an active mesh
 (`sharding.rules.use_mesh`). The plans launch the existing kernels of
 `kernels.ops` on each shard: CUDA tensors launch them or raise, CPU
 tensors take their plain versions. gloo moves CUDA tensors in its
-all-reduce and all-gather but not point to point: there the ring's hops
-go through host memory.
+all-reduce and list all-gather but not point to point: there the ring's
+hops go through host memory. The "model"-axis slice, gather and grad sum
+are `sharding.placed`'s (`SliceModel`, `GatherModel`, `SumGrad`).
+
+Under the placed step (`sharding.placed`) the projections of a dense
+decoder already hold the rank's heads over "model" where the kv heads
+divide it: inside `local_heads()` the plan is made on the heads times the
+"model" size, and a heads plan runs on the tensors as they are (neither
+slice nor gather). The feature mode and the no-plan case take whole
+heads, as before: the placed attention gathers q there first.
 
 `plan_kernel_sharding` returns None when neither heads nor features
 divide the "model" axis (every rank holds the whole heads, and the
@@ -64,6 +72,7 @@ from "a mesh".
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import math
 import os
@@ -75,6 +84,7 @@ import torch.distributed as dist
 from repro_torch.core.fastmax import compute_moments_chunked
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.tiling import SCAN_BM_BUDGET, pick_bm
+from repro_torch.sharding import placed
 from repro_torch.sharding.rules import Spec, _batch_entry, mesh_axes
 
 __all__ = ["ShardPlan", "nontrivial_mesh", "plan_kernel_sharding",
@@ -271,69 +281,24 @@ def _sendrecv(x: torch.Tensor, dst: int, src: int, group) -> torch.Tensor:
     return recv.to(x.device) if host else recv
 
 
-class _SumGrads(torch.autograd.Function):
-    """Identity forward; the backward adds the gradient across `group`
-    (the partial dq, dk of a feature-mode launch)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _ModelSlice(torch.autograd.Function):
-    """A whole tensor -> the rank's slice of `dim` over "model"; the
-    backward gathers the slices' gradients (each rank holds the same
-    whole tensor, so each gets the whole gradient)."""
-
-    @staticmethod
-    def forward(ctx, x, dim, group, idx, n):
-        ctx.cfg = (dim, group)
-        size = x.shape[dim] // n
-        return x.narrow(dim, idx * size, size).contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        dim, group = ctx.cfg
-        return (torch.cat(_all_gather(g.contiguous(), group), dim=dim),
-                None, None, None, None)
-
-
-class _ModelGather(torch.autograd.Function):
-    """The rank's slice of `dim` -> the whole tensor on every rank; the
-    backward keeps the slice's own gradient."""
-
-    @staticmethod
-    def forward(ctx, x, dim, group, idx, n):
-        ctx.cfg = (dim, idx, x.shape[dim])
-        return torch.cat(_all_gather(x.contiguous(), group), dim=dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        dim, idx, size = ctx.cfg
-        return (g.narrow(dim, idx * size, size).contiguous(), None, None,
-                None, None)
-
-
 def _model(plan: ShardPlan):
     return (plan.mesh.get_group("model"),
             plan.mesh.get_local_rank("model"), plan.tp)
 
 
 def model_slice(x, dim: int, plan: ShardPlan):
+    """A whole tensor -> the rank's slice of `dim` over "model"; the
+    backward gathers the slices' grads (each rank holds the same whole
+    tensor, so each gets the whole grad)."""
     group, idx, n = _model(plan)
-    return _ModelSlice.apply(x, dim % x.dim(), group, idx, n)
+    return placed.SliceModel.apply(x, dim % x.dim(), group, idx, n)
 
 
 def model_gather(x, dim: int, plan: ShardPlan):
+    """The rank's slice of `dim` -> the whole tensor on every rank; the
+    backward keeps the slice's own grad."""
     group, idx, n = _model(plan)
-    return _ModelGather.apply(x, dim % x.dim(), group, idx, n)
+    return placed.GatherModel.apply(x, dim % x.dim(), group, idx, n)
 
 
 # ---------------------------------------------------------------------------
@@ -533,7 +498,7 @@ def _feature_qk(q, k, plan: ShardPlan):
     the launch's partials over the rank's Dv columns, added across
     "model" once per launch."""
     group = plan.mesh.get_group("model")
-    return _SumGrads.apply(q, group), _SumGrads.apply(k, group)
+    return placed.SumGrad.apply(q, group), placed.SumGrad.apply(k, group)
 
 
 def fastmax_sharded(q, k, v, *, p: int, causal: bool, chunk_size: int,
@@ -624,6 +589,25 @@ def fastmax_decode_sharded(q, k, v, state, *, p: int, denom_eps: float,
 # The model's layout
 # ---------------------------------------------------------------------------
 
+_LOCAL_HEADS = []
+
+
+@contextlib.contextmanager
+def local_heads():
+    """q, k and v of the calls inside hold the rank's heads over "model"
+    (the placed projections' layout): plans are made on the whole heads
+    and a heads plan runs on them as they are."""
+    _LOCAL_HEADS.append(True)
+    try:
+        yield
+    finally:
+        _LOCAL_HEADS.pop()
+
+
+def in_local_heads() -> bool:
+    return bool(_LOCAL_HEADS)
+
+
 
 def plan_call(q, k, v, *, causal: bool = True, seq: bool = False):
     """(mesh, plan) of a call in the model's layout under the active
@@ -637,10 +621,12 @@ def plan_call(q, k, v, *, causal: bool = True, seq: bool = False):
         return None, None
     sizes = mesh_axes(mesh)
     dp = sizes.get("pod", 1) * sizes.get("data", 1)
+    heads = sizes.get("model", 1) if _LOCAL_HEADS else 1
     seq_len = (q.shape[2] * sizes.get("seq", 1)
                if seq and causal and q.shape[2] == k.shape[2] else None)
-    plan = plan_kernel_sharding(mesh, batch=q.shape[0] * dp, hq=q.shape[1],
-                                hkv=k.shape[1], dv=v.shape[-1],
+    plan = plan_kernel_sharding(mesh, batch=q.shape[0] * dp,
+                                hq=q.shape[1] * heads,
+                                hkv=k.shape[1] * heads, dv=v.shape[-1],
                                 seq_len=seq_len)
     return mesh, plan
 
@@ -658,7 +644,13 @@ def run_in_model_layout(plan: ShardPlan, fn, q, k, v):
     """fn(q, k, v) -> o on the plan's shards of model-layout q, k, v,
     with o back in the model's layout: heads mode at tp > 1 cuts the
     heads over "model" and gathers o's; feature mode cuts v's value dim
-    and gathers o's; otherwise the tensors already are the plan's."""
+    and gathers o's; otherwise the tensors already are the plan's. Inside
+    `local_heads()` they are a heads plan's already."""
+    if _LOCAL_HEADS:
+        if plan.mode != "heads":
+            raise ValueError(f"local heads take a heads plan, got "
+                             f"{plan.mode!r}")
+        return fn(q, k, v)
     if plan.mode == "heads" and plan.tp > 1:
         o = fn(*(model_slice(x, 1, plan) for x in (q, k, v)))
         return model_gather(o, 1, plan)

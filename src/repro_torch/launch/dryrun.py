@@ -15,14 +15,17 @@ count, as one rank of the production mesh runs it:
     placement (`sharding.rules`: `param_shardings`, `batch_spec`,
     `decode_state_shardings`, through `to_placements`) — the counterpart
     of the compiled module's argument size;
-  * executed, per device: the port's step (train, prefill or decode) as
-    rank 0 runs it today — parameters and optimizer state whole (the
-    port's steps place none), the batch rank 0's shard over the data axes,
-    under `--cp` the tokens its shard over "seq" (the context-parallel
-    step of `launch/steps.py`), attention through the kernel plans of
-    `kernels/sharded.py` under `use_mesh` — counted op by op: argument
-    bytes, the temp peak, matmul flops, the kernels' launches and work,
-    HBM bytes and collective bytes by kind;
+  * executed, per device: the port's step as rank 0 runs it — under a
+    mesh the placed step (`sharding.placed`, `launch/steps.py`): rank 0's
+    shard of the parameters and the optimizer state, its rows of the
+    batch (under `--cp` its token shard of them over "seq"), each layer's
+    leaves gathered around their use, the dense decoders split over
+    "model", attention through the kernel plans of `kernels/sharded.py`
+    under `use_mesh` — counted op by op: argument bytes (equal to the
+    planned ones but where the decode state is held whole over "model":
+    the SSM states and the softmax KV cache, ROADMAP queue 3), the temp
+    peak, matmul flops, the kernels' launches and work, HBM bytes and
+    collective bytes by kind;
   * the reference's own fields where they mean the same (n_params,
     param_bytes_global, active_params, model_flops, cp_boundary,
     attn_schedule, mesh, n_chips, attn_spec), the routing lines
@@ -261,21 +264,29 @@ def cell_step(cfg, shape: ShapeSpec, *, device, mesh=None, seed: int = 0,
     """The step rank 0 runs for this cell and its arguments on `device`
     (`meta`, or a card with seeded weights and tokens): (fn, args, parts),
     fn(*args) runs the step once and `parts` names the arguments' groups
-    (params, opt_state, batch, decode_state) for their bytes. Train: the
-    global batch to the context-parallel step under a mesh with "seq",
-    else rank 0's batch shard to the one-device step; prefill and decode:
-    rank 0's shard and its decode state, made under the mesh (the kernel
-    plans keep local moments). Decode runs at position seq_len - 1."""
+    (params, opt_state, batch, decode_state) for their bytes. `params`
+    are the whole model's (made from `seed` if None). Under a mesh the
+    placed step: rank 0's shards of the parameters (and the optimizer
+    state), its rows of the batch, its decode state made under the mesh
+    (the kernel plans keep local moments). Decode runs at position
+    seq_len - 1, a scalar argument."""
     from repro_torch.launch.steps import (make_prefill_step,
                                           make_serve_step, make_train_step,
                                           pick_optimizer)
     from repro_torch.models import init_decode_state, init_model
     from repro_torch.models.param import count_params
-    from repro_torch.sharding.rules import mesh_axes, use_mesh
+    from repro_torch.sharding.rules import use_mesh
 
     dev = torch.device(device)
     if params is None:
         params = init_model(cfg, seed=seed, device=dev)
+    n_params = count_params(params)
+    placement = None
+    if mesh is not None:
+        from repro_torch.sharding.placed import Placement
+
+        placement = Placement(cfg, mesh)
+        params = placement.place(params)
     gen = None
     if dev.type != "meta":
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -293,48 +304,40 @@ def cell_step(cfg, shape: ShapeSpec, *, device, mesh=None, seed: int = 0,
                            dtype=torch.float32).to(cfg.adtype())
 
     b, n = shape.global_batch, shape.seq_len
-    cp = 1 if mesh is None else mesh_axes(mesh).get("seq", 1)
     b_l = b // _dp_size(mesh, b)
     enc = ((lambda bb: acts(bb, cfg.encoder_seq, cfg.d_model))
            if cfg.encoder_layers else None)
+
     def scope():
         return contextlib.nullcontext() if mesh is None else use_mesh(mesh)
 
     if shape.kind == "train":
-        _, opt = pick_optimizer(cfg, count_params(params))
-        opt_state = opt[0](params)
-        bb = b if cp > 1 else b_l
-        batch = {"tokens": tokens(bb, n), "targets": tokens(bb, n)}
+        _, opt = pick_optimizer(cfg, n_params)
+        opt_state = (opt[0](params) if placement is None
+                     else placement.init_opt_state(opt[0], params))
+        batch = {"tokens": tokens(b_l, n), "targets": tokens(b_l, n)}
         if enc is not None:
-            batch["frames"] = enc(bb)
-        step = make_train_step(cfg, opt, mesh=mesh if cp > 1 else None)
-
-        def fn(params, opt_state, batch):
-            with scope():
-                return step(params, opt_state, batch)
-
+            batch["frames"] = enc(b_l)
+        step = make_train_step(cfg, opt, mesh=mesh, global_batch=b)
         parts = {"params": params, "opt_state": opt_state, "batch": batch}
-        return fn, (params, opt_state, batch), parts
+        return step, (params, opt_state, batch), parts
     with scope():
         state = init_decode_state(cfg, b_l, n, device=dev)
     extra = () if enc is None else (enc(b_l),)
     if shape.kind == "prefill":
-        step = make_prefill_step(cfg)
+        step = make_prefill_step(cfg, mesh=mesh)
         args = (params, state, tokens(b_l, n)) + extra
         batch = {"tokens": args[2]}
     else:
-        serve = make_serve_step(cfg)
-
-        def step(params, state, token, *rest):
-            return serve(params, state, token, n - 1, *rest)
-
-        args = (params, state, tokens(b_l)) + extra
-        batch = {"token": args[2]}
+        step = make_serve_step(cfg, mesh=mesh)
+        pos = torch.full((), n - 1, dtype=torch.int32, device=dev)
+        args = (params, state, tokens(b_l), pos) + extra
+        batch = {"token": args[2], "position": pos}
     if extra:
         batch["enc_out"] = extra[0]
 
     def fn(*a):
-        with scope(), torch.no_grad():
+        with torch.no_grad():
             return step(*a)
 
     return fn, args, {"params": params, "decode_state": state,
@@ -393,7 +396,12 @@ def run_cell(arch: str, shape_name, *, multi_pod: bool = False,
                                          device_type="cpu")
         fn, args, parts = cell_step(cfg, shape, device="meta", mesh=dmesh,
                                     params=params)
-        opt_state = parts.get("opt_state")
+        opt_state = None
+        if shape.kind == "train":
+            from repro_torch.launch.steps import pick_optimizer
+
+            _, opt = pick_optimizer(cfg, counts["n_params"])
+            opt_state = opt[0](params)      # the whole state, on meta
         planned = planned_bytes(cfg, shape, {} if dmesh is None else dmesh,
                                 params, axes, opt_state)
         arg_parts = {k: tree_bytes(v) for k, v in parts.items()}

@@ -4,33 +4,43 @@ train_step = forward + loss + backward + global-norm clip + optimizer
 update (in place). serve_step / prefill_step = one decode token / a prompt
 prefill for the whole model.
 
-Context parallelism (a `mesh` with a "seq" axis, `launch/train.py --cp`):
-the reference's GSPMD partitions the step outside the attention; here the
-step does it by hand. Every rank takes the same global batch, builds its
-targets and loss mask on the whole sequence, and keeps its batch shard
-over the DP axes and its token shard over "seq"; its embeddings and RoPE
-start at the shard's offset, and its attention runs the seq plan
-(`kernels.sharded`) under the active mesh. The loss is the global token
-mean: each rank's sum of nll·mask over the global count. The grads are
-summed over every rank before the clip, so each rank updates the same
-replicated weights. Only mixers whose plan covers a token shard take it
-(`check_cp`): Fastmax on its kernel or chunked backend.
+With a `mesh` (a DeviceMesh whose axes are the reference's: ("data",
+"model") or ("pod", "data", "model"), and ("data", "seq") or ("pod",
+"data", "seq") for context parallelism) the steps are the placed step,
+the port's counterpart of the reference's partitioned step
+(`sharding.placed`): the parameters and the optimizer state are the
+rank's shards by the reference's specs (`Placement.place`,
+`Placement.init_opt_state`), each layer gathers its leaves around its
+use, the dense decoders split their compute over "model", and the grads
+come out in the placement (reduce-scattered over the data axes, summed
+over the batch axes a leaf is not split on). A train step takes the
+rank's rows of the global batch (`placed.shard_batch`: dim 0 over "pod"
+and "data"); under "seq" each rank keeps its token shard of them, builds
+its targets and loss mask on the whole rows first, and its embeddings
+and RoPE start at the shard's offset (the attention's seq plan,
+`kernels.sharded`). The loss is the global token mean: each rank's sum
+of nll·mask over the count all-reduced over the batch axes. Refused with
+the reason: MoE layers on real values with the batch split over more
+than one rank (their router's load-balance statistics and capacity are
+functions of the whole batch in the reference), AdamW's int8 m, a mesh
+axis the rules do not know, and under "seq" the mixers whose plan cannot
+take a token shard (`check_cp`).
 """
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models import decode_step, decoder_params, model_loss
-from repro_torch.models.transformer import (ModelConfig, forward_lm,
-                                            lm_prefill, token_nll)
+from repro_torch.models.transformer import ModelConfig, forward_lm, lm_prefill
 from repro_torch.optim import clip_by_global_norm, make_optimizer, \
     warmup_cosine
 from repro_torch.optim.grad_utils import leaves, tree_map
 
+_F32 = torch.float32   # the metrics' dtype
+
 __all__ = ["make_train_step", "make_grad_fn", "make_serve_step",
-           "make_prefill_step", "pick_optimizer", "check_cp"]
+           "make_prefill_step", "pick_optimizer", "check_cp", "check_moe"]
 
 
 def pick_optimizer(cfg: ModelConfig, n_params: int, *, lr=3e-4,
@@ -69,13 +79,30 @@ def check_cp(cfg: ModelConfig) -> None:
             f"fastmax2-chunked), or {remedy}")
 
 
-def _cp_shard(batch: dict, mesh, dev):
-    """The rank's (tokens, targets, loss_mask) shard of the global batch
-    (batch over the DP axes, tokens over "seq") and its token offset.
-    Targets and mask are made on the whole sequence first: only the
-    sequence's last token is masked, not each shard's."""
-    from repro_torch.sharding.rules import mesh_axes
+def _has_moe(cfg: ModelConfig) -> bool:
+    return any(k.split(":")[1] == "moe" for k in cfg.pattern) \
+        and cfg.n_layers_scanned > 0
 
+
+def check_moe(cfg: ModelConfig, placement, device) -> None:
+    """Raise if a placed train step of an MoE config would split its
+    batch over more than one rank on real values (on `meta` the dry run
+    counts MoE with its balanced load)."""
+    if (_has_moe(cfg) and placement.dp_ranks() > 1
+            and torch.device(device).type != "meta"):
+        raise ValueError(
+            f"placed step: {cfg.name}'s MoE layers take their router's "
+            f"load-balance statistics and capacity over the whole batch, "
+            f"and the batch is split over {placement.dp_ranks()} ranks "
+            f"{placement.batch_axes}; expert parallelism with global "
+            f"router statistics is the next slice (ROADMAP); train it "
+            f"with the batch on one rank (data = 1)")
+
+
+def _local_rows(batch: dict, placement, dev):
+    """(tokens, targets, loss_mask, extra inputs) of the rank's rows and,
+    under "seq", its token shard and offset. Targets and mask are made
+    on the whole rows first: only a row's last token is masked."""
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     targets = batch.get("targets")
     targets = (F.pad(tokens[:, 1:], (0, 1)) if targets is None
@@ -86,63 +113,69 @@ def _cp_shard(batch: dict, mesh, dev):
         mask[:, -1] = 0.0
     else:
         mask = torch.as_tensor(mask, device=dev, dtype=torch.float32)
-    sizes = mesh_axes(mesh)
-    at = dict(zip(sizes, mesh.get_coordinate()))
-    dp_axes = [a for a in ("pod", "data") if a in sizes]
-    dp, row = 1, 0
-    for a in dp_axes:
-        dp, row = dp * sizes[a], row * sizes[a] + at[a]
-    cp, col = sizes.get("seq", 1), at.get("seq", 0)
-    b, n = tokens.shape
-    if b % dp or n % cp:
-        raise ValueError(f"batch {b} x seq {n} does not split over "
-                         f"{dp} data-parallel x {cp} context-parallel ranks")
-    rows = slice(row * (b // dp), (row + 1) * (b // dp))
+    extra = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+             if k in ("frames", "embeddings")}
+    cp = placement.sizes.get("seq", 1)
+    if cp == 1:
+        return tokens, targets, mask, extra, None
+    n = tokens.shape[1]
+    if n % cp:
+        raise ValueError(f"seq {n} does not split over {cp} "
+                         f"context-parallel ranks")
+    col = placement.mesh.get_local_rank("seq")
     cols = slice(col * (n // cp), (col + 1) * (n // cp))
-    return ((tokens[rows, cols], targets[rows, cols], mask[rows, cols]),
+    return (tokens[:, cols], targets[:, cols], mask[:, cols], extra,
             col * (n // cp))
 
 
-def _all_reduce_tree(tree) -> None:
-    """Sum every leaf over all ranks, in place: one flat buffer per
-    dtype."""
-    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
-
-    by_dtype: dict = {}
-    for _, x in leaves(tree):
-        by_dtype.setdefault(x.dtype, []).append(x)
-    for xs in by_dtype.values():
-        flat = _flatten_dense_tensors(xs)
-        dist.all_reduce(flat)
-        for x, y in zip(xs, _unflatten_dense_tensors(flat, xs)):
-            x.copy_(y)
-
-
-def make_grad_fn(cfg: ModelConfig, *, mesh=None):
+def make_grad_fn(cfg: ModelConfig, *, mesh=None, global_batch=None):
     """grad_fn(params, batch) -> (loss, metrics, grads), the params'
-    grads in a tree like theirs. With a `mesh` (a DeviceMesh with a
-    "seq" axis, every rank in it), context-parallel as the module
-    docstring says: the loss is the global token mean, the grads summed
-    over every rank."""
-    if mesh is not None:
-        check_cp(cfg)
-
-    def local_loss(params, batch, dev):
-        if mesh is None:
+    grads in a tree like theirs. With a `mesh`, the placed step (module
+    docstring): `params` the rank's shards, `batch` its rows (of a global
+    batch of `global_batch` rows, split as `batch_spec` splits it; None:
+    over every data axis), the grads its shards, the loss the global
+    token mean."""
+    if mesh is None:
+        def local_loss(params, batch, dev):
             batch = {k: torch.as_tensor(v, device=dev)
                      for k, v in batch.items()}
             return model_loss(params, batch, cfg)
-        from repro_torch.sharding.rules import use_mesh
+        return _grad_fn(local_loss, None)
 
-        (tokens, targets, mask), off = _cp_shard(batch, mesh, dev)
-        count = mask.sum()
-        dist.all_reduce(count)
-        with use_mesh(mesh):
-            logits, aux = forward_lm(params, tokens, cfg, offset=off)
-        nll = (token_nll(logits, targets) * mask).sum() / torch.clamp(
-            count, min=1.0)
+    from repro_torch.models.encdec import encode
+    from repro_torch.sharding import placed as P
+    from repro_torch.sharding.rules import mesh_axes, use_mesh
+
+    if mesh_axes(mesh).get("seq", 1) > 1:
+        check_cp(cfg)
+    placement = P.Placement(cfg, mesh, global_batch=global_batch)
+
+    def local_loss(params, batch, dev):
+        check_moe(cfg, placement, dev)
+        tokens, targets, mask, extra, off = _local_rows(batch, placement,
+                                                        dev)
+        count = placement.sum_over_batch(mask.sum())
+        with use_mesh(mesh), placement.active():
+            lm = params
+            enc_out = None
+            if cfg.encoder_layers:
+                enc_out = encode(params, extra["frames"], cfg)
+                lm = params["decoder"]
+            logits, aux = forward_lm(lm, tokens, cfg, offset=off,
+                                     embeddings=extra.get("embeddings"),
+                                     enc_out=enc_out)
+            nll = (P.token_nll(logits, targets, cfg.vocab_size)
+                   * mask).sum() / torch.clamp(count, min=1.0)
         return nll + aux, {"nll": nll, "aux": aux}
 
+    def backward(loss):
+        with use_mesh(mesh), placement.active():
+            loss.backward()
+
+    return _grad_fn(local_loss, placement, backward)
+
+
+def _grad_fn(local_loss, placement, backward=None):
     def grad_fn(params, batch):
         named = leaves(params)
         dev = named[0][1].device
@@ -150,13 +183,10 @@ def make_grad_fn(cfg: ModelConfig, *, mesh=None):
             x.requires_grad_(True)
         try:
             loss, metrics = local_loss(params, batch, dev)
-            if mesh is None:
+            if backward is None:
                 loss.backward()
             else:
-                from repro_torch.sharding.rules import use_mesh
-
-                with use_mesh(mesh):
-                    loss.backward()
+                backward(loss)
         finally:
             for _, x in named:
                 x.requires_grad_(False)
@@ -167,60 +197,101 @@ def make_grad_fn(cfg: ModelConfig, *, mesh=None):
                          else x.grad, params)
         for _, x in named:
             x.grad = None
-        loss = loss.detach().float()
-        metrics = {k: v.detach().float() for k, v in metrics.items()}
-        if mesh is not None:
-            _all_reduce_tree(grads)
-            for x in (loss, *metrics.values()):
-                dist.all_reduce(x)
+        loss = loss.detach().to(_F32)
+        metrics = {k: v.detach().to(_F32) for k, v in metrics.items()}
+        if placement is not None:
+            from repro_torch.sharding import placed as P
+
+            for (_, g), (_, x) in zip(leaves(grads), named):
+                P.tag(g, P.spec_of(x))
+            placement.reduce_grads(grads)
+            loss = placement.sum_over_batch(loss)
+            metrics = {k: placement.sum_over_batch(v)
+                       for k, v in metrics.items()}
         return loss, metrics, grads
 
     return grad_fn
 
 
 def make_train_step(cfg: ModelConfig, optimizer, *, clip_norm: float = 1.0,
-                    mesh=None):
+                    mesh=None, global_batch=None):
     """step(params, opt_state, batch) -> (params, opt_state, metrics).
 
     `batch` holds "tokens" and "targets" [B, N] (numpy or tensors); they
     are moved to the params' device. The params and the optimizer state
     are updated in place. Metrics ("loss", "gnorm", "nll", "aux") are
     float32 tensors on the device: the step never waits on the host.
-    `mesh`: context-parallel over its "seq" axis (`make_grad_fn`)."""
+    `mesh`: the placed step (module docstring) on the rank's shards and
+    rows (`global_batch` as in `make_grad_fn`); its gnorm sums each
+    leaf's squares over the axes it is split on."""
     _, opt_update = optimizer
-    grad_fn = make_grad_fn(cfg, mesh=mesh)
+    grad_fn = make_grad_fn(cfg, mesh=mesh, global_batch=global_batch)
 
     def train_step(params, opt_state, batch):
+        if mesh is not None:
+            from repro_torch.sharding.placed import refuse_int8
+
+            refuse_int8(params, opt_state)
         loss, metrics, grads = grad_fn(params, batch)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, mesh=mesh)
         params, opt_state = opt_update(grads, opt_state, params)
-        out = {"loss": loss, "gnorm": gnorm.float(), **metrics}
+        out = {"loss": loss, "gnorm": gnorm.to(_F32), **metrics}
         return params, opt_state, out
 
     return train_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def _placed_scope(cfg: ModelConfig, mesh):
+    """(a context manager running the model placed on `mesh`, a function
+    making a vocab shard of logits whole); a no-op pair without a mesh."""
+    import contextlib
+
+    if mesh is None:
+        return contextlib.nullcontext, lambda logits: logits
+    from repro_torch.sharding import placed as P
+    from repro_torch.sharding.rules import use_mesh
+
+    placement = P.Placement(cfg, mesh)
+
+    @contextlib.contextmanager
+    def scope():
+        with use_mesh(mesh), placement.active():
+            yield
+
+    def whole(logits):
+        with placement.active():
+            return P.gather_vocab(logits, cfg.vocab_size)
+
+    return scope, whole
+
+
+def make_serve_step(cfg: ModelConfig, *, mesh=None):
     """step(params, state, token [B], position, enc_out=None) -> (next
     token [B], state). An encoder-decoder model decodes with its
-    "decoder" parameters against `enc_out`."""
+    "decoder" parameters against `enc_out`. With a `mesh`, on the rank's
+    placed parameters, rows and decode state (made under `use_mesh`)."""
+    scope, whole = _placed_scope(cfg, mesh)
 
     def serve_step(params, state, token, position, enc_out=None):
-        logits, state = decode_step(decoder_params(params, cfg), state,
-                                    token, cfg, position=position,
-                                    enc_out=enc_out)
-        return torch.argmax(logits, dim=-1).to(torch.int32), state
+        with scope():
+            logits, state = decode_step(decoder_params(params, cfg), state,
+                                        token, cfg, position=position,
+                                        enc_out=enc_out)
+        return torch.argmax(whole(logits), dim=-1).to(torch.int32), state
 
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, *, mesh=None):
     """prefill(params, state, tokens [B, P], enc_out=None) -> (first token
-    [B], state)."""
+    [B], state). With a `mesh`, as `make_serve_step`."""
+    scope, whole = _placed_scope(cfg, mesh)
 
     def prefill_step(params, state, tokens, enc_out=None):
-        logits, state = lm_prefill(decoder_params(params, cfg), tokens, cfg,
-                                   state, enc_out=enc_out)
-        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), state
+        with scope():
+            logits, state = lm_prefill(decoder_params(params, cfg), tokens,
+                                       cfg, state, enc_out=enc_out)
+        return (torch.argmax(whole(logits[:, -1]), dim=-1).to(torch.int32),
+                state)
 
     return prefill_step

@@ -16,14 +16,16 @@ through `StragglerMonitor`).
 
 Context parallelism (`--cp C`, one process per rank under `torchrun
 --nproc-per-node W`): a (data = W / C, seq = C) mesh, as the reference's
-`_cp_mesh_context`; each rank trains on its batch and token shard and its
-attention exchanges one moment carry per boundary (`launch/steps.py`,
-`kernels/sharded.py`). `--cp 1` is the single-process run. Each rank's
-device is cuda:(LOCAL_RANK % the device count), so W ranks may share one
-card; the group is gloo (NCCL refuses two ranks on one card). Only rank 0
-prints and writes checkpoints;
-every rank reads them, and a checkpoint resumes at any --cp (the weights
-and optimizer state are replicated).
+`_cp_mesh_context`, and the placed step on it (`launch/steps.py`,
+`sharding.placed`): each rank holds its shard of the parameters and the
+optimizer state over "data" (the reference's cp mesh keeps `embed` on
+"data"), trains on its rows and token shard, and its attention exchanges
+one moment carry per boundary (`kernels/sharded.py`). `--cp 1` is the
+single-process run. Each rank's device is cuda:(LOCAL_RANK % the device
+count), so W ranks may share one card; the group is gloo (NCCL refuses
+two ranks on one card). Only rank 0 prints; every rank takes part in a
+save (each leaf is gathered whole, rank 0 writes) and restores its own
+shard, so a checkpoint resumes at any --cp or on one process.
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train --cp 2 \
       --arch qwen3-1.7b --attn fastmax2-kernel --steps 2 --batch 2 \
@@ -55,8 +57,9 @@ from repro_torch.device import resolve_device
 from repro_torch.ft import PreemptionHandler, StragglerMonitor
 from repro_torch.launch.steps import (check_cp, make_train_step,
                                       pick_optimizer)
-from repro_torch.models import init_model
+from repro_torch.models import init_model, param_axes
 from repro_torch.models.param import count_params
+from repro_torch.sharding import placed
 
 
 def build(args):
@@ -157,8 +160,14 @@ def main(argv=None):
     _, optimizer = pick_optimizer(cfg, n_params, lr=args.lr,
                                   total_steps=args.steps)
     opt_init, _ = optimizer
-    opt_state = opt_init(params)
-    train_step = make_train_step(cfg, optimizer, mesh=mesh)
+    if mesh is None:
+        opt_state = opt_init(params)
+    else:
+        placement = placed.Placement(cfg, mesh)
+        params = placement.place(params)
+        opt_state = placement.init_opt_state(opt_init, params)
+    train_step = make_train_step(cfg, optimizer, mesh=mesh,
+                                 global_batch=args.batch)
 
     data = SyntheticLM(cfg.vocab_size, args.seq, seed=0)
     start_step = 0
@@ -168,7 +177,8 @@ def main(argv=None):
         if args.resume and mgr.latest_step() is not None:
             t0 = time.perf_counter()
             (params, opt_state), start_step, _ = mgr.restore(
-                (params, opt_state))
+                (params, opt_state), mesh=mesh,
+                axes=None if mesh is None else param_axes(cfg))
             say(f"resumed from step {start_step} (restore "
                 f"{time.perf_counter() - t0:.3f} s)", flush=True)
 
@@ -182,6 +192,8 @@ def main(argv=None):
             if step >= args.steps or pre.requested:
                 break
             writing = mgr is not None and mgr.writing
+            if mesh is not None:
+                batch = placed.shard_batch(batch, mesh)
             mon.start_step()
             params, opt_state, metrics = train_step(params, opt_state, batch)
             loss = float(metrics["loss"])     # waits for the step
@@ -195,21 +207,20 @@ def main(argv=None):
                     + (" [save in flight]" if writing else "")
                     + (" [STRAGGLER]" if mon.straggling else ""),
                     flush=True)
-            if mgr and done % args.ckpt_every == 0 and done < args.steps \
-                    and _rank0():
+            if mgr and done % args.ckpt_every == 0 and done < args.steps:
                 t0 = time.perf_counter()
-                mgr.save(done, (params, opt_state), block=False)
+                mgr.save(done, (params, opt_state), block=False, mesh=mesh)
                 say(f"checkpoint {done} (async): "
                     f"{(time.perf_counter() - t0) * 1e3:.1f} ms on the "
                     f"loop's thread", flush=True)
     finally:
         it.close()
         pre.restore()
-    if mgr and _rank0():
+    if mgr:
         t0 = time.perf_counter()
         mgr.wait()                  # the periodic write still in flight
         t1 = time.perf_counter()
-        mgr.save(done, (params, opt_state), block=True)
+        mgr.save(done, (params, opt_state), block=True, mesh=mesh)
         say(f"checkpoint {done} (blocking): "
             f"{time.perf_counter() - t1:.3f} s (after {t1 - t0:.3f} s "
             f"waiting for the write before it)", flush=True)

@@ -8,6 +8,18 @@ decompressed per query head from a kv_lora_rank latent, RoPE on the rope
 part only, its key part shared by every head), full-sequence attention
 (causal or not, and cross-attention to another sequence), and the attention
 prefill/decode steps over the `repro_torch.attention` state protocol.
+
+Under the placed step's tensor parallelism (`sharding.placed`: the dense
+decoders' leaves keep their "model" shards) the MLP and the attention
+split their compute by the shards the layer's leaves hold: the
+column-parallel products (wi, wq, and wk / wv where the kv heads divide
+"model") take `tp_enter(x)`, the row-parallel wo's output `tp_exit`.
+Where the kv heads do not divide "model" (MQA, or 8 kv heads on 16) k and
+v are computed whole from x on every rank, q is gathered to whole heads,
+the attention runs in the model's layout (the kernels' feature plan, or
+the whole heads) and o is cut back to the rank's heads for wo. Serving on
+a backend with no decode kernel keeps its state whole over "model", so
+its q, k and v are gathered to whole heads there.
 """
 from __future__ import annotations
 
@@ -19,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch import attention as A
 from repro_torch.attention import AttnState
 from repro_torch.models.param import Builder
+from repro_torch.sharding import placed as P
 
 _F32 = torch.float32
 
@@ -106,6 +119,11 @@ def init_mlp(b: Builder, name: str, d_model: int, d_ff: int,
 
 
 def apply_mlp(params, x, *, act: str = "swiglu"):
+    """The MLP; column- then row-parallel where its leaves hold their ff
+    shards over "model" (the placed step's tensor parallelism)."""
+    tp = P.model_dim(params["wo"]) == 0
+    if tp:
+        x = P.tp_enter(x)
     if act == "swiglu":
         g = _dense(x, params["wi_gate"])
         u = _dense(x, params["wi_up"])
@@ -114,7 +132,8 @@ def apply_mlp(params, x, *, act: str = "swiglu"):
         # the reference's jax.nn.gelu defaults to the tanh approximation;
         # this follows it, not OpenAI whisper's exact (erf) GELU
         h = F.gelu(_dense(x, params["wi"]), approximate="tanh")
-    return _dense(h, params["wo"])
+    y = _dense(h, params["wo"])
+    return P.tp_exit(y) if tp else y
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +232,41 @@ def _out_proj(o, wo):
     return _dense(o.transpose(1, 2), wo, n_in=2)
 
 
+def _tp_split(params) -> tuple:
+    """(q heads split, kv heads split) over "model" of a layer's placed
+    projections; (False, False) outside the placed step's tensor
+    parallelism."""
+    if P.model_dim(params["wq"]) != 1:
+        return False, False
+    return True, "wk" in params and P.model_dim(params["wk"]) == 1
+
+
+def _tp_qkv(params, x, cfg, positions, split_kv: bool):
+    """q on the rank's heads; k and v on its kv heads (split_kv) or whole,
+    computed from x itself: their grads are then whole on every rank."""
+    xt = P.tp_enter(x)
+    if cfg.qk_norm:
+        # the scales multiply the rank's heads only: their grads partial
+        params = {**params, "q_norm_scale": P.sum_grad(params["q_norm_scale"])}
+        if split_kv:
+            params["k_norm_scale"] = P.sum_grad(params["k_norm_scale"])
+    q = _project_q(params, xt, cfg, positions)
+    k, v = _project_kv(params, xt if split_kv else x, cfg, positions)
+    return q, k, v
+
+
+def _tp_attend(q, k, v, split_kv: bool, attend):
+    """attend(q, k, v) -> o on the placed layout: the rank's heads as they
+    are where the kv heads are split, else q gathered to whole heads and
+    o cut back to the rank's heads."""
+    if split_kv:
+        from repro_torch.kernels.sharded import local_heads
+
+        with local_heads():
+            return attend(q, k, v)
+    return P.slice_model(attend(P.gather_model(q, 1), k, v), 1)
+
+
 def apply_attention(params, x, cfg, *, causal=True, kv_mask=None,
                     kv_x=None, offset=None):
     """Full-sequence attention. x [B, N, d] at positions offset ..
@@ -222,6 +276,12 @@ def apply_attention(params, x, cfg, *, causal=True, kv_mask=None,
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     if offset is not None:
         positions = positions + offset
+    split_q, split_kv = _tp_split(params)
+    if split_q and kv_x is None:
+        q, k, v = _tp_qkv(params, x, cfg, positions, split_kv)
+        o = _tp_attend(q, k, v, split_kv, lambda a, b, c: A.attention(
+            a, b, c, cfg.attn_spec, causal=causal, kv_mask=kv_mask))
+        return P.tp_exit(_out_proj(o.to(x.dtype), params["wo"]))
     if kv_x is None:
         q, k, v = _project_qkv(params, x, cfg, positions)
     else:
@@ -257,10 +317,28 @@ def attention_decode(params, x_t, state: AttnState, cfg, *, position):
     card, and that copy waits for the card to finish its queued work.
     Returns (y_t, state) with `state` updated in place."""
     pos = torch.as_tensor(position, device=x_t.device).reshape(-1)[:, None]
+    if _tp_split(params)[0]:
+        y = _tp_serve(params, x_t, cfg, pos,
+                      lambda q, k, v: A.step(state, q, k, v, cfg.attn_spec)[0])
+        return y, state
     q, k, v = _project_qkv(params, x_t, cfg, pos)
     o, state = A.step(state, q, k, v, cfg.attn_spec)
     y = _out_proj(o.to(x_t.dtype), params["wo"])
     return y, state
+
+
+def _tp_serve(params, x, cfg, positions, attend):
+    """A prefill or decode step under tensor parallelism: on the rank's
+    heads where the kv heads are split and the backend keeps its moments
+    in the kernels' plan (a decode kernel), else on whole heads (the
+    state is whole over "model")."""
+    _, split_kv = _tp_split(params)
+    q, k, v = _tp_qkv(params, x, cfg, positions, split_kv)
+    if split_kv and not A.resolve(cfg.attn_spec).caps.decode_kernel:
+        k, v = P.gather_model(k, 1), P.gather_model(v, 1)
+        split_kv = False
+    o = _tp_attend(q, k, v, split_kv, attend)
+    return P.tp_exit(_out_proj(o.to(x.dtype), params["wo"]))
 
 
 def attention_prefill(params, x, state: AttnState, cfg, *, positions=None,
@@ -271,6 +349,11 @@ def attention_prefill(params, x, state: AttnState, cfg, *, positions=None,
     if positions is None:
         off = 0 if offset is None else offset
         positions = off + torch.arange(n, dtype=torch.int32, device=x.device)
+    if _tp_split(params)[0]:
+        y = _tp_serve(params, x, cfg, positions, lambda q, k, v: A.prefill(
+            q, k, v, cfg.attn_spec, state=state, kv_mask=kv_mask,
+            offset=offset)[0])
+        return y, state
     q, k, v = _project_qkv(params, x, cfg, positions)
     o, state = A.prefill(q, k, v, cfg.attn_spec, state=state,
                          kv_mask=kv_mask, offset=offset)

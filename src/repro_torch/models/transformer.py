@@ -32,6 +32,15 @@ spec's window; a `MambaState`, `MLSTMState` or `SLSTMState`), and each
 layer's state is a contiguous view that its prefill and decode steps
 update in place.
 
+Under the placed step (`sharding.placed`, an active `Placement`) the
+parameters are the rank's shards: each block gathers its leaves around
+its use (`_block`, inside the recompute under remat), the embedding, the
+final norm and the unembedding around theirs; a stacked leaf's layer is
+sliced out of the local shard before its gather. Under tensor
+parallelism the embedding lookup and the logits are vocab-parallel:
+`forward_lm`, `lm_prefill` and `lm_decode_step` then return the rank's
+vocab shard of the logits (`placed.gather_vocab` makes them whole).
+
 A `kv_mask` with an SSM mixer (mamba, mlstm, slstm) raises: the SSM
 mixers take exact-length chunks (a padded token would enter their
 recurrent state). The reference drops the mask there silently; its
@@ -56,6 +65,7 @@ from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
 from repro_torch.models.param import Builder
+from repro_torch.sharding import placed as P
 
 _F32 = torch.float32
 
@@ -239,11 +249,17 @@ def _sinusoidal_at(pos, d: int, dtype):
 
 
 def _unbind_layers(tree, n: int) -> list:
-    """Per-layer views of a stacked parameter tree."""
+    """Per-layer views of a stacked parameter tree (a placed leaf's views
+    carry its spec without the stacked axis)."""
     if isinstance(tree, dict):
         subs = {k: _unbind_layers(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in subs.items()} for i in range(n)]
-    return list(tree.unbind(0))
+    views = list(tree.unbind(0))
+    spec = P.spec_of(tree)
+    if spec is not None:
+        for v in views:
+            P.tag(v, spec[1:])
+    return views
 
 
 def _layers(params, cfg: ModelConfig) -> list:
@@ -308,12 +324,15 @@ def init_lm_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _logits(params, x, cfg: ModelConfig):
+    w = P.leaf(params["embed" if cfg.tie_embeddings else "unembed"])
+    if P.model_dim(w) is not None:
+        # vocab-parallel: the rank's vocab columns of the logits
+        x = P.tp_enter(x)
     if cfg.tie_embeddings:
         # tied head, scaled by 1/sqrt(d) (embeddings are unit-scale)
-        logits = torch.einsum("bnd,vd->bnv", x, params["embed"]) \
-            * (cfg.d_model ** -0.5)
+        logits = torch.einsum("bnd,vd->bnv", x, w) * (cfg.d_model ** -0.5)
     else:
-        logits = torch.einsum("bnd,dv->bnv", x, params["unembed"])
+        logits = torch.einsum("bnd,dv->bnv", x, w)
     if cfg.logits_softcap > 0:
         c = cfg.logits_softcap
         logits = c * torch.tanh(logits / c)
@@ -325,7 +344,9 @@ def _block(params_b, x, cfg: ModelConfig, mixer, enc_out=None, *,
     """One block, its mixer the callable `mixer(params, h)`; returns (x,
     the MoE's aux or None). A block whose ffn has no router runs the MLP
     (the `dense_i` blocks of an "attn:moe" pattern, as in the reference);
-    a block without an ffn ("none") has no second norm."""
+    a block without an ffn ("none") has no second norm. Placed leaves are
+    gathered for their use here."""
+    params_b = P.materialize(params_b)
     h = L.apply_norm(params_b["norm1"], x, norm_type=cfg.norm_type,
                      eps=cfg.norm_eps)
     x = x + mixer(params_b["mixer"], h)
@@ -397,13 +418,27 @@ def _train_block(params_b, x, cfg: ModelConfig, mixer: str, causal, kv_mask,
                   enc_out=enc_out)
 
 
+def _lookup(params, tokens, cfg: ModelConfig):
+    """The tokens' embeddings in the activation dtype (vocab-parallel
+    under tensor parallelism)."""
+    if P.active() is None:
+        return params["embed"][tokens].to(cfg.adtype())
+    return P.embed_lookup(P.leaf(params["embed"]), tokens,
+                          cfg.vocab_size).to(cfg.adtype())
+
+
+def _final_norm(params, x, cfg: ModelConfig):
+    return L.apply_norm(P.materialize(params["final_norm"]), x,
+                        norm_type=cfg.norm_type, eps=cfg.norm_eps)
+
+
 def _embed(params, tokens, cfg: ModelConfig, embeddings=None, offset=None):
     """Token (or given) embeddings plus, where the config has them, the
     sinusoidal terms of positions offset .. offset+N-1 (offset None: 0)."""
     if embeddings is not None:
         x = embeddings.to(cfg.adtype())
     else:
-        x = params["embed"][tokens].to(cfg.adtype())
+        x = _lookup(params, tokens, cfg)
     if cfg.pos_emb == "sinusoidal":
         pos = torch.arange(x.shape[1], device=x.device)
         if offset is not None:
@@ -443,8 +478,7 @@ def forward_lm(params, tokens, cfg: ModelConfig, *, causal=True,
                                 enc_out, offset)
         if a is not None:
             aux = aux + a
-    x = L.apply_norm(params["final_norm"], x, norm_type=cfg.norm_type,
-                     eps=cfg.norm_eps)
+    x = _final_norm(params, x, cfg)
     if return_hidden:
         return x, aux
     return _logits(params, x, cfg), aux
@@ -452,7 +486,7 @@ def forward_lm(params, tokens, cfg: ModelConfig, *, causal=True,
 
 def token_nll(logits, targets):
     """Each token's next-token cross-entropy [B, N], in float32."""
-    logits = logits.float()
+    logits = logits.to(_F32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return logz - gold
@@ -492,8 +526,7 @@ def lm_prefill(params, tokens, cfg: ModelConfig, state, *, enc_out=None,
         x, _ = _block(p_i, x, cfg,
                       _prefill_mixer(mixer, st_i, cfg, kv_mask, offset),
                       enc_out=enc_out, full_capacity=True)
-    x = L.apply_norm(params["final_norm"], x, norm_type=cfg.norm_type,
-                     eps=cfg.norm_eps)
+    x = _final_norm(params, x, cfg)
     return _logits(params, x, cfg), state
 
 
@@ -505,7 +538,7 @@ def lm_decode_step(params, state, token_t, cfg: ModelConfig, *, position,
     cross-attention of an encoder-decoder model. Returns (logits
     [B, vocab], state), the state updated in place."""
     _check_supported(cfg)
-    x = params["embed"][token_t][:, None].to(cfg.adtype())
+    x = _lookup(params, token_t, cfg)[:, None]
     position = torch.as_tensor(position, device=x.device)
     if cfg.pos_emb == "sinusoidal":
         pos = position.reshape(-1).to(_F32)          # [1] or [B]
@@ -514,6 +547,5 @@ def lm_decode_step(params, state, token_t, cfg: ModelConfig, *, position,
         st_i = _layer_state(state, key, g)
         x, _ = _block(p_i, x, cfg, _decode_mixer(mixer, st_i, cfg, position),
                       enc_out=enc_out, full_capacity=True)
-    x = L.apply_norm(params["final_norm"], x, norm_type=cfg.norm_type,
-                     eps=cfg.norm_eps)
+    x = _final_norm(params, x, cfg)
     return _logits(params, x, cfg)[:, 0], state

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+_F32 = torch.float32
+
 __all__ = ["global_norm", "clip_by_global_norm", "leaves", "tree_map"]
 
 
@@ -23,15 +25,22 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32 (a tensor on
-    the leaves' device: no host round trip)."""
-    return torch.sqrt(sum(x.float().square().sum() for _, x in leaves(tree)))
+    the leaves' device: no host round trip). With a `mesh`, of a tree of
+    placed grads (`sharding.placed.global_norm`: each leaf's squares
+    summed over the axes it is split on, a replicated leaf once)."""
+    if mesh is not None:
+        from repro_torch.sharding.placed import global_norm as placed_norm
+
+        return placed_norm(tree, mesh)
+    return torch.sqrt(sum(x.to(_F32).square().sum()
+                          for _, x in leaves(tree)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, mesh=None):
     """Scale every leaf by min(1, max_norm / (norm + 1e-9)), in float32
     and cast back. Returns (new tree, norm)."""
-    norm = global_norm(tree)
+    norm = global_norm(tree, mesh)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
+    return tree_map(lambda x: (x.to(_F32) * scale).to(x.dtype), tree), norm

@@ -26,6 +26,7 @@ from repro_torch.optim.grad_utils import leaves, tree_map
 __all__ = ["OptState", "adamw", "lion", "make_optimizer"]
 
 _QBLOCK = 256
+_F32 = torch.float32
 
 
 class OptState(NamedTuple):
@@ -42,11 +43,11 @@ def _q8(x: torch.Tensor):
     blocks = flat.reshape(-1, _QBLOCK)
     scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
     q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
-    return q, scale.to(torch.float32)
+    return q, scale.to(_F32)
 
 
 def _dq8(q, scale, shape):
-    flat = (q.to(torch.float32) * scale).reshape(-1)
+    flat = (q.to(_F32) * scale).reshape(-1)
     return flat[: torch.Size(shape).numel()].reshape(shape)
 
 
@@ -74,19 +75,19 @@ def adamw(lr: Callable, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
 
     def init(params):
         def m_like(x):
-            zeros = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            zeros = torch.zeros(x.shape, dtype=_F32, device=x.device)
             if int8_m:
                 q, s = _q8(zeros)
                 return {"q": q, "s": s}
             return zeros
 
         m = tree_map(m_like, params)
-        v = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+        v = tree_map(lambda x: torch.zeros(x.shape, dtype=_F32,
                                            device=x.device), params)
         master = None
-        if master_fp32 and any(x.dtype != torch.float32
+        if master_fp32 and any(x.dtype != _F32
                                for _, x in leaves(params)):
-            master = tree_map(lambda x: x.detach().to(torch.float32,
+            master = tree_map(lambda x: x.detach().to(_F32,
                                                       copy=True), params)
         dev = leaves(params)[0][1].device
         return OptState(torch.zeros((), dtype=torch.int32, device=dev), m, v,
@@ -96,22 +97,22 @@ def adamw(lr: Callable, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
     def update(grads, state: OptState, params):
         step = state.step + 1
         lr_t = lr(step)
-        stepf = step.to(torch.float32)
-        b1c = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+        stepf = step.to(_F32)
+        b1c = 1.0 - torch.pow(torch.tensor(b1, dtype=_F32,
                                            device=stepf.device), stepf)
-        b2c = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+        b2c = 1.0 - torch.pow(torch.tensor(b2, dtype=_F32,
                                            device=stepf.device), stepf)
         for name, p, g, m, v, master in _zip(params, grads, state.m,
                                              state.v, state.master):
             ref = p if master is None else master
-            g = g.to(torch.float32)
+            g = g.to(_F32)
             m_f = _dq8(m["q"], m["s"], g.shape) if int8_m else m
             m_new = b1 * m_f + (1 - b1) * g
             v.mul_(b2).add_((1 - b2) * g.square())
             delta = (m_new / b1c) / (torch.sqrt(v / b2c) + eps)
             if weight_decay > 0 and _wd_mask(name):
-                delta = delta + weight_decay * ref.to(torch.float32)
-            p_new = ref.to(torch.float32) - lr_t * delta
+                delta = delta + weight_decay * ref.to(_F32)
+            p_new = ref.to(_F32) - lr_t * delta
             if int8_m:
                 q, s = _q8(m_new)
                 m["q"].copy_(q)
@@ -141,12 +142,12 @@ def lion(lr: Callable, *, b1=0.9, b2=0.99, weight_decay=0.1):
         step = state.step + 1
         lr_t = lr(step)
         for name, p, g, m in _zip(params, grads, state.m):
-            g = g.to(torch.float32)
-            m_f = m.to(torch.float32)
+            g = g.to(_F32)
+            m_f = m.to(_F32)
             u = torch.sign(b1 * m_f + (1 - b1) * g)
             if weight_decay > 0 and _wd_mask(name):
-                u = u + weight_decay * p.to(torch.float32)
-            p.copy_((p.to(torch.float32) - lr_t * u).to(p.dtype))
+                u = u + weight_decay * p.to(_F32)
+            p.copy_((p.to(_F32) - lr_t * u).to(p.dtype))
             m.copy_((b2 * m_f + (1 - b2) * g).to(torch.bfloat16))
         return params, OptState(step, state.m, None, None)
 

@@ -1,0 +1,645 @@
+"""The placed state: each rank holds only its shard of the parameters,
+their grads and the optimizer state — the port's counterpart of the
+reference's partitioned step (`repro/launch/dryrun.py`: `jax.jit(step,
+in_shardings=(param_sh, opt_sh, batch_sh), out_shardings=(param_sh,
+opt_sh, None))`, GSPMD splitting the compute around it).
+
+A leaf's shard is the one its spec gives: `models.param_axes(cfg)` ->
+`rules.param_shardings` (DEFAULT_RULES: the "embed" dim over "data",
+FSDP; heads, kv heads, ff, vocab and experts over "model") ->
+`rules.to_placements`. A shard is a plain local tensor with its spec
+recorded on it (`spec_of`); `place` cuts a whole tree into the rank's
+shards and `full` gathers them back (tests, checkpoints). AdamW's m, v
+and float32 master and Lion's m are made from the shards (their update is
+elementwise); the optimizer's step stays replicated, as the reference's
+`_opt_shardings` has it. AdamW's `int8_m` takes absmax blocks over the
+whole flattened leaf, so a shard's blocks are not the reference's: the
+placed step refuses it.
+
+Around its use, a layer's leaves are gathered (`materialize`), one layer
+at a time (a stacked leaf's row of the layer is sliced out of the local
+shard first) and again in the layer's recompute under remat:
+  * over the data axes of their spec ("pod", "data"): the backward
+    reduce-scatters their grads over the axes the batch is split on
+    (the FSDP grad path) and keeps the rank's slice over the others;
+  * over "model" too, except in a tensor-parallel block. The compute is
+    then whole on every rank, so the backward keeps the rank's slice.
+A leaf that an axis of the batch does not split stays replicated there:
+`reduce_grads` all-reduces its grad over those axes after the backward.
+
+Tensor parallelism over "model" (`Placement.tp`: the dense "attn:mlp"
+decoders) keeps the "model" shards that the spec gives and splits the
+compute by them (`models.layers`): column-parallel projections take
+`tp_enter(x)` (identity, all-reduce of the grad over "model"), the
+row-parallel output goes through `tp_exit` (all-reduce, identity grad),
+vocab-parallel embedding lookup (`embed_lookup`) and logits, and a
+vocab-parallel cross-entropy (`token_nll`) whose max and sums are
+all-reduced over "model": no rank builds a whole [B, N, vocab] row. A
+replicated leaf used on the rank's heads only (qk_norm's scales) takes
+`sum_grad`, so that every model rank ends with the same grad. Which
+leaves are split the layers read off the specs recorded on the gathered
+leaves (`model_dim`).
+
+Every collective goes through `_collective`, which adds the bytes the
+rank sends to `asked[kind]` and the host time to `asked_ms[kind]` by the
+kind the step asked for. On gloo (ranks sharing one card, or the CPU)
+each is staged through one all-reduce in host memory (`_gloo`); the
+count is still the collective asked for, and the dry run's fake group
+takes the collective itself.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import math
+import time
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.optim.grad_utils import leaves, tree_map
+from repro_torch.sharding.rules import (Spec, batch_spec, mesh_axes,
+                                        param_shardings)
+
+__all__ = ["Placement", "place", "full", "gather", "spec_of", "tag",
+           "model_dim", "leaf",
+           "active", "materialize", "tensor_parallel", "shard_batch",
+           "tp_enter", "tp_exit", "sum_grad", "embed_lookup", "token_nll",
+           "gather_vocab", "gather_model", "slice_model", "global_norm",
+           "asked", "asked_ms", "reset_asked"]
+
+_F32 = torch.float32
+KNOWN_AXES = ("pod", "data", "model", "seq")
+DATA_AXES = ("pod", "data")
+_ATTR = "_placed_spec"
+
+# bytes each rank sent, and host ms, of the collectives the placed step
+# asked for, by kind
+asked: collections.Counter = collections.Counter()
+asked_ms: collections.Counter = collections.Counter()
+
+
+def reset_asked() -> None:
+    asked.clear()
+    asked_ms.clear()
+
+
+def spec_of(t):
+    """The spec recorded on a placed leaf, or None."""
+    return getattr(t, _ATTR, None)
+
+
+def tag(t: torch.Tensor, spec) -> torch.Tensor:
+    """Record `spec` on `t` as its placement (returns `t`)."""
+    setattr(t, _ATTR, Spec(*spec))
+    return t
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def split_axes(spec) -> tuple:
+    """The mesh axes a leaf with this spec is split over."""
+    return tuple(a for e in spec for a in _names(e))
+
+
+def model_dim(t):
+    """The dim of a placed (or gathered) leaf that is split over "model",
+    or None (not placed, or whole on "model")."""
+    spec = spec_of(t)
+    if spec is None:
+        return None
+    for d, e in enumerate(spec):
+        if "model" in _names(e):
+            return d
+    return None
+
+
+def tensor_parallel(cfg) -> bool:
+    """Whether the placed step splits `cfg`'s compute over "model": the
+    dense decoders, every block an "attn:mlp" of GQA attention. Every
+    other config gathers its "model" shards and computes whole (MoE,
+    MLA, Mamba, xLSTM and encoder-decoder models; ROADMAP queue 3)."""
+    return (tuple(cfg.pattern) == ("attn:mlp",) and cfg.first_k_dense == 0
+            and not cfg.use_mla and not cfg.encoder_layers
+            and not cfg.cross_attention and not cfg.input_embeddings_only)
+
+
+# ---------------------------------------------------------------------------
+# Collectives
+# ---------------------------------------------------------------------------
+
+
+def _collective(kind: str, x: torch.Tensor, group, *, op=None):
+    """One collective over `group` of what the rank sends, `x`:
+    all-reduce (on a copy; `op` a ReduceOp), all-gather along dim 0 or
+    reduce-scatter along dim 0. Returns the result."""
+    asked[kind] += x.numel() * x.element_size()
+    t0 = time.perf_counter()
+    if dist.get_backend(group) == "gloo":
+        out = _gloo(kind, x, group, op)
+    elif kind == "all-reduce":
+        out = x.clone()
+        dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=group)
+    elif kind == "all-gather":
+        out = x.new_empty((dist.get_world_size(group) * x.shape[0],)
+                          + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    elif kind == "reduce-scatter":
+        out = x.new_empty((x.shape[0] // dist.get_world_size(group),)
+                          + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+    else:
+        raise ValueError(kind)
+    asked_ms[kind] += (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def _gloo(kind: str, x: torch.Tensor, group, op):
+    """`_collective` on gloo, staged through one all-reduce in host
+    memory: gloo sends no CUDA tensor in its all-gather and
+    reduce-scatter, and its all-reduce is its fastest collective (on two
+    local ranks 2x its all-gather's rate for the same result). An
+    all-gather all-reduces the rank's rows placed in zeros (exact); a
+    reduce-scatter keeps the rank's rows of the sum."""
+    n, idx = dist.get_world_size(group), dist.get_group_rank(
+        group, dist.get_rank())
+    src = x.detach().to("cpu").contiguous()
+    if kind == "all-gather":
+        buf = src.new_zeros((n * src.shape[0],) + tuple(src.shape[1:]))
+        buf[idx * src.shape[0]:(idx + 1) * src.shape[0]].copy_(src)
+    elif kind in ("all-reduce", "reduce-scatter"):
+        buf = src.clone() if src.data_ptr() == x.data_ptr() else src
+    else:
+        raise ValueError(kind)
+    dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=group)
+    if kind == "reduce-scatter":
+        rows = src.shape[0] // n
+        buf = buf[idx * rows:(idx + 1) * rows]
+    return buf.to(x.device)
+
+
+def _gather_dim(x, d: int, group):
+    out = _collective("all-gather", x.movedim(d, 0), group)
+    return out.movedim(0, d).contiguous() if d else out
+
+
+def _scatter_dim(g, d: int, group):
+    out = _collective("reduce-scatter", g.movedim(d, 0), group)
+    return out.movedim(0, d).contiguous() if d else out
+
+
+def _slice_dim(g, d: int, idx: int, n: int):
+    size = g.shape[d] // n
+    return g.narrow(d, idx * size, size).contiguous()
+
+
+def _order(spec, over) -> list:
+    """[(dim, axis)] to gather, minor axis of each dim first (a dim split
+    over (a, b) holds chunk i_a·|b| + i_b)."""
+    out = []
+    for d, e in enumerate(spec):
+        for a in reversed(_names(e)):
+            if a in over:
+                out.append((d, a))
+    return out
+
+
+def _rest(spec, gathered) -> Spec:
+    """The spec left after gathering the (dim, axis) pairs."""
+    done = set(gathered)
+    ents = []
+    for d, e in enumerate(spec):
+        left = tuple(a for a in _names(e) if (d, a) not in done)
+        ents.append(None if not left else left[0] if len(left) == 1
+                    else left)
+    return Spec(*ents)
+
+
+class _Gather(torch.autograd.Function):
+    """Gather a shard over mesh axes; the backward reduce-scatters the
+    grad over the axes in `sum_over` and keeps the rank's slice over the
+    others."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, order, sum_over):
+        ctx.cfg = (mesh, order, sum_over)
+        for d, a in order:
+            x = _gather_dim(x, d, mesh.get_group(a))
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, order, sum_over = ctx.cfg
+        sizes = mesh_axes(mesh)
+        for d, a in reversed(order):
+            if a in sum_over:
+                g = _scatter_dim(g, d, mesh.get_group(a))
+            else:
+                g = _slice_dim(g, d, mesh.get_local_rank(a), sizes[a])
+        return g, None, None, None
+
+
+def gather(leaf: torch.Tensor, over, mesh, *, sum_over=()):
+    """`leaf` (a placed shard) gathered over the mesh axes `over` of its
+    spec, `all_gather_into_tensor` on each axis's sub-group; the backward
+    is a `reduce_scatter_tensor` over the axes of `sum_over` (those the
+    batch is split on: the FSDP grad path) and the rank's slice over the
+    rest. The result carries the spec that is left."""
+    spec = spec_of(leaf)
+    order = _order(spec, tuple(over))
+    if not order:
+        return leaf
+    out = _Gather.apply(leaf, mesh, order, tuple(sum_over))
+    return tag(out, _rest(spec, order))
+
+
+class SumGrad(torch.autograd.Function):
+    """Identity; the backward all-reduces the grad over `group` (also
+    the kernel plans' feature-mode dq and dk, `kernels.sharded`)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _collective("all-reduce", g, ctx.group), None
+
+
+class _Exit(torch.autograd.Function):
+    """All-reduce over `group`; the backward passes the grad through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _collective("all-reduce", x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class GatherModel(torch.autograd.Function):
+    """The rank's slice of `dim` over "model" -> the whole tensor; the
+    backward keeps the slice's grad (the whole grad is the same on every
+    model rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, idx, n):
+        ctx.cfg = (dim, idx, n)
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, idx, n = ctx.cfg
+        return _slice_dim(g, dim, idx, n), None, None, None, None
+
+
+class SliceModel(torch.autograd.Function):
+    """A whole tensor (the same on every model rank) -> the rank's slice
+    of `dim`; the backward gathers the slices' grads."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, idx, n):
+        ctx.cfg = (dim, group)
+        return _slice_dim(x, dim, idx, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group = ctx.cfg
+        return _gather_dim(g, dim, group), None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# The placement of one model on one mesh
+# ---------------------------------------------------------------------------
+
+
+_ACTIVE = []
+
+
+def active():
+    """The placement the running step activated, or None."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def _pairs(tree, specs):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _pairs(v, specs[k])
+    else:
+        yield tree, specs
+
+
+class Placement:
+    """`cfg`'s parameters on `mesh` under the reference's rules: the specs
+    (`specs`, a tree like the parameters'), whether the compute is split
+    over "model" (`tp`), and the axes a training batch is split on
+    (`batch_axes`: the reference's `batch_spec` of `global_batch` — "pod"
+    and "data" as far as they divide it; all of them without one — and
+    "seq" under context parallelism). A mesh axis the rules do not know
+    raises."""
+
+    def __init__(self, cfg, mesh, rules=None, global_batch=None):
+        from repro_torch.models import init_model
+
+        sizes = mesh_axes(mesh)
+        unknown = [a for a in sizes if a not in KNOWN_AXES]
+        if unknown:
+            raise ValueError(
+                f"the placed step knows the mesh axes {KNOWN_AXES}; the "
+                f"mesh has {unknown}, which no placement rule names")
+        self.cfg, self.mesh, self.sizes = cfg, mesh, sizes
+        shapes, self.axes = init_model(cfg, device="meta", with_axes=True)
+        self.specs = param_shardings(self.axes, shapes, mesh, rules)
+        self.tp = tensor_parallel(cfg) and sizes.get("model", 1) > 1
+        dp = DATA_AXES
+        if global_batch is not None:
+            dp = _names(batch_spec(mesh, batch_size=global_batch)[0])
+        self.batch_axes = tuple(a for a in DATA_AXES + ("seq",)
+                                if sizes.get(a, 1) > 1
+                                and (a in dp or a == "seq"))
+
+    @contextlib.contextmanager
+    def active(self):
+        """Activate the placement for the model code inside the block."""
+        _ACTIVE.append(self)
+        try:
+            yield self
+        finally:
+            _ACTIVE.pop()
+
+    # -- the state ---------------------------------------------------------
+
+    def place(self, tree):
+        """The rank's shards of a whole parameter tree, specs recorded."""
+        from repro_torch.kernels.sharded import shard_local
+
+        return _place(tree, self.specs, self.mesh, shard_local)
+
+    def init_opt_state(self, opt_init, params):
+        """The optimizer state of placed `params` (m, v and master are
+        shards of the same specs; the step is replicated). AdamW's int8 m
+        raises (its absmax blocks span the whole leaf)."""
+        state = opt_init(params)
+        refuse_int8(params, state)
+        for sub in (state.m, state.v, state.master):
+            if sub is not None:
+                for x, ref in _pairs(sub, params):
+                    tag(x, spec_of(ref))
+        return state
+
+    def dp_ranks(self) -> int:
+        return math.prod(self.sizes[a] for a in self.batch_axes)
+
+    # -- around a layer ----------------------------------------------------
+
+    def leaf(self, t):
+        """A placed leaf gathered for its use (see the module docstring);
+        anything else as it is. The result's spec keeps only a "model"
+        split that the tensor-parallel compute uses."""
+        spec = spec_of(t)
+        if spec is None:
+            return t
+        keep = "model" if self.tp else None
+        over = [a for a in split_axes(spec)
+                if a != keep and self.sizes[a] > 1]
+        out = gather(t, over, self.mesh, sum_over=self.batch_axes)
+        if out is t:
+            out = t.view_as(t)
+        return tag(out, Spec(*(keep if keep in _names(e) else None
+                                for e in spec)))
+
+    def reduce_grads(self, grads) -> None:
+        """All-reduce, in place, each leaf's grad over the axes the batch
+        is split on and the leaf is not: one flat buffer per (axis,
+        dtype)."""
+        from torch._utils import (_flatten_dense_tensors,
+                                  _unflatten_dense_tensors)
+
+        for a in self.batch_axes:
+            by_dtype: dict = {}
+            for _, g in leaves(grads):
+                if a not in split_axes(spec_of(g) or ()):
+                    by_dtype.setdefault(g.dtype, []).append(g)
+            for xs in by_dtype.values():
+                flat = _collective("all-reduce", _flatten_dense_tensors(xs),
+                                   self.mesh.get_group(a))
+                for x, y in zip(xs, _unflatten_dense_tensors(flat, xs)):
+                    x.copy_(y)
+
+    def sum_over_batch(self, x):
+        """x summed over the axes the batch is split on."""
+        for a in self.batch_axes:
+            x = _collective("all-reduce", x, self.mesh.get_group(a))
+        return x
+
+    def model(self):
+        """(group, index, size) of the "model" axis."""
+        return (self.mesh.get_group("model"),
+                self.mesh.get_local_rank("model"), self.sizes["model"])
+
+
+def _place(tree, specs, mesh, shard_local):
+    if isinstance(tree, dict):
+        return {k: _place(v, specs[k], mesh, shard_local)
+                for k, v in tree.items()}
+    return tag(shard_local(tree.detach(), specs, mesh), specs)
+
+
+def place(tree, axes, mesh, rules=None):
+    """The rank's shards of the whole tree `tree` whose logical axes are
+    `axes` (`models.param_axes`), each with its spec recorded."""
+    from repro_torch.kernels.sharded import shard_local
+
+    specs = param_shardings(axes, tree, mesh, rules)
+    return _place(tree, specs, mesh, shard_local)
+
+
+def full_leaf(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole tensor of a placed shard, on every rank (no grad)."""
+    spec = spec_of(t)
+    if spec is None:
+        return t
+    sizes = mesh_axes(mesh)
+    with torch.no_grad():
+        x = t
+        for d, a in _order(spec, [a for a in split_axes(spec)
+                                  if sizes[a] > 1]):
+            x = _gather_dim(x, d, mesh.get_group(a))
+    return x
+
+
+def full(tree, mesh):
+    """Every placed leaf of a tree (dicts, tuples, NamedTuples; None kept)
+    gathered whole on every rank; collective: every rank calls it."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: full(v, mesh) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        vals = [full(v, mesh) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") \
+            else type(tree)(vals)
+    return full_leaf(tree, mesh)
+
+
+def refuse_int8(params, state) -> None:
+    """Raise if `state` is AdamW's int8 m (a {"q", "s"} dict per leaf)."""
+    from repro_torch.optim.optimizers import _zip
+
+    if state.m is not None and any(isinstance(m, dict) for _, _, m in
+                                   _zip(params, state.m)):
+        raise ValueError(
+            "the placed step cannot update AdamW's int8 m: its absmax "
+            "blocks run over the whole flattened leaf, so a shard's blocks "
+            "are not the reference's; use adamw (float32 m) or lion")
+
+
+# ---------------------------------------------------------------------------
+# In the model's code (no-ops without an active placement)
+# ---------------------------------------------------------------------------
+
+
+def materialize(tree):
+    """A layer's parameter subtree with every placed leaf gathered for its
+    use (`Placement.leaf`); without an active placement, `tree`."""
+    pl = active()
+    return tree if pl is None else tree_map(pl.leaf, tree)
+
+
+def leaf(t):
+    pl = active()
+    return t if pl is None else pl.leaf(t)
+
+
+def tp_enter(x):
+    """The entry of a tensor-parallel region: identity, the grad summed
+    over "model"."""
+    return SumGrad.apply(x, active().mesh.get_group("model"))
+
+
+def tp_exit(y):
+    """The row-parallel output summed over "model"; the grad as it is."""
+    return _Exit.apply(y, active().mesh.get_group("model"))
+
+
+def sum_grad(t):
+    """A replicated leaf used on the rank's split of the compute: its
+    partial grad summed over "model"."""
+    return SumGrad.apply(t, active().mesh.get_group("model"))
+
+
+def gather_model(x, dim: int):
+    """The rank's slice of `dim` over "model" -> whole (autograd)."""
+    group, idx, n = active().model()
+    return GatherModel.apply(x, dim % x.dim(), group, idx, n)
+
+
+def slice_model(x, dim: int):
+    """A whole tensor -> the rank's slice of `dim` over "model"."""
+    group, idx, n = active().model()
+    return SliceModel.apply(x, dim % x.dim(), group, idx, n)
+
+
+def embed_lookup(table, tokens, vocab: int):
+    """Rows of the embedding `table` (gathered for its use) for `tokens`.
+    A table split over "model" by vocab (`vocab` rows whole) looks up
+    the rank's rows, zeros elsewhere, and all-reduces over "model"."""
+    if table.shape[0] == vocab:
+        return table[tokens]
+    _, idx, _ = active().model()
+    rows = table.shape[0]
+    local = tokens.long() - idx * rows
+    inside = (local >= 0) & (local < rows)
+    out = table[local.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
+    return tp_exit(out)
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Cross-entropy of vocab-parallel logits [..., V/tp]: the max, the
+    sum of exps and the target's logit all-reduced over "model"."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, group, lo):
+        lf = logits.to(_F32)
+        m = _collective("all-reduce", lf.amax(dim=-1), group,
+                        op=dist.ReduceOp.MAX)
+        e = torch.exp(lf - m[..., None])
+        s = _collective("all-reduce", e.sum(dim=-1), group)
+        t = targets.long() - lo
+        inside = (t >= 0) & (t < lf.shape[-1])
+        t = t.clamp(0, lf.shape[-1] - 1)
+        gold = torch.gather(lf, -1, t[..., None])[..., 0] * inside.to(
+            lf.dtype)
+        gold = _collective("all-reduce", gold, group)
+        ctx.save_for_backward(e, s, t, inside)
+        ctx.dtype = logits.dtype
+        return (torch.log(s) + m) - gold
+
+    @staticmethod
+    def backward(ctx, dnll):
+        e, s, t, inside = ctx.saved_tensors
+        p = e / s[..., None]
+        p.scatter_add_(-1, t[..., None], -inside[..., None].to(p.dtype))
+        return (p * dnll[..., None]).to(ctx.dtype), None, None, None
+
+
+def token_nll(logits, targets, vocab: int):
+    """Each token's next-token cross-entropy [B, N], in float32; logits
+    split over "model" by vocab take the vocab-parallel path."""
+    if logits.shape[-1] == vocab:
+        from repro_torch.models.transformer import token_nll as whole
+
+        return whole(logits, targets)
+    group, idx, _ = active().model()
+    return _VocabNLL.apply(logits, targets, group, idx * logits.shape[-1])
+
+
+def gather_vocab(logits, vocab: int):
+    """Whole-vocab logits from vocab-parallel ones (no grad)."""
+    if logits.shape[-1] == vocab:
+        return logits
+    group, _, _ = active().model()
+    with torch.no_grad():
+        return _gather_dim(logits, logits.dim() - 1, group)
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """The rank's rows of a global training batch (copies: the global
+    batch can go): dim 0 of every tensor split over the mesh's "pod" and
+    "data" axes as the reference's `batch_spec` splits it."""
+    sizes = mesh_axes(mesh)
+    at = dict(zip(sizes, mesh.get_coordinate()))
+    rows = len(next(iter(batch.values())))
+    dp, row = 1, 0
+    for a in _names(batch_spec(mesh, batch_size=rows)[0]):
+        dp, row = dp * sizes[a], row * sizes[a] + at[a]
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v)
+        n = v.shape[0] // dp
+        out[k] = v[row * n:(row + 1) * n].clone()
+    return out
+
+
+def global_norm(tree, mesh) -> torch.Tensor:
+    """sqrt of the sum of squares of a tree of placed grads, in float32:
+    each leaf's local sum all-reduced over the axes it is split on, so a
+    replicated leaf counts once."""
+    sizes = mesh_axes(mesh)
+    by_axes: dict = {}
+    for _, x in leaves(tree):
+        key = tuple(a for a in split_axes(spec_of(x) or ()) if sizes[a] > 1)
+        by_axes.setdefault(key, []).append(x.to(_F32).square().sum())
+    total = None
+    for axes, parts in by_axes.items():
+        s = torch.stack(parts).sum()
+        for a in axes:
+            s = _collective("all-reduce", s, mesh.get_group(a))
+        total = s if total is None else total + s
+    return torch.sqrt(total)

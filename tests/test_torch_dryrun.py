@@ -19,10 +19,15 @@ held to the reference's on the CPU.
   the CUDA call's workspace counted in the peak, no value to read.
 - MoE on meta dispatches the balanced load; its ratio to the reference's
   static capacity is stated.
-- On a fake world of 4 ranks (data 2, seq 2) the context-parallel step's
-  collectives are the grads and scalars' all-reduce and one carry
-  exchange of `cp_carry_bytes` per kernel launch.
+- On a fake world of 4 ranks (data 2, seq 2) the placed context-parallel
+  step's collectives: the FSDP gathers and reduce-scatters over "data",
+  the all-reduces over "seq", one carry exchange of `cp_carry_bytes` per
+  kernel launch.
 - The CLI, the gate, one MoE cell and the probe.
+- The placed step's argument bytes equal the planned ones, part by part,
+  in each config's cheapest cell and every shape of qwen3-1.7b and
+  granite-20b, on one pod and two (the SSM layers' decode state held
+  whole over "model", ROADMAP queue 3).
 """
 import functools
 import json
@@ -539,8 +544,16 @@ def fake_world4():
 
 
 def test_cp_step_collectives(fake_world4):
+    """The placed context-parallel step on (data 2, seq 2): the FSDP
+    gathers of each layer's data shards (forward and recompute), of the
+    tied embedding (lookup and logits) and the final norm, and one carry
+    exchange of `cp_carry_bytes` per kernel launch; one reduce-scatter of
+    each gathered grad; all-reduces of every grad over "seq", of the
+    leaves "data" does not split over "data", and of the scalars."""
     from repro_torch.kernels.sharded import cp_carry_bytes
     from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim.grad_utils import leaves
+    from repro_torch.sharding import placed as PL
 
     cfg = get_smoke_config("qwen3-1.7b",
                            attn=AttentionSpec.parse("fastmax2-kernel"))
@@ -551,17 +564,33 @@ def test_cp_step_collectives(fake_world4):
     with OpCount("meta") as count:
         fn(*args)
     res = count.result()
-    # the grads in one flat buffer, then the token count, loss, nll, aux
-    assert res["coll_all-reduce"] == tree_bytes(parts["params"]) + 4 * 4
+    params = parts["params"]
+
+    def nbytes(x):
+        return x.numel() * x.element_size()
+
+    split = {k: nbytes(x) for k, x in leaves(params)
+             if "data" in PL.split_axes(PL.spec_of(x))}
+    blocks = sum(v for k, v in split.items() if k.startswith("blocks_"))
+    embed, final = split["embed"], split["final_norm/scale"]
+    assert sum(split.values()) == blocks + embed + final
     carry = cp_carry_bytes(b=b // 2, hkv=cfg.n_kv_heads, d=cfg.head_dim,
                            dv=cfg.head_dim, p=2)
     launches = count.launches()
     assert launches == {"fastmax_causal": 2 * cfg.n_layers,
                         "fastmax_causal_bwd": cfg.n_layers}
     # one exchange (allgather at this size) before each launch
-    assert res["coll_all-gather"] == carry * sum(launches.values())
+    assert res["coll_all-gather"] == 2 * blocks + 2 * embed + final \
+        + carry * sum(launches.values())
+    # a reduce-scatter sends the gathered grad: twice the local shard
+    assert res["coll_reduce-scatter"] == 2 * (blocks + 2 * embed + final)
+    whole = tree_bytes(params) - sum(split.values())
+    # the grads over "seq" and the replicated ones over "data"; the token
+    # count, loss, nll and aux over both axes; gnorm's split leaves' sum
+    assert res["coll_all-reduce"] == tree_bytes(params) + whole \
+        + 4 * 2 + 3 * 4 * 2 + 4
     assert res["collective_bytes"] == res["coll_all-reduce"] \
-        + res["coll_all-gather"]
+        + res["coll_all-gather"] + res["coll_reduce-scatter"]
     assert all(ln.startswith("kernel ") and "shard_map[seq]" in ln
                for ln in count.routes())
 
@@ -605,12 +634,15 @@ def test_cli_kernel_route_gate(tmp_path):
         assert key in res["roofline"]
     assert set(res["planned"]) == {"params", "opt_state", "batch",
                                    "decode_state", "total"}
-    # the port's step holds the whole model and AdamW's state on each rank
-    ex = res["executed"]
-    assert ex["params"] == res["param_bytes_global"]
-    assert ex["argument_bytes"] == ex["params"] + ex["opt_state"] \
-        + ex["batch"]
-    assert res["fits"]["planned"] and not res["fits"]["executed"]
+    # the placed step holds rank 0's shards: the planned bytes, part by
+    # part, and one layer's gathered weights at a time fit the card
+    ex, pl = res["executed"], res["planned"]
+    for part in ("params", "opt_state", "batch"):
+        assert ex[part] == pl[part], part
+    assert ex["argument_bytes"] == pl["total"]
+    # 8 kv heads stay whole on "model" = 16: more than a 256th
+    assert ex["params"] < res["param_bytes_global"] / 100
+    assert res["fits"]["planned"] and res["fits"]["executed"]
 
 
 def test_gate_refuses_the_plain_path(tmp_path):
@@ -636,12 +668,13 @@ def test_moe_cell_sizes_per_device():
     # MLA's 128 kv heads split over "model" = 16: heads mode
     assert all("shard_map[heads]" in ln for ln in res["attn_routing"])
     ex, pl = res["executed"], res["planned"]
-    # the whole model on each rank, against its 1/256th planned
-    assert ex["params"] == res["param_bytes_global"]
-    assert pl["params"] < res["param_bytes_global"] / 200
+    # rank 0's shard of the model, its 1/256th, as planned
+    assert ex["params"] == pl["params"] < res["param_bytes_global"] / 200
     # the decode state: 128 sequences over data = 16, heads over 16
     assert ex["decode_state"] == pl["decode_state"]
-    assert not res["fits"]["executed"] and res["fits"]["planned"]
+    assert ex["argument_bytes"] == pl["total"]
+    # its 73.4 GB decode state and the gathered layers pass the card
+    assert res["fits"]["planned"] and not res["fits"]["executed"]
     assert res["n_params"] > 2.3e11
 
 
@@ -656,3 +689,58 @@ def test_perfprobe(tmp_path, capsys):
     table = json.loads(dump.read_text())
     assert any(k.startswith("aten.mm") for k in table)
     assert math.isfinite(sum(r["flops"] for r in table.values()))
+
+
+# ---------------------------------------------------------------------------
+# the placed step's arguments: rank 0's shards, as planned
+# ---------------------------------------------------------------------------
+
+# each config's cheapest cell, and every shape of two dense configs
+_PLACED_CELLS = ([(arch, "decode_32k") for arch in ARCHS]
+                 + [(arch, shape) for arch in ("qwen3-1.7b", "granite-20b")
+                    for shape in SHAPES if shape != "decode_32k"])
+
+
+def _ssm_state_bytes(arch, shape, mesh) -> tuple:
+    """(planned, held) bytes of the SSM layers' decode state on rank 0:
+    the reference's `decode_state_shardings` takes the stacked group dim
+    for a batch dim and splits their features over ("model", "data")
+    with every sequence on each device; the placed step holds its rows'
+    states whole (ROADMAP queue 3)."""
+    from repro_torch.models import decode_state_specs
+    from repro_torch.models.transformer import _SSM, _block_keys
+
+    cfg = get_config(arch)
+    b, n = SHAPES[shape].global_batch, SHAPES[shape].seq_len
+    state = decode_state_specs(cfg, b, n)
+    specs = R.decode_state_shardings(state, mesh, batch=b)
+    rows = b // D._dp_size(mesh, b)
+    planned = held = 0
+    for key, kind, _ in _block_keys(cfg):
+        if kind.split(":")[0] not in _SSM:
+            continue
+        for path, x, spec in D._pairs(state[key], specs[key]):
+            planned += D._local_numel(tuple(x.shape), spec, mesh, path) \
+                * x.element_size()
+            held += x.numel() // b * rows * x.element_size()
+    return planned, held
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["one-pod", "two-pod"])
+@pytest.mark.parametrize("arch, shape", _PLACED_CELLS)
+def test_placed_arguments_are_the_planned_bytes(arch, shape, multi):
+    """The placed step's argument bytes on rank 0 equal the planned ones,
+    part by part: parameters, optimizer state, batch and decode state
+    (the SSM layers' decode state held as `_ssm_state_bytes` says)."""
+    res = D.run_cell(arch, shape, multi_pod=multi, attn="fastmax2-kernel")
+    ex, pl = res["executed"], res["planned"]
+    for part in ("params", "opt_state", "batch"):
+        assert ex.get(part, 0) == pl[part], part
+    names, sizes = MESHES["multi" if multi else "single"]
+    planned_ssm, held_ssm = _ssm_state_bytes(arch, shape,
+                                             dict(zip(names, sizes)))
+    assert ex.get("decode_state", 0) == pl["decode_state"] - planned_ssm \
+        + held_ssm
+    assert (planned_ssm > 0) == (arch in ("jamba-v0.1-52b", "xlstm-1.3b"))
+    if not planned_ssm:
+        assert ex["argument_bytes"] == pl["total"]

@@ -215,22 +215,28 @@ def cp_train(rank, world, argv_runs, grad_args):
 
 
 def cp_grads(grad_args):
-    """(loss, {path: grad}) of the smoke model's CP grad fn."""
+    """(loss, {path: grad}) of the smoke model's CP grad fn: the placed
+    step on a (data, seq) mesh, its grads gathered whole."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.steps import make_grad_fn
     from repro_torch.models import init_model
     from repro_torch.optim.grad_utils import leaves
+    from repro_torch.sharding import placed
 
     cfg = dataclasses.replace(get_smoke_config(grad_args["arch"]),
                               attn=A.AttentionSpec.parse(grad_args["attn"]))
     mesh = None
+    params = init_model(cfg, seed=0, device="cpu")
+    batch = grad_args["batch"]
     if grad_args["cp"] > 1:
         world = torch.distributed.get_world_size()
         mesh = make_test_mesh((world // grad_args["cp"], grad_args["cp"]),
                               ("data", "seq"))
-    params = init_model(cfg, seed=0, device="cpu")
-    loss, metrics, grads = make_grad_fn(cfg, mesh=mesh)(
-        params, grad_args["batch"])
+        params = placed.Placement(cfg, mesh).place(params)
+        batch = placed.shard_batch(batch, mesh)
+    loss, metrics, grads = make_grad_fn(cfg, mesh=mesh)(params, batch)
+    if mesh is not None:
+        grads = placed.full(grads, mesh)
     return float(loss), {n: g.numpy() for n, g in leaves(grads)}
