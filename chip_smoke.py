@@ -2846,6 +2846,29 @@ PLACED_MESHES = ((2, 1), (1, 2))
 PLACED_PROMPT, PLACED_GEN = 1024, 17      # a prefill and 16 decode tokens
 
 
+def record_first_grads(first: dict, take=None) -> None:
+    """Make `launch.steps.make_train_step` record its grad fn's first
+    call's loss and grads in `first` (until it is cleared); `take(grads)`,
+    if given, is recorded in place of the grads (so that the step's grads
+    are not held past the clip)."""
+    from repro_torch.launch import steps as ST
+
+    make_grad_fn = ST.make_grad_fn
+
+    def recording(*a, **kw):
+        fn = make_grad_fn(*a, **kw)
+
+        def grad_fn(params, b):
+            loss, metrics, grads = fn(params, b)
+            if not first:
+                first.update(loss=loss.item(),
+                             grads=grads if take is None else take(grads))
+            return loss, metrics, grads
+        return grad_fn
+
+    ST.make_grad_fn = recording
+
+
 def placed_cfg():
     from repro_torch.attention import AttentionSpec
     from repro_torch.configs import get_config
@@ -2905,19 +2928,7 @@ def placed_train_rank(rank, world, n_steps):
              for k in ("tokens", "targets")}
     # the train step's grad fn, recording its first call's loss and grads
     first = {}
-    make_grad_fn = ST.make_grad_fn
-
-    def recording(*a, **kw):
-        fn = make_grad_fn(*a, **kw)
-
-        def grad_fn(params, b):
-            loss, metrics, grads = fn(params, b)
-            if not first:
-                first.update(loss=loss.item(), grads=grads)
-            return loss, metrics, grads
-        return grad_fn
-
-    ST.make_grad_fn = recording
+    record_first_grads(first)
 
     def run(shape, ref=None):
         mesh = None if shape is None else make_test_mesh(
@@ -3224,6 +3235,370 @@ def placed_meta_counts() -> dict:
                 "launches": c.launches(), "kernel_work": c.kernel_work(),
                 "matmul_flops": c.result()["matmul_flops"],
                 "argument_bytes": tree_bytes(args)}
+    return out
+
+
+# placed MoE phases: full-width deepseek-v2-236b cut to PMOE_LAYERS layers
+# (its first_k_dense layer and one MoE layer of 160 experts, top-6, 2
+# shared: 5.519 B params) on two gloo ranks of the card. (data 2, model 1)
+# splits the batch: each rank routes its row with the capacity, positions
+# and aux of the whole batch. (data 1, model 2) splits the experts (80 a
+# rank), the FFNs and the vocab over "model"; MLA is gathered whole. bf16
+# with Lion (the full config's optimizer: >= 100 B params), remat none. One
+# step a mesh: FSDP's gloo collectives stage ≈ 20 GB a step through host
+# memory. Each rank holds the one-process step's slices of its shards on
+# the host (bf16, as the leaves are), taken in turn for each mesh
+PMOE_LAYERS, PMOE_B, PMOE_N, PMOE_STEPS = 2, 2, 1024, 1
+PMOE_MESHES = ((2, 1), (1, 2))
+PMOE_PROMPT, PMOE_GEN = 1024, 17          # a prefill and 16 decode tokens
+
+
+def _moe_rank_setup():
+    """`_rank_setup` with the caching allocator's expandable segments (set
+    before the rank's first CUDA call): the one-process step peaks at
+    ≈ 63 GB of the card's 80 beside the other rank and the parent, and a
+    fragmented cache of blocks would not leave room."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    return _rank_setup()
+
+
+def _free_parent() -> None:
+    """Drop the parent's unreachable tensors and cached blocks before the
+    ranks take the card, and say what it still holds."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  card memory the parent holds: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+
+
+def placed_moe_cfg(dtype: str):
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_config
+
+    return get_config(MOE_ARCH, n_layers=PMOE_LAYERS, remat="none",
+                      param_dtype=dtype, activ_dtype=dtype,
+                      attn=AttentionSpec.parse("fastmax2-kernel"))
+
+
+def shard_sums(local, ref: dict, sizes: dict) -> dict:
+    """{leaf: (|local - ref|², |ref|², split)} of a tree of placed shards
+    against the same shards of the one-process run (`ref`, host tensors),
+    `split` whether a mesh axis of `sizes` > 1 cuts the leaf."""
+    from repro_torch.optim.grad_utils import leaves
+    from repro_torch.sharding import placed as P
+
+    out = {}
+    for name, x in leaves(local):
+        want = ref[name].to(x.device).float()
+        got = x.detach().float()
+        out[name] = (float((got - want).square().sum()),
+                     float(want.square().sum()),
+                     any(sizes[a] > 1 for a in P.split_axes(P.spec_of(x))))
+    return out
+
+
+def placed_moe_train_rank(rank, world):
+    """A [placed moe train] rank: for each mesh of PMOE_MESHES, each rank in
+    turn takes one process's step alone and keeps its shards' slices of the
+    grads and updated parameters on the host; then both take the placed
+    step, held to those slices."""
+    dev = _moe_rank_setup()
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import init_model
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.param import count_params
+    from repro_torch.optim.grad_utils import leaves
+    from repro_torch.sharding import placed as P
+
+    del world
+    cfg = placed_moe_cfg("bfloat16")
+    n_full = count_params(init_model(get_config(MOE_ARCH), device="meta"))
+    raw = SyntheticLM(cfg.vocab_size, PMOE_N, seed=0).batch(0, PMOE_B)
+    batch = {k: torch.as_tensor(raw[k], dtype=torch.int32, device=dev)
+             for k in ("tokens", "targets")}
+    first: dict = {}
+    take = [None]       # what the first step's grads are recorded as
+    record_first_grads(first, lambda g: take[0](g))
+
+    def run(mesh):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        first.clear()
+        MOE.stats.clear()
+        params = init_model(cfg, seed=0, device=dev)
+        n_params = count_params(params)
+        _, opt = ST.pick_optimizer(cfg, n_full, lr=3e-4,
+                                   total_steps=PMOE_STEPS)
+        b = batch
+        if mesh is None:
+            state = opt[0](params)
+        else:
+            placement = P.Placement(cfg, mesh)
+            params = placement.place(params)
+            state = placement.init_opt_state(opt[0], params)
+            b = P.shard_batch(batch, mesh)
+        step = ST.make_train_step(cfg, opt, mesh=mesh)
+        P.reset_asked()
+        losses, ms, launches = [], [], []
+        for _ in range(PMOE_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            ops.reset_launch_counts()
+            e0.record()
+            params, state, m = step(params, state, b)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            launches.append({k: v for k, v in ops.launch_counts().items()
+                             if v})
+            losses.append(m["loss"].item())
+        out = dict(loss=first["loss"], losses=losses, ms=ms,
+                   launches=launches, n_params=n_params,
+                   optimizer="lion" if state.v is None else "adamw",
+                   peak=torch.cuda.max_memory_allocated() / 1e9,
+                   stats=dict(MOE.stats),
+                   coll={k: (P.asked[k], P.asked_ms[k]) for k in P.asked})
+        return out, first.pop("grads"), params
+
+    out = {"rank": rank, "meshes": {}}
+    for shape in PMOE_MESHES:
+        key = "x".join(map(str, shape))
+        mesh = make_test_mesh(shape, ("data", "model"))
+        placement = P.Placement(cfg, mesh)
+        ref = None
+
+        def slices(tree):
+            """The rank's shards of a whole tree, on the host."""
+            return {n: x.cpu() for n, x in leaves(placement.place(tree))}
+
+        for r in range(2):      # one process at a time holds the card
+            if rank == r:
+                t0 = time.monotonic()
+                take[0] = slices
+                one, grads, params = run(None)
+                ref = {"grads": grads, "final": slices(params)}
+                del grads, params
+                torch.cuda.empty_cache()
+                out["one"] = {k: one[k] for k in (
+                    "loss", "losses", "ms", "launches", "n_params",
+                    "optimizer", "peak")}
+                out["one"]["seconds"] = time.monotonic() - t0
+            dist.barrier()
+        t0 = time.monotonic()
+        take[0] = lambda g: shard_sums(g, ref["grads"], placement.sizes)
+        got, grad_sums, params = run(mesh)
+        got["seconds"] = time.monotonic() - t0
+        got.update(grad_sums=grad_sums,
+                   param_sums=shard_sums(params, ref["final"],
+                                         placement.sizes))
+        del params, ref
+        torch.cuda.empty_cache()
+        out["meshes"][key] = got
+        dist.barrier()
+    return out
+
+
+def placed_moe_train_phase() -> dict:
+    """[placed moe train]: deepseek-v2's placed step on two ranks of the
+    card, the batch split and then the experts split, against one
+    process's step."""
+    from repro_torch.launch.ranks import run_ranks
+
+    _free_parent()
+    t0 = time.monotonic()
+    ranks = run_ranks(placed_moe_train_rank, 2,
+                      workdir=RANKS_DIR / "placed_moe_train", timeout=900,
+                      threads=0)
+    secs = time.monotonic() - t0
+    r0 = ranks[0]
+    one = r0["one"]
+    want = {"fastmax_causal": PMOE_LAYERS, "fastmax_causal_bwd": PMOE_LAYERS}
+    ok = one["launches"][-1] == want and one["optimizer"] == "lion"
+    out = {"arch": MOE_ARCH, "n_layers": PMOE_LAYERS, "batch": PMOE_B,
+           "seq": PMOE_N, "steps": PMOE_STEPS, "dtype": "bfloat16",
+           "optimizer": one["optimizer"], "params": one["n_params"],
+           "step_ms_one": one["ms"], "peak_gb_one": one["peak"],
+           "launches_one": one["launches"][-1], "seconds": secs,
+           "seconds_one": one["seconds"], "meshes": {}}
+    for key in r0["meshes"]:
+        m0 = r0["meshes"][key]
+        rows = [r["meshes"][key] for r in ranks]
+        gleaf, gerr = worst_sums(rows, "grad_sums")
+        pleaf, perr = worst_sums(rows, "param_sums")
+        diffs = [abs(m0["loss"] - one["loss"])] + [
+            abs(a - b) for a, b in zip(m0["losses"], one["losses"])]
+        dropped = sum(r["stats"].get("dropped", 0) for r in rows)
+        differ = sum(r["stats"].get("differ", 0) for r in rows)
+        pairs = sum(r["stats"].get("pairs", 0) for r in rows)
+        good = (max(diffs) <= TRAIN_LOSS_TOL and gerr <= TRAIN_GRAD_TOL
+                and perr <= TRAIN_GRAD_TOL
+                and all(r["launches"][-1] == want for r in rows)
+                and all(math.isfinite(x) for x in m0["losses"]))
+        ok = ok and good
+        out["meshes"][key] = {
+            "loss_diffs": diffs, "losses": m0["losses"],
+            "losses_one": one["losses"], "worst_grad_leaf": gleaf,
+            "worst_grad_err": gerr, "worst_param_leaf": pleaf,
+            "worst_param_err": perr, "pairs": pairs, "dropped": dropped,
+            "differ_per_rank_capacity": differ,
+            "step_ms_ranks": [r["ms"] for r in rows],
+            "seconds_ranks": [r["seconds"] for r in rows],
+            "peak_gb_ranks": [r["peak"] for r in rows],
+            "collectives_ranks": [r["coll"] for r in rows],
+            "launches_ranks": [r["launches"][-1] for r in rows]}
+        coll = ", ".join(f"{k} {b / 1e9:.3f} GB {t / 1e3:.1f} s"
+                         for k, (b, t) in sorted(rows[0]["coll"].items()))
+        phase("placed moe train", f"{MOE_ARCH} cut to {PMOE_LAYERS} layers "
+              f"({one['n_params'] / 1e9:.3f} B params), bf16, "
+              f"{one['optimizer']}, B={PMOE_B} N={PMOE_N}, mesh (data, "
+              f"model) = ({key.replace('x', ', ')}) on 2 ranks of the card "
+              f"against one process: loss |diff| "
+              f"{', '.join(f'{d:.3e}' for d in diffs)} (tol "
+              f"{TRAIN_LOSS_TOL}); worst grad {gleaf} {gerr:.3e}, worst "
+              f"updated parameter {pleaf} {perr:.3e} (tol {TRAIN_GRAD_TOL});"
+              f" (token, slot) pairs {pairs} (summed over the ranks), "
+              f"dropped past the global capacity {dropped}, kept or dropped "
+              f"the other way by a per-rank capacity {differ}; peak GB per "
+              f"rank {[round(r['peak'], 3) for r in rows]} (one process "
+              f"{one['peak']:.3f}); step ms per rank "
+              f"{[r['ms'] for r in rows]} (one process {one['ms']}); rank "
+              f"0's collectives a step: {coll}; launches per rank per step "
+              f"{[r['launches'][-1] for r in rows]}")
+    if not ok:
+        fail(f"placed moe train: the placed step disagrees with one "
+             f"process, or its launches are not one prefill and one "
+             f"backward per layer: {out}")
+    return out
+
+
+def placed_moe_serve_rank(rank, world):
+    """A [placed moe serve] rank: rank 0 first takes one process's
+    generate() alone, then each rank in turn draws the weights and keeps
+    its shards, and both prefill and decode on (data 1, model 2)."""
+    dev = _moe_rank_setup()
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import init_decode_state, init_model
+    from repro_torch.models import moe as MOE
+    from repro_torch.sharding import placed as P
+    from repro_torch.sharding.rules import use_mesh
+
+    del world
+    cfg = placed_moe_cfg("float32")
+    gen = torch.Generator().manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (PMOE_B, PMOE_PROMPT),
+                            generator=gen).to(dev)
+    ref = launches_one = None
+    t0 = time.monotonic()
+    if rank == 0:
+        params = init_model(cfg, seed=0, device=dev)
+        ops.reset_launch_counts()
+        ref = generate(params, cfg, prompts, PMOE_GEN).cpu()
+        launches_one = {k: v for k, v in ops.launch_counts().items() if v}
+        del params
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_test_mesh((1, 2), ("data", "model"))
+    placement = P.Placement(cfg, mesh)
+    placed = None
+    for r in range(2):          # one whole copy of the weights at a time
+        if rank == r:
+            placed = placement.place(init_model(cfg, seed=0, device=dev))
+            torch.cuda.empty_cache()
+        dist.barrier()
+    setup_s = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats()
+    with use_mesh(mesh):
+        state = init_decode_state(cfg, PMOE_B, PMOE_PROMPT + PMOE_GEN,
+                                  device=dev)
+    prefill = make_prefill_step(cfg, mesh=mesh)
+    step = make_serve_step(cfg, mesh=mesh)
+    positions = PMOE_PROMPT + torch.arange(PMOE_GEN - 1, device=dev)
+    ops.reset_launch_counts()
+    P.reset_asked()
+    MOE.stats.clear()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    tok, state = prefill(placed, state, prompts)
+    ev[1].record()
+    toks = [tok]
+    for i in range(PMOE_GEN - 1):
+        tok, state = step(placed, state, tok, positions[i])
+        toks.append(tok)
+    ev[2].record()
+    ev[2].synchronize()
+    out = torch.stack(toks, 1).cpu()
+    return {"rank": rank, "launches": {k: v for k, v in
+                                       ops.launch_counts().items() if v},
+            "launches_one": launches_one,
+            "equal": None if ref is None else bool(torch.equal(out, ref)),
+            "tokens": out.tolist(), "stats": dict(MOE.stats),
+            "setup_s": setup_s,
+            "prefill_ms": ev[0].elapsed_time(ev[1]),
+            "decode_ms_per_token": ev[1].elapsed_time(ev[2])
+            / (PMOE_GEN - 1),
+            "collectives": {k: (P.asked[k], P.asked_ms[k])
+                            for k in P.asked},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def placed_moe_serve_phase() -> dict:
+    """[placed moe serve]: float32 deepseek-v2 prefill and decode on (data
+    1, model 2), 80 experts a rank, against one process's generate()."""
+    from repro_torch.launch.ranks import run_ranks
+
+    _free_parent()
+    t0 = time.monotonic()
+    r0, r1 = run_ranks(placed_moe_serve_rank, 2, workdir=RANKS_DIR /
+                       "placed_moe_serve", timeout=600, threads=0)
+    want = {"fastmax_causal": PMOE_LAYERS,
+            "fastmax_decode": (PMOE_GEN - 1) * PMOE_LAYERS}
+    dropped = r0["stats"].get("dropped", 0) + r1["stats"].get("dropped", 0)
+    ok = (r0["equal"] and r1["tokens"] == r0["tokens"]
+          and r0["launches"] == r1["launches"] == want
+          and r0["launches_one"] == want and dropped == 0)
+    coll = r0["collectives"]
+    out = {"arch": MOE_ARCH, "n_layers": PMOE_LAYERS, "batch": PMOE_B,
+           "prompt": PMOE_PROMPT, "gen": PMOE_GEN, "dtype": "float32",
+           "tokens_equal": r0["equal"], "dropped": dropped,
+           "launches_ranks": [r0["launches"], r1["launches"]],
+           "launches_one": r0["launches_one"],
+           "prefill_ms_ranks": [r0["prefill_ms"], r1["prefill_ms"]],
+           "decode_ms_per_token_ranks": [r0["decode_ms_per_token"],
+                                         r1["decode_ms_per_token"]],
+           "collectives_ranks": [r0["collectives"], r1["collectives"]],
+           "peak_gb_ranks": [r0["peak_gb"], r1["peak_gb"]],
+           "setup_s_ranks": [r0["setup_s"], r1["setup_s"]],
+           "seconds": time.monotonic() - t0}
+    phase("placed moe serve", f"{MOE_ARCH} cut to {PMOE_LAYERS} layers, "
+          f"float32, (data 1, model 2) on 2 ranks of the card, 80 of 160 "
+          f"experts a rank: B={PMOE_B} prompt {PMOE_PROMPT}, a prefill and "
+          f"{PMOE_GEN - 1} decode tokens; greedy tokens equal one "
+          f"process's generate(): {r0['equal']}; pairs dropped {dropped}; "
+          f"launches per rank {r0['launches']} (one process "
+          f"{r0['launches_one']}); prefill ms {out['prefill_ms_ranks']}, "
+          f"decode ms/token {out['decode_ms_per_token_ranks']}; peak GB "
+          f"{out['peak_gb_ranks']}; rank 0's collectives GB "
+          f"{ {k: round(v[0] / 1e9, 3) for k, v in coll.items()} } in s "
+          f"{ {k: round(v[1] / 1e3, 1) for k, v in coll.items()} }")
+    if not ok:
+        fail(f"placed moe serve: tokens differ from generate(), a pair was "
+             f"dropped, or the launches per rank are not one prefill per "
+             f"layer and one decode per layer and token: {out}")
     return out
 
 
@@ -4600,6 +4975,11 @@ def main() -> None:
     placed_train = placed_train_phase()
     placed_serve = placed_serve_phase()
 
+    # ---- expert parallelism: full-width deepseek-v2, two ranks ----
+    torch.cuda.empty_cache()
+    placed_moe_train = placed_moe_train_phase()
+    placed_moe_serve = placed_moe_serve_phase()
+
     # ---- the dry run against the real step ----
     torch.cuda.empty_cache()
     dryrun = dryrun_phase(dev, placed_train)
@@ -4714,6 +5094,8 @@ def main() -> None:
     print(json.dumps({"cp_train": cp_train}))
     print(json.dumps({"placed_train": placed_train}))
     print(json.dumps({"placed_serve": placed_serve}))
+    print(json.dumps({"placed_moe_train": placed_moe_train}))
+    print(json.dumps({"placed_moe_serve": placed_moe_serve}))
     print(json.dumps({"dryrun": dryrun}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

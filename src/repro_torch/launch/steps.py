@@ -19,12 +19,12 @@ and "data"); under "seq" each rank keeps its token shard of them, builds
 its targets and loss mask on the whole rows first, and its embeddings
 and RoPE start at the shard's offset (the attention's seq plan,
 `kernels.sharded`). The loss is the global token mean: each rank's sum
-of nll·mask over the count all-reduced over the batch axes. Refused with
-the reason: MoE layers on real values with the batch split over more
-than one rank (their router's load-balance statistics and capacity are
-functions of the whole batch in the reference), AdamW's int8 m, a mesh
-axis the rules do not know, and under "seq" the mixers whose plan cannot
-take a token shard (`check_cp`).
+of nll·mask over the count all-reduced over the batch axes; an MoE
+layer's router statistics and capacity are the whole batch's
+(`models.moe`), its aux the rank's share, summed with the loss. Refused
+with the reason: AdamW's int8 m, a mesh axis the rules do not know, and
+under "seq" the mixers whose plan cannot take a token shard
+(`check_cp`).
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ from repro_torch.optim.grad_utils import leaves, tree_map
 _F32 = torch.float32   # the metrics' dtype
 
 __all__ = ["make_train_step", "make_grad_fn", "make_serve_step",
-           "make_prefill_step", "pick_optimizer", "check_cp", "check_moe"]
+           "make_prefill_step", "pick_optimizer", "check_cp"]
 
 
 def pick_optimizer(cfg: ModelConfig, n_params: int, *, lr=3e-4,
@@ -77,26 +77,6 @@ def check_cp(cfg: ModelConfig) -> None:
             f"--cp: the {backend} attention backend needs the whole "
             f"sequence on one rank; use --attn fastmax2-kernel (or "
             f"fastmax2-chunked), or {remedy}")
-
-
-def _has_moe(cfg: ModelConfig) -> bool:
-    return any(k.split(":")[1] == "moe" for k in cfg.pattern) \
-        and cfg.n_layers_scanned > 0
-
-
-def check_moe(cfg: ModelConfig, placement, device) -> None:
-    """Raise if a placed train step of an MoE config would split its
-    batch over more than one rank on real values (on `meta` the dry run
-    counts MoE with its balanced load)."""
-    if (_has_moe(cfg) and placement.dp_ranks() > 1
-            and torch.device(device).type != "meta"):
-        raise ValueError(
-            f"placed step: {cfg.name}'s MoE layers take their router's "
-            f"load-balance statistics and capacity over the whole batch, "
-            f"and the batch is split over {placement.dp_ranks()} ranks "
-            f"{placement.batch_axes}; expert parallelism with global "
-            f"router statistics is the next slice (ROADMAP); train it "
-            f"with the batch on one rank (data = 1)")
 
 
 def _local_rows(batch: dict, placement, dev):
@@ -151,7 +131,6 @@ def make_grad_fn(cfg: ModelConfig, *, mesh=None, global_batch=None):
     placement = P.Placement(cfg, mesh, global_batch=global_batch)
 
     def local_loss(params, batch, dev):
-        check_moe(cfg, placement, dev)
         tokens, targets, mask, extra, off = _local_rows(batch, placement,
                                                         dev)
         count = placement.sum_over_batch(mask.sum())

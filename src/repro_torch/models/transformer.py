@@ -254,12 +254,7 @@ def _unbind_layers(tree, n: int) -> list:
     if isinstance(tree, dict):
         subs = {k: _unbind_layers(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in subs.items()} for i in range(n)]
-    views = list(tree.unbind(0))
-    spec = P.spec_of(tree)
-    if spec is not None:
-        for v in views:
-            P.tag(v, spec[1:])
-    return views
+    return P.unbind(tree)
 
 
 def _layers(params, cfg: ModelConfig) -> list:
@@ -324,7 +319,8 @@ def init_lm_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _logits(params, x, cfg: ModelConfig):
-    w = P.leaf(params["embed" if cfg.tie_embeddings else "unembed"])
+    w = P.leaf(params["embed" if cfg.tie_embeddings else "unembed"],
+               split=True)
     if P.model_dim(w) is not None:
         # vocab-parallel: the rank's vocab columns of the logits
         x = P.tp_enter(x)
@@ -345,8 +341,14 @@ def _block(params_b, x, cfg: ModelConfig, mixer, enc_out=None, *,
     the MoE's aux or None). A block whose ffn has no router runs the MLP
     (the `dense_i` blocks of an "attn:moe" pattern, as in the reference);
     a block without an ffn ("none") has no second norm. Placed leaves are
-    gathered for their use here."""
-    params_b = P.materialize(params_b)
+    gathered for their use here (an MoE's routed experts one at a time,
+    in `moe.apply_moe`)."""
+    ffn = params_b.get("ffn")
+    params_b = P.materialize({k: v for k, v in params_b.items()
+                              if k != "ffn"})
+    if ffn is not None:
+        params_b["ffn"] = (MOE.materialize(ffn) if "router" in ffn
+                           else P.materialize(ffn, split=True))
     h = L.apply_norm(params_b["norm1"], x, norm_type=cfg.norm_type,
                      eps=cfg.norm_eps)
     x = x + mixer(params_b["mixer"], h)
@@ -423,7 +425,7 @@ def _lookup(params, tokens, cfg: ModelConfig):
     under tensor parallelism)."""
     if P.active() is None:
         return params["embed"][tokens].to(cfg.adtype())
-    return P.embed_lookup(P.leaf(params["embed"]), tokens,
+    return P.embed_lookup(P.leaf(params["embed"], split=True), tokens,
                           cfg.vocab_size).to(cfg.adtype())
 
 

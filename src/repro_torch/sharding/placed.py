@@ -27,6 +27,16 @@ shard first) and again in the layer's recompute under remat:
 A leaf that an axis of the batch does not split stays replicated there:
 `reduce_grads` all-reduces its grad over those axes after the backward.
 
+Expert parallelism over "model" (`Placement.ep`: configs with routed
+experts, `models.moe`) keeps the routed experts' "model" shards (each
+rank runs its experts, one expert's slice gathered over the data axes at
+a time: `weight`, `weight_grad`) and splits the FFNs (the MLP blocks, the
+shared experts), the embedding lookup and the logits by their "model"
+shards as `tp` does (`leaf(t, split=True)`); the mixers (MLA, GQA, Mamba)
+are gathered and computed whole. The router's statistics are the whole
+batch's: each rank's per-expert counts are all-gathered over the batch
+axes in the order of the global rows (`expert_rows`).
+
 Tensor parallelism over "model" (`Placement.tp`: the dense "attn:mlp"
 decoders) keeps the "model" shards that the spec gives and splits the
 compute by them (`models.layers`): column-parallel projections take
@@ -62,8 +72,9 @@ from repro_torch.sharding.rules import (Spec, batch_spec, mesh_axes,
                                         param_shardings)
 
 __all__ = ["Placement", "place", "full", "gather", "spec_of", "tag",
-           "model_dim", "leaf",
-           "active", "materialize", "tensor_parallel", "shard_batch",
+           "model_dim", "leaf", "unbind",
+           "active", "materialize", "tensor_parallel", "expert_parallel",
+           "shard_batch",
            "tp_enter", "tp_exit", "sum_grad", "embed_lookup", "token_nll",
            "gather_vocab", "gather_model", "slice_model", "global_norm",
            "asked", "asked_ms", "reset_asked"]
@@ -120,12 +131,20 @@ def model_dim(t):
 
 def tensor_parallel(cfg) -> bool:
     """Whether the placed step splits `cfg`'s compute over "model": the
-    dense decoders, every block an "attn:mlp" of GQA attention. Every
-    other config gathers its "model" shards and computes whole (MoE,
-    MLA, Mamba, xLSTM and encoder-decoder models; ROADMAP queue 3)."""
+    dense decoders, every block an "attn:mlp" of GQA attention. The MoE
+    configs split their experts, FFNs and vocab (`expert_parallel`) and
+    compute their mixers whole; xLSTM and encoder-decoder models compute
+    whole (ROADMAP queue 3)."""
     return (tuple(cfg.pattern) == ("attn:mlp",) and cfg.first_k_dense == 0
             and not cfg.use_mla and not cfg.encoder_layers
             and not cfg.cross_attention and not cfg.input_embeddings_only)
+
+
+def expert_parallel(cfg) -> bool:
+    """Whether `cfg` has routed experts, which the placed step splits over
+    "model" (`models.moe`)."""
+    return any(k.split(":")[1] == "moe" for k in cfg.pattern) \
+        and cfg.n_layers_scanned > 0
 
 
 # ---------------------------------------------------------------------------
@@ -219,10 +238,21 @@ def _rest(spec, gathered) -> Spec:
     return Spec(*ents)
 
 
+def _gather_grad(g, mesh, order, sum_over):
+    """The grad of a shard from the grad `g` of its gather over `order`:
+    reduce-scattered over the axes in `sum_over`, the rank's slice over
+    the others."""
+    sizes = mesh_axes(mesh)
+    for d, a in reversed(order):
+        if a in sum_over:
+            g = _scatter_dim(g, d, mesh.get_group(a))
+        else:
+            g = _slice_dim(g, d, mesh.get_local_rank(a), sizes[a])
+    return g
+
+
 class _Gather(torch.autograd.Function):
-    """Gather a shard over mesh axes; the backward reduce-scatters the
-    grad over the axes in `sum_over` and keeps the rank's slice over the
-    others."""
+    """Gather a shard over mesh axes; the backward is `_gather_grad`."""
 
     @staticmethod
     def forward(ctx, x, mesh, order, sum_over):
@@ -233,14 +263,7 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        mesh, order, sum_over = ctx.cfg
-        sizes = mesh_axes(mesh)
-        for d, a in reversed(order):
-            if a in sum_over:
-                g = _scatter_dim(g, d, mesh.get_group(a))
-            else:
-                g = _slice_dim(g, d, mesh.get_local_rank(a), sizes[a])
-        return g, None, None, None
+        return _gather_grad(g, *ctx.cfg), None, None, None
 
 
 def gather(leaf: torch.Tensor, over, mesh, *, sum_over=()):
@@ -357,6 +380,7 @@ class Placement:
         shapes, self.axes = init_model(cfg, device="meta", with_axes=True)
         self.specs = param_shardings(self.axes, shapes, mesh, rules)
         self.tp = tensor_parallel(cfg) and sizes.get("model", 1) > 1
+        self.ep = expert_parallel(cfg) and sizes.get("model", 1) > 1
         dp = DATA_AXES
         if global_batch is not None:
             dp = _names(batch_spec(mesh, batch_size=global_batch)[0])
@@ -398,21 +422,57 @@ class Placement:
 
     # -- around a layer ----------------------------------------------------
 
-    def leaf(self, t):
+    def _over(self, spec, keep=None) -> list:
+        return [a for a in split_axes(spec)
+                if a != keep and self.sizes[a] > 1]
+
+    def leaf(self, t, split: bool = False):
         """A placed leaf gathered for its use (see the module docstring);
         anything else as it is. The result's spec keeps only a "model"
-        split that the tensor-parallel compute uses."""
+        split that the tensor-parallel compute uses: every leaf's under
+        `tp`, under `ep` those of a consumer that splits its compute by
+        it (`split`: the FFNs, the embedding and the logits)."""
         spec = spec_of(t)
         if spec is None:
             return t
-        keep = "model" if self.tp else None
-        over = [a for a in split_axes(spec)
-                if a != keep and self.sizes[a] > 1]
+        keep = "model" if self.tp or (split and self.ep) else None
+        over = self._over(spec, keep)
         out = gather(t, over, self.mesh, sum_over=self.batch_axes)
         if out is t:
             out = t.view_as(t)
         return tag(out, Spec(*(keep if keep in _names(e) else None
                                 for e in spec)))
+
+    def weight(self, t):
+        """A placed slice gathered whole, called where autograd records
+        nothing (an expert's weights inside its own forward and backward,
+        `models.moe`)."""
+        return gather(t, self._over(spec_of(t)), self.mesh)
+
+    def weight_grad(self, g, t):
+        """The grad of the placed slice `t` from the grad `g` of
+        `weight(t)`: the gather's backward, reduce-scattered over the
+        batch axes."""
+        spec = spec_of(t)
+        return _gather_grad(g, self.mesh, _order(spec, self._over(spec)),
+                            self.batch_axes)
+
+    def expert_rows(self, counts):
+        """([R, E] each batch rank's `counts` [E] in the order of its rows
+        of the global batch, this rank's index in it): one all-gather
+        over the batch axes, minor axis first (`shard_batch`'s order). The
+        MoE's tokens are whole sequences ("seq" never splits them:
+        `launch.steps.check_cp`)."""
+        if "seq" in self.batch_axes:
+            raise ValueError("an MoE layer's tokens cannot be split over "
+                             "'seq': its router's positions follow the "
+                             "global token order")
+        x, r = counts[None], 0
+        for a in reversed(self.batch_axes):
+            x = _gather_dim(x, 0, self.mesh.get_group(a))
+        for a in self.batch_axes:
+            r = r * self.sizes[a] + self.mesh.get_local_rank(a)
+        return x, r
 
     def reduce_grads(self, grads) -> None:
         """All-reduce, in place, each leaf's grad over the axes the batch
@@ -505,16 +565,28 @@ def refuse_int8(params, state) -> None:
 # ---------------------------------------------------------------------------
 
 
-def materialize(tree):
+def materialize(tree, split: bool = False):
     """A layer's parameter subtree with every placed leaf gathered for its
     use (`Placement.leaf`); without an active placement, `tree`."""
     pl = active()
-    return tree if pl is None else tree_map(pl.leaf, tree)
+    return tree if pl is None else tree_map(lambda t: pl.leaf(t, split),
+                                            tree)
 
 
-def leaf(t):
+def leaf(t, split: bool = False):
     pl = active()
-    return t if pl is None else pl.leaf(t)
+    return t if pl is None else pl.leaf(t, split)
+
+
+def unbind(t) -> list:
+    """Views of `t` along dim 0; a placed leaf's views carry its spec
+    without that dim."""
+    views = list(t.unbind(0))
+    spec = spec_of(t)
+    if spec is not None:
+        for v in views:
+            tag(v, spec[1:])
+    return views
 
 
 def tp_enter(x):

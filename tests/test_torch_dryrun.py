@@ -18,7 +18,8 @@ held to the reference's on the CPU.
   dtypes, no plain version and no launch, the launch's work recorded,
   the CUDA call's workspace counted in the peak, no value to read.
 - MoE on meta dispatches the balanced load; its ratio to the reference's
-  static capacity is stated.
+  static capacity is stated. On a fake world of (data 4, model 2) the
+  rank's routed experts take half the flops of one device on its rows.
 - On a fake world of 4 ranks (data 2, seq 2) the placed context-parallel
   step's collectives: the FSDP gathers and reduce-scatters over "data",
   the all-reduces over "seq", one carry exchange of `cp_carry_bytes` per
@@ -65,6 +66,7 @@ from repro_torch.kernels import hybrid_causal as HC
 from repro_torch.kernels import ops
 from repro_torch.kernels import work as W
 from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.launch.op_analysis import OpCount, tree_bytes
 from repro_torch.models import init_model
 from repro_torch.models import moe as MOE
@@ -527,6 +529,37 @@ def test_moe_meta_dispatches_the_balanced_load():
         y.tolist()
 
 
+def _routed_flops(cfg, shape, mesh=None) -> dict:
+    """Matmul flops of the routed experts' forward and backward
+    (`moe._Expert`) in one train step on meta, by site."""
+    fn, args, _ = D.cell_step(cfg, shape, device="meta", mesh=mesh)
+    with OpCount("meta") as count:
+        fn(*args)
+    sites = dict(count.flops_breakdown(1000))
+    return {f: sites.get(f"repro_torch/models/moe.py:{f}", 0.0)
+            for f in ("forward", "backward")}
+
+
+def test_placed_moe_splits_the_experts_flops_over_model():
+    """deepseek-v2's smoke train step (remat full) on a fake world of
+    (data 4, model 2), global batch 8 x 64: the rank's 4 of 8 experts
+    take their share of the global balanced load (512 tokens x 2 slots
+    over 8 experts, 32 rows each from the rank's tokens, below C = 160),
+    so its routed-expert matmul flops are half those of one device
+    running the rank's 2 rows alone (C = 40): forward and recompute
+    (3 products each), backward (6)."""
+    cfg = get_smoke_config("deepseek-v2-236b")
+    one = _routed_flops(cfg, ShapeSpec(64, 2, "train"))
+    with D.fake_world(8):
+        mesh = make_test_mesh((4, 2), ("data", "model"))
+        placed = _routed_flops(cfg, ShapeSpec(64, 8, "train"), mesh)
+    rows = sum(MOE.balanced_counts(2 * 64, cfg.moe_top_k, cfg.n_experts))
+    per_pass = rows * 2 * cfg.d_model * cfg.d_ff_expert * 3 \
+        * cfg.n_layers_scanned
+    assert one == {"forward": 2 * per_pass, "backward": 2 * per_pass}
+    assert placed == {k: v / 2 for k, v in one.items()}
+
+
 # ---------------------------------------------------------------------------
 # the context-parallel step's collectives on a fake world of 4 ranks
 # ---------------------------------------------------------------------------
@@ -673,8 +706,10 @@ def test_moe_cell_sizes_per_device():
     # the decode state: 128 sequences over data = 16, heads over 16
     assert ex["decode_state"] == pl["decode_state"]
     assert ex["argument_bytes"] == pl["total"]
-    # its 73.4 GB decode state and the gathered layers pass the card
-    assert res["fits"]["planned"] and not res["fits"]["executed"]
+    # its 73.4 GB decode state and the temporaries of a layer whose 10
+    # experts a rank are gathered one at a time (0.64 GB) fit the card
+    assert ex["temp_peak_bytes"] < 3e9
+    assert res["fits"]["planned"] and res["fits"]["executed"]
     assert res["n_params"] > 2.3e11
 
 

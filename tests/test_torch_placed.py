@@ -25,8 +25,8 @@ mesh) against the reference on the CPU.
   (1, 4) and on one process; the (2, 2) restore continues bit for bit
   with the unbroken run, the others within TOL of it (their sums run in
   other orders).
-- Refusals: an MoE batch split over data ranks (the router's statistics),
-  AdamW's int8 m, a mesh axis no rule names.
+- Refusals: AdamW's int8 m, a mesh axis no rule names (the MoE
+  configs: `tests/test_torch_placed_moe.py`).
 - On a fake world of 8 ranks, (data 4, model 2), the smoke qwen3-1.7b
   softmax train step's per-device matmul flops equal the reference's
   `analyze_hlo` of its 4 x 2 partitioned module, compiled in a
@@ -101,7 +101,7 @@ def _reference_in_float64():
 
     mods = [importlib.import_module(m) for m in (
         "repro.models.layers", "repro.models.transformer",
-        "repro.optim.grad_utils", "repro.optim.optimizers",
+        "repro.models.moe", "repro.models.mamba", "repro.optim.grad_utils", "repro.optim.optimizers",
         "repro.core.softmax", "repro.core.fastmax",
         "repro.attention.state", "repro.launch.steps")]
     saved = [m.jnp for m in mods]
@@ -325,17 +325,6 @@ def _fake_step(arch, shape, opt_name="adamw", attn="fastmax2"):
     opt = make_optimizer(opt_name, constant(LR))
     batch = {"tokens": torch.zeros(4 // shape[0], 16, dtype=torch.int64)}
     return cfg, mesh, placement, params, opt, batch
-
-
-def test_placed_moe_refuses_a_split_batch():
-    with D.fake_world(2):
-        cfg, mesh, placement, params, opt, batch = _fake_step(
-            "deepseek-v2-236b", (2, 1))
-        state = placement.init_opt_state(opt[0], params)
-        step = make_train_step(cfg, opt, mesh=mesh)
-        with pytest.raises(ValueError, match="router's load-balance "
-                           "statistics and capacity over the whole batch"):
-            step(params, state, batch)
 
 
 def test_placed_refuses_int8_m():
