@@ -2839,7 +2839,8 @@ def cp_train_phase() -> dict:
 
 # placed phases: full-width qwen3 cut to PLACED_LAYERS layers, float32,
 # on two gloo ranks of the card: (data 2, model 1) is FSDP, (data 1,
-# model 2) tensor parallelism (8 kv heads over 2: the heads plan)
+# model 2) tensor parallelism (8 kv heads over 2: the heads plan) with the
+# residual split over "model" along the sequence between blocks
 PLACED_ARCH, PLACED_LAYERS, PLACED_B, PLACED_N, PLACED_STEPS = (
     "qwen3-1.7b", 4, 2, 2048, 3)
 PLACED_MESHES = ((2, 1), (1, 2))
@@ -2905,7 +2906,8 @@ def placed_train_rank(rank, world, n_steps):
     placed step
     on each mesh of PLACED_MESHES: the first step's grads and the final
     parameters are held to the reference's slices on each rank (no
-    gather), the last step counted (`OpCount`)."""
+    gather), the last step counted (`OpCount`, and the bytes autograd
+    saves: `SavedBytes`)."""
     dev = _rank_setup()
     import contextlib
 
@@ -2915,7 +2917,8 @@ def placed_train_rank(rank, world, n_steps):
     from repro_torch.kernels import ops
     from repro_torch.launch import steps as ST
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.op_analysis import OpCount, tree_bytes
+    from repro_torch.launch.op_analysis import OpCount, SavedBytes, \
+        tree_bytes
     from repro_torch.models import init_model
     from repro_torch.models.param import count_params
     from repro_torch.optim.grad_utils import leaves
@@ -2951,20 +2954,25 @@ def placed_train_rank(rank, world, n_steps):
         step = ST.make_train_step(cfg, opt, mesh=mesh)
         arg_bytes = tree_bytes((params, state, b))
         P.reset_asked()
-        losses, ms, launches, count = [], [], [], None
+        losses, ms, launches, count, saved = [], [], [], None, None
         for i in range(n_steps):
             # the placed step's last step is counted (`OpCount`, whose
-            # Python mode lengthens it): [dryrun] holds it to meta
-            counted = mesh is not None and i == n_steps - 1
+            # Python mode lengthens it): [dryrun] holds it to meta; every
+            # run's last step counts the bytes autograd saves
+            last = i == n_steps - 1
+            counted = mesh is not None and last
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             ops.reset_launch_counts()
             with OpCount("cuda") if counted else contextlib.nullcontext() \
-                    as c:
+                    as c, SavedBytes() if last \
+                    else contextlib.nullcontext() as sv:
                 e0.record()
                 params, state, m = step(params, state, b)
                 e1.record()
             e1.synchronize()
+            if last:
+                saved = {"total": sv.total, "block_inputs": sv.block_inputs}
             ms.append(e0.elapsed_time(e1))
             launches.append({k: v for k, v in ops.launch_counts().items()
                              if v})
@@ -2973,9 +2981,11 @@ def placed_train_rank(rank, world, n_steps):
                 count = {"launches": c.launches(),
                          "kernel_work": c.kernel_work(),
                          "matmul_flops": c.result()["matmul_flops"],
-                         "argument_bytes": arg_bytes}
+                         "argument_bytes": arg_bytes,
+                         "block_input_bytes": sv.block_inputs}
         out = dict(loss=first["loss"], losses=losses, ms=ms,
                    launches=launches, count=count, arg_bytes=arg_bytes,
+                   saved=saved,
                    peak=torch.cuda.max_memory_allocated() / 1e9,
                    coll={k: (P.asked[k] / n_steps, P.asked_ms[k] / n_steps)
                          for k in P.asked})
@@ -3001,6 +3011,7 @@ def placed_train_rank(rank, world, n_steps):
             "fastmax_causal_bwd": PLACED_LAYERS}
     out = {"rank": rank, "meshes": {}, "step_ms_one": ref["ms"],
            "peak_gb_one": ref["peak"], "argument_bytes_one": ref["arg_bytes"],
+           "saved_one": ref["saved"],
            "launches_one": ref["launches"][-1], "loss_one": ref["loss"],
            "losses_one": ref["losses"]}
     for shape in PLACED_MESHES:
@@ -3008,6 +3019,7 @@ def placed_train_rank(rank, world, n_steps):
         out["meshes"]["x".join(map(str, shape))] = {
             "step_ms": r["ms"], "peak_gb": r["peak"],
             "argument_bytes": r["arg_bytes"], "collectives": r["coll"],
+            "saved": r["saved"],
             "launches": r["launches"][-1],
             "launches_ok": all(c == want for c in r["launches"]),
             "count": r["count"], "loss": r["loss"], "losses": r["losses"],
@@ -3047,7 +3059,11 @@ def placed_train_phase() -> dict:
            "dtype": "float32", "seconds": secs,
            "step_ms_one": r0["step_ms_one"], "peak_gb_one": r0["peak_gb_one"],
            "argument_bytes_one": r0["argument_bytes_one"],
-           "launches_one": r0["launches_one"], "meshes": {}}
+           "launches_one": r0["launches_one"], "saved_one": r0["saved_one"],
+           "meshes": {}}
+    cfg = placed_cfg()
+    # the residual a checkpoint keeps: every layer's input, float32
+    whole = PLACED_LAYERS * PLACED_B * PLACED_N * cfg.d_model * 4
     for key in r0["meshes"]:
         m0 = r0["meshes"][key]
         rows = [r["meshes"][key] for r in ranks]
@@ -3058,10 +3074,16 @@ def placed_train_phase() -> dict:
         m0.update(worst_grad_leaf=gleaf, worst_grad_err=gerr,
                   worst_param_leaf=pleaf, worst_param_err=perr,
                   losses_one=r0["losses_one"])
+        # a rank's rows (1/data of them), its 1/model of the sequence
+        data, model = map(int, key.split("x"))
+        want_res = whole // data // (model if PLACED_N % model == 0 else 1)
         good = (max(diffs) <= TRAIN_LOSS_TOL
                 and gerr <= TRAIN_GRAD_TOL and perr <= TRAIN_GRAD_TOL
                 and len(m0["losses"]) == PLACED_STEPS
                 and all(r["launches_ok"] for r in rows)
+                and all(r["saved"]["block_inputs"] == want_res
+                        for r in rows)
+                and r0["saved_one"]["block_inputs"] == whole
                 and all(math.isfinite(x) for x in m0["losses"]))
         ok = ok and good
         out["meshes"][key] = {
@@ -3074,10 +3096,14 @@ def placed_train_phase() -> dict:
             "argument_bytes_ranks": [r["argument_bytes"] for r in rows],
             "collectives_ranks": [r["collectives"] for r in rows],
             "launches_per_rank_step": [r["launches"] for r in rows],
-            "count_ranks": [r["count"] for r in rows]}
+            "count_ranks": [r["count"] for r in rows],
+            "saved_ranks": [r["saved"] for r in rows],
+            "block_input_bytes_want": want_res}
         coll = ", ".join(f"{k} {b / 1e6:.1f} MB {t:.1f} ms"
                          for k, (b, t) in sorted(rows[0]["collectives"]
                                                   .items()))
+        saved = [(round(r["saved"]["total"] / 1e6, 1),
+                  round(r["saved"]["block_inputs"] / 1e6, 1)) for r in rows]
         phase("placed train", f"{PLACED_ARCH} cut to {PLACED_LAYERS} "
               f"layers, float32, AdamW B={PLACED_B} N={PLACED_N}, mesh "
               f"(data, model) = ({key.replace('x', ', ')}) on 2 ranks of "
@@ -3094,11 +3120,17 @@ def placed_train_phase() -> dict:
               f"under the count) {[r['step_ms'] for r in rows]} (one process "
               f"{r0['step_ms_one']}); rank 0's collectives per step: "
               f"{coll}; launches per rank per step "
-              f"{[r['launches'] for r in rows]}")
+              f"{[r['launches'] for r in rows]}; MB autograd saved in the "
+              f"last step per rank (all, of them the blocks' inputs) "
+              f"{saved} (want {want_res / 1e6:.1f}; one process "
+              f"{r0['saved_one']['total'] / 1e6:.1f}, "
+              f"{r0['saved_one']['block_inputs'] / 1e6:.1f} of "
+              f"{whole / 1e6:.1f})")
     if not ok:
         fail(f"placed train: the placed step disagrees with one process, "
-             f"or its launches per step are not two prefills and one "
-             f"backward per layer: {out}")
+             f"its launches per step are not two prefills and one "
+             f"backward per layer, or a rank's checkpointed residual is "
+             f"not its rows' 1/model of the sequence: {out}")
     return out
 
 
@@ -3215,11 +3247,12 @@ def placed_serve_phase() -> dict:
 def placed_meta_counts() -> dict:
     """The placed train step of [placed train] counted on meta as rank 0
     of a fake two-rank world, per mesh: launches, kernel work, matmul
-    flops, argument bytes."""
+    flops, argument bytes, the checkpointed residual's bytes."""
     from repro_torch.configs import ShapeSpec
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.op_analysis import OpCount, tree_bytes
+    from repro_torch.launch.op_analysis import OpCount, SavedBytes, \
+        tree_bytes
 
     out = {}
     cfg = placed_cfg()
@@ -3229,12 +3262,13 @@ def placed_meta_counts() -> dict:
             fn, args, _ = D.cell_step(cfg, ShapeSpec(PLACED_N, PLACED_B,
                                                      "train"),
                                       device="meta", mesh=mesh)
-            with OpCount("meta") as c:
+            with OpCount("meta") as c, SavedBytes() as sv:
                 fn(*args)
             out["x".join(map(str, shape))] = {
                 "launches": c.launches(), "kernel_work": c.kernel_work(),
                 "matmul_flops": c.result()["matmul_flops"],
-                "argument_bytes": tree_bytes(args)}
+                "argument_bytes": tree_bytes(args),
+                "block_input_bytes": sv.block_inputs}
     return out
 
 
@@ -3313,6 +3347,7 @@ def placed_moe_train_rank(rank, world):
     from repro_torch.kernels import ops
     from repro_torch.launch import steps as ST
     from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.op_analysis import SavedBytes
     from repro_torch.models import init_model
     from repro_torch.models import moe as MOE
     from repro_torch.models.param import count_params
@@ -3354,9 +3389,10 @@ def placed_moe_train_rank(rank, world):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             ops.reset_launch_counts()
-            e0.record()
-            params, state, m = step(params, state, b)
-            e1.record()
+            with SavedBytes() as sv:
+                e0.record()
+                params, state, m = step(params, state, b)
+                e1.record()
             e1.synchronize()
             ms.append(e0.elapsed_time(e1))
             launches.append({k: v for k, v in ops.launch_counts().items()
@@ -3366,6 +3402,8 @@ def placed_moe_train_rank(rank, world):
                    launches=launches, n_params=n_params,
                    optimizer="lion" if state.v is None else "adamw",
                    peak=torch.cuda.max_memory_allocated() / 1e9,
+                   saved={"total": sv.total,
+                          "block_inputs": sv.block_inputs},
                    stats=dict(MOE.stats),
                    coll={k: (P.asked[k], P.asked_ms[k]) for k in P.asked})
         return out, first.pop("grads"), params
@@ -3391,7 +3429,7 @@ def placed_moe_train_rank(rank, world):
                 torch.cuda.empty_cache()
                 out["one"] = {k: one[k] for k in (
                     "loss", "losses", "ms", "launches", "n_params",
-                    "optimizer", "peak")}
+                    "optimizer", "peak", "saved")}
                 out["one"]["seconds"] = time.monotonic() - t0
             dist.barrier()
         t0 = time.monotonic()
@@ -3428,6 +3466,7 @@ def placed_moe_train_phase() -> dict:
            "seq": PMOE_N, "steps": PMOE_STEPS, "dtype": "bfloat16",
            "optimizer": one["optimizer"], "params": one["n_params"],
            "step_ms_one": one["ms"], "peak_gb_one": one["peak"],
+           "saved_one": one["saved"],
            "launches_one": one["launches"][-1], "seconds": secs,
            "seconds_one": one["seconds"], "meshes": {}}
     for key in r0["meshes"]:
@@ -3455,9 +3494,12 @@ def placed_moe_train_phase() -> dict:
             "seconds_ranks": [r["seconds"] for r in rows],
             "peak_gb_ranks": [r["peak"] for r in rows],
             "collectives_ranks": [r["coll"] for r in rows],
+            "saved_ranks": [r["saved"] for r in rows],
             "launches_ranks": [r["launches"][-1] for r in rows]}
         coll = ", ".join(f"{k} {b / 1e9:.3f} GB {t / 1e3:.1f} s"
                          for k, (b, t) in sorted(rows[0]["coll"].items()))
+        saved = [(round(r["saved"]["total"] / 1e9, 3),
+                  round(r["saved"]["block_inputs"] / 1e9, 3)) for r in rows]
         phase("placed moe train", f"{MOE_ARCH} cut to {PMOE_LAYERS} layers "
               f"({one['n_params'] / 1e9:.3f} B params), bf16, "
               f"{one['optimizer']}, B={PMOE_B} N={PMOE_N}, mesh (data, "
@@ -3473,7 +3515,10 @@ def placed_moe_train_phase() -> dict:
               f"{one['peak']:.3f}); step ms per rank "
               f"{[r['ms'] for r in rows]} (one process {one['ms']}); rank "
               f"0's collectives a step: {coll}; launches per rank per step "
-              f"{[r['launches'][-1] for r in rows]}")
+              f"{[r['launches'][-1] for r in rows]}; GB autograd saved a "
+              f"step per rank (all, of them the blocks' inputs) {saved} "
+              f"(one process {one['saved']['total'] / 1e9:.3f}, "
+              f"{one['saved']['block_inputs'] / 1e9:.3f})")
     if not ok:
         fail(f"placed moe train: the placed step disagrees with one "
              f"process, or its launches are not one prefill and one "
@@ -3717,7 +3762,8 @@ def dryrun_phase(dev, placed=None) -> dict:
                   f"meta = each rank's card count: launches "
                   f"{want['launches']}, matmul flops "
                   f"{want['matmul_flops']:.6e}, argument bytes "
-                  f"{want['argument_bytes']}")
+                  f"{want['argument_bytes']}, checkpointed residual bytes "
+                  f"{want['block_input_bytes']}")
     # the reference's dry-run gate cell, on meta in a process of its own
     t0 = time.monotonic()
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent

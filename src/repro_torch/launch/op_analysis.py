@@ -35,6 +35,11 @@ Counted per call (`OpCount.result()`):
   * routes           — the routing lines of the attention and kernel
                        paths the call took (`kernels.ops.note_route`)
 
+`SavedBytes` counts, over the code inside it, the bytes autograd saves
+for the backward (`torch.autograd.graph.saved_tensors_hooks`), and of
+those the residual stream's block inputs of `models.transformer.forward_lm`
+(under remat="full" what each block's checkpoint keeps).
+
 `flops_breakdown(top)` attributes the matmul flops to the innermost
 function of `repro_torch` on the Python stack of the op (`file:function`;
 the port's models are functions on parameter trees, so this stands in
@@ -53,7 +58,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["OpCount", "COLLECTIVES", "tree_bytes"]
+__all__ = ["OpCount", "SavedBytes", "COLLECTIVES", "tree_bytes"]
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -315,3 +320,65 @@ class OpCount(TorchDispatchMode):
     def flops_breakdown(self, top: int = 25) -> list:
         """[(site, matmul flops)] largest first."""
         return self.by_site.most_common(top)
+
+
+class SavedBytes:
+    """The bytes autograd saves for the backward inside the block, each
+    saved tensor once (its own elements, not its storage's): `total`,
+    and of those `block_inputs`, the tensors `models.transformer.
+    forward_lm` hands its blocks (the residual stream between blocks:
+    what a block's checkpoint keeps under remat="full"). A checkpointed
+    region's own saves are the checkpoint's (its hooks take them) and
+    are not counted; the recompute in the backward saves nothing here.
+    Counting makes every save go through Python: time a step without
+    it."""
+
+    def __init__(self):
+        self.total = 0
+        self.block_inputs = 0
+        # id -> weak reference: the tensors saved, the blocks' inputs and
+        # those counted as both
+        self._saved: dict = {}
+        self._inputs: dict = {}
+        self._both: dict = {}
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+
+        self._module, self._block = transformer, transformer._train_block
+
+        def block(params_b, x, *args, **kwargs):
+            # a checkpoint saves its inputs before it calls the block
+            self._inputs[id(x)] = weakref.ref(x)
+            self._count_input(x)
+            return self._block(params_b, x, *args, **kwargs)
+
+        transformer._train_block = block
+        self._hooks = torch.autograd.graph.saved_tensors_hooks(
+            self._pack, lambda t: t)
+        self._hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._hooks.__exit__(*exc)
+        self._module._train_block = self._block
+        for refs in (self._saved, self._inputs, self._both):
+            refs.clear()
+
+    @staticmethod
+    def _has(refs: dict, t) -> bool:
+        ref = refs.get(id(t))
+        return ref is not None and ref() is t
+
+    def _count_input(self, t) -> None:
+        if (self._has(self._saved, t) and self._has(self._inputs, t)
+                and not self._has(self._both, t)):
+            self._both[id(t)] = weakref.ref(t)
+            self.block_inputs += t.numel() * t.element_size()
+
+    def _pack(self, t):
+        if not self._has(self._saved, t):
+            self._saved[id(t)] = weakref.ref(t)
+            self.total += t.numel() * t.element_size()
+            self._count_input(t)
+        return t

@@ -19,7 +19,10 @@ v are computed whole from x on every rank, q is gathered to whole heads,
 the attention runs in the model's layout (the kernels' feature plan, or
 the whole heads) and o is cut back to the rank's heads for wo. Serving on
 a backend with no decode kernel keeps its state whole over "model", so
-its q, k and v are gathered to whole heads there.
+its q, k and v are gathered to whole heads there. Under the training
+forward's sequence split (`placed.sequence_split`) x is the rank's slice
+of the sequence: `tp_enter` gathers it and `tp_exit` reduce-scatters
+back to it, and k and v computed whole take x gathered whole.
 """
 from __future__ import annotations
 
@@ -116,6 +119,13 @@ def init_mlp(b: Builder, name: str, d_model: int, d_ff: int,
     else:
         sub.add("wi", (d_model, d_ff), ("embed", "ff"))
     sub.add("wo", (d_ff, d_model), ("ff", "embed"))
+
+
+def tensor_parallel(params) -> bool:
+    """Whether a layer's gathered leaves split its compute over "model":
+    the column/row-parallel attention and MLP, whose wo keeps its "model"
+    shard (heads or ff) under the placed step's tensor parallelism."""
+    return "wo" in params and P.model_dim(params["wo"]) == 0
 
 
 def apply_mlp(params, x, *, act: str = "swiglu"):
@@ -243,8 +253,15 @@ def _tp_split(params) -> tuple:
 
 def _tp_qkv(params, x, cfg, positions, split_kv: bool):
     """q on the rank's heads; k and v on its kv heads (split_kv) or whole,
-    computed from x itself: their grads are then whole on every rank."""
-    xt = P.tp_enter(x)
+    computed from x itself: their grads are then whole on every rank.
+    Under the sequence split x is the rank's slice: gathered by
+    `tp_enter`, or (k and v whole) once for all three, its grad summed
+    over "model" where q takes it."""
+    if split_kv:
+        xt = P.tp_enter(x)
+    else:
+        x = P.seq_gather(x)
+        xt = P.sum_grad(x)
     if cfg.qk_norm:
         # the scales multiply the rank's heads only: their grads partial
         params = {**params, "q_norm_scale": P.sum_grad(params["q_norm_scale"])}
@@ -273,11 +290,15 @@ def apply_attention(params, x, cfg, *, causal=True, kv_mask=None,
     offset+N-1 (offset None: 0; a context-parallel rank's token shard
     starts past 0); `kv_x` [B, M, d] makes it cross-attention: q from x,
     k/v from kv_x at positions arange(M)."""
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    split_q, split_kv = _tp_split(params)
+    tp = split_q and kv_x is None
+    # a tensor-parallel layer under the sequence split takes the rank's
+    # slice of the sequence; its q, k and v are whole
+    n = P.seq_len(x.shape[1]) if tp else x.shape[1]
+    positions = torch.arange(n, dtype=torch.int32, device=x.device)
     if offset is not None:
         positions = positions + offset
-    split_q, split_kv = _tp_split(params)
-    if split_q and kv_x is None:
+    if tp:
         q, k, v = _tp_qkv(params, x, cfg, positions, split_kv)
         o = _tp_attend(q, k, v, split_kv, lambda a, b, c: A.attention(
             a, b, c, cfg.attn_spec, causal=causal, kv_mask=kv_mask))

@@ -51,7 +51,11 @@ whole routed-expert leaf, nor its "model" shard gathered. The router is
 gathered whole; the shared experts keep their ff shards over "model"
 (column/row parallel, their partial output summed with the routed one).
 On meta the rank's pairs are its share of the whole batch's balanced
-load.
+load. Under the training forward's sequence split
+(`placed.sequence_split`) x is the rank's slice of the sequence: it is
+gathered whole before the router (every pair's position needs the rank's
+rows whole, in row order), and the summed output is reduce-scattered back
+to the slice (`tp_exit`), or sliced where nothing of it is partial.
 """
 from __future__ import annotations
 
@@ -217,6 +221,13 @@ class _Expert(torch.autograd.Function):
         return (dx, *grads)
 
 
+def _sum(xs):
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return out
+
+
 def materialize(params):
     """The MoE's leaves for their use under a placement: the router
     gathered whole, the shared experts keeping a "model" split of their
@@ -239,7 +250,9 @@ def apply_moe(params, x, cfg, *, full_capacity: bool = False
     rank's pairs come after those of the ranks whose rows come before
     it); the rank runs its own experts and the routed output is summed
     over "model"; its aux is its tokens' share, which the step sums over
-    the batch axes."""
+    the batch axes. Under the sequence split x and y are the rank's
+    slice of the sequence, the routing the whole rows'."""
+    x = P.seq_gather(x)
     b, n, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     t = b * n
@@ -267,7 +280,8 @@ def apply_moe(params, x, cfg, *, full_capacity: bool = False
     first, ep, weights = _experts(params)
     shared = cfg.n_shared_experts > 0
     sh_split = shared and P.model_dim(params["shared_wo"]) == 0
-    xin = P.tp_enter(xf) if ep or sh_split else xf
+    # the input of the compute split over "model": its grad summed there
+    xin = P.sum_grad(xf) if ep or sh_split else xf
     gate_flat = gates.reshape(-1)
     if ep:
         # the rank's gates' grads summed over "model" (the aux's are the
@@ -287,23 +301,25 @@ def apply_moe(params, x, cfg, *, full_capacity: bool = False
         y.index_add_(0, tok, ye * gate_flat[pair].to(ye.dtype)[:, None])
 
     # the outputs partial over "model" (the rank's experts; the shared
-    # experts' ff shard) are summed over it once
+    # experts' ff shard) are summed over it once (under the sequence
+    # split: reduce-scattered to the rank's slice), the whole ones sliced
+    partial, whole = ([y], []) if ep else ([], [y])
     if shared:
         xs = xin if sh_split else xf
         h = F.silu(_dense(xs, params["shared_wi_gate"])) \
             * _dense(xs, params["shared_wi_up"])
-        ys = _dense(h, params["shared_wo"])
-        if ep and not sh_split:
-            y, ep = P.tp_exit(y), False
-        elif sh_split and not ep:
-            ys = P.tp_exit(ys)
-        y = y + ys
-    if ep:
-        y = P.tp_exit(y)
+        (partial if sh_split else whole).append(
+            _dense(h, params["shared_wo"]))
+    y = None
+    if partial:
+        y = P.tp_exit(_sum(partial).reshape(b, n, d))
+    if whole:
+        yw = P.seq_slice(_sum(whole).reshape(b, n, d))
+        y = yw if y is None else y + yw
 
     # Switch-style load balance: E * sum_e (mean prob_e * share of choices_e)
     # over the whole batch; the rank's share of the mean prob
     me = probs.mean(dim=0) if load.t == t else probs.sum(dim=0) / load.t
     ce = load.counts.to(_F32) / (load.t * k)
     aux = e * torch.sum(me * ce) * cfg.router_aux_weight
-    return y.reshape(b, n, d).to(x.dtype), aux
+    return y.to(x.dtype), aux

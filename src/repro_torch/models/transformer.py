@@ -40,6 +40,17 @@ sliced out of the local shard before its gather. Under tensor
 parallelism the embedding lookup and the logits are vocab-parallel:
 `forward_lm`, `lm_prefill` and `lm_decode_step` then return the rank's
 vocab shard of the logits (`placed.gather_vocab` makes them whole).
+Under a placement whose "model" axis is larger than 1 and divides N,
+`forward_lm` holds the residual stream between blocks as the rank's
+1/model slice of the sequence, as the reference's forward constrains it
+(`placed.sequence_split`): the embedding produces the slice, each block
+is checkpointed on it and runs its norms on it, a tensor-parallel layer
+gathers the sequence on entry and reduce-scatters on exit (`tp_enter`,
+`tp_exit`), a layer computed whole on every model rank (MLA, the MoE
+configs' GQA, Mamba, xLSTM, whisper's towers, the cross-attention) is
+wrapped in a gather and a slice, the MoE gathers its rows before the
+router, and the sequence is gathered before the logits (or the returned
+hidden states). `lm_prefill` and `lm_decode_step` stay whole.
 
 A `kv_mask` with an SSM mixer (mamba, mlstm, slstm) raises: the SSM
 mixers take exact-length chunks (a padded token would enter their
@@ -322,8 +333,11 @@ def _logits(params, x, cfg: ModelConfig):
     w = P.leaf(params["embed" if cfg.tie_embeddings else "unembed"],
                split=True)
     if P.model_dim(w) is not None:
-        # vocab-parallel: the rank's vocab columns of the logits
+        # vocab-parallel: the rank's vocab columns of the logits (under
+        # the sequence split the sequence is gathered here)
         x = P.tp_enter(x)
+    else:
+        x = P.seq_gather(x)
     if cfg.tie_embeddings:
         # tied head, scaled by 1/sqrt(d) (embeddings are unit-scale)
         logits = torch.einsum("bnd,vd->bnv", x, w) * (cfg.d_model ** -0.5)
@@ -335,6 +349,26 @@ def _logits(params, x, cfg: ModelConfig):
     return logits
 
 
+def _norm(params, x, cfg: ModelConfig):
+    """A norm of the residual (its leaves' grads summed over "model" under
+    the sequence split: they see the rank's tokens only)."""
+    return L.apply_norm(P.on_slice(params), x, norm_type=cfg.norm_type,
+                        eps=cfg.norm_eps)
+
+
+def _layer(fn, params, h):
+    """fn(params, h) on the residual's layout: a tensor-parallel layer
+    takes the rank's slice of the sequence as it is (it gathers and
+    reduce-scatters itself), any other is computed on the whole sequence
+    (nothing split inside) and sliced back."""
+    if L.tensor_parallel(params) or not P.seq_split():
+        return fn(params, h)
+    h = P.seq_gather(h)
+    with P.sequence_split(False):
+        y = fn(params, h)
+    return P.seq_slice(y)
+
+
 def _block(params_b, x, cfg: ModelConfig, mixer, enc_out=None, *,
            full_capacity: bool = False):
     """One block, its mixer the callable `mixer(params, h)`; returns (x,
@@ -342,30 +376,29 @@ def _block(params_b, x, cfg: ModelConfig, mixer, enc_out=None, *,
     (the `dense_i` blocks of an "attn:moe" pattern, as in the reference);
     a block without an ffn ("none") has no second norm. Placed leaves are
     gathered for their use here (an MoE's routed experts one at a time,
-    in `moe.apply_moe`)."""
+    in `moe.apply_moe`). Under the sequence split x is the rank's slice
+    of the sequence (`_layer`)."""
     ffn = params_b.get("ffn")
     params_b = P.materialize({k: v for k, v in params_b.items()
                               if k != "ffn"})
     if ffn is not None:
         params_b["ffn"] = (MOE.materialize(ffn) if "router" in ffn
                            else P.materialize(ffn, split=True))
-    h = L.apply_norm(params_b["norm1"], x, norm_type=cfg.norm_type,
-                     eps=cfg.norm_eps)
-    x = x + mixer(params_b["mixer"], h)
+    h = _norm(params_b["norm1"], x, cfg)
+    x = x + _layer(mixer, params_b["mixer"], h)
     if "cross" in params_b and enc_out is not None:
-        h = L.apply_norm(params_b["norm_x"], x, norm_type=cfg.norm_type,
-                         eps=cfg.norm_eps)
-        x = x + L.apply_attention(params_b["cross"], h, cfg, causal=False,
-                                  kv_x=enc_out)
+        h = _norm(params_b["norm_x"], x, cfg)
+        x = x + _layer(lambda p, t: L.apply_attention(
+            p, t, cfg, causal=False, kv_x=enc_out), params_b["cross"], h)
     if "ffn" not in params_b:
         return x, None
-    h = L.apply_norm(params_b["norm2"], x, norm_type=cfg.norm_type,
-                     eps=cfg.norm_eps)
+    h = _norm(params_b["norm2"], x, cfg)
     if "router" in params_b["ffn"]:
         y, aux = MOE.apply_moe(params_b["ffn"], h, cfg,
                                full_capacity=full_capacity)
         return x + y, aux
-    return x + L.apply_mlp(params_b["ffn"], h, act=cfg.mlp_act), None
+    return x + _layer(lambda p, t: L.apply_mlp(p, t, act=cfg.mlp_act),
+                      params_b["ffn"], h), None
 
 
 def _train_mixer(mixer: str, cfg: ModelConfig, causal, kv_mask,
@@ -414,15 +447,18 @@ _SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts,
 
 
 def _train_block(params_b, x, cfg: ModelConfig, mixer: str, causal, kv_mask,
-                 enc_out, offset=None):
-    return _block(params_b, x, cfg,
-                  _train_mixer(mixer, cfg, causal, kv_mask, offset),
-                  enc_out=enc_out)
+                 enc_out, offset=None, split: bool = False):
+    # `split` is entered here so that remat's recompute sees it too
+    with P.sequence_split(split):
+        return _block(params_b, x, cfg,
+                      _train_mixer(mixer, cfg, causal, kv_mask, offset),
+                      enc_out=enc_out)
 
 
 def _lookup(params, tokens, cfg: ModelConfig):
     """The tokens' embeddings in the activation dtype (vocab-parallel
-    under tensor parallelism)."""
+    under tensor parallelism; the rank's slice of the sequence under the
+    sequence split)."""
     if P.active() is None:
         return params["embed"][tokens].to(cfg.adtype())
     return P.embed_lookup(P.leaf(params["embed"], split=True), tokens,
@@ -430,19 +466,20 @@ def _lookup(params, tokens, cfg: ModelConfig):
 
 
 def _final_norm(params, x, cfg: ModelConfig):
-    return L.apply_norm(P.materialize(params["final_norm"]), x,
-                        norm_type=cfg.norm_type, eps=cfg.norm_eps)
+    return _norm(P.materialize(params["final_norm"]), x, cfg)
 
 
 def _embed(params, tokens, cfg: ModelConfig, embeddings=None, offset=None):
     """Token (or given) embeddings plus, where the config has them, the
-    sinusoidal terms of positions offset .. offset+N-1 (offset None: 0)."""
+    sinusoidal terms of positions offset .. offset+N-1 (offset None: 0);
+    under the sequence split the rank's slice of them."""
     if embeddings is not None:
-        x = embeddings.to(cfg.adtype())
+        x = P.seq_slice(embeddings.to(cfg.adtype()))
     else:
         x = _lookup(params, tokens, cfg)
     if cfg.pos_emb == "sinusoidal":
-        pos = torch.arange(x.shape[1], device=x.device)
+        pos = torch.arange(x.shape[1], device=x.device) + P.seq_start(
+            x.shape[1])
         if offset is not None:
             pos = torch.as_tensor(offset, device=x.device) + pos
         x = x + _sinusoidal_at(pos.to(_F32), cfg.d_model, x.dtype)[None]
@@ -459,31 +496,36 @@ def forward_lm(params, tokens, cfg: ModelConfig, *, causal=True,
     shard of the sequence. Returns (logits [B, N, vocab], aux loss — the
     float32 sum of the MoE blocks' load-balance terms, zero without a
     router), or the final-normed hidden states in place of the logits
-    with `return_hidden`."""
+    with `return_hidden`. Under a placement whose "model" axis divides N
+    the blocks run on the rank's slice of the sequence (module
+    docstring); what it returns is whole."""
     _check_supported(cfg)
     _check_mask(cfg, kv_mask)
     if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
-    x = _embed(params, tokens, cfg, embeddings, offset=offset)
-    # recompute only where a backward will run: without grad there is
-    # nothing to save
-    remat = cfg.remat != "none" and torch.is_grad_enabled()
-    kw = {"context_fn": _SAVE_DOTS} if cfg.remat == "dots" else {}
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for _, mixer, _, p_i in _layers(params, cfg):
-        if remat:
-            x, a = checkpoint(_train_block, p_i, x, cfg, mixer, causal,
-                              kv_mask, enc_out, offset, use_reentrant=False,
-                              **kw)
-        else:
-            x, a = _train_block(p_i, x, cfg, mixer, causal, kv_mask,
-                                enc_out, offset)
-        if a is not None:
-            aux = aux + a
-    x = _final_norm(params, x, cfg)
-    if return_hidden:
-        return x, aux
-    return _logits(params, x, cfg), aux
+    split = P.splits_sequence(
+        (tokens if embeddings is None else embeddings).shape[1])
+    with P.sequence_split(split):
+        x = _embed(params, tokens, cfg, embeddings, offset=offset)
+        # recompute only where a backward will run: without grad there is
+        # nothing to save
+        remat = cfg.remat != "none" and torch.is_grad_enabled()
+        kw = {"context_fn": _SAVE_DOTS} if cfg.remat == "dots" else {}
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for _, mixer, _, p_i in _layers(params, cfg):
+            if remat:
+                x, a = checkpoint(_train_block, p_i, x, cfg, mixer, causal,
+                                  kv_mask, enc_out, offset, split,
+                                  use_reentrant=False, **kw)
+            else:
+                x, a = _train_block(p_i, x, cfg, mixer, causal, kv_mask,
+                                    enc_out, offset, split)
+            if a is not None:
+                aux = aux + a
+        x = _final_norm(params, x, cfg)
+        if return_hidden:
+            return P.seq_gather(x), aux
+        return _logits(params, x, cfg), aux
 
 
 def token_nll(logits, targets):

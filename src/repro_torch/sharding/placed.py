@@ -50,6 +50,25 @@ replicated leaf used on the rank's heads only (qk_norm's scales) takes
 leaves are split the layers read off the specs recorded on the gathered
 leaves (`model_dim`).
 
+The residual stream between blocks (Megatron-style sequence
+parallelism, the reference's `maybe_constraint(x, ("pod", "data"),
+"model", None)` in `forward_lm`): under a placement whose "model" axis
+is larger than 1 and divides the sequence (`splits_sequence`), the
+training forward holds x as the rank's rows × its 1/model slice of the
+sequence × d (`sequence_split`, `seq_split`; serving never sets it, and
+where "model" does not divide N the rows stay whole, as the reference's
+constraint applies an axis only where it divides the dim). There
+`tp_enter` is an all-gather of the sequence (dim 1) whose backward
+reduce-scatters the rank's partial grads (`_SeqEnter`), and `tp_exit` a
+reduce-scatter of the row-parallel output whose backward all-gathers
+(`_SeqExit`): a tensor-parallel block's forward asks for no all-reduce
+of activations over "model". The vocab-parallel embedding lookup ends in
+that reduce-scatter; a whole-vocab lookup, and a layer computed whole on
+every model rank, take the slice of a whole tensor (`seq_slice`:
+`SliceModel`) or gather it (`seq_gather`: `GatherModel`) on dim 1. A
+replicated leaf used on the slice (the norms' scales) takes `on_slice`:
+its partial grad summed over "model".
+
 Every collective goes through `_collective`, which adds the bytes the
 rank sends to `asked[kind]` and the host time to `asked_ms[kind]` by the
 kind the step asked for. On gloo (ranks sharing one card, or the CPU)
@@ -77,6 +96,8 @@ __all__ = ["Placement", "place", "full", "gather", "spec_of", "tag",
            "shard_batch",
            "tp_enter", "tp_exit", "sum_grad", "embed_lookup", "token_nll",
            "gather_vocab", "gather_model", "slice_model", "global_norm",
+           "splits_sequence", "sequence_split", "seq_split", "seq_gather",
+           "seq_slice", "seq_len", "seq_start", "on_slice",
            "asked", "asked_ms", "reset_asked"]
 
 _F32 = torch.float32
@@ -337,6 +358,35 @@ class SliceModel(torch.autograd.Function):
         return _gather_dim(g, dim, group), None, None, None, None
 
 
+class _SeqEnter(torch.autograd.Function):
+    """The rank's slice of the sequence (dim 1) -> whole, all-gathered
+    over `group`; the backward reduce-scatters the rank's partial grad
+    (the entry of a tensor-parallel region under the sequence split)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_dim(x, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_dim(g, 1, ctx.group), None
+
+
+class _SeqExit(torch.autograd.Function):
+    """A partial sum over `group` -> the rank's slice of the sequence of
+    the whole sum (reduce-scatter on dim 1); the backward all-gathers."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        ctx.group = group
+        return _scatter_dim(y, 1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, 1, ctx.group), None
+
+
 # ---------------------------------------------------------------------------
 # The placement of one model on one mesh
 # ---------------------------------------------------------------------------
@@ -381,6 +431,9 @@ class Placement:
         self.specs = param_shardings(self.axes, shapes, mesh, rules)
         self.tp = tensor_parallel(cfg) and sizes.get("model", 1) > 1
         self.ep = expert_parallel(cfg) and sizes.get("model", 1) > 1
+        # the running forward holds the residual's slice of the sequence
+        # over "model" (`sequence_split`)
+        self.sp = False
         dp = DATA_AXES
         if global_batch is not None:
             dp = _names(batch_spec(mesh, batch_size=global_batch)[0])
@@ -589,15 +642,87 @@ def unbind(t) -> list:
     return views
 
 
+def splits_sequence(n: int) -> bool:
+    """Whether a training forward of `n` tokens a row holds its residual
+    split over "model" (`sequence_split`): an active placement whose
+    "model" axis is larger than 1 and divides n."""
+    pl = active()
+    m = 1 if pl is None else pl.sizes.get("model", 1)
+    return m > 1 and n % m == 0
+
+
+@contextlib.contextmanager
+def sequence_split(on: bool):
+    """The code inside holds the residual stream as the rank's slice of
+    the sequence over "model" (`on`), or whole; without an active
+    placement a no-op."""
+    pl = active()
+    if pl is None:
+        yield
+        return
+    prev, pl.sp = pl.sp, bool(on)
+    try:
+        yield
+    finally:
+        pl.sp = prev
+
+
+def seq_split() -> bool:
+    """Whether the running forward holds the sequence split over "model"."""
+    pl = active()
+    return pl is not None and pl.sp
+
+
+def seq_gather(x):
+    """Under the sequence split, the rank's slice of dim 1 -> whole, for
+    a layer computed whole on every model rank (the backward keeps the
+    slice's grad); else x."""
+    return gather_model(x, 1) if seq_split() else x
+
+
+def seq_slice(x):
+    """Under the sequence split, a whole tensor (the same on every model
+    rank) -> the rank's slice of dim 1 (the backward gathers the slices'
+    grads); else x."""
+    return slice_model(x, 1) if seq_split() else x
+
+
+def seq_len(n_local: int) -> int:
+    """The whole sequence's length from the rank's slice of `n_local`
+    tokens under the sequence split; n_local else."""
+    return n_local * active().sizes["model"] if seq_split() else n_local
+
+
+def seq_start(n_local: int) -> int:
+    """The first position of the rank's slice of `n_local` tokens under
+    the sequence split; 0 else."""
+    return active().model()[1] * n_local if seq_split() else 0
+
+
+def on_slice(tree):
+    """Replicated leaves used on the rank's slice of the sequence (the
+    norms' scales): under the sequence split each one's partial grad is
+    summed over "model"; else `tree`."""
+    if not seq_split():
+        return tree
+    return tree_map(sum_grad, tree)
+
+
 def tp_enter(x):
     """The entry of a tensor-parallel region: identity, the grad summed
-    over "model"."""
-    return SumGrad.apply(x, active().mesh.get_group("model"))
+    over "model"; under the sequence split the sequence (dim 1)
+    all-gathered, the grad reduce-scattered."""
+    group = active().mesh.get_group("model")
+    return _SeqEnter.apply(x, group) if seq_split() else SumGrad.apply(
+        x, group)
 
 
 def tp_exit(y):
-    """The row-parallel output summed over "model"; the grad as it is."""
-    return _Exit.apply(y, active().mesh.get_group("model"))
+    """The row-parallel output summed over "model", the grad as it is;
+    under the sequence split reduce-scattered to the rank's slice of the
+    sequence (dim 1), the grad all-gathered."""
+    group = active().mesh.get_group("model")
+    return _SeqExit.apply(y, group) if seq_split() else _Exit.apply(y, group)
 
 
 def sum_grad(t):
@@ -621,9 +746,11 @@ def slice_model(x, dim: int):
 def embed_lookup(table, tokens, vocab: int):
     """Rows of the embedding `table` (gathered for its use) for `tokens`.
     A table split over "model" by vocab (`vocab` rows whole) looks up
-    the rank's rows, zeros elsewhere, and all-reduces over "model"."""
+    the rank's rows, zeros elsewhere, and all-reduces over "model" (under
+    the sequence split: reduce-scatters to the rank's slice of the
+    sequence; a whole table's lookup takes that slice)."""
     if table.shape[0] == vocab:
-        return table[tokens]
+        return seq_slice(table[tokens])
     _, idx, _ = active().model()
     rows = table.shape[0]
     local = tokens.long() - idx * rows

@@ -20,6 +20,8 @@ held to the reference's on the CPU.
 - MoE on meta dispatches the balanced load; its ratio to the reference's
   static capacity is stated. On a fake world of (data 4, model 2) the
   rank's routed experts take half the flops of one device on its rows.
+- On a fake world of (data 2, model 2) the placed train step's
+  checkpointed residual is the rank's slice of the sequence.
 - On a fake world of 4 ranks (data 2, seq 2) the placed context-parallel
   step's collectives: the FSDP gathers and reduce-scatters over "data",
   the all-reduces over "seq", one carry exchange of `cp_carry_bytes` per
@@ -626,6 +628,29 @@ def test_cp_step_collectives(fake_world4):
         + res["coll_all-gather"] + res["coll_reduce-scatter"]
     assert all(ln.startswith("kernel ") and "shard_map[seq]" in ln
                for ln in count.routes())
+
+
+def test_placed_residual_is_saved_on_the_rank_s_slice(fake_world4):
+    """The smoke qwen3-1.7b train step (remat full) on meta, on a fake
+    world of (data 2, model 2), global batch 4 x 64: each block's
+    checkpoint keeps the rank's rows x 64 / 2 tokens x d of the residual
+    (`SavedBytes`), every layer once; at 62 tokens as well ("model"
+    divides it), and the logits whole over the sequence."""
+    from repro_torch.launch.op_analysis import SavedBytes
+
+    cfg = get_smoke_config("qwen3-1.7b",
+                           attn=AttentionSpec.parse("fastmax2-kernel"))
+    assert cfg.remat == "full"
+    mesh = make_test_mesh((2, 2), ("data", "model"))
+    for n in (64, 62):
+        fn, args, _ = D.cell_step(cfg, ShapeSpec(n, 4, "train"),
+                                  device="meta", mesh=mesh)
+        with SavedBytes() as saved:
+            fn(*args)
+        item = torch.empty((), dtype=cfg.adtype()).element_size()
+        assert saved.block_inputs == 2 * (n // 2) * cfg.d_model * item \
+            * cfg.n_layers
+        assert saved.total > saved.block_inputs
 
 
 # ---------------------------------------------------------------------------
