@@ -3277,7 +3277,7 @@ def placed_meta_counts() -> dict:
 # shared: 5.519 B params) on two gloo ranks of the card. (data 2, model 1)
 # splits the batch: each rank routes its row with the capacity, positions
 # and aux of the whole batch. (data 1, model 2) splits the experts (80 a
-# rank), the FFNs and the vocab over "model"; MLA is gathered whole. bf16
+# rank), the FFNs, the vocab and MLA's heads (64 a rank) over "model". bf16
 # with Lion (the full config's optimizer: >= 100 B params), remat none. One
 # step a mesh: FSDP's gloo collectives stage ≈ 20 GB a step through host
 # memory. Each rank holds the one-process step's slices of its shards on
@@ -3332,6 +3332,60 @@ def shard_sums(local, ref: dict, sizes: dict) -> dict:
                      float(want.square().sum()),
                      any(sizes[a] > 1 for a in P.split_axes(P.spec_of(x))))
     return out
+
+
+@contextlib.contextmanager
+def mixer_spy(cfg):
+    """Inside, `placed.gather` and the attention entry points record into
+    the dict yielded: "whole", the shapes of gathers over "model" that
+    return a whole attention leaf (wq, w_uk, w_uv, wo; GQA's wk, wv), and
+    "heads", the (q, k, v) heads of every attention call."""
+    from repro_torch import attention as A
+    from repro_torch.sharding import placed as P
+
+    d, hq, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    if cfg.use_mla:
+        whole = {(d, hq, cfg.qk_nope_dim + cfg.qk_rope_dim),
+                 (cfg.kv_lora_rank, hq, cfg.qk_nope_dim),
+                 (cfg.kv_lora_rank, hq, hd), (hq, hd, d)}
+    else:
+        whole = {(d, hq, hd), (d, cfg.n_kv_heads, hd), (hq, hd, d)}
+    seen = {"whole": [], "heads": set()}
+    gather = P.gather
+    fns = {"attention": 0, "prefill": 0, "step": 1}    # where q sits
+    saved = {name: getattr(A, name) for name in fns}
+
+    def spy_gather(leaf, over, mesh, *, sum_over=()):
+        out = gather(leaf, over, mesh, sum_over=sum_over)
+        if ("model" in over and "model" in P.split_axes(P.spec_of(leaf))
+                and tuple(out.shape) in whole):
+            seen["whole"].append(tuple(out.shape))
+        return out
+
+    def spy(name):
+        def call(*args, **kw):
+            q, k, v = args[fns[name]:fns[name] + 3]
+            seen["heads"].add((q.shape[1], k.shape[1], v.shape[1]))
+            return saved[name](*args, **kw)
+        return call
+
+    P.gather = spy_gather
+    for name in fns:
+        setattr(A, name, spy(name))
+    try:
+        yield seen
+    finally:
+        P.gather = gather
+        for name, fn in saved.items():
+            setattr(A, name, fn)
+
+
+def coll_lines(tag: str, rows: list, key: str) -> None:
+    """Print each rank's collective bytes and host ms by kind."""
+    for r, row in enumerate(rows):
+        print(f"  {tag} rank {r} collectives: " + ", ".join(
+            f"{k} {b / 1e9:.4f} GB {t:.1f} ms"
+            for k, (b, t) in sorted(row[key].items())))
 
 
 def placed_moe_train_rank(rank, world):
@@ -3434,8 +3488,11 @@ def placed_moe_train_rank(rank, world):
             dist.barrier()
         t0 = time.monotonic()
         take[0] = lambda g: shard_sums(g, ref["grads"], placement.sizes)
-        got, grad_sums, params = run(mesh)
+        with mixer_spy(cfg) as seen:
+            got, grad_sums, params = run(mesh)
         got["seconds"] = time.monotonic() - t0
+        got["spy"] = {"whole": seen["whole"],
+                      "heads": sorted(seen["heads"])}
         got.update(grad_sums=grad_sums,
                    param_sums=shard_sums(params, ref["final"],
                                          placement.sizes))
@@ -3469,6 +3526,7 @@ def placed_moe_train_phase() -> dict:
            "saved_one": one["saved"],
            "launches_one": one["launches"][-1], "seconds": secs,
            "seconds_one": one["seconds"], "meshes": {}}
+    hq = placed_moe_cfg("bfloat16").n_heads
     for key in r0["meshes"]:
         m0 = r0["meshes"][key]
         rows = [r["meshes"][key] for r in ranks]
@@ -3479,9 +3537,14 @@ def placed_moe_train_phase() -> dict:
         dropped = sum(r["stats"].get("dropped", 0) for r in rows)
         differ = sum(r["stats"].get("differ", 0) for r in rows)
         pairs = sum(r["stats"].get("pairs", 0) for r in rows)
+        # MLA on the rank's heads: Hq / model for q, k and v
+        heads = [[hq // int(key.split("x")[1])] * 3]
         good = (max(diffs) <= TRAIN_LOSS_TOL and gerr <= TRAIN_GRAD_TOL
                 and perr <= TRAIN_GRAD_TOL
                 and all(r["launches"][-1] == want for r in rows)
+                and all(not r["spy"]["whole"] and
+                        [list(h) for h in r["spy"]["heads"]] == heads
+                        for r in rows)
                 and all(math.isfinite(x) for x in m0["losses"]))
         ok = ok and good
         out["meshes"][key] = {
@@ -3495,9 +3558,11 @@ def placed_moe_train_phase() -> dict:
             "peak_gb_ranks": [r["peak"] for r in rows],
             "collectives_ranks": [r["coll"] for r in rows],
             "saved_ranks": [r["saved"] for r in rows],
-            "launches_ranks": [r["launches"][-1] for r in rows]}
+            "launches_ranks": [r["launches"][-1] for r in rows],
+            "spy_ranks": [r["spy"] for r in rows]}
         coll = ", ".join(f"{k} {b / 1e9:.3f} GB {t / 1e3:.1f} s"
                          for k, (b, t) in sorted(rows[0]["coll"].items()))
+        coll_lines(f"({key.replace('x', ', ')})", rows, "coll")
         saved = [(round(r["saved"]["total"] / 1e9, 3),
                   round(r["saved"]["block_inputs"] / 1e9, 3)) for r in rows]
         phase("placed moe train", f"{MOE_ARCH} cut to {PMOE_LAYERS} layers "
@@ -3518,11 +3583,16 @@ def placed_moe_train_phase() -> dict:
               f"{[r['launches'][-1] for r in rows]}; GB autograd saved a "
               f"step per rank (all, of them the blocks' inputs) {saved} "
               f"(one process {one['saved']['total'] / 1e9:.3f}, "
-              f"{one['saved']['block_inputs'] / 1e9:.3f})")
+              f"{one['saved']['block_inputs'] / 1e9:.3f}); whole MLA leaves "
+              f"gathered over model per rank "
+              f"{[len(r['spy']['whole']) for r in rows]}, attention (q, k, "
+              f"v) heads per rank {[r['spy']['heads'] for r in rows]} (want "
+              f"{heads})")
     if not ok:
         fail(f"placed moe train: the placed step disagrees with one "
-             f"process, or its launches are not one prefill and one "
-             f"backward per layer: {out}")
+             f"process, its launches are not one prefill and one backward "
+             f"per layer, a whole MLA leaf was gathered over model, or the "
+             f"attention did not run on the rank's heads: {out}")
     return out
 
 
@@ -3573,25 +3643,29 @@ def placed_moe_serve_rank(rank, world):
     prefill = make_prefill_step(cfg, mesh=mesh)
     step = make_serve_step(cfg, mesh=mesh)
     positions = PMOE_PROMPT + torch.arange(PMOE_GEN - 1, device=dev)
+    m2 = state["blocks_0"].moments[2]
     ops.reset_launch_counts()
     P.reset_asked()
     MOE.stats.clear()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
-    tok, state = prefill(placed, state, prompts)
-    ev[1].record()
-    toks = [tok]
-    for i in range(PMOE_GEN - 1):
-        tok, state = step(placed, state, tok, positions[i])
-        toks.append(tok)
-    ev[2].record()
-    ev[2].synchronize()
+    with mixer_spy(cfg) as seen:
+        ev[0].record()
+        tok, state = prefill(placed, state, prompts)
+        ev[1].record()
+        toks = [tok]
+        for i in range(PMOE_GEN - 1):
+            tok, state = step(placed, state, tok, positions[i])
+            toks.append(tok)
+        ev[2].record()
+        ev[2].synchronize()
     out = torch.stack(toks, 1).cpu()
     return {"rank": rank, "launches": {k: v for k, v in
                                        ops.launch_counts().items() if v},
             "launches_one": launches_one,
             "equal": None if ref is None else bool(torch.equal(out, ref)),
             "tokens": out.tolist(), "stats": dict(MOE.stats),
+            "spy": {"whole": seen["whole"], "heads": sorted(seen["heads"])},
+            "moments_m2_shape": list(m2.shape),
             "setup_s": setup_s,
             "prefill_ms": ev[0].elapsed_time(ev[1]),
             "decode_ms_per_token": ev[1].elapsed_time(ev[2])
@@ -3613,9 +3687,13 @@ def placed_moe_serve_phase() -> dict:
     want = {"fastmax_causal": PMOE_LAYERS,
             "fastmax_decode": (PMOE_GEN - 1) * PMOE_LAYERS}
     dropped = r0["stats"].get("dropped", 0) + r1["stats"].get("dropped", 0)
+    # MLA's prefill and decode on the rank's 64 of 128 heads
+    hq = placed_moe_cfg("float32").n_heads // 2
+    spy_ok = all(not r["spy"]["whole"] and [
+        list(h) for h in r["spy"]["heads"]] == [[hq] * 3] for r in (r0, r1))
     ok = (r0["equal"] and r1["tokens"] == r0["tokens"]
           and r0["launches"] == r1["launches"] == want
-          and r0["launches_one"] == want and dropped == 0)
+          and r0["launches_one"] == want and dropped == 0 and spy_ok)
     coll = r0["collectives"]
     out = {"arch": MOE_ARCH, "n_layers": PMOE_LAYERS, "batch": PMOE_B,
            "prompt": PMOE_PROMPT, "gen": PMOE_GEN, "dtype": "float32",
@@ -3628,22 +3706,33 @@ def placed_moe_serve_phase() -> dict:
            "collectives_ranks": [r0["collectives"], r1["collectives"]],
            "peak_gb_ranks": [r0["peak_gb"], r1["peak_gb"]],
            "setup_s_ranks": [r0["setup_s"], r1["setup_s"]],
+           "spy_ranks": [r0["spy"], r1["spy"]],
+           "moments_m2_shape": r0["moments_m2_shape"],
            "seconds": time.monotonic() - t0}
+    coll_lines("serve", [r0, r1], "collectives")
     phase("placed moe serve", f"{MOE_ARCH} cut to {PMOE_LAYERS} layers, "
           f"float32, (data 1, model 2) on 2 ranks of the card, 80 of 160 "
-          f"experts a rank: B={PMOE_B} prompt {PMOE_PROMPT}, a prefill and "
+          f"experts and 64 of 128 MLA heads a rank: B={PMOE_B} prompt "
+          f"{PMOE_PROMPT}, a prefill and "
           f"{PMOE_GEN - 1} decode tokens; greedy tokens equal one "
           f"process's generate(): {r0['equal']}; pairs dropped {dropped}; "
           f"launches per rank {r0['launches']} (one process "
-          f"{r0['launches_one']}); prefill ms {out['prefill_ms_ranks']}, "
+          f"{r0['launches_one']}); whole MLA leaves gathered over model "
+          f"per rank {[len(r['spy']['whole']) for r in (r0, r1)]}, "
+          f"attention (q, k, v) heads per rank "
+          f"{[r['spy']['heads'] for r in (r0, r1)]}, each rank's m2 "
+          f"moments {r0['moments_m2_shape']}; prefill ms "
+          f"{out['prefill_ms_ranks']}, "
           f"decode ms/token {out['decode_ms_per_token_ranks']}; peak GB "
           f"{out['peak_gb_ranks']}; rank 0's collectives GB "
           f"{ {k: round(v[0] / 1e9, 3) for k, v in coll.items()} } in s "
           f"{ {k: round(v[1] / 1e3, 1) for k, v in coll.items()} }")
     if not ok:
         fail(f"placed moe serve: tokens differ from generate(), a pair was "
-             f"dropped, or the launches per rank are not one prefill per "
-             f"layer and one decode per layer and token: {out}")
+             f"dropped, the launches per rank are not one prefill per "
+             f"layer and one decode per layer and token, a whole MLA leaf "
+             f"was gathered over model, or the attention did not run on "
+             f"the rank's heads: {out}")
     return out
 
 

@@ -10,10 +10,15 @@ part only, its key part shared by every head), full-sequence attention
 prefill/decode steps over the `repro_torch.attention` state protocol.
 
 Under the placed step's tensor parallelism (`sharding.placed`: the dense
-decoders' leaves keep their "model" shards) the MLP and the attention
-split their compute by the shards the layer's leaves hold: the
-column-parallel products (wi, wq, and wk / wv where the kv heads divide
-"model") take `tp_enter(x)`, the row-parallel wo's output `tp_exit`.
+decoders' leaves keep their "model" shards, as do the MoE configs' FFNs
+and attention mixers) the MLP and the attention split their compute by
+the shards the layer's leaves hold: the column-parallel products (wi,
+wq, and wk / wv where the kv heads divide "model") take `tp_enter(x)`,
+the row-parallel wo's output `tp_exit`. MLA's wq, w_uk, w_uv and wo all
+carry the heads and split together (k and v decompressed on the rank's
+heads: Hkv = Hq there too; a layer whose wq and w_uk / w_uv disagree
+raises); w_dkv is whole over "model", and the latent and the key's rope
+part it makes feed the rank's heads only, so its grad takes `sum_grad`.
 Where the kv heads do not divide "model" (MQA, or 8 kv heads on 16) k and
 v are computed whole from x on every rank, q is gathered to whole heads,
 the attention runs in the model's layout (the kernels' feature plan, or
@@ -245,10 +250,20 @@ def _out_proj(o, wo):
 def _tp_split(params) -> tuple:
     """(q heads split, kv heads split) over "model" of a layer's placed
     projections; (False, False) outside the placed step's tensor
-    parallelism."""
-    if P.model_dim(params["wq"]) != 1:
+    parallelism. MLA's k and v are decompressed per query head (w_uk,
+    w_uv): they split with q or not at all, and a mismatch raises."""
+    split_q = P.model_dim(params["wq"]) == 1
+    if "w_uk" in params:
+        kv = [P.model_dim(params[n]) == 1 for n in ("w_uk", "w_uv")]
+        if kv != [split_q] * 2:
+            raise ValueError(
+                f"MLA's heads split over 'model' disagree: wq {split_q}, "
+                f"w_uk {kv[0]}, w_uv {kv[1]}; k and v are decompressed per "
+                f"query head, so all three split or none")
+        return split_q, split_q
+    if not split_q:
         return False, False
-    return True, "wk" in params and P.model_dim(params["wk"]) == 1
+    return True, P.model_dim(params["wk"]) == 1
 
 
 def _tp_qkv(params, x, cfg, positions, split_kv: bool):
@@ -262,9 +277,14 @@ def _tp_qkv(params, x, cfg, positions, split_kv: bool):
     else:
         x = P.seq_gather(x)
         xt = P.sum_grad(x)
+    params = dict(params)
+    if cfg.use_mla:
+        # the latent and the key's rope part (x w_dkv) feed the rank's
+        # heads only: w_dkv's grad is partial (x's is summed by tp_enter)
+        params["w_dkv"] = P.sum_grad(params["w_dkv"])
     if cfg.qk_norm:
         # the scales multiply the rank's heads only: their grads partial
-        params = {**params, "q_norm_scale": P.sum_grad(params["q_norm_scale"])}
+        params["q_norm_scale"] = P.sum_grad(params["q_norm_scale"])
         if split_kv:
             params["k_norm_scale"] = P.sum_grad(params["k_norm_scale"])
     q = _project_q(params, xt, cfg, positions)

@@ -46,11 +46,12 @@ Under a placement whose "model" axis is larger than 1 and divides N,
 (`placed.sequence_split`): the embedding produces the slice, each block
 is checkpointed on it and runs its norms on it, a tensor-parallel layer
 gathers the sequence on entry and reduce-scatters on exit (`tp_enter`,
-`tp_exit`), a layer computed whole on every model rank (MLA, the MoE
-configs' GQA, Mamba, xLSTM, whisper's towers, the cross-attention) is
-wrapped in a gather and a slice, the MoE gathers its rows before the
-router, and the sequence is gathered before the logits (or the returned
-hidden states). `lm_prefill` and `lm_decode_step` stay whole.
+`tp_exit`; the MoE configs' GQA and MLA are split so too), a layer
+computed whole on every model rank (Mamba, xLSTM, whisper's towers, the
+cross-attention) is wrapped in a gather and a slice, the MoE gathers its
+rows before the router, and the sequence is gathered before the logits
+(or the returned hidden states). `lm_prefill` and `lm_decode_step` stay
+whole.
 
 A `kv_mask` with an SSM mixer (mamba, mlstm, slstm) raises: the SSM
 mixers take exact-length chunks (a padded token would enter their
@@ -376,11 +377,15 @@ def _block(params_b, x, cfg: ModelConfig, mixer, enc_out=None, *,
     (the `dense_i` blocks of an "attn:moe" pattern, as in the reference);
     a block without an ffn ("none") has no second norm. Placed leaves are
     gathered for their use here (an MoE's routed experts one at a time,
-    in `moe.apply_moe`). Under the sequence split x is the rank's slice
-    of the sequence (`_layer`)."""
-    ffn = params_b.get("ffn")
+    in `moe.apply_moe`; the FFNs and an attention mixer keep their
+    "model" shards). Under the sequence split x is the rank's slice of
+    the sequence (`_layer`)."""
+    ffn, mix = params_b.get("ffn"), params_b["mixer"]
     params_b = P.materialize({k: v for k, v in params_b.items()
-                              if k != "ffn"})
+                              if k not in ("ffn", "mixer")})
+    # an attention mixer (GQA or MLA) splits its compute by its heads
+    # shards over "model"; Mamba's and xLSTM's are gathered whole
+    params_b["mixer"] = P.materialize(mix, split="wq" in mix and "wo" in mix)
     if ffn is not None:
         params_b["ffn"] = (MOE.materialize(ffn) if "router" in ffn
                            else P.materialize(ffn, split=True))

@@ -31,11 +31,12 @@ Expert parallelism over "model" (`Placement.ep`: configs with routed
 experts, `models.moe`) keeps the routed experts' "model" shards (each
 rank runs its experts, one expert's slice gathered over the data axes at
 a time: `weight`, `weight_grad`) and splits the FFNs (the MLP blocks, the
-shared experts), the embedding lookup and the logits by their "model"
-shards as `tp` does (`leaf(t, split=True)`); the mixers (MLA, GQA, Mamba)
-are gathered and computed whole. The router's statistics are the whole
-batch's: each rank's per-expert counts are all-gathered over the batch
-axes in the order of the global rows (`expert_rows`).
+shared experts), the attention mixers (GQA and MLA, by heads), the
+embedding lookup and the logits by their "model" shards as `tp` does
+(`leaf(t, split=True)`); the SSM mixers (Mamba) are gathered and
+computed whole. The router's statistics are the whole batch's: each
+rank's per-expert counts are all-gathered over the batch axes in the
+order of the global rows (`expert_rows`).
 
 Tensor parallelism over "model" (`Placement.tp`: the dense "attn:mlp"
 decoders) keeps the "model" shards that the spec gives and splits the
@@ -151,11 +152,11 @@ def model_dim(t):
 
 
 def tensor_parallel(cfg) -> bool:
-    """Whether the placed step splits `cfg`'s compute over "model": the
-    dense decoders, every block an "attn:mlp" of GQA attention. The MoE
-    configs split their experts, FFNs and vocab (`expert_parallel`) and
-    compute their mixers whole; xLSTM and encoder-decoder models compute
-    whole (ROADMAP queue 3)."""
+    """Whether the placed step splits all of `cfg`'s compute over "model":
+    the dense decoders, every block an "attn:mlp" of GQA attention. The
+    MoE configs split their experts, FFNs, attention mixers and vocab
+    (`expert_parallel`) and compute their Mamba mixers whole; xLSTM and
+    encoder-decoder models compute whole (ROADMAP queue 3)."""
     return (tuple(cfg.pattern) == ("attn:mlp",) and cfg.first_k_dense == 0
             and not cfg.use_mla and not cfg.encoder_layers
             and not cfg.cross_attention and not cfg.input_embeddings_only)
@@ -163,7 +164,9 @@ def tensor_parallel(cfg) -> bool:
 
 def expert_parallel(cfg) -> bool:
     """Whether `cfg` has routed experts, which the placed step splits over
-    "model" (`models.moe`)."""
+    "model" (`models.moe`), beside the consumers that split their compute
+    by their "model" shards (`Placement.leaf(t, split=True)`: the FFNs,
+    the attention mixers, the embedding and the logits)."""
     return any(k.split(":")[1] == "moe" for k in cfg.pattern) \
         and cfg.n_layers_scanned > 0
 
@@ -484,7 +487,8 @@ class Placement:
         anything else as it is. The result's spec keeps only a "model"
         split that the tensor-parallel compute uses: every leaf's under
         `tp`, under `ep` those of a consumer that splits its compute by
-        it (`split`: the FFNs, the embedding and the logits)."""
+        it (`split`: the FFNs, the attention mixers, the embedding and the
+        logits)."""
         spec = spec_of(t)
         if spec is None:
             return t
