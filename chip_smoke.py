@@ -282,6 +282,19 @@ and power limit, and the result line last):
                 repro_torch.launch.train --cp 2` on the smoke model, two
                 steps, loss printed. Two ranks share one card: no time
                 here is a multi-card speedup.
+ 24b. placed ssm train / serve — after the placed qwen3 and deepseek-v2
+                phases, the SSM mixers split over "model" on (data 1,
+                model 2), two ranks: xlstm-1.3b cut to 8 layers and
+                jamba's Mamba block (2 x "mamba:mlp"), float32, one AdamW
+                step against one process's (loss TRAIN_LOSS_TOL, grads
+                and updated parameters TRAIN_GRAD_TOL a leaf, no launch,
+                no whole SSM leaf gathered over "model"); jamba and
+                xlstm-1.3b cut to 8 layers, float32, a prefill and 4
+                decode tokens against one process's generate() (tokens
+                equal, exact launches, the SSM decode state at the bytes
+                decode_state_shardings plans, half a rank). Step ms,
+                prefill ms, decode ms per token, peaks, collectives by
+                kind and the scans' operand shapes a rank printed.
  25. dryrun   — the dry run (launch/dryrun.py) against the real step: full-
                 width qwen3-1.7b, fastmax2-kernel, bf16, one device: the
                 train step as the train phase runs it (B=4, N=1024, remat
@@ -3317,10 +3330,11 @@ def placed_moe_cfg(dtype: str):
                       attn=AttentionSpec.parse("fastmax2-kernel"))
 
 
-def shard_sums(local, ref: dict, sizes: dict) -> dict:
+def shard_sums(local, ref: dict, sizes: dict, count: bool = False) -> dict:
     """{leaf: (|local - ref|², |ref|², split)} of a tree of placed shards
     against the same shards of the one-process run (`ref`, host tensors),
-    `split` whether a mesh axis of `sizes` > 1 cuts the leaf."""
+    `split` whether a mesh axis of `sizes` > 1 cuts the leaf; with
+    `count`, the shard's elements too."""
     from repro_torch.optim.grad_utils import leaves
     from repro_torch.sharding import placed as P
 
@@ -3331,6 +3345,8 @@ def shard_sums(local, ref: dict, sizes: dict) -> dict:
         out[name] = (float((got - want).square().sum()),
                      float(want.square().sum()),
                      any(sizes[a] > 1 for a in P.split_axes(P.spec_of(x))))
+        if count:
+            out[name] += (x.numel(),)
     return out
 
 
@@ -3733,6 +3749,575 @@ def placed_moe_serve_phase() -> dict:
              f"layer and one decode per layer and token, a whole MLA leaf "
              f"was gathered over model, or the attention did not run on "
              f"the rank's heads: {out}")
+    return out
+
+
+# placed SSM phases: the SSM mixers split over "model" on (data 1, model
+# 2), two gloo ranks of the card. [placed ssm train]: xlstm-1.3b at full
+# width cut to 8 layers (one group of its pattern: 7 mLSTM, 1 sLSTM; 2 of
+# its 4 heads a rank), then jamba's Mamba block at full width (d 4096,
+# d_inner 8192: 4096 channels a rank, d_state 16, chunk 512) cut to the
+# pattern ("mamba:mlp",) at 2 layers: jamba's least depth (8 layers,
+# 13.3 B params, 11.3 B of them experts) cannot take AdamW's state on one
+# card. float32 (in bf16 the one-process and placed steps of these
+# models differ past the limits by rounding alone: xlstm's loss by
+# 1.3e-3 at 21.2, the grads of mLSTM's bi, whose terms cancel, by 2.1,
+# jamba's zero-initialized conv_b after AdamW's first step, ±lr by the
+# grad's sign, by 0.11), AdamW, remat full, B=2, N=1024, one step a
+# config, against one process's step (each rank in turn takes it alone
+# and keeps its shards' slices of the grads and updated parameters on
+# the host).
+# [placed ssm serve]: jamba cut to 8 layers (its attention layer through
+# the prefill and decode kernels in the heads plan, 4 of 8 kv heads a
+# rank, 8 of 16 experts), then xlstm-1.3b cut to 8 layers, float32 as
+# [placed moe serve], B=2, a prefill of PSSM_PROMPT tokens and
+# PSSM_GEN - 1 decode tokens against one process's generate(); each rank
+# draws the whole model on the card in turn and cuts its shards leaf by
+# leaf, rank 0's into host memory until rank 1 has cut its own (jamba's
+# 53.2 GB of float32 weights and a rank's half do not fit the card
+# together)
+PSSM_MESH = (1, 2)
+PSSM_LAYERS, PSSM_MAMBA_LAYERS, PSSM_B, PSSM_N = 8, 2, 2, 1024
+PSSM_PROMPT, PSSM_GEN = 1024, 5
+PSSM_LR = 3e-4
+
+
+def placed_ssm_cfgs(kind: str) -> list:
+    """[(label, config)] of the placed SSM phases, float32: xlstm-1.3b
+    and jamba's Mamba-block cut for training (`kind` "train"), jamba and
+    xlstm-1.3b at PSSM_LAYERS for serving."""
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_config
+
+    kw = dict(param_dtype="float32", activ_dtype="float32",
+              attn=AttentionSpec.parse("fastmax2-kernel"))
+    xlstm = ("xlstm-1.3b", get_config("xlstm-1.3b", n_layers=PSSM_LAYERS,
+                                      **kw))
+    if kind == "train":
+        return [xlstm, ("jamba-v0.1-52b mamba:mlp", get_config(
+            "jamba-v0.1-52b", pattern=("mamba:mlp",),
+            n_layers=PSSM_MAMBA_LAYERS, **kw))]
+    return [("jamba-v0.1-52b", get_config(
+        "jamba-v0.1-52b", n_layers=PSSM_LAYERS, **kw)), xlstm]
+
+
+@contextlib.contextmanager
+def ssm_spy(cfg):
+    """Inside, `placed.gather` and the SSM mixers' scans record into the
+    dict yielded: "whole", the shapes of gathers over "model" that return
+    a whole in_proj, x_proj, out_proj, up_proj, down_proj, w{z,i,f,o},
+    wi or wf; "scans", each scan's operand shape a rank (Mamba's [B,
+    chunk, d_inner, d_state] per chunk; mLSTM's q and v [B, heads, N,
+    dk | dv]; sLSTM's recurrence width and its w's columns)."""
+    from repro_torch.models import mamba as M
+    from repro_torch.models import xlstm as X
+    from repro_torch.sharding import placed as P
+
+    d = cfg.d_model
+    di, dt_rank, ds, _ = M._dims(cfg)
+    xdi, nh, _ = X._dims(cfg)
+    whole = {(d, 2 * di), (di, dt_rank + 2 * ds), (di, d), (d, 2 * xdi),
+             (xdi, d), (xdi, nh), (d, d)}
+    seen = {"whole": [], "scans": set()}
+    saved = (P.gather, M._selective_scan, X._mlstm_chunk_scan,
+             X._slstm_weights)
+    gather, scan, chunk, weights = saved
+
+    def spy_gather(leaf, over, mesh, *, sum_over=()):
+        out = gather(leaf, over, mesh, sum_over=sum_over)
+        if ("model" in over and "model" in P.split_axes(P.spec_of(leaf))
+                and tuple(out.shape) in whole):
+            seen["whole"].append(tuple(out.shape))
+        return out
+
+    def spy_scan(u, delta, a, *rest, **kw):
+        cs = min(kw.get("chunk", 128), u.shape[1])
+        seen["scans"].add(("mamba", u.shape[0], cs, u.shape[2], a.shape[1]))
+        return scan(u, delta, a, *rest, **kw)
+
+    def spy_chunk(q, k, v, *a, **kw):
+        seen["scans"].add(("mlstm q", *q.shape))
+        seen["scans"].add(("mlstm v", *v.shape))
+        return chunk(q, k, v, *a, **kw)
+
+    def spy_weights(params, cfg_, lay):
+        w, r, bias = weights(params, cfg_, lay)
+        seen["scans"].add(("slstm width, w cols", bias.shape[1],
+                           w.shape[-1]))
+        return w, r, bias
+
+    P.gather, M._selective_scan = spy_gather, spy_scan
+    X._mlstm_chunk_scan, X._slstm_weights = spy_chunk, spy_weights
+    try:
+        yield seen
+    finally:
+        (P.gather, M._selective_scan, X._mlstm_chunk_scan,
+         X._slstm_weights) = saved
+
+
+def placed_ssm_train_rank(rank, world):
+    """A [placed ssm train] rank: for each config, each rank in turn takes
+    one process's step alone and keeps its shards' slices of the grads
+    and updated parameters on the host; then both take the placed step
+    on (1, 2), held to those slices."""
+    dev = _moe_rank_setup()
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import init_model
+    from repro_torch.models.param import count_params
+    from repro_torch.optim.grad_utils import leaves
+    from repro_torch.sharding import placed as P
+
+    del world
+    first: dict = {}
+    take = [None]
+    record_first_grads(first, lambda g: take[0](g))
+    mesh = make_test_mesh(PSSM_MESH, ("data", "model"))
+    out = {"rank": rank, "configs": {}}
+    for label, cfg in placed_ssm_cfgs("train"):
+        n_full = count_params(init_model(get_config(label.split()[0]),
+                                         device="meta"))
+        raw = SyntheticLM(cfg.vocab_size, PSSM_N, seed=0).batch(0, PSSM_B)
+        batch = {k: torch.as_tensor(raw[k], dtype=torch.int32, device=dev)
+                 for k in ("tokens", "targets")}
+        placement = P.Placement(cfg, mesh)
+
+        def run(mesh_):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            first.clear()
+            params = init_model(cfg, seed=0, device=dev)
+            n_params = count_params(params)
+            _, opt = ST.pick_optimizer(cfg, n_full, lr=PSSM_LR,
+                                       total_steps=1)
+            b = batch
+            if mesh_ is None:
+                state = opt[0](params)
+            else:
+                params = placement.place(params)
+                state = placement.init_opt_state(opt[0], params)
+                b = P.shard_batch(batch, mesh_)
+            step = ST.make_train_step(cfg, opt, mesh=mesh_)
+            P.reset_asked()
+            ops.reset_launch_counts()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            params, state, m = step(params, state, b)
+            e1.record()
+            e1.synchronize()
+            res = dict(loss=first["loss"], ms=e0.elapsed_time(e1),
+                       launches={k: v for k, v in
+                                 ops.launch_counts().items() if v},
+                       n_params=n_params,
+                       optimizer="lion" if state.v is None else "adamw",
+                       peak=torch.cuda.max_memory_allocated() / 1e9,
+                       coll={k: (P.asked[k], P.asked_ms[k])
+                             for k in P.asked})
+            return res, first.pop("grads"), params
+
+        def slices(tree):
+            """The rank's shards of a whole tree, on the host."""
+            return {n: x.cpu() for n, x in leaves(placement.place(tree))}
+
+        ref = None
+        for r in range(2):      # one process at a time holds the card
+            if rank == r:
+                take[0] = slices
+                one, grads, params = run(None)
+                ref = {"grads": grads, "final": slices(params)}
+                del grads, params
+                torch.cuda.empty_cache()
+                one_keep = one
+            dist.barrier()
+        take[0] = lambda g: shard_sums(g, ref["grads"], placement.sizes,
+                                       count=True)
+        with ssm_spy(cfg) as seen:
+            got, grad_sums, params = run(mesh)
+        got.update(grad_sums=grad_sums,
+                   param_sums=shard_sums(params, ref["final"],
+                                         placement.sizes, count=True),
+                   whole=seen["whole"], scans=sorted(seen["scans"]),
+                   one=one_keep)
+        del params, ref
+        torch.cuda.empty_cache()
+        out["configs"][label] = got
+        dist.barrier()
+    out["slstm_choice"] = slstm_choice_readings(dev, mesh)
+    return out
+
+
+def slstm_choice_readings(dev, mesh) -> dict:
+    """What decides how an sLSTM head that spans k ranks is computed
+    (xlstm-1.3b at "model" = 16: 4 heads of 512, k = 4): host ms of one
+    all-gather over "model" of a head's h slice [B, 128] (the exchange a
+    split head's recurrence would make at every token) against the
+    device ms of the recurrence over N tokens on a whole head (512 wide,
+    as the placed step computes it) and on a quarter head (128 wide, its
+    compute without the exchange), float32, B=PSSM_B, N=PSSM_N."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.sharding import placed as P
+
+    group = mesh.get_group("model")
+    h = torch.zeros(PSSM_B, 128, device=dev)
+    for _ in range(4):
+        P._collective("all-gather", h, group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 64
+    for _ in range(reps):
+        P._collective("all-gather", h, group)
+    torch.cuda.synchronize()
+    out = {"exchange_ms": (time.perf_counter() - t0) * 1e3 / reps,
+           "tokens": PSSM_N}
+    for name, width in (("scan_ms_head", 512), ("scan_ms_quarter", 128)):
+        cfg = get_config("xlstm-1.3b", d_model=width, n_heads=1,
+                         n_layers=8, param_dtype="float32",
+                         activ_dtype="float32")
+        params = init_lm(cfg, seed=0, device=dev)["blocks_7"]["mixer"]
+        params = {k: v[0] for k, v in params.items()}
+        x = torch.randn(PSSM_B, PSSM_N, width, device=dev)
+        st = X.init_slstm_state(cfg, PSSM_B, torch.float32, device=dev)
+        with torch.no_grad():
+            X._slstm_scan(params, x[:, :8], cfg, st)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            X._slstm_scan(params, x, cfg, st)
+            e1.record()
+            e1.synchronize()
+        out[name] = e0.elapsed_time(e1)
+    return out
+
+
+# [placed ssm train]: the input-gate biases' grads (mLSTM's and sLSTM's
+# "bi") vanish in exact arithmetic (sLSTM's stabilizer m and mLSTM's
+# max(|den|, 1) cancel a common scale of the input gate), so the ranks
+# and one process hold rounding there, summed in two orders: as the CPU
+# tests' float32-island limits do (tests/test_torch_ssm_archs.py), their
+# grads are held against at least PSSM_GRAD_FLOOR of the largest leaf's
+# RMS grad, and their updated parameters within 2·lr RMS of one
+# process's (AdamW's first step moves an element by at most lr, here by
+# the sign of that rounding). Every other leaf takes TRAIN_GRAD_TOL as
+# [placed moe train] does
+PSSM_GRAD_FLOOR = 1e-2
+PSSM_VANISHING = "/mixer/bi"
+
+
+def ssm_leaf_errors(rows, lr: float) -> dict:
+    """{"grad": (leaf, err), "param": (leaf, err)}: the worst per-leaf
+    relative errors of the grads and the updated parameters (squared sums
+    added over the ranks where a mesh axis splits the leaf), the
+    input-gate biases' (PSSM_VANISHING) floored as said above."""
+    def sums(key):
+        out = {}
+        for name, (d2, r2, split, n) in rows[0][key].items():
+            if split:
+                d2, r2, n = (sum(r[key][name][i] for r in rows)
+                             for i in (0, 1, 3))
+            out[name] = (d2, r2, n)
+        return out
+
+    g, p = sums("grad_sums"), sums("param_sums")
+    floor2 = PSSM_GRAD_FLOOR ** 2 * max(r2 / n for _, r2, n in g.values())
+    gerr, perr = {}, {}
+    for name, (d2, r2, n) in g.items():
+        vanishing = name.endswith(PSSM_VANISHING)
+        gerr[name] = math.sqrt(d2 / max(r2, floor2 * n if vanishing
+                                        else 0.0, 1e-60))
+        pd2, pr2, pn = p[name]
+        perr[name] = (math.sqrt(pd2 / pn) / (2 * lr) if vanishing
+                      else math.sqrt(pd2 / max(pr2, 1e-60)))
+    gw, pw = max(gerr, key=gerr.get), max(perr, key=perr.get)
+    return {"grad": (gw, gerr[gw]), "param": (pw, perr[pw])}
+
+
+def placed_ssm_train_phase() -> dict:
+    """[placed ssm train]: the SSM mixers' placed step on (data 1, model
+    2), two ranks of the card, against one process's step."""
+    from repro_torch.launch.ranks import run_ranks
+
+    _free_parent()
+    t0 = time.monotonic()
+    ranks = run_ranks(placed_ssm_train_rank, 2,
+                      workdir=RANKS_DIR / "placed_ssm_train", timeout=900,
+                      threads=0)
+    out, ok = {"seconds": time.monotonic() - t0, "configs": {}}, True
+    for label in ranks[0]["configs"]:
+        rows = [r["configs"][label] for r in ranks]
+        g0, one = rows[0], rows[0]["one"]
+        errs = ssm_leaf_errors(rows, PSSM_LR)
+        (gleaf, gerr), (pleaf, perr) = errs["grad"], errs["param"]
+        diff = abs(g0["loss"] - one["loss"])
+        good = (diff <= TRAIN_LOSS_TOL and gerr <= TRAIN_GRAD_TOL
+                and perr <= TRAIN_GRAD_TOL and math.isfinite(g0["loss"])
+                and all(r["launches"] == {} for r in rows)
+                and one["launches"] == {}
+                and all(not r["whole"] for r in rows))
+        ok = ok and good
+        out["configs"][label] = {
+            "params": one["n_params"], "optimizer": one["optimizer"],
+            "loss": g0["loss"], "loss_one": one["loss"], "loss_diff": diff,
+            "worst_grad_leaf": gleaf, "worst_grad_err": gerr,
+            "worst_param_leaf": pleaf, "worst_param_err": perr,
+            "step_ms_ranks": [r["ms"] for r in rows],
+            "step_ms_one": [r["one"]["ms"] for r in rows],
+            "peak_gb_ranks": [r["peak"] for r in rows],
+            "peak_gb_one": [r["one"]["peak"] for r in rows],
+            "collectives_ranks": [r["coll"] for r in rows],
+            "launches_ranks": [r["launches"] for r in rows],
+            "whole_ranks": [r["whole"] for r in rows],
+            "scans_rank0": g0["scans"]}
+        coll_lines(f"{label} (1, 2)", rows, "coll")
+        phase("placed ssm train", f"{label} cut to "
+              f"{one['n_params'] / 1e9:.3f} B params, float32, "
+              f"{one['optimizer']}, B={PSSM_B} N={PSSM_N}, mesh (data, "
+              f"model) = (1, 2) on 2 ranks of the card against one "
+              f"process: loss |diff| {diff:.3e} (tol {TRAIN_LOSS_TOL}); "
+              f"worst grad {gleaf} {gerr:.3e}, worst updated parameter "
+              f"{pleaf} {perr:.3e} (tol {TRAIN_GRAD_TOL}; the input-gate "
+              f"biases' grads floored at {PSSM_GRAD_FLOOR} of the largest "
+              f"leaf's RMS, their parameters held within 2·lr RMS); step "
+              f"ms per "
+              f"rank {[r['ms'] for r in rows]} (one process "
+              f"{[r['one']['ms'] for r in rows]}); peak GB per rank "
+              f"{[round(r['peak'], 3) for r in rows]} (one process "
+              f"{[round(r['one']['peak'], 3) for r in rows]}); launches "
+              f"per rank {[r['launches'] for r in rows]}; whole leaves "
+              f"gathered over model per rank "
+              f"{[len(r['whole']) for r in rows]}; scans' operands a rank "
+              f"{g0['scans']}")
+    choice = [r["slstm_choice"] for r in ranks]
+    out["slstm_choice_ranks"] = choice
+    c0 = choice[0]
+    phase("placed ssm train", f"sLSTM head across ranks: one all-gather "
+          f"of a head's h slice [{PSSM_B}, 128] over model (gloo) "
+          f"{[round(c['exchange_ms'], 4) for c in choice]} ms a rank, "
+          f"x {c0['tokens']} tokens a layer and pass; the recurrence over "
+          f"{c0['tokens']} tokens on a whole 512-wide head "
+          f"{[round(c['scan_ms_head'], 2) for c in choice]} ms, on a "
+          f"quarter head {[round(c['scan_ms_quarter'], 2) for c in choice]}"
+          f" ms")
+    if not ok:
+        fail(f"placed ssm train: the placed step disagrees with one "
+             f"process, a kernel was launched, or a whole SSM leaf was "
+             f"gathered over model: {out}")
+    return out
+
+
+def place_leafwise(placement, tree, device) -> dict:
+    """The rank's shards of a whole parameter tree, each cut (a copy) onto
+    `device` and its whole leaf dropped from `tree` as it is cut: the
+    whole model and the shards need not fit the card together."""
+    from repro_torch.kernels.sharded import shard_local
+    from repro_torch.sharding import placed as P
+
+    def walk(t, specs):
+        out = {}
+        for k in list(t):
+            v = t.pop(k)
+            out[k] = (walk(v, specs[k]) if isinstance(v, dict) else
+                      P.tag(shard_local(v.detach(), specs[k],
+                                        placement.mesh).to(device,
+                                                           copy=True),
+                            specs[k]))
+            del v
+        return out
+
+    return walk(tree, placement.specs)
+
+
+def ssm_state_bytes(cfg, state) -> int:
+    """Bytes of the SSM layers' leaves of a decode state."""
+    from repro_torch.models.transformer import _block_keys
+    from repro_torch.sharding.placed import SSM_MIXERS
+
+    return sum(x.numel() * x.element_size()
+               for key, kind, _ in _block_keys(cfg)
+               if kind.split(":")[0] in SSM_MIXERS for x in state[key])
+
+
+def planned_ssm_state_bytes(cfg, batch: int, max_len: int, mesh) -> int:
+    """Rank 0's bytes of the SSM layers' decode state placed by the
+    reference's `decode_state_shardings` on `mesh`."""
+    from repro_torch.launch.dryrun import _local_numel, _pairs
+    from repro_torch.models import decode_state_specs
+    from repro_torch.models.transformer import _block_keys
+    from repro_torch.sharding.placed import SSM_MIXERS
+    from repro_torch.sharding.rules import decode_state_shardings
+
+    whole = decode_state_specs(cfg, batch, max_len)
+    specs = decode_state_shardings(whole, mesh, batch=batch)
+    return sum(_local_numel(tuple(x.shape), s, mesh, p) * x.element_size()
+               for key, kind, _ in _block_keys(cfg)
+               if kind.split(":")[0] in SSM_MIXERS
+               for p, x, s in _pairs(whole[key], specs[key]))
+
+
+def placed_ssm_serve_rank(rank, world):
+    """A [placed ssm serve] rank: per config, rank 0 first takes one
+    process's generate() alone, then each rank in turn draws the weights
+    and keeps its shards, and both prefill and decode on (1, 2)."""
+    dev = _moe_rank_setup()
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import init_decode_state, init_model
+    from repro_torch.optim.grad_utils import tree_map
+    from repro_torch.sharding import placed as P
+    from repro_torch.sharding.rules import use_mesh
+
+    del world
+    mesh = make_test_mesh(PSSM_MESH, ("data", "model"))
+    out = {"rank": rank, "configs": {}}
+    max_len = PSSM_PROMPT + PSSM_GEN
+    for label, cfg in placed_ssm_cfgs("serve"):
+        gen = torch.Generator().manual_seed(0)
+        prompts = torch.randint(0, cfg.vocab_size, (PSSM_B, PSSM_PROMPT),
+                                generator=gen).to(dev)
+        ref = launches_one = None
+        if rank == 0:
+            params = init_model(cfg, seed=0, device=dev)
+            ops.reset_launch_counts()
+            ref = generate(params, cfg, prompts, PSSM_GEN).cpu()
+            launches_one = {k: v for k, v in ops.launch_counts().items()
+                            if v}
+            del params
+            torch.cuda.empty_cache()
+        dist.barrier()
+        t0 = time.monotonic()
+        placement = P.Placement(cfg, mesh)
+        placed = None
+        # one whole copy of the weights at a time: rank 0 cuts its shards
+        # into host memory while rank 1 draws and cuts on the card
+        for r in range(2):
+            if rank == r:
+                placed = place_leafwise(placement, init_model(
+                    cfg, seed=0, device=dev), "cpu" if r == 0 else dev)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        placed = tree_map(lambda x: P.tag(x.to(dev), P.spec_of(x)), placed)
+        setup_s = time.monotonic() - t0
+        torch.cuda.reset_peak_memory_stats()
+        with use_mesh(mesh):
+            state = init_decode_state(cfg, PSSM_B, max_len, device=dev)
+        held = ssm_state_bytes(cfg, state)
+        whole = ssm_state_bytes(cfg, init_decode_state(
+            cfg, PSSM_B, max_len, device="meta"))
+        planned = planned_ssm_state_bytes(cfg, PSSM_B, max_len, mesh)
+        prefill = make_prefill_step(cfg, mesh=mesh)
+        step = make_serve_step(cfg, mesh=mesh)
+        positions = PSSM_PROMPT + torch.arange(PSSM_GEN - 1, device=dev)
+        ops.reset_launch_counts()
+        P.reset_asked()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with ssm_spy(cfg) as seen:
+            ev[0].record()
+            tok, state = prefill(placed, state, prompts)
+            ev[1].record()
+            toks = [tok]
+            for i in range(PSSM_GEN - 1):
+                tok, state = step(placed, state, tok, positions[i])
+                toks.append(tok)
+            ev[2].record()
+            ev[2].synchronize()
+        got = torch.stack(toks, 1).cpu()
+        out["configs"][label] = {
+            "launches": {k: v for k, v in ops.launch_counts().items()
+                         if v},
+            "launches_one": launches_one,
+            "equal": None if ref is None else bool(torch.equal(got, ref)),
+            "tokens": got.tolist(), "whole": seen["whole"],
+            "scans": sorted(seen["scans"]),
+            "state_bytes": held, "state_bytes_planned": planned,
+            "state_bytes_one": whole, "setup_s": setup_s,
+            "prefill_ms": ev[0].elapsed_time(ev[1]),
+            "decode_ms_per_token": ev[1].elapsed_time(ev[2])
+            / (PSSM_GEN - 1),
+            "collectives": {k: (P.asked[k], P.asked_ms[k])
+                            for k in P.asked},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del placed, state
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def placed_ssm_serve_phase() -> dict:
+    """[placed ssm serve]: float32 jamba and xlstm-1.3b prefill and decode
+    on (data 1, model 2) against one process's generate()."""
+    from repro_torch.launch.ranks import run_ranks
+
+    _free_parent()
+    t0 = time.monotonic()
+    r0, r1 = run_ranks(placed_ssm_serve_rank, 2, workdir=RANKS_DIR /
+                       "placed_ssm_serve", timeout=900, threads=0)
+    out, ok = {"seconds": time.monotonic() - t0, "configs": {}}, True
+    for label, cfg in placed_ssm_cfgs("serve"):
+        a, b = r0["configs"][label], r1["configs"][label]
+        attn = sum(k.split(":")[0] == "attn" for k in cfg.pattern) \
+            * cfg.n_groups
+        want = ({} if not attn else
+                {"fastmax_causal": attn,
+                 "fastmax_decode": (PSSM_GEN - 1) * attn})
+        good = (a["equal"] and b["tokens"] == a["tokens"]
+                and a["launches"] == b["launches"] == want
+                and a["launches_one"] == want
+                and not a["whole"] and not b["whole"]
+                and a["state_bytes"] == b["state_bytes"]
+                == a["state_bytes_planned"]
+                and 2 * a["state_bytes"] == a["state_bytes_one"])
+        ok = ok and good
+        out["configs"][label] = {
+            "n_layers": cfg.n_layers, "batch": PSSM_B,
+            "prompt": PSSM_PROMPT, "gen": PSSM_GEN, "dtype": "float32",
+            "tokens_equal": a["equal"],
+            "launches_ranks": [a["launches"], b["launches"]],
+            "launches_one": a["launches_one"],
+            "ssm_state_bytes_ranks": [a["state_bytes"], b["state_bytes"]],
+            "ssm_state_bytes_planned": a["state_bytes_planned"],
+            "ssm_state_bytes_one": a["state_bytes_one"],
+            "prefill_ms_ranks": [a["prefill_ms"], b["prefill_ms"]],
+            "decode_ms_per_token_ranks": [a["decode_ms_per_token"],
+                                          b["decode_ms_per_token"]],
+            "peak_gb_ranks": [a["peak_gb"], b["peak_gb"]],
+            "setup_s_ranks": [a["setup_s"], b["setup_s"]],
+            "collectives_ranks": [a["collectives"], b["collectives"]],
+            "whole_ranks": [a["whole"], b["whole"]],
+            "scans_rank0": a["scans"]}
+        coll_lines(f"{label} serve", [a, b], "collectives")
+        phase("placed ssm serve", f"{label} cut to {cfg.n_layers} layers, "
+              f"float32, (data 1, model 2) on 2 ranks of the card: "
+              f"B={PSSM_B} prompt {PSSM_PROMPT}, a prefill and "
+              f"{PSSM_GEN - 1} decode tokens; greedy tokens equal one "
+              f"process's generate(): {a['equal']}; launches per rank "
+              f"{a['launches']}, {b['launches']} (one process "
+              f"{a['launches_one']}); SSM decode-state bytes per rank "
+              f"{[a['state_bytes'], b['state_bytes']]} (planned "
+              f"{a['state_bytes_planned']}, one process "
+              f"{a['state_bytes_one']}); whole leaves gathered over model "
+              f"per rank {[len(a['whole']), len(b['whole'])]}; scans' "
+              f"operands a rank {a['scans']}; prefill ms "
+              f"{out['configs'][label]['prefill_ms_ranks']}, decode "
+              f"ms/token {out['configs'][label]['decode_ms_per_token_ranks']}"
+              f"; peak GB {out['configs'][label]['peak_gb_ranks']}")
+    if not ok:
+        fail(f"placed ssm serve: tokens differ from generate(), the "
+             f"launches per rank are not one prefill per attention layer "
+             f"and one decode per attention layer and token, a whole SSM "
+             f"leaf was gathered over model, or the SSM decode state is "
+             f"not the planned bytes: {out}")
     return out
 
 
@@ -5115,6 +5700,11 @@ def main() -> None:
     placed_moe_train = placed_moe_train_phase()
     placed_moe_serve = placed_moe_serve_phase()
 
+    # ---- the SSM mixers split over "model": xlstm and jamba, two ranks ----
+    torch.cuda.empty_cache()
+    placed_ssm_train = placed_ssm_train_phase()
+    placed_ssm_serve = placed_ssm_serve_phase()
+
     # ---- the dry run against the real step ----
     torch.cuda.empty_cache()
     dryrun = dryrun_phase(dev, placed_train)
@@ -5231,6 +5821,8 @@ def main() -> None:
     print(json.dumps({"placed_serve": placed_serve}))
     print(json.dumps({"placed_moe_train": placed_moe_train}))
     print(json.dumps({"placed_moe_serve": placed_moe_serve}))
+    print(json.dumps({"placed_ssm_train": placed_ssm_train}))
+    print(json.dumps({"placed_ssm_serve": placed_ssm_serve}))
     print(json.dumps({"dryrun": dryrun}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

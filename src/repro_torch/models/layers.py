@@ -126,11 +126,16 @@ def init_mlp(b: Builder, name: str, d_model: int, d_ff: int,
     sub.add("wo", (d_ff, d_model), ("ff", "embed"))
 
 
+_ROW_OUT = ("wo", "out_proj", "down_proj")
+
+
 def tensor_parallel(params) -> bool:
     """Whether a layer's gathered leaves split its compute over "model":
-    the column/row-parallel attention and MLP, whose wo keeps its "model"
-    shard (heads or ff) under the placed step's tensor parallelism."""
-    return "wo" in params and P.model_dim(params["wo"]) == 0
+    the column/row-parallel attention, MLP and SSM mixers, whose
+    row-parallel output projection (wo; Mamba's out_proj, xLSTM's
+    down_proj) keeps its "model" shard (heads or ff)."""
+    return any(k in params and P.model_dim(params[k]) == 0
+               for k in _ROW_OUT)
 
 
 def apply_mlp(params, x, *, act: str = "swiglu"):

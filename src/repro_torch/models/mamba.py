@@ -31,6 +31,16 @@ be a view into a stacked [n_groups, ...] model state or into one slot of
 a serving pool. FAST does not apply to this mixer (it is
 attention-free); the reference has no kernel for it, so plain torch is
 its only version, on the card too.
+
+Under the placed step's SSM split (`sharding.placed`, the leaves' "ff"
+shards over "model") a rank computes its d_inner / model channels: x
+enters through `tp_enter`, in_proj's shard is exchanged for the rank's
+columns of xi and of z (`placed.halves`), the conv, dt_proj, dt_bias,
+A_log, D and the scan are per channel, x_proj is row-parallel with its
+[B, N, dt_rank + 2·d_state] output summed over "model" forward and
+backward (`placed.psum`: Δ, B and C feed the rank's channels only), and
+out_proj is row-parallel through `tp_exit`. A rank's decode state is its
+channels' (`init_mamba_state(..., model=m)`).
 """
 from __future__ import annotations
 
@@ -42,6 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import _dense
 from repro_torch.models.param import Builder
+from repro_torch.sharding import placed as P
 
 __all__ = ["MambaState", "init_mamba", "apply_mamba", "mamba_prefill",
            "mamba_decode", "init_mamba_state"]
@@ -131,14 +142,26 @@ def _selective_scan(u, delta, a, bmat, cmat, d_skip, *, h0, chunk=128):
     return y + u * d_skip[None, None, :], h
 
 
+def _split(params) -> bool:
+    """Whether the gathered leaves hold the rank's channels (the placed
+    step's SSM split): out_proj row-parallel over "model"."""
+    return P.model_dim(params["out_proj"]) == 0
+
+
 def _pre_ssm(params, x, cfg, conv_state=None):
     _, dt_rank, ds, _ = _dims(cfg)
-    xz = _dense(x, params["in_proj"])
+    w_in = params["in_proj"]
+    if _split(params):
+        x = P.tp_enter(x)
+        w_in = P.halves(w_in, 1)
+    xz = _dense(x, w_in)
     xi, z = xz.chunk(2, dim=-1)
     xi, new_conv = _causal_conv(xi, params["conv_w"], params["conv_b"],
                                 state=conv_state)
     xi = F.silu(xi)
     proj = _dense(xi, params["x_proj"])
+    if _split(params):
+        proj = P.psum(proj)
     dt, bmat, cmat = proj.split([dt_rank, ds, ds], dim=-1)
     delta = F.softplus(_dense(dt, params["dt_proj"]) + params["dt_bias"])
     a = -torch.exp(params["A_log"].to(_F32))
@@ -154,12 +177,19 @@ def _ssm(params, x, cfg, h0, conv_state=None):
         xi.to(_F32), delta.to(_F32), a, bmat.to(_F32), cmat.to(_F32),
         params["D"].to(_F32), h0=h0, chunk=cfg.chunk_size)
     y = y.to(x.dtype) * F.silu(z)
-    return _dense(y, params["out_proj"]), conv, hf
+    return _out(params, y), conv, hf
+
+
+def _out(params, y):
+    out = _dense(y, params["out_proj"])
+    return P.tp_exit(out) if _split(params) else out
 
 
 def apply_mamba(params, x, cfg):
-    """Full-sequence Mamba mixer from a zero state. x [B, N, d]."""
-    di, _, ds, _ = _dims(cfg)
+    """Full-sequence Mamba mixer from a zero state. x [B, N, d] (under
+    the sequence split the rank's slice of N)."""
+    # the rank's channels under the placed step's split
+    di, ds = params["A_log"].shape
     h0 = torch.zeros(x.shape[0], di, ds, dtype=_F32, device=x.device)
     return _ssm(params, x, cfg, h0)[0]
 
@@ -174,8 +204,13 @@ def mamba_prefill(params, x, cfg, state: MambaState):
     return y, state
 
 
-def init_mamba_state(cfg, batch: int, dtype, device=None) -> MambaState:
+def init_mamba_state(cfg, batch: int, dtype, device=None,
+                     model: int = 1) -> MambaState:
+    """A fresh state; with `model` > 1 dividing d_inner, the state of a
+    rank's d_inner / model channels (the placed step's split)."""
     di, _, ds, dc = _dims(cfg)
+    if di % model == 0:
+        di //= model
     return MambaState(
         conv=torch.zeros(batch, dc - 1, di, dtype=dtype, device=device),
         h=torch.zeros(batch, di, ds, dtype=_F32, device=device))
@@ -193,7 +228,7 @@ def mamba_decode(params, x_t, state: MambaState, cfg):
     y = torch.matmul(h, cmat[:, 0, :, None].to(_F32))[..., 0]
     y = y + xi[:, 0].to(_F32) * params["D"].to(_F32)
     y = y[:, None].to(x_t.dtype) * F.silu(z)
-    out = _dense(y, params["out_proj"])
+    out = _out(params, y)
     state.conv.copy_(new_conv)
     state.h.copy_(h)
     return out, state

@@ -36,8 +36,12 @@ Under the placed step (`sharding.placed`, an active `Placement`) the
 parameters are the rank's shards: each block gathers its leaves around
 its use (`_block`, inside the recompute under remat), the embedding, the
 final norm and the unembedding around theirs; a stacked leaf's layer is
-sliced out of the local shard before its gather. Under tensor
-parallelism the embedding lookup and the logits are vocab-parallel:
+sliced out of the local shard before its gather. Every mixer keeps the
+"model" shards that its placement splits the compute by (attention by
+heads, Mamba and xLSTM by their "ff" and "heads" shards: `models.mamba`,
+`models.xlstm`), and under an active mesh that splits the SSM mixers
+`init_lm_decode_state` makes each rank's slice of their states. Under
+tensor parallelism the embedding lookup and the logits are vocab-parallel:
 `forward_lm`, `lm_prefill` and `lm_decode_step` then return the rank's
 vocab shard of the logits (`placed.gather_vocab` makes them whole).
 Under a placement whose "model" axis is larger than 1 and divides N,
@@ -46,8 +50,8 @@ Under a placement whose "model" axis is larger than 1 and divides N,
 (`placed.sequence_split`): the embedding produces the slice, each block
 is checkpointed on it and runs its norms on it, a tensor-parallel layer
 gathers the sequence on entry and reduce-scatters on exit (`tp_enter`,
-`tp_exit`; the MoE configs' GQA and MLA are split so too), a layer
-computed whole on every model rank (Mamba, xLSTM, whisper's towers, the
+`tp_exit`; the MoE configs' GQA and MLA and the SSM mixers are split so
+too), a layer computed whole on every model rank (whisper's towers, the
 cross-attention) is wrapped in a gather and a slice, the MoE gathers its
 rows before the router, and the sequence is gathered before the logits
 (or the returned hidden states). `lm_prefill` and `lm_decode_step` stay
@@ -298,11 +302,13 @@ def _init_block_state(kind: str, cfg: ModelConfig, batch: int,
     mixer, dtype = kind.split(":")[0], cfg.adtype()
     if mixer == "attn":
         return L.init_attn_state(cfg, batch, max_len, dtype, device=device)
+    # a rank's slice under an active mesh that splits the SSM mixers
+    m = P.ssm_model_size(cfg)
     if mixer == "mamba":
-        return M.init_mamba_state(cfg, batch, dtype, device=device)
+        return M.init_mamba_state(cfg, batch, dtype, device=device, model=m)
     if mixer == "mlstm":
-        return X.init_mlstm_state(cfg, batch, device=device)
-    return X.init_slstm_state(cfg, batch, dtype, device=device)
+        return X.init_mlstm_state(cfg, batch, device=device, model=m)
+    return X.init_slstm_state(cfg, batch, dtype, device=device, model=m)
 
 
 def init_lm_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -315,7 +321,10 @@ def init_lm_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     hybrid spec's window), a Mamba layer's a `MambaState` (conv inputs in
     the activation dtype, h float32), an xLSTM layer's an `MLSTMState` or
     `SLSTMState` (float32 but sLSTM's h). On the `meta` device it only
-    describes the shapes (`core.decode_state.decode_state_bytes`)."""
+    describes the shapes (`core.decode_state.decode_state_bytes`). Under
+    an active mesh (`rules.use_mesh`) a fastmax kernel backend's moments
+    are its plan's and an SSM layer's state is the rank's slice of its
+    channels over "model" (`placed.ssm_model_size`)."""
     _check_supported(cfg)
     dev = device if str(device) == "meta" else resolve_device(device)
 
@@ -359,9 +368,10 @@ def _norm(params, x, cfg: ModelConfig):
 
 def _layer(fn, params, h):
     """fn(params, h) on the residual's layout: a tensor-parallel layer
-    takes the rank's slice of the sequence as it is (it gathers and
-    reduce-scatters itself), any other is computed on the whole sequence
-    (nothing split inside) and sliced back."""
+    (attention, MLP, Mamba, xLSTM with their "model" shards) takes the
+    rank's slice of the sequence as it is (it gathers and reduce-scatters
+    itself), any other is computed on the whole sequence (nothing split
+    inside) and sliced back."""
     if L.tensor_parallel(params) or not P.seq_split():
         return fn(params, h)
     h = P.seq_gather(h)
@@ -377,15 +387,15 @@ def _block(params_b, x, cfg: ModelConfig, mixer, enc_out=None, *,
     (the `dense_i` blocks of an "attn:moe" pattern, as in the reference);
     a block without an ffn ("none") has no second norm. Placed leaves are
     gathered for their use here (an MoE's routed experts one at a time,
-    in `moe.apply_moe`; the FFNs and an attention mixer keep their
-    "model" shards). Under the sequence split x is the rank's slice of
-    the sequence (`_layer`)."""
+    in `moe.apply_moe`; the FFNs and the mixers keep their "model"
+    shards where the placement splits them). Under the sequence split x
+    is the rank's slice of the sequence (`_layer`)."""
     ffn, mix = params_b.get("ffn"), params_b["mixer"]
     params_b = P.materialize({k: v for k, v in params_b.items()
                               if k not in ("ffn", "mixer")})
     # an attention mixer (GQA or MLA) splits its compute by its heads
-    # shards over "model"; Mamba's and xLSTM's are gathered whole
-    params_b["mixer"] = P.materialize(mix, split="wq" in mix and "wo" in mix)
+    # shards over "model", Mamba and xLSTM by their "ff" and "heads" ones
+    params_b["mixer"] = P.materialize(mix, split=True)
     if ffn is not None:
         params_b["ffn"] = (MOE.materialize(ffn) if "router" in ffn
                            else P.materialize(ffn, split=True))

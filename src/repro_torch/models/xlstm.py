@@ -21,6 +21,36 @@ state dtypes are the reference's: C, n and sLSTM's c, n, m float32, sLSTM's
 h in the activation dtype, m starting at -1e9 (a slot pool resets each
 leaf to its fresh fill). Attention-free, so FAST does not apply; the
 reference has no kernel here, so plain torch is the only version.
+
+Under the placed step's SSM split (`sharding.placed`: the leaves' "ff"
+shards over "model", and their "heads" shards where "model" divides the
+heads) a rank computes its d_inner / model channels of the mixer, which
+are either whole heads (model divides the heads) or a contiguous slice
+of one head (the heads divide model: a head spans k = model / heads
+consecutive ranks, its `placed.head_group`). x enters through
+`tp_enter`, the row-parallel down_proj leaves through `tp_exit`.
+
+mLSTM. up_proj's shard is exchanged for the rank's channels of xi and
+of z (`placed.halves`). The rank's heads take their whole xi (gathered
+over the head's ranks, `placed.gather_sum`), so q and k are the head's
+whole, v is the rank's slice of the head's value dim (dv / k): the
+matrix memory C [B, heads, dk, dv / k] of a rank is its value slice; the
+normalizer n [B, heads, dk / k] its key slice, its dot with q summed over
+the head's ranks (a decode step; a prefill gathers n once and keeps its
+slice of the result). wi and wf contract all of d_inner: their [B, N,
+heads] output is a partial sum over "model" (`placed.psum`). The
+per-head norm sums its squares over the head's ranks. The layer's output
+channels are then the rank's "ff" slice, as gn_scale, z and down_proj's
+rows hold it. wq, wk, wv, bi and bf whole over "model" (heads not
+divisible) are indexed at the rank's head and take `sum_grad`.
+
+sLSTM is block-diagonal per head: head-parallel where "model" divides
+the heads. Where a head spans k ranks, each of them computes the head
+whole (the recurrence would otherwise need h exchanged every token,
+inside the per-token loop): w{z,i,f,o}'s and b{z,i,f,o}'s columns of the
+head are gathered over its k ranks (not over all of "model"), the head's
+state slices likewise at each stateful call, and each rank keeps its
+slice of the head's output and of its final state.
 """
 from __future__ import annotations
 
@@ -32,6 +62,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import _dense
 from repro_torch.models.param import Builder
+from repro_torch.sharding import placed as P
 
 __all__ = [
     "init_mlstm", "apply_mlstm", "apply_mlstm_stateful", "mlstm_decode",
@@ -50,13 +81,73 @@ def _dims(cfg):
     return di, nh, di // nh
 
 
-def _headwise_norm(h, nh: int, out_dtype):
+def _headwise_norm(h, nh: int, out_dtype, group=None, width=None):
     """Per-head RMS norm of h [B, N, di] (no scale), computed in float32 on
-    h's values, cast to `out_dtype`."""
+    h's values, cast to `out_dtype`. With `group`, h holds a slice of
+    each head, `width` wide whole: its sum of squares is summed over the
+    group."""
     bsz, n, di = h.shape
     hn = h.reshape(bsz, n, nh, di // nh)
-    var = hn.to(_F32).square().mean(dim=-1, keepdim=True)
+    if group is None:
+        var = hn.to(_F32).square().mean(dim=-1, keepdim=True)
+    else:
+        var = P.psum(hn.to(_F32).square().sum(dim=-1, keepdim=True),
+                     group) / width
     return (hn * torch.rsqrt(var + 1e-6)).reshape(bsz, n, di).to(out_dtype)
+
+
+class _Layout(NamedTuple):
+    """A rank's part of a mixer of `nh` heads of `hd` channels under the
+    placed step's split over `model` ranks: heads [h0, h0 + nl), of
+    which it holds the channels slice j of k (k ranks to a head; k = 1:
+    whole heads), and the head's group of ranks (None for k = 1)."""
+    h0: int
+    nl: int
+    k: int
+    j: int
+    group: object
+    hd: int
+
+
+def _layout(params, out_leaf: str, nh: int, hd: int):
+    """The rank's `_Layout` where its gathered leaves hold its channels
+    (`out_leaf` row-parallel over "model"), else None."""
+    if P.model_dim(params[out_leaf]) != 0:
+        return None
+    _, idx, m = P.active().model()
+    if nh % m == 0:
+        return _Layout(idx * (nh // m), nh // m, 1, 0, None, hd)
+    if m % nh:
+        raise ValueError(f"the xLSTM split over 'model' = {m} needs it to "
+                         f"divide the {nh} heads or be a multiple of them")
+    k = m // nh
+    group, j = P.head_group(k)
+    return _Layout(idx // k, 1, k, j, group, hd)
+
+
+def _local_dims(nh: int, hd: int, model: int) -> tuple:
+    """(heads, channels a head) of a rank's state under a split over
+    `model` ranks: whole heads where it divides them, else a 1/k slice
+    of one head."""
+    if model == 1 or nh % model == 0:
+        return nh // model, hd
+    return 1, hd // (model // nh)
+
+
+def _heads(params, name: str, lay: _Layout):
+    """The rank's heads [h0, h0 + nl) of a leaf with a leading heads dim:
+    the leaf itself where it is their shard, else indexed (its grad
+    summed over "model": every rank uses its heads only)."""
+    w = params[name]
+    if P.model_dim(w) == 0:
+        return w
+    return P.sum_grad(w)[lay.h0:lay.h0 + lay.nl]
+
+
+def _slice(x, dim: int, lay: _Layout):
+    """The rank's slice j of k of `dim`."""
+    size = x.shape[dim] // lay.k
+    return x.narrow(dim, lay.j * size, size)
 
 
 # ---------------------------------------------------------------------------
@@ -87,15 +178,33 @@ def init_mlstm(b: Builder, name: str, cfg) -> None:
     sub.add("down_proj", (di, d), ("ff", "embed"))
 
 
-def _mlstm_gates(params, xi):
-    """xi [B, N, di] -> (q, k, v [B,H,N,hd], log_f [B,H,N], i [B,H,N])."""
-    nh, hd = params["wq"].shape[0], params["wq"].shape[1]
-    xh = xi.reshape(xi.shape[0], xi.shape[1], nh, hd)
-    q = torch.einsum("bnhk,hkl->bhnl", xh, params["wq"])
-    k = torch.einsum("bnhk,hkl->bhnl", xh, params["wk"]) / math.sqrt(hd)
-    v = torch.einsum("bnhk,hkl->bhnl", xh, params["wv"])
-    fpre = _dense(xi, params["wf"]).transpose(1, 2) + params["bf"][:, None]
-    ipre = _dense(xi, params["wi"]).transpose(1, 2) + params["bi"][:, None]
+def _mlstm_gates(params, xi, lay=None):
+    """xi [B, N, di] -> (q, k, v [B,H,N,hd], log_f [B,H,N], i [B,H,N]);
+    under a split (`lay`) xi holds the rank's channels and the result its
+    heads, v the rank's slice of their value dim."""
+    if lay is None:
+        wq, wk, wv, bf, bi = (params[n] for n in ("wq", "wk", "wv", "bf",
+                                                  "bi"))
+        xh = xi
+    else:
+        wq, wk, wv, bf, bi = (_heads(params, n, lay)
+                              for n in ("wq", "wk", "wv", "bf", "bi"))
+        # the rank's heads whole: a head's slices gathered over its ranks
+        xh = xi if lay.k == 1 else P.gather_sum(xi, -1, lay.group)
+        wv = _slice(wv, 2, lay)
+    nh, hd = wq.shape[0], wq.shape[1]
+    xh = xh.reshape(xh.shape[0], xh.shape[1], nh, hd)
+    q = torch.einsum("bnhk,hkl->bhnl", xh, wq)
+    k = torch.einsum("bnhk,hkl->bhnl", xh, wk) / math.sqrt(hd)
+    v = torch.einsum("bnhk,hkl->bhnl", xh, wv)
+    fpre, ipre = _dense(xi, params["wf"]), _dense(xi, params["wi"])
+    if lay is not None:
+        # wi, wf contract all of d_inner: partial sums over "model"
+        fi = P.psum(torch.stack([fpre, ipre]))
+        fi = fi[..., lay.h0:lay.h0 + lay.nl]
+        fpre, ipre = fi[0], fi[1]
+    fpre = fpre.transpose(1, 2) + bf[:, None]
+    ipre = ipre.transpose(1, 2) + bi[:, None]
     log_f = F.logsigmoid(fpre.to(_F32))
     ig = torch.exp(torch.clamp(ipre.to(_F32), max=_ICAP))
     return q, k, v, log_f, ig
@@ -134,63 +243,108 @@ def _mlstm_chunk_scan(q, k, v, log_f, ig, c0, n0, *, chunk):
     return torch.cat(hs, dim=2), (c_prev, n_prev)
 
 
+def _mlstm_layout(params, cfg):
+    _, nh, hd = _dims(cfg)
+    return _layout(params, "down_proj", nh, hd)
+
+
+def _mlstm_in(params, x, lay):
+    """(xi, z) of x [B, N, d]: the rank's channels of each under a split
+    (x entering the tensor-parallel region)."""
+    w = params["up_proj"]
+    if lay is not None:
+        x, w = P.tp_enter(x), P.halves(w, 1)
+    return _dense(x, w).chunk(2, dim=-1)
+
+
+def _mlstm_out(params, h, z, nh: int, lay, dtype):
+    """h [B, H, N, dv] -> the block's output: the per-head norm (on h's
+    values, cast to `dtype`), the scale, the output gate z and down_proj
+    (row-parallel under a split)."""
+    bsz, _, n, _ = h.shape
+    h = h.transpose(1, 2).reshape(bsz, n, -1)
+    if lay is None or lay.k == 1:
+        h = _headwise_norm(h, nh if lay is None else lay.nl, dtype)
+    else:
+        h = _headwise_norm(h, 1, dtype, group=lay.group, width=lay.hd)
+    out = _dense(h * params["gn_scale"] * F.silu(z), params["down_proj"])
+    return out if lay is None else P.tp_exit(out)
+
+
 def _mlstm(params, x, cfg, c0, n0):
-    """The mLSTM block over x [B, N, d] from (c0, n0): (out, c, n)."""
-    bsz, n, _ = x.shape
-    di, nh, _ = _dims(cfg)
-    ug = _dense(x, params["up_proj"])
-    xi, z = ug.chunk(2, dim=-1)
-    q, k, v, log_f, ig = _mlstm_gates(params, xi)
+    """The mLSTM block over x [B, N, d] from (c0, n0): (out, c, n).
+    Under a split c0 is the rank's value slice and n0 its heads' whole
+    normalizer (the result's n too)."""
+    _, nh, _ = _dims(cfg)
+    lay = _mlstm_layout(params, cfg)
+    xi, z = _mlstm_in(params, x, lay)
+    q, k, v, log_f, ig = _mlstm_gates(params, xi, lay)
     h, (cf, nf) = _mlstm_chunk_scan(
         q.to(_F32), k.to(_F32), v.to(_F32), log_f, ig, c0, n0,
         chunk=min(cfg.chunk_size, 128))
-    h = h.transpose(1, 2).reshape(bsz, n, di).to(x.dtype)
-    h = _headwise_norm(h, nh, x.dtype) * params["gn_scale"] * F.silu(z)
-    return _dense(h, params["down_proj"]), cf, nf
+    return _mlstm_out(params, h.to(x.dtype), z, nh, lay, x.dtype), cf, nf
 
 
 def apply_mlstm_stateful(params, x, cfg, state: MLSTMState):
     """mLSTM over x [B, N, d] resumed from `state`. Returns (out, state),
     the state updated in place."""
-    out, cf, nf = _mlstm(params, x, cfg, state.c, state.n)
+    lay = _mlstm_layout(params, cfg)
+    n0 = state.n
+    if lay is not None and lay.k > 1:
+        # the head's whole normalizer from its ranks' key slices
+        with torch.no_grad():
+            n0 = P.gather_sum(n0, -1, lay.group)
+    out, cf, nf = _mlstm(params, x, cfg, state.c, n0)
     state.c.copy_(cf)
-    state.n.copy_(nf)
+    state.n.copy_(nf if n0 is state.n else _slice(nf, -1, lay))
     return out, state
 
 
 def apply_mlstm(params, x, cfg):
-    """Full-sequence mLSTM from a zero state (differentiable)."""
-    st = init_mlstm_state(cfg, x.shape[0], device=x.device)
-    return _mlstm(params, x, cfg, st.c, st.n)[0]
-
-
-def init_mlstm_state(cfg, batch: int, device=None) -> MLSTMState:
+    """Full-sequence mLSTM from a zero state (differentiable); under a
+    split the rank's state, its heads' normalizer whole."""
+    lay = _mlstm_layout(params, cfg)
     _, nh, hd = _dims(cfg)
+    nl, dv = (nh, hd) if lay is None else (lay.nl, hd // lay.k)
+    c0 = torch.zeros(x.shape[0], nl, hd, dv, dtype=_F32, device=x.device)
+    n0 = torch.zeros(x.shape[0], nl, hd, dtype=_F32, device=x.device)
+    return _mlstm(params, x, cfg, c0, n0)[0]
+
+
+def init_mlstm_state(cfg, batch: int, device=None,
+                     model: int = 1) -> MLSTMState:
+    """A fresh state; with `model` > 1, a rank's under the placed step's
+    split: its heads' C with the rank's slice of their value dim, n with
+    its slice of their key dim."""
+    di, nh, hd = _dims(cfg)
+    nl, part = (nh, hd) if di % model else _local_dims(nh, hd, model)
     return MLSTMState(
-        c=torch.zeros(batch, nh, hd, hd, dtype=_F32, device=device),
-        n=torch.zeros(batch, nh, hd, dtype=_F32, device=device))
+        c=torch.zeros(batch, nl, hd, part, dtype=_F32, device=device),
+        n=torch.zeros(batch, nl, part, dtype=_F32, device=device))
 
 
 def mlstm_decode(params, x_t, state: MLSTMState, cfg):
     """One-token decode. x_t [B, 1, d]. Returns (out [B, 1, d], state),
     the state updated in place."""
-    bsz = x_t.shape[0]
-    di, nh, hd = _dims(cfg)
-    ug = _dense(x_t, params["up_proj"])
-    xi, z = ug.chunk(2, dim=-1)
-    q, k, v, log_f, ig = _mlstm_gates(params, xi)
+    _, nh, _ = _dims(cfg)
+    lay = _mlstm_layout(params, cfg)
+    xi, z = _mlstm_in(params, x_t, lay)
+    q, k, v, log_f, ig = _mlstm_gates(params, xi, lay)
     q, k, v = (t[:, :, 0].to(_F32) for t in (q, k, v))
     f = torch.exp(log_f[..., 0])
     i = ig[..., 0]
     c = f[..., None, None] * state.c + i[..., None, None] * (
         k[..., :, None] * v[..., None, :])
-    nn_ = f[..., None] * state.n + i[..., None] * k
     num = torch.matmul(q[..., None, :], c)[..., 0, :]
-    den = (q * nn_).sum(dim=-1)
+    if lay is None or lay.k == 1:
+        nn_ = f[..., None] * state.n + i[..., None] * k
+        den = (q * nn_).sum(dim=-1)
+    else:
+        # the rank's key slice of n; q·n summed over the head's ranks
+        nn_ = f[..., None] * state.n + i[..., None] * _slice(k, -1, lay)
+        den = P.psum((_slice(q, -1, lay) * nn_).sum(dim=-1), lay.group)
     h = num / torch.clamp(den.abs(), min=1.0)[..., None]
-    h = _headwise_norm(h.reshape(bsz, 1, di), nh, x_t.dtype)
-    h = h * params["gn_scale"] * F.silu(z)
-    out = _dense(h, params["down_proj"])
+    out = _mlstm_out(params, h[:, :, None], z, nh, lay, x_t.dtype)
     state.c.copy_(c)
     state.n.copy_(nn_)
     return out, state
@@ -229,18 +383,41 @@ def init_slstm(b: Builder, name: str, cfg) -> None:
     sub.add("down_proj", (di, d), ("ff", "embed"))
 
 
+def _slstm_layout(params, cfg):
+    _, nh, hd = _sdims(cfg)
+    return _layout(params, "down_proj", nh, hd)
+
+
+def _slstm_weights(params, cfg, lay):
+    """(w [d, 4, width], r [H, hd, 4·hd], bias [4, width]) of the heads
+    the rank computes whole: all heads, the rank's heads (k = 1), or its
+    one head with the columns gathered over the head's ranks."""
+    _, nh, hd = _sdims(cfg)
+    w = torch.stack([params[f"w{g}"] for g in _GATES], dim=1)
+    bias = torch.stack([params[f"b{g}"] for g in _GATES])
+    if lay is None:
+        r = [params[f"r{g}"] for g in _GATES]
+    else:
+        r = [_heads(params, f"r{g}", lay) for g in _GATES]
+        if lay.k > 1:
+            w = P.gather_sum(w, -1, lay.group)
+            bias = P.gather_sum(bias, -1, lay.group)
+        nh = lay.nl
+    return w, torch.stack(r, dim=2).reshape(nh, hd, 4 * hd), bias
+
+
 def _slstm_scan(params, x, cfg, state: SLSTMState):
     """The recurrence over x [B, N, d] from `state`: (h [B, N, di], the
     final (c, n, m, h)). Each step is the reference's `_slstm_step`: gate
     pre-activations (x_t·W + h_{t-1}·R) + b, the input and forget gates in
-    float32 with the log-stabilizer m."""
+    float32 with the log-stabilizer m. Under a split x has entered the
+    tensor-parallel region and `state` is the heads the rank computes
+    whole; so is the result."""
     bsz, n, _ = x.shape
-    di, nh, hd = _sdims(cfg)
-    wx = torch.stack([_dense(x, params[f"w{g}"]) for g in _GATES], dim=2)
-    # the four recurrent head-wise products as one: [H, hd, 4·hd]
-    r = torch.stack([params[f"r{g}"] for g in _GATES], dim=2) \
-        .reshape(nh, hd, 4 * hd)
-    bias = torch.stack([params[f"b{g}"] for g in _GATES])     # [4, di]
+    _, _, hd = _sdims(cfg)
+    w, r, bias = _slstm_weights(params, cfg, _slstm_layout(params, cfg))
+    nh, di = r.shape[0], bias.shape[1]
+    wx = _dense(x, w.reshape(w.shape[0], -1)).reshape(bsz, n, 4, di)
     c, nn_, m, h = state
     hs = []
     for t in range(n):
@@ -263,32 +440,61 @@ def _slstm_scan(params, x, cfg, state: SLSTMState):
 
 
 def _slstm_out(params, h, cfg, dtype):
+    """The per-head norm of h [B, N, width] (the heads the rank computes),
+    the scale and down_proj; under a split the rank's slice of a head
+    computed whole on its ranks, down_proj row-parallel."""
     _, nh, _ = _sdims(cfg)
-    hn = _headwise_norm(h, nh, dtype)
-    return _dense(hn * params["gn_scale"], params["down_proj"])
+    lay = _slstm_layout(params, cfg)
+    hn = _headwise_norm(h, nh if lay is None else lay.nl, dtype)
+    if lay is not None and lay.k > 1:
+        hn = _slice(hn, -1, lay)
+    out = _dense(hn * params["gn_scale"], params["down_proj"])
+    return out if lay is None else P.tp_exit(out)
+
+
+def _slstm_enter(params, x, cfg):
+    """x entering the tensor-parallel region under a split; else x."""
+    return x if _slstm_layout(params, cfg) is None else P.tp_enter(x)
 
 
 def apply_slstm_stateful(params, x, cfg, state: SLSTMState):
     """sLSTM over x [B, N, d] resumed from `state`. Returns (out, state),
-    the state updated in place."""
-    hs, final = _slstm_scan(params, x, cfg, state)
+    the state updated in place (under a split the rank's slice of it; a
+    head computed whole on its ranks gathers their slices first)."""
+    lay = _slstm_layout(params, cfg)
+    whole = lay is not None and lay.k > 1
+    st = state
+    if whole:
+        with torch.no_grad():
+            st = SLSTMState(*(P.gather_sum(t, -1, lay.group)
+                              for t in state))
+    hs, final = _slstm_scan(params, _slstm_enter(params, x, cfg), cfg, st)
     for dst, src in zip(state, final):
-        dst.copy_(src)
+        dst.copy_(_slice(src, -1, lay) if whole else src)
     return _slstm_out(params, hs, cfg, x.dtype), state
 
 
 def apply_slstm(params, x, cfg):
     """Full-sequence sLSTM from a fresh state (differentiable)."""
-    st = init_slstm_state(cfg, x.shape[0], x.dtype, device=x.device)
-    return _slstm_out(params, _slstm_scan(params, x, cfg, st)[0], cfg,
-                      x.dtype)
+    lay = _slstm_layout(params, cfg)
+    _, nh, hd = _sdims(cfg)
+    width = None if lay is None else lay.nl * hd
+    st = init_slstm_state(cfg, x.shape[0], x.dtype, device=x.device,
+                          width=width)
+    hs = _slstm_scan(params, _slstm_enter(params, x, cfg), cfg, st)[0]
+    return _slstm_out(params, hs, cfg, x.dtype)
 
 
-def init_slstm_state(cfg, batch: int, dtype, device=None) -> SLSTMState:
+def init_slstm_state(cfg, batch: int, dtype, device=None, model: int = 1,
+                     width=None) -> SLSTMState:
+    """A fresh state, `width` channels wide (default: d_model, or a
+    rank's d_model / `model` under the placed step's split)."""
     di, _, _ = _sdims(cfg)
+    if width is None:
+        width = di if di % model else di // model
 
     def full(v, dt):
-        return torch.full((batch, di), v, dtype=dt, device=device)
+        return torch.full((batch, width), v, dtype=dt, device=device)
 
     return SLSTMState(c=full(0.0, _F32), n=full(0.0, _F32),
                       m=full(-1e9, _F32), h=full(0.0, dtype))

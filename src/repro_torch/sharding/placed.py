@@ -33,10 +33,23 @@ rank runs its experts, one expert's slice gathered over the data axes at
 a time: `weight`, `weight_grad`) and splits the FFNs (the MLP blocks, the
 shared experts), the attention mixers (GQA and MLA, by heads), the
 embedding lookup and the logits by their "model" shards as `tp` does
-(`leaf(t, split=True)`); the SSM mixers (Mamba) are gathered and
-computed whole. The router's statistics are the whole batch's: each
-rank's per-expert counts are all-gathered over the batch axes in the
-order of the global rows (`expert_rows`).
+(`leaf(t, split=True)`). The router's statistics are the whole batch's:
+each rank's per-expert counts are all-gathered over the batch axes in
+the order of the global rows (`expert_rows`).
+
+The SSM mixers over "model" (`Placement.ssm`: configs with Mamba, mLSTM
+or sLSTM layers, jamba and xlstm) keep their "ff" and "heads" shards and
+split their compute by them (`models.mamba`, `models.xlstm`), and the
+embedding lookup and the logits go vocab-parallel. Their input
+projections (in_proj, up_proj: [xi | z] split contiguously over
+"model") reach the rank's channels of both halves by one all-to-all of
+the weight shard (`halves`: each rank sends its two halves of blocks to
+the ranks that compute them; the backward sends the grads back). A
+row-parallel product whose output feeds the rank's channels only
+(Mamba's x_proj, xLSTM's gate projections) is summed over "model" in
+the forward and its grad in the backward (`psum`). Where one xLSTM head
+spans several "model" ranks the head's ranks form a group of their own
+(`head_group`) for the head's whole input (`gather_sum`) and its norm.
 
 Tensor parallelism over "model" (`Placement.tp`: the dense "attn:mlp"
 decoders) keeps the "model" shards that the spec gives and splits the
@@ -60,7 +73,7 @@ sequence × d (`sequence_split`, `seq_split`; serving never sets it, and
 where "model" does not divide N the rows stay whole, as the reference's
 constraint applies an axis only where it divides the dim). There
 `tp_enter` is an all-gather of the sequence (dim 1) whose backward
-reduce-scatters the rank's partial grads (`_SeqEnter`), and `tp_exit` a
+reduce-scatters the rank's partial grads (`_GatherSum`), and `tp_exit` a
 reduce-scatter of the row-parallel output whose backward all-gathers
 (`_SeqExit`): a tensor-parallel block's forward asks for no all-reduce
 of activations over "model". The vocab-parallel embedding lookup ends in
@@ -73,9 +86,10 @@ its partial grad summed over "model".
 Every collective goes through `_collective`, which adds the bytes the
 rank sends to `asked[kind]` and the host time to `asked_ms[kind]` by the
 kind the step asked for. On gloo (ranks sharing one card, or the CPU)
-each is staged through one all-reduce in host memory (`_gloo`); the
-count is still the collective asked for, and the dry run's fake group
-takes the collective itself.
+each is staged through one all-reduce in host memory (`_gloo`), but an
+all-to-all, which gloo runs on host tensors itself; the count is still
+the collective asked for, and the dry run's fake group takes the
+collective itself.
 """
 from __future__ import annotations
 
@@ -94,7 +108,8 @@ from repro_torch.sharding.rules import (Spec, batch_spec, mesh_axes,
 __all__ = ["Placement", "place", "full", "gather", "spec_of", "tag",
            "model_dim", "leaf", "unbind",
            "active", "materialize", "tensor_parallel", "expert_parallel",
-           "shard_batch",
+           "ssm_parallel", "ssm_model_size", "shard_batch", "halves",
+           "psum", "gather_sum", "head_group",
            "tp_enter", "tp_exit", "sum_grad", "embed_lookup", "token_nll",
            "gather_vocab", "gather_model", "slice_model", "global_norm",
            "splits_sequence", "sequence_split", "seq_split", "seq_gather",
@@ -155,8 +170,9 @@ def tensor_parallel(cfg) -> bool:
     """Whether the placed step splits all of `cfg`'s compute over "model":
     the dense decoders, every block an "attn:mlp" of GQA attention. The
     MoE configs split their experts, FFNs, attention mixers and vocab
-    (`expert_parallel`) and compute their Mamba mixers whole; xLSTM and
-    encoder-decoder models compute whole (ROADMAP queue 3)."""
+    (`expert_parallel`), the SSM configs their mixers and vocab
+    (`ssm_parallel`); encoder-decoder models compute whole (ROADMAP
+    queue 3)."""
     return (tuple(cfg.pattern) == ("attn:mlp",) and cfg.first_k_dense == 0
             and not cfg.use_mla and not cfg.encoder_layers
             and not cfg.cross_attention and not cfg.input_embeddings_only)
@@ -171,18 +187,45 @@ def expert_parallel(cfg) -> bool:
         and cfg.n_layers_scanned > 0
 
 
+SSM_MIXERS = ("mamba", "mlstm", "slstm")
+
+
+def ssm_parallel(cfg) -> bool:
+    """Whether `cfg` has SSM mixers (Mamba, mLSTM, sLSTM), which the
+    placed step splits over "model" by their "ff" and "heads" shards
+    (`models.mamba`, `models.xlstm`), beside a vocab-parallel embedding
+    lookup and logits (`Placement.leaf(t, split=True)`)."""
+    return any(k.split(":")[0] in SSM_MIXERS for k in cfg.pattern) \
+        and cfg.n_layers_scanned > 0
+
+
+def ssm_model_size(cfg) -> int:
+    """The "model" size of the active mesh (`rules.use_mesh`) where it
+    splits `cfg`'s SSM mixers, else 1: the decode state a rank holds is
+    its slice of theirs (`models.transformer.init_lm_decode_state`)."""
+    from repro_torch.sharding.rules import active_mesh
+
+    mesh = active_mesh()
+    m = 1 if mesh is None else mesh_axes(mesh).get("model", 1)
+    return m if ssm_parallel(cfg) else 1
+
+
 # ---------------------------------------------------------------------------
 # Collectives
 # ---------------------------------------------------------------------------
 
 
-def _collective(kind: str, x: torch.Tensor, group, *, op=None):
+def _collective(kind: str, x: torch.Tensor, group, *, op=None,
+                splits=None):
     """One collective over `group` of what the rank sends, `x`:
-    all-reduce (on a copy; `op` a ReduceOp), all-gather along dim 0 or
-    reduce-scatter along dim 0. Returns the result."""
+    all-reduce (on a copy; `op` a ReduceOp), all-gather along dim 0,
+    reduce-scatter along dim 0 or all-to-all along dim 0 (`splits`: the
+    rows received from and sent to each rank). Returns the result."""
     asked[kind] += x.numel() * x.element_size()
     t0 = time.perf_counter()
-    if dist.get_backend(group) == "gloo":
+    if kind == "all-to-all":
+        out = _all_to_all(x, group, *splits)
+    elif dist.get_backend(group) == "gloo":
         out = _gloo(kind, x, group, op)
     elif kind == "all-reduce":
         out = x.clone()
@@ -223,6 +266,65 @@ def _gloo(kind: str, x: torch.Tensor, group, op):
         rows = src.shape[0] // n
         buf = buf[idx * rows:(idx + 1) * rows]
     return buf.to(x.device)
+
+
+def _all_to_all(x, group, recv: list, send: list):
+    """`all_to_all_single` of x's rows: send[r] rows to rank r, recv[r]
+    from it, in rank order. On gloo through host memory (gloo sends no
+    CUDA tensor)."""
+    src = x.contiguous()
+    if dist.get_backend(group) == "gloo":
+        src = src.to("cpu")
+    out = src.new_empty((sum(recv),) + tuple(src.shape[1:]))
+    dist.all_to_all_single(out, src, recv, send, group=group)
+    return out.to(x.device)
+
+
+def _permute_blocks(x, dim: int, to: list, frm: list, group):
+    """x cut into len(to) equal blocks along `dim`, block i sent to rank
+    to[i] of `group`; returns the blocks received from frm[0], frm[1], …
+    concatenated in that order (one all-to-all; the entries of `to` and
+    of `frm` are distinct)."""
+    n = dist.get_world_size(group)
+    xt = x.movedim(dim, 0)
+    size = xt.shape[0] // len(to)
+    blocks = xt.split(size)
+    send = [0] * n
+    for r in to:
+        send[r] = size
+    recv = [0] * n
+    for r in frm:
+        recv[r] = size
+    order = sorted(range(len(to)), key=lambda i: to[i])
+    out = _collective("all-to-all", torch.cat([blocks[i] for i in order]),
+                      group, splits=(recv, send))
+    got = dict(zip(sorted(frm), out.split(size)))
+    return torch.cat([got[r] for r in frm]).movedim(0, dim)
+
+
+def _halves_ranks(idx: int, n: int) -> tuple:
+    """(to, frm) of `halves` on model rank idx of n: its shard holds
+    blocks 2·idx and 2·idx + 1 of the 2n blocks of [A | B] (A's block b
+    computed on rank b, B's on rank b); it receives A's block idx and
+    B's block idx from their holders."""
+    return [(2 * idx + i) % n for i in (0, 1)], [idx // 2, (n + idx) // 2]
+
+
+class _Halves(torch.autograd.Function):
+    """The rank's contiguous 1/n of [A | B] along `dim` -> [A_idx |
+    B_idx]; the backward sends the grads' blocks back."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, idx, n):
+        to, frm = _halves_ranks(idx, n)
+        ctx.cfg = (dim, group, to, frm)
+        return _permute_blocks(x, dim, to, frm, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, to, frm = ctx.cfg
+        return _permute_blocks(g, dim, frm, to, group), None, None, None, \
+            None
 
 
 def _gather_dim(x, d: int, group):
@@ -361,19 +463,35 @@ class SliceModel(torch.autograd.Function):
         return _gather_dim(g, dim, group), None, None, None, None
 
 
-class _SeqEnter(torch.autograd.Function):
-    """The rank's slice of the sequence (dim 1) -> whole, all-gathered
-    over `group`; the backward reduce-scatters the rank's partial grad
-    (the entry of a tensor-parallel region under the sequence split)."""
+class _GatherSum(torch.autograd.Function):
+    """The rank's slice of `dim` -> whole, all-gathered over `group`; the
+    backward reduce-scatters the rank's partial grad (the entry of a
+    tensor-parallel region under the sequence split, dim 1; a head's
+    whole input on its ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.cfg = (dim, group)
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group = ctx.cfg
+        return _scatter_dim(g, dim, group), None, None
+
+
+class _Psum(torch.autograd.Function):
+    """A partial sum -> the whole sum over `group`, for consumers split
+    over the group: the backward sums their partial grads too."""
 
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return _gather_dim(x, 1, group)
+        return _collective("all-reduce", x, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _scatter_dim(g, 1, ctx.group), None
+        return _collective("all-reduce", g, ctx.group), None
 
 
 class _SeqExit(torch.autograd.Function):
@@ -434,6 +552,7 @@ class Placement:
         self.specs = param_shardings(self.axes, shapes, mesh, rules)
         self.tp = tensor_parallel(cfg) and sizes.get("model", 1) > 1
         self.ep = expert_parallel(cfg) and sizes.get("model", 1) > 1
+        self.ssm = ssm_parallel(cfg) and sizes.get("model", 1) > 1
         # the running forward holds the residual's slice of the sequence
         # over "model" (`sequence_split`)
         self.sp = False
@@ -486,13 +605,14 @@ class Placement:
         """A placed leaf gathered for its use (see the module docstring);
         anything else as it is. The result's spec keeps only a "model"
         split that the tensor-parallel compute uses: every leaf's under
-        `tp`, under `ep` those of a consumer that splits its compute by
-        it (`split`: the FFNs, the attention mixers, the embedding and the
-        logits)."""
+        `tp`, under `ep` or `ssm` those of a consumer that splits its
+        compute by it (`split`: the FFNs, the mixers, the embedding and
+        the logits)."""
         spec = spec_of(t)
         if spec is None:
             return t
-        keep = "model" if self.tp or (split and self.ep) else None
+        keep = "model" if self.tp or (split and (self.ep or self.ssm)) \
+            else None
         over = self._over(spec, keep)
         out = gather(t, over, self.mesh, sum_over=self.batch_axes)
         if out is t:
@@ -559,6 +679,25 @@ class Placement:
         """(group, index, size) of the "model" axis."""
         return (self.mesh.get_group("model"),
                 self.mesh.get_local_rank("model"), self.sizes["model"])
+
+    def head_group(self, k: int):
+        """(group, index in it) of the k consecutive "model" ranks around
+        this one (k divides "model"): one head's ranks. Every rank makes
+        every such group of the mesh once, in one order (`new_group` is
+        collective over the world), kept on the mesh; (None, 0) for
+        k = 1."""
+        if k == 1:
+            return None, 0
+        made = self.mesh.__dict__.setdefault("_head_groups", {})
+        if k not in made:
+            names = list(self.mesh.mesh_dim_names)
+            ranks = self.mesh.mesh.movedim(names.index("model"), -1)
+            me = dist.get_rank()
+            for row in ranks.reshape(-1, k).tolist():
+                g = dist.new_group(row)
+                if me in row:
+                    made[k] = g
+        return made[k], self.mesh.get_local_rank("model") % k
 
 
 def _place(tree, specs, mesh, shard_local):
@@ -717,7 +856,7 @@ def tp_enter(x):
     over "model"; under the sequence split the sequence (dim 1)
     all-gathered, the grad reduce-scattered."""
     group = active().mesh.get_group("model")
-    return _SeqEnter.apply(x, group) if seq_split() else SumGrad.apply(
+    return _GatherSum.apply(x, 1, group) if seq_split() else SumGrad.apply(
         x, group)
 
 
@@ -733,6 +872,36 @@ def sum_grad(t):
     """A replicated leaf used on the rank's split of the compute: its
     partial grad summed over "model"."""
     return SumGrad.apply(t, active().mesh.get_group("model"))
+
+
+def halves(w, dim: int):
+    """A leaf [.., 2·di, ..] gathered with its "model" shard of `dim`
+    (the rank's contiguous 1/model of [A | B], A and B each di wide) ->
+    [A's | B's] slices of the rank's index, one all-to-all over "model"
+    each way (`_Halves`); w itself where `dim` is whole."""
+    if model_dim(w) != dim % w.dim():
+        return w
+    group, idx, n = active().model()
+    return _Halves.apply(w, dim % w.dim(), group, idx, n)
+
+
+def psum(x, group=None):
+    """A row-parallel partial product whose consumers are split the same
+    way: summed over `group` ("model" by default) forward and backward."""
+    if group is None:
+        group = active().mesh.get_group("model")
+    return _Psum.apply(x, group)
+
+
+def gather_sum(x, dim: int, group):
+    """The rank's slice of `dim` -> whole over `group`, for consumers
+    that each take a partial grad: the backward reduce-scatters it."""
+    return _GatherSum.apply(x, dim % x.dim(), group)
+
+
+def head_group(k: int):
+    """The active placement's `head_group(k)`."""
+    return active().head_group(k)
 
 
 def gather_model(x, dim: int):

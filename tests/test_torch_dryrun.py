@@ -755,18 +755,24 @@ def test_perfprobe(tmp_path, capsys):
 # the placed step's arguments: rank 0's shards, as planned
 # ---------------------------------------------------------------------------
 
-# each config's cheapest cell, and every shape of two dense configs
+# each config's cheapest cell, and every shape of two dense configs; the
+# SSM configs' one-sequence cell too
+_SSM_ARCHS = ("jamba-v0.1-52b", "xlstm-1.3b")
 _PLACED_CELLS = ([(arch, "decode_32k") for arch in ARCHS]
                  + [(arch, shape) for arch in ("qwen3-1.7b", "granite-20b")
-                    for shape in SHAPES if shape != "decode_32k"])
+                    for shape in SHAPES if shape != "decode_32k"]
+                 + [(arch, "long_500k") for arch in _SSM_ARCHS])
+# the cells whose planned SSM state splits a feature dim over "data": one
+# sequence leaves the batch axes nothing to split, and the placed step
+# holds the rank's channels over "model" only (ROADMAP queue 1 item D)
+_SSM_STATE_WHOLE_ON_DATA = {(arch, "long_500k") for arch in _SSM_ARCHS}
 
 
 def _ssm_state_bytes(arch, shape, mesh) -> tuple:
     """(planned, held) bytes of the SSM layers' decode state on rank 0:
-    the reference's `decode_state_shardings` takes the stacked group dim
-    for a batch dim and splits their features over ("model", "data")
-    with every sequence on each device; the placed step holds its rows'
-    states whole (ROADMAP queue 3)."""
+    the reference's `decode_state_shardings` of the whole state, and what
+    the placed step holds, the compute's layout: its rows over the batch
+    axes, its channels over "model" (1/model of every SSM leaf)."""
     from repro_torch.models import decode_state_specs
     from repro_torch.models.transformer import _SSM, _block_keys
 
@@ -782,7 +788,8 @@ def _ssm_state_bytes(arch, shape, mesh) -> tuple:
         for path, x, spec in D._pairs(state[key], specs[key]):
             planned += D._local_numel(tuple(x.shape), spec, mesh, path) \
                 * x.element_size()
-            held += x.numel() // b * rows * x.element_size()
+            held += x.numel() // b * rows // mesh["model"] \
+                * x.element_size()
     return planned, held
 
 
@@ -790,8 +797,10 @@ def _ssm_state_bytes(arch, shape, mesh) -> tuple:
 @pytest.mark.parametrize("arch, shape", _PLACED_CELLS)
 def test_placed_arguments_are_the_planned_bytes(arch, shape, multi):
     """The placed step's argument bytes on rank 0 equal the planned ones,
-    part by part: parameters, optimizer state, batch and decode state
-    (the SSM layers' decode state held as `_ssm_state_bytes` says)."""
+    part by part: parameters, optimizer state, batch and decode state.
+    The SSM layers' decode state is held as `_ssm_state_bytes` says: the
+    planned bytes, but where one sequence leaves the plan's feature split
+    over "data" to the batch axes (`_SSM_STATE_WHOLE_ON_DATA`)."""
     res = D.run_cell(arch, shape, multi_pod=multi, attn="fastmax2-kernel")
     ex, pl = res["executed"], res["planned"]
     for part in ("params", "opt_state", "batch"):
@@ -801,6 +810,53 @@ def test_placed_arguments_are_the_planned_bytes(arch, shape, multi):
                                              dict(zip(names, sizes)))
     assert ex.get("decode_state", 0) == pl["decode_state"] - planned_ssm \
         + held_ssm
-    assert (planned_ssm > 0) == (arch in ("jamba-v0.1-52b", "xlstm-1.3b"))
-    if not planned_ssm:
+    assert (planned_ssm > 0) == (arch in _SSM_ARCHS)
+    if (arch, shape) in _SSM_STATE_WHOLE_ON_DATA:
+        assert held_ssm > planned_ssm
+    else:
+        assert held_ssm == planned_ssm
         assert ex["argument_bytes"] == pl["total"]
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["one-pod", "two-pod"])
+@pytest.mark.parametrize("arch", _SSM_ARCHS)
+def test_ssm_state_layout_differs_at_the_same_bytes(arch, multi):
+    """The recorded layout divergence (ROADMAP queue 3): at decode_32k
+    the reference's generic policy splits each SSM state leaf's last dim
+    first, then its largest, over ("model", "data"), takes the stacked
+    group dim for the batch dim (over "pod" in two pods, where it
+    divides 4 or 6) and leaves the rows whole: jamba's Mamba h
+    [4, 128, 8192, 16] gets d_state over "model" and d_inner over
+    "data". The placed step holds its compute's layout (rows over the
+    batch axes, channels over "model"), with no exchange per decode
+    step, at the same bytes a rank, leaf by leaf."""
+    from repro_torch.models import decode_state_specs
+    from repro_torch.models.transformer import _SSM, _block_keys
+
+    names, sizes = MESHES["multi" if multi else "single"]
+    mesh = dict(zip(names, sizes))
+    cfg = get_config(arch)
+    b, n = SHAPES["decode_32k"].global_batch, SHAPES["decode_32k"].seq_len
+    state = decode_state_specs(cfg, b, n)
+    specs = R.decode_state_shardings(state, mesh, batch=b)
+    rows = b // D._dp_size(mesh, b)
+    assert rows < b
+    seen = 0
+    for key, kind, _ in _block_keys(cfg):
+        if kind.split(":")[0] not in _SSM:
+            continue
+        for path, x, spec in D._pairs(state[key], specs[key]):
+            # [G, B, ...]: the plan keeps the rows whole ...
+            assert spec[1] is None, (path, spec)
+            # ... and splits features over "data"
+            assert any("data" in ((e,) if isinstance(e, str) else e or ())
+                       for e in spec[2:]), (path, spec)
+            assert D._local_numel(tuple(x.shape), spec, mesh, path) == \
+                x.numel() // b * rows // mesh["model"], (path, spec)
+            seen += 1
+    if arch.startswith("jamba"):
+        h = specs["blocks_0"].h
+        assert (h[2], h[3]) == ("data", "model"), h
+        assert seen == 2 * 7       # conv and h of 7 Mamba blocks
+    else:
+        assert seen == 2 * 7 + 4   # mLSTM's C, n; sLSTM's c, n, m, h

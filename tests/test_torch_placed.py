@@ -18,9 +18,11 @@ mesh) against the reference on the CPU.
   reference through a `jnp` whose `float32` is float64 in its modules
   (nothing in the JAX package changes), the ranks through
   `torch_placed_cases.lift_islands`.
-- The smoke xlstm-1.3b on (2, 2), its leaves gathered around each layer
-  and computed whole, against JAX's loss and grads at the float32-island
-  limits of `tests/test_torch_ssm_archs.py` (ROADMAP queue 3).
+- The smoke xlstm-1.3b on (2, 2), its leaves gathered over "data"
+  around each layer and its mixers split over "model" by heads, against
+  JAX's loss and grads at the float32-island limits of
+  `tests/test_torch_ssm_archs.py` (islands lifted:
+  `tests/test_torch_placed_ssm.py`).
 - A checkpoint saved on (2, 2) restores bit for bit on (2, 2), on
   (1, 4) and on one process; the (2, 2) restore continues bit for bit
   with the unbroken run, the others within TOL of it (their sums run in
@@ -256,8 +258,9 @@ def test_placed_train_and_serve_equal_jax(world, tmp_path):
 
 
 def test_placed_xlstm_grads_equal_jax(tmp_path):
-    """xlstm-1.3b on (2, 2): every leaf gathered around its layer, the
-    compute whole; the loss and each leaf's grad against JAX's."""
+    """xlstm-1.3b on (2, 2): every leaf gathered over "data" around its
+    layer, the mixers on the rank's heads; the loss and each leaf's grad
+    against JAX's."""
     arch = "xlstm-1.3b"
     case = dict(name="grads", kind="grads", arch=arch, attn="fastmax2",
                 params=_weights(arch), batch=_batch())
