@@ -88,7 +88,8 @@ and power limit, and the result line last):
                 any update, that backward's launches as "full"'s, then a
                 warm-up and 3 timed steps (launches per step, step ms,
                 peak memory).
-  8b. ckpt    — the same training through launch/train.py's main (4 steps,
+  8b. ckpt    — the same training cut to CKPT_LAYERS layers through
+                launch/train.py's main (4 steps,
                 a checkpoint every 2 updates under build/ckpt_smoke: label
                 2 async, label 4 the final blocking save), then the state a
                 kill during the final save leaves (label 4 removed, LATEST
@@ -255,7 +256,11 @@ and power limit, and the result line last):
                 differ from the off run's.
  23. shard    — the kernel plans (kernels/sharded.py) on two ranks of a
                 gloo group sharing the card (launch/ranks.py spawns them
-                after the parent's build): heads mode at qwen3's layer
+                after the parent's build; the two-rank phases 23-24c
+                share two spawns, `spawn_together`, one for those on
+                torch's own allocator and one for those on expandable
+                segments, and each phase then checks and prints its
+                ranks' results; a phase's seconds are its rank 0's): heads mode at qwen3's layer
                 (B=4, 16/8 heads, N=1024, 4 kv heads a rank), feature mode
                 at granite's MQA layer (48/1 heads, Dv = 64 a rank), each
                 prefill (o, carry), 32 lockstep decode steps and the
@@ -269,13 +274,13 @@ and power limit, and the result line last):
                 chunk against float64); heads mode bit for bit where its
                 segments match the single call's. Per rank: the kernels'
                 ms, the exchange's ms and bytes per boundary, which ran.
- 24. cp train — full-width qwen3-1.7b cut to 4 layers, float32 weights
+ 24. cp train — full-width qwen3-1.7b cut to 2 layers, float32 weights
                 and activations, AdamW, B=2, N=2048, remat none: --cp 2
                 on two ranks of the card against --cp 1 in one process:
-                the loss and per-leaf grads of the seeded weights and 3
+                the loss and per-leaf grads of the seeded weights and 2
                 steps' losses (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL), beside
                 the same readings of the plain fastmax2-chunked path
-                against --cp 1 (a control), exactly 4 prefill and 4 backward
+                against --cp 1 (a control), exactly 2 prefill and 2 backward
                 launches per rank per step, step ms, global tokens/s, peak
                 memory per rank, the carry bytes per boundary per layer;
                 then `torch.distributed.run --nproc-per-node 2 -m
@@ -284,17 +289,29 @@ and power limit, and the result line last):
                 here is a multi-card speedup.
  24b. placed ssm train / serve — after the placed qwen3 and deepseek-v2
                 phases, the SSM mixers split over "model" on (data 1,
-                model 2), two ranks: xlstm-1.3b cut to 8 layers and
-                jamba's Mamba block (2 x "mamba:mlp"), float32, one AdamW
-                step against one process's (loss TRAIN_LOSS_TOL, grads
-                and updated parameters TRAIN_GRAD_TOL a leaf, no launch,
-                no whole SSM leaf gathered over "model"); jamba and
-                xlstm-1.3b cut to 8 layers, float32, a prefill and 4
-                decode tokens against one process's generate() (tokens
+                model 2), two ranks: xlstm-1.3b cut to 2 layers (an
+                mLSTM and an sLSTM) and jamba's Mamba block (2 x
+                "mamba:mlp"), float32, one AdamW step against one
+                process's (loss TRAIN_LOSS_TOL, grads and updated
+                parameters TRAIN_GRAD_TOL a leaf, no launch, no whole SSM
+                leaf gathered over "model"); jamba cut to 5 layers and
+                the same xlstm-1.3b, float32, a prefill and 4 decode tokens against one process's generate() (tokens
                 equal, exact launches, the SSM decode state at the bytes
                 decode_state_shardings plans, half a rank). Step ms,
                 prefill ms, decode ms per token, peaks, collectives by
                 kind and the scans' operand shapes a rank printed.
+ 24c. placed kv serve — the softmax KV cache as the rank's block of
+                kv_cache_spec on (data 1, model 2), two ranks, float32,
+                B=4, a prompt of 1012 tokens and 16 decode tokens at
+                max_len 2040: qwen3-1.7b cut to 4 layers (4 of 8 kv heads
+                a rank) and granite-20b cut to 2 (1 kv head: rows 0-1019
+                on rank 0, 1020-2039 on rank 1, the partial softmaxes
+                combined over "model"; the decode crosses ranks at its
+                ninth token), against one process's generate(): tokens
+                equal, each rank's KV-cache bytes the planned ones (half
+                one process's), no whole KV-cache leaf on a rank. Prefill
+                ms, decode ms per token, collective bytes and host ms a
+                decode step by kind, peaks printed.
  25. dryrun   — the dry run (launch/dryrun.py) against the real step: full-
                 width qwen3-1.7b, fastmax2-kernel, bf16, one device: the
                 train step as the train phase runs it (B=4, N=1024, remat
@@ -310,11 +327,13 @@ and power limit, and the result line last):
                 `python -m repro_torch.launch.dryrun --arch qwen3-1.7b
                 --shape train_1M --cp 16 --attn fastmax2-kernel
                 --assert-kernel-route` in a subprocess (the reference's
-                dry-run gate cell) exits 0.
+                dry-run gate cell, started with phase 8 and run on the
+                host beside the phases after it) exits 0.
 Exits non-zero, printing no result line, when any phase fails.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -745,13 +764,15 @@ def engine_phase(params, cfg, plain_cfg, dev):
 # |g_dots - g_full| <= REMAT_ATOL + REMAT_RTOL |g_full| per element
 REMAT_RTOL, REMAT_ATOL = 1e-6, 1e-7
 # ckpt phase: qwen3-1.7b training through launch/train.py's main at full
-# width and depth, stopped at a checkpoint and resumed; the checkpoints
-# (~24 GB each: bf16 params, f32 m, v and master) live here and are
-# removed at the end of the phase, pass or fail
+# width, cut to CKPT_LAYERS layers (the phase's time is the checkpoints'
+# writes and reads: ~24 GB each at all 28 layers, ~7 GB at 4), stopped at
+# a checkpoint and resumed; the checkpoints (bf16 params, f32 m, v and
+# master) live here and are removed at the end of the phase, pass or fail
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "ckpt_smoke"
 CKPT_ARGV = ["--arch", "qwen3-1.7b", "--attn", "fastmax2-kernel",
              "--batch", "4", "--seq", "1024", "--steps", "4",
              "--log-every", "1"]
+CKPT_LAYERS = 4
 # api phase: the oracle and rowwise backends (plain torch) against the
 # chunked and kernel backends in float32 with TF32 off, at this fraction
 # of the output scale; dropout's keep share within this many standard
@@ -823,8 +844,9 @@ def _ckpt_step_leaf(ckpt_dir: Path, label: int) -> int:
     return int(np.load(d / "arrays" / files["1/.step"]))
 
 
-def ckpt_phase(n_layers: int) -> tuple:
-    """Full-width qwen3-1.7b training through `launch.train.main`: run A
+def ckpt_phase() -> tuple:
+    """Full-width qwen3-1.7b cut to CKPT_LAYERS layers, training through
+    `launch.train.main` (its config cut where `train.build` makes it): run A
     (4 steps, a checkpoint every 2 updates: label 2 async, label 4 the
     final blocking save), then the state a kill during the final save
     leaves (label 4 removed, LATEST back at label 2), then run B
@@ -840,14 +862,20 @@ def ckpt_phase(n_layers: int) -> tuple:
     from repro_torch.launch import train
     from repro_torch.optim.grad_utils import leaves
 
+    n_layers = CKPT_LAYERS
+    build = train.build
+
     def run(extra):
         buf = io.StringIO()
         ops.reset_launch_counts()
+        train.build = lambda args: dataclasses.replace(build(args),
+                                                       n_layers=n_layers)
         try:
             with contextlib.redirect_stdout(buf):
                 params, losses = train.main(
                     CKPT_ARGV + ["--ckpt-dir", str(CKPT_DIR)] + extra)
         finally:
+            train.build = build
             print(buf.getvalue(), end="", flush=True)
         torch.cuda.synchronize()
         return params, losses, ops.launch_counts(), buf.getvalue()
@@ -2349,6 +2377,9 @@ def autotune_phase(dev, smi: str) -> dict:
 # ---------------------------------------------------------------------------
 
 RANKS_DIR = Path(__file__).resolve().parent / "build" / "ranks"
+# results of two-rank phases that shared a spawn (`spawn_together`), by
+# rank function, until the phase takes them (`two_ranks`)
+_KEPT: dict = {}
 SHARD_STEPS = 32            # lockstep decode steps after each prefill
 # (name, (B, Hq, Hkv, N, D, Dv), mesh axes, mode, what runs): qwen3's
 # layer, granite's MQA layer, qwen3's layer at N = 2048 under cp = 2 at
@@ -2369,7 +2400,58 @@ SHARD_CASES = (
      "feature", ("hybrid",)),
 )
 HYBRID_WINDOW = 64
-CP_ARCH, CP_LAYERS, CP_B, CP_N, CP_STEPS = "qwen3-1.7b", 4, 2, 2048, 3
+CP_ARCH, CP_LAYERS, CP_B, CP_N, CP_STEPS = "qwen3-1.7b", 2, 2, 2048, 2
+
+
+def ranks_in_turn(rank, world, calls):
+    """A spawned rank that calls each (fn, args) of `calls` in turn:
+    [(fn's result, its seconds)]. Before each call it frees what the last
+    one left on the card and resets the peak (the first call makes the
+    CUDA context: `_moe_rank_setup` sets the allocator first); after it,
+    it undoes the call's patch of `make_grad_fn` (`record_first_grads`)."""
+    import gc
+
+    from repro_torch.launch import steps as ST
+
+    out = []
+    for fn, args in calls:
+        gc.collect()
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        make_grad_fn = ST.make_grad_fn
+        t0 = time.monotonic()
+        try:
+            out.append((fn(rank, world, *args), time.monotonic() - t0))
+        finally:
+            ST.make_grad_fn = make_grad_fn
+    return out
+
+
+def spawn_together(name: str, calls, timeout: float) -> None:
+    """Run several two-rank phases' rank functions (`calls`: (fn, args)
+    pairs) in turn in one spawn of two ranks, and keep each one's results
+    for its phase: a spawn costs ≈ 8 s of the script's time limit."""
+    from repro_torch.launch.ranks import run_ranks
+
+    ranks = run_ranks(ranks_in_turn, 2, args=(calls,),
+                      workdir=RANKS_DIR / name, timeout=timeout, threads=0)
+    for i, (fn, _) in enumerate(calls):
+        _KEPT[fn.__name__] = ([r[i][0] for r in ranks], ranks[0][i][1])
+
+
+def two_ranks(fn, args=(), *, timeout: float) -> tuple:
+    """(the two ranks' results of `fn`, seconds): those `spawn_together`
+    kept (the seconds rank 0's call took), else from a spawn of `fn`
+    alone (the spawn's seconds), as when a phase is run by itself."""
+    from repro_torch.launch.ranks import run_ranks
+
+    if fn.__name__ in _KEPT:
+        return _KEPT.pop(fn.__name__)
+    t0 = time.monotonic()
+    ranks = run_ranks(fn, 2, args=args, workdir=RANKS_DIR / fn.__name__,
+                      timeout=timeout, threads=0)
+    return ranks, time.monotonic() - t0
 
 
 def _rank_setup():
@@ -2619,12 +2701,7 @@ def shard_rank(rank, world, cases):
 def shard_phase() -> dict:
     """[shard]: two ranks on the one card over gloo, the kernel plans'
     gathered results against one single-process kernel call."""
-    from repro_torch.launch.ranks import run_ranks
-
-    t0 = time.monotonic()
-    ranks = run_ranks(shard_rank, 2, args=(SHARD_CASES,),
-                      workdir=RANKS_DIR / "shard", timeout=600, threads=0)
-    secs = time.monotonic() - t0
+    ranks, secs = two_ranks(shard_rank, (SHARD_CASES,), timeout=600)
     ok = True
     for rank, res in enumerate(ranks):
         for c in res[:-1]:
@@ -2764,13 +2841,7 @@ def cp_train_rank(rank, world, n_steps):
 def cp_train_phase() -> dict:
     """[cp train]: full-width qwen3 cut to CP_LAYERS layers, --cp 2 on
     two ranks of the card against --cp 1, then the CLI under torchrun."""
-    from repro_torch.launch.ranks import run_ranks
-
-    t0 = time.monotonic()
-    r0, r1 = run_ranks(cp_train_rank, 2, args=(CP_STEPS,),
-                       workdir=RANKS_DIR / "cp_train", timeout=600,
-                       threads=0)
-    secs = time.monotonic() - t0
+    (r0, r1), secs = two_ranks(cp_train_rank, (CP_STEPS,), timeout=600)
     # every loss (the seeded weights' grad fn's, then each step's) within
     # TRAIN_LOSS_TOL of --cp 1, the grads within TRAIN_GRAD_TOL per leaf;
     # the plain path's readings against --cp 1 are printed beside them
@@ -2855,7 +2926,7 @@ def cp_train_phase() -> dict:
 # model 2) tensor parallelism (8 kv heads over 2: the heads plan) with the
 # residual split over "model" along the sequence between blocks
 PLACED_ARCH, PLACED_LAYERS, PLACED_B, PLACED_N, PLACED_STEPS = (
-    "qwen3-1.7b", 4, 2, 2048, 3)
+    "qwen3-1.7b", 2, 2, 2048, 1)
 PLACED_MESHES = ((2, 1), (1, 2))
 PLACED_PROMPT, PLACED_GEN = 1024, 17      # a prefill and 16 decode tokens
 
@@ -3058,13 +3129,7 @@ def worst_sums(ranks, key) -> tuple:
 def placed_train_phase() -> dict:
     """[placed train]: the placed step on two ranks of the card, on an
     FSDP mesh and a tensor-parallel one, against one process's step."""
-    from repro_torch.launch.ranks import run_ranks
-
-    t0 = time.monotonic()
-    ranks = run_ranks(placed_train_rank, 2, args=(PLACED_STEPS,),
-                      workdir=RANKS_DIR / "placed_train", timeout=900,
-                      threads=0)
-    secs = time.monotonic() - t0
+    ranks, secs = two_ranks(placed_train_rank, (PLACED_STEPS,), timeout=900)
     r0 = ranks[0]
     ok = True
     out = {"arch": PLACED_ARCH, "n_layers": PLACED_LAYERS,
@@ -3216,11 +3281,7 @@ def placed_serve_rank(rank, world):
 def placed_serve_phase() -> dict:
     """[placed serve]: prefill and decode on (data 1, model 2), the decode
     kernel on each rank's kv heads, against one process's generate()."""
-    from repro_torch.launch.ranks import run_ranks
-
-    t0 = time.monotonic()
-    r0, r1 = run_ranks(placed_serve_rank, 2, workdir=RANKS_DIR /
-                       "placed_serve", timeout=600, threads=0)
+    (r0, r1), secs = two_ranks(placed_serve_rank, timeout=600)
     want = {"fastmax_causal": PLACED_LAYERS,
             "fastmax_decode": (PLACED_GEN - 1) * PLACED_LAYERS}
     ok = (r0["equal"] and r1["tokens"] == r0["tokens"]
@@ -3238,7 +3299,7 @@ def placed_serve_phase() -> dict:
            "moments_m2_shape": r0["moments_m2_shape"],
            "collectives_ranks": [r0["collectives"], r1["collectives"]],
            "peak_gb_ranks": [r0["peak_gb"], r1["peak_gb"]],
-           "seconds": time.monotonic() - t0}
+           "seconds": secs}
     phase("placed serve", f"{PLACED_ARCH} cut to {PLACED_LAYERS} layers, "
           f"float32, (data 1, model 2) on 2 ranks of the card: B="
           f"{PLACED_B} prompt {PLACED_PROMPT}, a prefill and "
@@ -3287,16 +3348,17 @@ def placed_meta_counts() -> dict:
 
 # placed MoE phases: full-width deepseek-v2-236b cut to PMOE_LAYERS layers
 # (its first_k_dense layer and one MoE layer of 160 experts, top-6, 2
-# shared: 5.519 B params) on two gloo ranks of the card. (data 2, model 1)
-# splits the batch: each rank routes its row with the capacity, positions
-# and aux of the whole batch. (data 1, model 2) splits the experts (80 a
-# rank), the FFNs, the vocab and MLA's heads (64 a rank) over "model". bf16
-# with Lion (the full config's optimizer: >= 100 B params), remat none. One
-# step a mesh: FSDP's gloo collectives stage ≈ 20 GB a step through host
-# memory. Each rank holds the one-process step's slices of its shards on
-# the host (bf16, as the leaves are), taken in turn for each mesh
+# shared: 5.519 B params) on two gloo ranks of the card. (data 1, model 2)
+# splits the experts (80 a rank), the FFNs, the vocab and MLA's heads (64
+# a rank) over "model". The batch split, (data 2, model 1), is held on the
+# CPU (tests/test_torch_placed_moe.py on (2, 2) and (4, 1)) and not here:
+# its FSDP step staged ≈ 20 GB of gloo collectives through host memory,
+# 80 s of the script's time limit (FSDP stays on the card in [placed
+# train]). bf16 with Lion (the full config's optimizer: >= 100 B params),
+# remat none, one step. Each rank holds the one-process step's slices of
+# its shards on the host (bf16, as the leaves are)
 PMOE_LAYERS, PMOE_B, PMOE_N, PMOE_STEPS = 2, 2, 1024, 1
-PMOE_MESHES = ((2, 1), (1, 2))
+PMOE_MESHES = ((1, 2),)
 PMOE_PROMPT, PMOE_GEN = 1024, 17          # a prefill and 16 decode tokens
 
 
@@ -3523,14 +3585,8 @@ def placed_moe_train_phase() -> dict:
     """[placed moe train]: deepseek-v2's placed step on two ranks of the
     card, the batch split and then the experts split, against one
     process's step."""
-    from repro_torch.launch.ranks import run_ranks
-
     _free_parent()
-    t0 = time.monotonic()
-    ranks = run_ranks(placed_moe_train_rank, 2,
-                      workdir=RANKS_DIR / "placed_moe_train", timeout=900,
-                      threads=0)
-    secs = time.monotonic() - t0
+    ranks, secs = two_ranks(placed_moe_train_rank, timeout=900)
     r0 = ranks[0]
     one = r0["one"]
     want = {"fastmax_causal": PMOE_LAYERS, "fastmax_causal_bwd": PMOE_LAYERS}
@@ -3694,12 +3750,8 @@ def placed_moe_serve_rank(rank, world):
 def placed_moe_serve_phase() -> dict:
     """[placed moe serve]: float32 deepseek-v2 prefill and decode on (data
     1, model 2), 80 experts a rank, against one process's generate()."""
-    from repro_torch.launch.ranks import run_ranks
-
     _free_parent()
-    t0 = time.monotonic()
-    r0, r1 = run_ranks(placed_moe_serve_rank, 2, workdir=RANKS_DIR /
-                       "placed_moe_serve", timeout=600, threads=0)
+    (r0, r1), secs = two_ranks(placed_moe_serve_rank, timeout=600)
     want = {"fastmax_causal": PMOE_LAYERS,
             "fastmax_decode": (PMOE_GEN - 1) * PMOE_LAYERS}
     dropped = r0["stats"].get("dropped", 0) + r1["stats"].get("dropped", 0)
@@ -3724,7 +3776,7 @@ def placed_moe_serve_phase() -> dict:
            "setup_s_ranks": [r0["setup_s"], r1["setup_s"]],
            "spy_ranks": [r0["spy"], r1["spy"]],
            "moments_m2_shape": r0["moments_m2_shape"],
-           "seconds": time.monotonic() - t0}
+           "seconds": secs}
     coll_lines("serve", [r0, r1], "collectives")
     phase("placed moe serve", f"{MOE_ARCH} cut to {PMOE_LAYERS} layers, "
           f"float32, (data 1, model 2) on 2 ranks of the card, 80 of 160 "
@@ -3754,7 +3806,8 @@ def placed_moe_serve_phase() -> dict:
 
 # placed SSM phases: the SSM mixers split over "model" on (data 1, model
 # 2), two gloo ranks of the card. [placed ssm train]: xlstm-1.3b at full
-# width cut to 8 layers (one group of its pattern: 7 mLSTM, 1 sLSTM; 2 of
+# width cut to the pattern ("mlstm:none", "slstm:none") at 2 layers (one
+# of each of its mixers, where its own group is 7 mLSTM and 1 sLSTM; 2 of
 # its 4 heads a rank), then jamba's Mamba block at full width (d 4096,
 # d_inner 8192: 4096 channels a rank, d_state 16, chunk 512) cut to the
 # pattern ("mamba:mlp",) at 2 layers: jamba's least depth (8 layers,
@@ -3763,42 +3816,47 @@ def placed_moe_serve_phase() -> dict:
 # models differ past the limits by rounding alone: xlstm's loss by
 # 1.3e-3 at 21.2, the grads of mLSTM's bi, whose terms cancel, by 2.1,
 # jamba's zero-initialized conv_b after AdamW's first step, ±lr by the
-# grad's sign, by 0.11), AdamW, remat full, B=2, N=1024, one step a
+# grad's sign, by 0.11), AdamW, remat full, B=2, N=256 (sLSTM's loop
+# over the tokens is the step's time), one step a
 # config, against one process's step (each rank in turn takes it alone
 # and keeps its shards' slices of the grads and updated parameters on
 # the host).
-# [placed ssm serve]: jamba cut to 8 layers (its attention layer through
-# the prefill and decode kernels in the heads plan, 4 of 8 kv heads a
-# rank, 8 of 16 experts), then xlstm-1.3b cut to 8 layers, float32 as
+# [placed ssm serve]: jamba cut to 5 layers (Mamba at 0-3, its attention
+# layer 4 through the prefill and decode kernels in the heads plan, 4 of
+# 8 kv heads a rank; experts at 1 and 3, 8 of 16 a rank), then
+# xlstm-1.3b cut as for training, float32 as
 # [placed moe serve], B=2, a prefill of PSSM_PROMPT tokens and
 # PSSM_GEN - 1 decode tokens against one process's generate(); each rank
 # draws the whole model on the card in turn and cuts its shards leaf by
-# leaf, rank 0's into host memory until rank 1 has cut its own (jamba's
-# 53.2 GB of float32 weights and a rank's half do not fit the card
-# together)
+# leaf, rank 0's into host memory until rank 1 has cut its own: one
+# whole float32 model at a time on the card
 PSSM_MESH = (1, 2)
-PSSM_LAYERS, PSSM_MAMBA_LAYERS, PSSM_B, PSSM_N = 8, 2, 2, 1024
+PSSM_LAYERS, PSSM_MAMBA_LAYERS, PSSM_B, PSSM_N = 5, 2, 2, 256
+PSSM_XLSTM = ("mlstm:none", "slstm:none")
 PSSM_PROMPT, PSSM_GEN = 1024, 5
 PSSM_LR = 3e-4
 
 
 def placed_ssm_cfgs(kind: str) -> list:
     """[(label, config)] of the placed SSM phases, float32: xlstm-1.3b
-    and jamba's Mamba-block cut for training (`kind` "train"), jamba and
-    xlstm-1.3b at PSSM_LAYERS for serving."""
+    cut to PSSM_XLSTM and jamba's Mamba-block cut for training (`kind`
+    "train"), jamba's first PSSM_LAYERS layers (its pattern cut there:
+    its depth is otherwise whole groups of 8) and the same xlstm-1.3b for
+    serving."""
     from repro_torch.attention import AttentionSpec
     from repro_torch.configs import get_config
 
     kw = dict(param_dtype="float32", activ_dtype="float32",
               attn=AttentionSpec.parse("fastmax2-kernel"))
-    xlstm = ("xlstm-1.3b", get_config("xlstm-1.3b", n_layers=PSSM_LAYERS,
-                                      **kw))
+    xlstm = ("xlstm-1.3b", get_config("xlstm-1.3b", pattern=PSSM_XLSTM,
+                                      n_layers=len(PSSM_XLSTM), **kw))
     if kind == "train":
         return [xlstm, ("jamba-v0.1-52b mamba:mlp", get_config(
             "jamba-v0.1-52b", pattern=("mamba:mlp",),
             n_layers=PSSM_MAMBA_LAYERS, **kw))]
+    jamba = get_config("jamba-v0.1-52b").pattern[:PSSM_LAYERS]
     return [("jamba-v0.1-52b", get_config(
-        "jamba-v0.1-52b", n_layers=PSSM_LAYERS, **kw)), xlstm]
+        "jamba-v0.1-52b", pattern=jamba, n_layers=PSSM_LAYERS, **kw)), xlstm]
 
 
 @contextlib.contextmanager
@@ -4043,14 +4101,9 @@ def ssm_leaf_errors(rows, lr: float) -> dict:
 def placed_ssm_train_phase() -> dict:
     """[placed ssm train]: the SSM mixers' placed step on (data 1, model
     2), two ranks of the card, against one process's step."""
-    from repro_torch.launch.ranks import run_ranks
-
     _free_parent()
-    t0 = time.monotonic()
-    ranks = run_ranks(placed_ssm_train_rank, 2,
-                      workdir=RANKS_DIR / "placed_ssm_train", timeout=900,
-                      threads=0)
-    out, ok = {"seconds": time.monotonic() - t0, "configs": {}}, True
+    ranks, secs = two_ranks(placed_ssm_train_rank, timeout=900)
+    out, ok = {"seconds": secs, "configs": {}}, True
     for label in ranks[0]["configs"]:
         rows = [r["configs"][label] for r in ranks]
         g0, one = rows[0], rows[0]["one"]
@@ -4257,13 +4310,9 @@ def placed_ssm_serve_rank(rank, world):
 def placed_ssm_serve_phase() -> dict:
     """[placed ssm serve]: float32 jamba and xlstm-1.3b prefill and decode
     on (data 1, model 2) against one process's generate()."""
-    from repro_torch.launch.ranks import run_ranks
-
     _free_parent()
-    t0 = time.monotonic()
-    r0, r1 = run_ranks(placed_ssm_serve_rank, 2, workdir=RANKS_DIR /
-                       "placed_ssm_serve", timeout=900, threads=0)
-    out, ok = {"seconds": time.monotonic() - t0, "configs": {}}, True
+    (r0, r1), secs = two_ranks(placed_ssm_serve_rank, timeout=900)
+    out, ok = {"seconds": secs, "configs": {}}, True
     for label, cfg in placed_ssm_cfgs("serve"):
         a, b = r0["configs"][label], r1["configs"][label]
         attn = sum(k.split(":")[0] == "attn" for k in cfg.pattern) \
@@ -4321,6 +4370,207 @@ def placed_ssm_serve_phase() -> dict:
     return out
 
 
+# [placed kv serve]: the softmax KV cache as the rank's block of the
+# reference's kv_cache_spec on (data 1, model 2), two ranks, float32,
+# B=4, a prompt of PKV_PROMPT tokens and PKV_GEN - 1 decode tokens at
+# max_len PKV_MAX_LEN (which "model" 2 divides: rank 0 holds rows
+# 0-1019, rank 1 rows 1020-2039, so the decode crosses from rank 0's
+# rows into rank 1's at its ninth token): qwen3-1.7b cut to 4 layers (8
+# kv heads: heads mode, 4 a rank) and granite-20b cut to 2 (1 kv head:
+# sequence mode, the partial softmaxes combined over "model"), each
+# against one process's generate() on the same cut and backend
+PKV_MESH = (1, 2)
+PKV_CFGS = (("qwen3-1.7b", 4), ("granite-20b", 2))
+PKV_B, PKV_PROMPT, PKV_GEN, PKV_MAX_LEN = 4, 1012, 17, 2040
+
+
+def placed_kv_cfgs() -> list:
+    """[(label, config)] of [placed kv serve]: float32, softmax."""
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_config
+
+    return [(arch, get_config(arch, n_layers=n, param_dtype="float32",
+                              activ_dtype="float32",
+                              attn=AttentionSpec.parse("softmax")))
+            for arch, n in PKV_CFGS]
+
+
+def kv_caches(node, spec=None):
+    """(cache, its specs or None) of each KVCache in a decode state."""
+    from repro_torch.attention.state import KVCache
+
+    if isinstance(node, KVCache):
+        yield node, spec
+    elif isinstance(node, dict):
+        for k, v in node.items():
+            yield from kv_caches(v, None if spec is None else spec[k])
+    elif isinstance(node, tuple):
+        for i, v in enumerate(node):
+            yield from kv_caches(v, None if spec is None else spec[i])
+
+
+def kv_cache_leaves(state) -> list:
+    """The softmax KV caches' k, v and mask leaves of a decode state."""
+    return [x for kv, _ in kv_caches(state) for x in (kv.k, kv.v, kv.mask)]
+
+
+def planned_kv_bytes(cfg, batch: int, max_len: int, mesh) -> int:
+    """Rank 0's bytes of the KV caches' k, v and mask placed by the
+    reference's `decode_state_shardings` on `mesh`."""
+    from repro_torch.launch.dryrun import _local_numel
+    from repro_torch.models import decode_state_specs
+    from repro_torch.sharding.rules import decode_state_shardings
+
+    whole = decode_state_specs(cfg, batch, max_len)
+    specs = decode_state_shardings(whole, mesh, batch=batch)
+    return sum(_local_numel(tuple(x.shape), sp, mesh, "kv")
+               * x.element_size()
+               for kv, sps in kv_caches(whole, specs)
+               for x, sp in ((kv.k, sps.k), (kv.v, sps.v),
+                             (kv.mask, sps.mask)))
+
+
+def placed_kv_serve_rank(rank, world):
+    """A [placed kv serve] rank: per config, rank 0 first takes one
+    process's generate() alone, then both prefill and decode on (1, 2)
+    with the placed steps."""
+    dev = _rank_setup()
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import init_decode_state, init_model
+    from repro_torch.sharding import placed as P
+    from repro_torch.sharding.rules import kv_cache_block, use_mesh
+
+    del world
+    mesh = make_test_mesh(PKV_MESH, ("data", "model"))
+    out = {"rank": rank, "configs": {}}
+    for label, cfg in placed_kv_cfgs():
+        gen = torch.Generator().manual_seed(0)
+        prompts = torch.randint(0, cfg.vocab_size, (PKV_B, PKV_PROMPT),
+                                generator=gen).to(dev)
+        params = init_model(cfg, seed=0, device=dev)
+        ref = None
+        if rank == 0:
+            ref = generate(params, cfg, prompts, PKV_GEN,
+                           max_len=PKV_MAX_LEN).cpu()
+        dist.barrier()
+        placed = P.Placement(cfg, mesh).place(params)
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with use_mesh(mesh):
+            state = init_decode_state(cfg, PKV_B, PKV_MAX_LEN, device=dev)
+        leaves = kv_cache_leaves(state)
+        whole = kv_cache_leaves(init_decode_state(cfg, PKV_B, PKV_MAX_LEN,
+                                                  device="meta"))
+        held = sum(x.numel() * x.element_size() for x in leaves)
+        prefill = make_prefill_step(cfg, mesh=mesh)
+        step = make_serve_step(cfg, mesh=mesh)
+        positions = PKV_PROMPT + torch.arange(PKV_GEN - 1, device=dev)
+        P.reset_asked()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        tok, state = prefill(placed, state, prompts)
+        ev[1].record()
+        ev[1].synchronize()
+        prefill_coll = {k: (P.asked[k], P.asked_ms[k]) for k in P.asked}
+        P.reset_asked()
+        toks = [tok]
+        for i in range(PKV_GEN - 1):
+            tok, state = step(placed, state, tok, positions[i])
+            toks.append(tok)
+        ev[2].record()
+        ev[2].synchronize()
+        got = torch.stack(toks, 1).cpu()
+        n_dec = PKV_GEN - 1
+        out["configs"][label] = {
+            "equal": None if ref is None else bool(torch.equal(got, ref)),
+            "tokens": got.tolist(),
+            "mode": kv_cache_block(cfg.n_kv_heads, PKV_MAX_LEN,
+                                   mesh).mode,
+            "cache_shape": list(leaves[0].shape),
+            "whole_shape": list(whole[0].shape),
+            "whole_leaves": sum(tuple(a.shape) == tuple(b.shape)
+                                for a, b in zip(leaves, whole)),
+            "kv_bytes": held,
+            "kv_bytes_planned": planned_kv_bytes(cfg, PKV_B, PKV_MAX_LEN,
+                                                 mesh),
+            "kv_bytes_one": sum(x.numel() * x.element_size()
+                                for x in whole),
+            "prefill_ms": ev[0].elapsed_time(ev[1]),
+            "decode_ms_per_token": ev[1].elapsed_time(ev[2]) / n_dec,
+            "prefill_collectives": prefill_coll,
+            "decode_collectives_per_step": {
+                k: (P.asked[k] / n_dec, P.asked_ms[k] / n_dec)
+                for k in P.asked},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del placed, state
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def placed_kv_serve_phase(smi: str) -> dict:
+    """[placed kv serve]: float32 softmax qwen3-1.7b (heads mode) and
+    granite-20b (sequence mode) prefill and decode on (data 1, model 2),
+    each rank's KV cache the planned block, against one process's
+    generate()."""
+    _free_parent()
+    (r0, r1), secs = two_ranks(placed_kv_serve_rank, timeout=600)
+    out, ok = {"seconds": secs, "card": smi,
+               "configs": {}}, True
+    for label, _ in placed_kv_cfgs():
+        a, b = r0["configs"][label], r1["configs"][label]
+        good = (a["equal"] and b["tokens"] == a["tokens"]
+                and a["kv_bytes"] == b["kv_bytes"] == a["kv_bytes_planned"]
+                and 2 * a["kv_bytes"] == a["kv_bytes_one"]
+                and a["whole_leaves"] == b["whole_leaves"] == 0)
+        ok = ok and good
+        out["configs"][label] = {
+            "batch": PKV_B, "prompt": PKV_PROMPT, "gen": PKV_GEN,
+            "max_len": PKV_MAX_LEN, "dtype": "float32", "attn": "softmax",
+            "tokens_equal": a["equal"], "mode": a["mode"],
+            "cache_shape_rank": a["cache_shape"],
+            "cache_shape_one": a["whole_shape"],
+            "kv_bytes_ranks": [a["kv_bytes"], b["kv_bytes"]],
+            "kv_bytes_planned": a["kv_bytes_planned"],
+            "kv_bytes_one": a["kv_bytes_one"],
+            "whole_leaves_ranks": [a["whole_leaves"], b["whole_leaves"]],
+            "prefill_ms_ranks": [a["prefill_ms"], b["prefill_ms"]],
+            "decode_ms_per_token_ranks": [a["decode_ms_per_token"],
+                                          b["decode_ms_per_token"]],
+            "prefill_collectives_ranks": [a["prefill_collectives"],
+                                          b["prefill_collectives"]],
+            "decode_collectives_per_step_ranks": [
+                a["decode_collectives_per_step"],
+                b["decode_collectives_per_step"]],
+            "peak_gb_ranks": [a["peak_gb"], b["peak_gb"]]}
+        coll_lines(f"{label} decode step", [a, b],
+                   "decode_collectives_per_step")
+        cut = dict(PKV_CFGS)[label]
+        phase("placed kv serve", f"{label} cut to {cut} layers, float32, "
+              f"softmax, (data 1, model 2) on 2 ranks of the card ({smi}): "
+              f"B={PKV_B} prompt {PKV_PROMPT}, a prefill and {PKV_GEN - 1} "
+              f"decode tokens at max_len {PKV_MAX_LEN}; greedy tokens equal "
+              f"one process's generate(): {a['equal']}; {a['mode']} mode, "
+              f"KV cache a rank "
+              f"{a['cache_shape']} of {a['whole_shape']}, bytes per rank "
+              f"{[a['kv_bytes'], b['kv_bytes']]} (planned "
+              f"{a['kv_bytes_planned']}, one process {a['kv_bytes_one']}); "
+              f"prefill ms {out['configs'][label]['prefill_ms_ranks']}, "
+              f"decode ms/token "
+              f"{out['configs'][label]['decode_ms_per_token_ranks']}; peak "
+              f"GB {out['configs'][label]['peak_gb_ranks']}")
+    if not ok:
+        fail(f"placed kv serve: tokens differ from generate(), a rank's KV "
+             f"cache is not the planned bytes (half one process's), or a "
+             f"rank holds a whole KV-cache leaf: {out}")
+    return out
+
+
 # dryrun phase: the executed peak the meta count predicts (arguments + the
 # temp peak of live storages) against the card's max_memory_allocated() of
 # the same step; the rest (launches, kernel work, matmul flops, argument
@@ -4330,11 +4580,34 @@ DRYRUN_B, DRYRUN_N = 4, 1024
 DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "dryrun_gate"
 
 
-def dryrun_phase(dev, placed=None) -> dict:
+def start_gate() -> subprocess.Popen:
+    """Start the reference's dry-run gate cell (train_1M --cp 16) on meta
+    in a process of its own, its output under DRYRUN_DIR. It needs no
+    card (none is visible to it), so it runs beside the card's phases
+    (from the training phase on: the host-bound serving phases before it
+    would time its host work with theirs);
+    `dryrun_phase` waits for it, and it is killed if the script exits
+    first."""
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    with open(DRYRUN_DIR / "gate.out", "w") as out, \
+            open(DRYRUN_DIR / "gate.err", "w") as err:
+        gate = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "qwen3-1.7b", "--shape", "train_1M", "--cp", "16", "--attn",
+             "fastmax2-kernel", "--assert-kernel-route", "--out",
+             str(DRYRUN_DIR)], stdout=out, stderr=err, env=env)
+    atexit.register(lambda: gate.poll() is None and gate.kill())
+    return gate
+
+
+def dryrun_phase(dev, gate, placed=None) -> dict:
     """The dry run's count of full-width qwen3-1.7b on one device against
-    the same steps run on the card (phase 25); with `placed` ([placed
-    train]'s result), the placed step's meta count on the two-rank world
-    against each rank's count on the card."""
+    the same steps run on the card (phase 25), and the gate cell's result
+    (`gate`, from `start_gate`); with `placed` ([placed train]'s result),
+    the placed step's meta count on the two-rank world against each
+    rank's count on the card."""
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.attention import AttentionSpec
     from repro_torch.kernels import ops
@@ -4438,24 +4711,22 @@ def dryrun_phase(dev, placed=None) -> dict:
                   f"{want['matmul_flops']:.6e}, argument bytes "
                   f"{want['argument_bytes']}, checkpointed residual bytes "
                   f"{want['block_input_bytes']}")
-    # the reference's dry-run gate cell, on meta in a process of its own
+    # the reference's dry-run gate cell, started by start_gate()
     t0 = time.monotonic()
-    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
-                                          / "src"))
-    gate = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "qwen3-1.7b", "--shape", "train_1M", "--cp", "16", "--attn",
-         "fastmax2-kernel", "--assert-kernel-route", "--out",
-         str(DRYRUN_DIR)], capture_output=True, text=True, env=env,
-        timeout=300)
+    try:
+        rc = gate.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        gate.kill()
+        rc = gate.wait()
     gate_s = time.monotonic() - t0
-    print("  gate: " + gate.stdout.strip().replace("\n", "\n  gate: "))
-    if gate.returncode != 0:
-        fail(f"dryrun gate (train_1M --cp 16) exited {gate.returncode}: "
-             f"{gate.stderr[-2000:]}")
+    said = (DRYRUN_DIR / "gate.out").read_text().strip()
+    print("  gate: " + said.replace("\n", "\n  gate: "))
+    if rc != 0:
+        fail(f"dryrun gate (train_1M --cp 16) exited {rc}: "
+             f"{(DRYRUN_DIR / 'gate.err').read_text()[-2000:]}")
     res = json.loads((DRYRUN_DIR / "qwen3-1.7b__train_1M__single__"
                       "fastmax2-kernel__cp16.json").read_text())
-    out["gate"] = {"seconds": gate_s, "cell_seconds": res["seconds"],
+    out["gate"] = {"wait_seconds": gate_s, "cell_seconds": res["seconds"],
                    "launches": res["launches"],
                    "attn_routing": res["attn_routing"],
                    "cp_boundary": res["cp_boundary"],
@@ -4464,7 +4735,8 @@ def dryrun_phase(dev, placed=None) -> dict:
     phase("dryrun", f"meta counts = the card's for train, prefill and "
           f"decode (launches, kernel work, matmul flops, argument bytes; "
           f"peaks within {DRYRUN_PEAK_TOL:.0%}); train_1M --cp 16 gate "
-          f"exit 0 in {gate_s:.1f} s; phase "
+          f"exit 0 (cell {res['seconds']:.1f} s beside the card's phases, "
+          f"{gate_s:.1f} s waited for); phase "
           f"{time.monotonic() - t_phase:.1f} s")
     return out
 
@@ -4949,6 +5221,9 @@ def main() -> None:
     mla_bwd = bwd_mla(gen, dev)
 
     # ---- 8. training path: full-width qwen3-1.7b, bf16 ----
+    # the dry-run gate cell runs on the host beside the training steps,
+    # which the card bounds (the serving phases before them are host-bound)
+    gate = start_gate()
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.steps import make_train_step, pick_optimizer
 
@@ -5036,12 +5311,13 @@ def main() -> None:
 
     # ---- 8b. checkpoint, kill, resume: full-width qwen3-1.7b ----
     t0 = time.monotonic()
-    ck, ck_ok = ckpt_phase(tcfg.n_layers)
+    ck, ck_ok = ckpt_phase()
     in_flight = [ms for _, ms, fl in ck["steps_a"] if fl]
     quiet = [ms for s_, ms, fl in ck["steps_a"] + ck["steps_b"]
              if not fl and s_ not in (0, 2)]
-    phase("ckpt", f"qwen3-1.7b fastmax2-kernel bf16 B=4 N=1024 AdamW "
-          f"through launch.train: run A losses "
+    phase("ckpt", f"qwen3-1.7b cut to {CKPT_LAYERS} layers "
+          f"fastmax2-kernel bf16 B=4 N=1024 AdamW through launch.train: "
+          f"run A losses "
           f"{', '.join(f'{x:.6f}' for x in ck['losses_a'])}; resumed run B "
           f"{', '.join(f'{x:.6f}' for x in ck['losses_b'])} (bitwise equal "
           f"to A's steps 2-3: {ck['losses_b'] == ck['losses_a'][2:]}); "
@@ -5687,6 +5963,14 @@ def main() -> None:
 
     # ---- the kernel plans: two gloo ranks on the one card ----
     torch.cuda.empty_cache()
+    # ---- two ranks on the card: the phases on torch's own allocator in
+    # one spawn, those on expandable segments in another; each phase then
+    # checks and prints its ranks' results ----
+    _free_parent()
+    spawn_together("plain_alloc", (
+        (shard_rank, (SHARD_CASES,)), (cp_train_rank, (CP_STEPS,)),
+        (placed_train_rank, (PLACED_STEPS,)), (placed_serve_rank, ()),
+        (placed_kv_serve_rank, ())), timeout=3300)
     shard = shard_phase()
     cp_train = cp_train_phase()
 
@@ -5697,6 +5981,11 @@ def main() -> None:
 
     # ---- expert parallelism: full-width deepseek-v2, two ranks ----
     torch.cuda.empty_cache()
+    _free_parent()
+    spawn_together("expandable", (
+        (placed_moe_train_rank, ()), (placed_moe_serve_rank, ()),
+        (placed_ssm_train_rank, ()), (placed_ssm_serve_rank, ())),
+        timeout=3300)
     placed_moe_train = placed_moe_train_phase()
     placed_moe_serve = placed_moe_serve_phase()
 
@@ -5705,9 +5994,13 @@ def main() -> None:
     placed_ssm_train = placed_ssm_train_phase()
     placed_ssm_serve = placed_ssm_serve_phase()
 
+    # ---- the softmax KV cache placed by kv_cache_spec, two ranks ----
+    torch.cuda.empty_cache()
+    placed_kv_serve = placed_kv_serve_phase(smi)
+
     # ---- the dry run against the real step ----
     torch.cuda.empty_cache()
-    dryrun = dryrun_phase(dev, placed_train)
+    dryrun = dryrun_phase(dev, gate, placed_train)
 
     kernels = [
         {"name": "fastmax_causal_prefill", "route": "cuda",
@@ -5823,6 +6116,7 @@ def main() -> None:
     print(json.dumps({"placed_moe_serve": placed_moe_serve}))
     print(json.dumps({"placed_ssm_train": placed_ssm_train}))
     print(json.dumps({"placed_ssm_serve": placed_ssm_serve}))
+    print(json.dumps({"placed_kv_serve": placed_kv_serve}))
     print(json.dumps({"dryrun": dryrun}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

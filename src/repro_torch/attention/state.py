@@ -36,6 +36,29 @@ runs the single-device kernels on them. A resumed (`offset`) prefill under a pla
 kernel on the same shards with the carried local moments (the reference
 runs its jnp scan there).
 
+Under an active mesh whose "model" axis m is larger than 1 the softmax
+KV cache (k, v and the mask lane) is the rank's block of the reference's
+`kv_cache_spec` (`sharding.rules.kv_cache_block`; `length`, the global
+cursor, is replicated):
+  heads     the rank's Hkv/m kv heads where m divides Hkv: the layer
+            attends on its kv heads and their q heads (a tensor-parallel
+            layer's own; a layer computed whole is cut to them here and
+            o all-gathered over "model");
+  sequence  else, where m divides Nmax, every kv head's rows [r·Nmax/m,
+            (r+1)·Nmax/m) of "model" index r, a `KVCacheRows`: q and the
+            new tokens' k and v are whole on every rank, a prefill writes
+            the rows of its tokens that lie in the block, a step's token
+            is written by the rank that holds the cursor's row (a masked
+            write on the device: no host round trip), and each rank's
+            partial softmax over its rows (`core.softmax.softmax_partials`)
+            is combined over "model" by one all-gather of (m, l, o);
+  whole     else.
+One all-gather, not an all-reduce of the max and then of the rescaled
+(l, o): a decode step's partials are a few hundred KB, so the step pays
+one collective's latency a layer instead of two, and every model rank
+combines the same gathered partials in rank order (the same o on each).
+A state that is not the rank's block under the active mesh raises.
+
 Unlike the functional reference, the port updates a layer's state IN
 PLACE: `prefill` copies the new carry, cache rows and window into the
 given tensors and `step` folds the token into them, so the state may be a
@@ -58,12 +81,15 @@ from repro_torch.core.fastmax import (Moments, _causal_scan,
                                       combine_with_queries, compute_moments)
 from repro_torch.core.hybrid import _hybrid_scan, effective_window, roll_window
 from repro_torch.core.ref import normalize_qk, poly_kernel
-from repro_torch.core.softmax import softmax_attention
+from repro_torch.core.softmax import (combine_partials, softmax_attention,
+                                      softmax_partials)
 from repro_torch.kernels.ops import note_route
 from repro_torch.kernels.ref import fastmax_decode_ref
+from repro_torch.sharding.rules import (active_mesh, kv_cache_block,
+                                        model_axis_size)
 
-__all__ = ["KVCache", "AttnState", "init_state", "prefill", "step",
-           "map_state", "state_leaves"]
+__all__ = ["KVCache", "KVCacheRows", "AttnState", "init_state", "prefill",
+           "step", "map_state", "state_leaves"]
 
 
 class KVCache(NamedTuple):
@@ -75,6 +101,15 @@ class KVCache(NamedTuple):
     length: torch.Tensor  # [] or [B] int32: the softmax write cursor, the
     #                       hybrid window's count of tokens folded so far
     mask: torch.Tensor    # [B, Hkv, Nmax|W] validity (1 = real token)
+
+
+class KVCacheRows(KVCache):
+    """A softmax `KVCache` that holds the rank's rows of a cache split over
+    "model" along its timeline (`kv_cache_spec`'s sequence mode): rows
+    [r·n, (r+1)·n) of m·n, r the rank's "model" index of m, n the rows
+    it holds. The type records the split, so views and copies made by
+    `map_state` keep it."""
+    __slots__ = ()
 
 
 class AttnState(NamedTuple):
@@ -140,14 +175,15 @@ def init_state(spec: AttentionSpec, *, batch: int, n_kv_heads: int,
             f"backend {backend.name!r} has no decode path; use a spec whose "
             f"backend declares decode=True")
     if spec.family == "softmax":
-        kv = KVCache(
-            k=torch.zeros(batch, n_kv_heads, max_len, q_head_dim,
-                          dtype=dtype, device=device),
-            v=torch.zeros(batch, n_kv_heads, max_len, v_head_dim,
-                          dtype=dtype, device=device),
+        # under an active mesh the rank's block of kv_cache_spec
+        blk = kv_cache_block(n_kv_heads, max_len)
+        cls = KVCacheRows if blk.mode == "sequence" else KVCache
+        shape = (batch, blk.heads, blk.rows)
+        kv = cls(
+            k=torch.zeros(*shape, q_head_dim, dtype=dtype, device=device),
+            v=torch.zeros(*shape, v_head_dim, dtype=dtype, device=device),
             length=torch.zeros((), dtype=torch.int32, device=device),
-            mask=torch.ones(batch, n_kv_heads, max_len, dtype=torch.float32,
-                            device=device))
+            mask=torch.ones(*shape, dtype=torch.float32, device=device))
         return AttnState(kv=kv, moments=None)
     if backend.caps.decode_kernel:
         # under a mesh the kernel paths keep the moments in their plan's
@@ -195,35 +231,140 @@ def _set_length(length, off: int, n: int, kv_mask) -> None:
         length.copy_(off + (kv_mask[:, 0] > 0).sum(dim=-1))
 
 
+def _cache_block(kv: KVCache, k):
+    """The rank's block of the softmax cache `kv` under the active mesh,
+    for new keys `k` (the rank's kv heads inside `kernels.sharded.
+    local_heads()`, else whole); raises where `kv` is not that block."""
+    from repro_torch.kernels.sharded import in_local_heads
+
+    seq = isinstance(kv, KVCacheRows)
+    m = model_axis_size(active_mesh())
+    hkv = k.shape[1] * (m if in_local_heads() else 1)
+    blk = kv_cache_block(hkv, kv.k.shape[2] * (m if seq else 1))
+    if (blk.mode == "sequence") != seq or \
+            (blk.heads, blk.rows) != tuple(kv.k.shape[1:3]):
+        kind = "the rows of a cache split" if seq else "a cache of"
+        raise ValueError(
+            f"the KV cache {tuple(kv.k.shape)} ({kind} {kv.k.shape[1]} kv "
+            f"heads) is not the rank's block of a {hkv}-head cache on "
+            f"'model' {m}: {blk.mode}, {blk.heads} kv heads x {blk.rows} "
+            f"rows; make the decode state under the mesh it runs on "
+            f"(rules.use_mesh)")
+    return blk
+
+
+def _on_cache_heads(blk, fn, q, k, v, kv_mask=None):
+    """fn(q, k, v, kv_mask) -> o on the cache's kv heads: inputs with
+    whole heads under a heads-mode cache are cut to the rank's heads and
+    o all-gathered over "model"; anything else as it is."""
+    if blk.mode != "heads" or k.shape[1] == blk.heads:
+        return fn(q, k, v, kv_mask)
+
+    def cut(x):
+        n = x.shape[1] // blk.size
+        return x.narrow(1, blk.index * n, n)
+
+    if kv_mask is not None and kv_mask.shape[1] > 1:
+        kv_mask = cut(kv_mask)
+    return _gather_model(fn(cut(q), cut(k), cut(v), kv_mask), 1, blk)
+
+
+def _gather_model(x, dim: int, blk):
+    """The rank's slice of x's `dim` -> whole, all-gathered over the
+    active mesh's "model" (`placed._collective` counts it)."""
+    from repro_torch.sharding.placed import GatherModel
+
+    return GatherModel.apply(x, dim, active_mesh().get_group("model"),
+                             blk.index, blk.size)
+
+
+def _attend_rows(q, kv_k, kv_v, mask, blk, q_offset=None):
+    """q (whole heads) over the rank's rows of the cache, combined with
+    the other model ranks' rows: one all-gather of each rank's (m, l, o)
+    partials over "model"."""
+    m, l, o = softmax_partials(q, kv_k, kv_v, kv_mask=mask,
+                               q_offset=q_offset, k_offset=blk.row0)
+    part = torch.cat([m[..., None], l[..., None], o], dim=-1)
+    every = _gather_model(part[None], 0, blk)
+    return combine_partials(every[..., 0], every[..., 1],
+                            every[..., 2:]).to(q.dtype)
+
+
 def _softmax_prefill(q, k, v, kv: KVCache, kv_mask, offset):
     """Write the chunk's keys and values (and its mask) into the cache at
     the offset; attend over the chunk alone, or, resumed, over the whole
     cache (rows before the offset are the carried prefix, valid per the
-    mask lane; rows past the chunk are excluded causally)."""
+    mask lane; rows past the chunk are excluded causally). Under a mesh
+    on the rank's block of the cache (module docstring)."""
     n = q.shape[2]
     off = 0 if offset is None else int(offset)
-    if off + n > kv.k.shape[2]:
+    blk = _cache_block(kv, k)
+    if off + n > blk.nmax:
         raise ValueError(
             f"prefill of tokens [{off}, {off + n}) past the KV cache's "
-            f"{kv.k.shape[2]} rows")
+            f"{blk.nmax} rows")
+    if blk.mode == "sequence":
+        o = _prefill_rows(q, k, v, kv, kv_mask, offset, blk)
+    else:
+        o = _on_cache_heads(blk, lambda q_, k_, v_, m_: _prefill_local(
+            q_, k_, v_, kv, m_, offset), q, k, v, kv_mask)
+    _set_length(kv.length, off, n, kv_mask)
+    return o
+
+
+def _prefill_local(q, k, v, kv: KVCache, kv_mask, offset):
+    """`_softmax_prefill` on a cache that holds every row of its kv
+    heads."""
+    n = q.shape[2]
+    off = 0 if offset is None else int(offset)
     kv.k[:, :, off:off + n].copy_(k)
     kv.v[:, :, off:off + n].copy_(v)
     if kv_mask is not None:
         # persist prompt padding so every later step keeps it masked
         kv.mask[:, :, off:off + n].copy_(kv_mask)
     if offset is None:
-        o = softmax_attention(q, k, v, causal=True, kv_mask=kv_mask)
-    else:
-        o = softmax_attention(q, kv.k, kv.v, causal=True, q_offset=off,
-                              kv_mask=kv.mask)
-    _set_length(kv.length, off, n, kv_mask)
-    return o
+        return softmax_attention(q, k, v, causal=True, kv_mask=kv_mask)
+    return softmax_attention(q, kv.k, kv.v, causal=True, q_offset=off,
+                             kv_mask=kv.mask)
+
+
+def _prefill_rows(q, k, v, kv: KVCache, kv_mask, offset, blk):
+    """`_softmax_prefill` on the rank's rows of a cache split along its
+    timeline: the tokens' rows that lie in the block are written; a fresh
+    prefill attends over its own k and v, a resumed one over the cache's
+    rows of every model rank (`_attend_rows`)."""
+    n = q.shape[2]
+    off = 0 if offset is None else int(offset)
+    lo, hi = max(off, blk.row0), min(off + n, blk.row0 + blk.rows)
+    if lo < hi:
+        dst, src = slice(lo - blk.row0, hi - blk.row0), slice(lo - off,
+                                                              hi - off)
+        kv.k[:, :, dst].copy_(k[:, :, src])
+        kv.v[:, :, dst].copy_(v[:, :, src])
+        if kv_mask is not None:
+            kv.mask[:, :, dst].copy_(kv_mask[:, :, src])
+    if offset is None:
+        return softmax_attention(q, k, v, causal=True, kv_mask=kv_mask)
+    return _attend_rows(q, kv.k, kv.v, kv.mask, blk, q_offset=off)
 
 
 def _softmax_step(kv: KVCache, q, k, v):
     """Append the token at the cursor (one row per sequence under a [B]
     cursor, its mask row set valid: a chunked prefill may have left a
-    padding mark there) and attend over the rows up to it."""
+    padding mark there) and attend over the rows up to it. Under a mesh
+    on the rank's block of the cache (module docstring)."""
+    blk = _cache_block(kv, k)
+    if blk.mode == "sequence":
+        o = _step_rows(kv, q, k, v, blk)
+    else:
+        o = _on_cache_heads(blk, lambda q_, k_, v_, _: _step_local(
+            kv, q_, k_, v_), q, k, v)
+    kv.length.add_(1)
+    return o
+
+
+def _step_local(kv: KVCache, q, k, v):
+    """`_softmax_step` on a cache that holds every row of its kv heads."""
     nmax = kv.k.shape[2]
     # a write past the last row is clamped to it (the reference's
     # dynamic_update_slice clamps a shared cursor; a [B] cursor that far
@@ -242,9 +383,37 @@ def _softmax_step(kv: KVCache, q, k, v):
     pos = torch.arange(nmax, device=kv.k.device)
     mask = (pos[None, None, :] <= length_b[:, None, None]).to(
         torch.float32) * kv.mask
-    o = softmax_attention(q, kv.k, kv.v, causal=False, kv_mask=mask)
-    kv.length.add_(1)
-    return o
+    return softmax_attention(q, kv.k, kv.v, causal=False, kv_mask=mask)
+
+
+def _step_rows(kv: KVCache, q, k, v, blk):
+    """`_softmax_step` on the rank's rows of a cache split along its
+    timeline: the rank whose rows hold the cursor's (clamped as in
+    `_step_local`) writes the token there, every other rank writes its
+    row back unchanged (the owner found on the device), and q attends
+    over every model rank's rows (`_attend_rows`)."""
+    row = kv.length.long().clamp(max=blk.nmax - 1) - blk.row0
+    own = (row >= 0) & (row < blk.rows)
+    at = row.clamp(0, blk.rows - 1)
+    if kv.length.dim() == 0:
+        i = at.view(1)
+        for dst, src in ((kv.k, k), (kv.v, v)):
+            dst.index_copy_(2, i, torch.where(own, src.to(dst.dtype),
+                                              dst.index_select(2, i)))
+        length_b = kv.length.view(1)
+    else:
+        bidx = torch.arange(kv.k.shape[0], device=kv.k.device)
+        for dst, src in ((kv.k, k), (kv.v, v)):
+            dst[bidx, :, at] = torch.where(own[:, None, None],
+                                           src[:, :, 0].to(dst.dtype),
+                                           dst[bidx, :, at])
+        kv.mask[bidx, :, at] = torch.where(own[:, None], 1.0,
+                                           kv.mask[bidx, :, at])
+        length_b = kv.length
+    pos = blk.row0 + torch.arange(blk.rows, device=kv.k.device)
+    mask = (pos[None, None, :] <= length_b[:, None, None]).to(
+        torch.float32) * kv.mask
+    return _attend_rows(q, kv.k, kv.v, mask, blk)
 
 
 def prefill(q, k, v, spec: AttentionSpec, *, state: AttnState,

@@ -22,9 +22,13 @@ part it makes feed the rank's heads only, so its grad takes `sum_grad`.
 Where the kv heads do not divide "model" (MQA, or 8 kv heads on 16) k and
 v are computed whole from x on every rank, q is gathered to whole heads,
 the attention runs in the model's layout (the kernels' feature plan, or
-the whole heads) and o is cut back to the rank's heads for wo. Serving on
-a backend with no decode kernel keeps its state whole over "model", so
-its q, k and v are gathered to whole heads there. Under the training
+the whole heads) and o is cut back to the rank's heads for wo. Serving
+keeps the softmax KV cache as the rank's block of `kv_cache_spec`
+(`attention.state`): its kv heads where they divide "model" (the layer
+attends on them), else its rows of the timeline (q gathered to whole
+heads, the partial softmaxes combined over "model", o cut back). A
+hybrid backend keeps its window and moments whole over "model", so its
+q, k and v are gathered to whole heads there. Under the training
 forward's sequence split (`placed.sequence_split`) x is the rank's slice
 of the sequence: `tp_enter` gathers it and `tp_exit` reduce-scatters
 back to it, and k and v computed whole take x gathered whole.
@@ -375,12 +379,15 @@ def attention_decode(params, x_t, state: AttnState, cfg, *, position):
 
 def _tp_serve(params, x, cfg, positions, attend):
     """A prefill or decode step under tensor parallelism: on the rank's
-    heads where the kv heads are split and the backend keeps its moments
-    in the kernels' plan (a decode kernel), else on whole heads (the
-    state is whole over "model")."""
+    heads where the kv heads are split and the state holds them (the
+    softmax KV cache's heads block, a decode kernel's moments in the
+    kernels' plan), else on whole heads (the cache's rows, or a hybrid
+    state whole over "model")."""
     _, split_kv = _tp_split(params)
     q, k, v = _tp_qkv(params, x, cfg, positions, split_kv)
-    if split_kv and not A.resolve(cfg.attn_spec).caps.decode_kernel:
+    spec = cfg.attn_spec
+    if split_kv and not (spec.family == "softmax"
+                         or A.resolve(spec).caps.decode_kernel):
         k, v = P.gather_model(k, 1), P.gather_model(v, 1)
         split_kv = False
     o = _tp_attend(q, k, v, split_kv, attend)

@@ -30,18 +30,21 @@ helpers (`maybe_constraint`, `replicate`, `shard_stacked`,
 `constrain_kv_cache`) are XLA layout hints that change no number. The
 port runs SPMD over local shards: each rank's tensors already are its
 shard, and nothing lays them out afterwards, so the helpers are identity
-functions kept for the reference's call sites.
+functions kept for the reference's call sites. `kv_cache_block` is the
+rank's block of a softmax KV cache under `kv_cache_spec`, which the
+decode state is made as (`attention.state.init_state`).
 """
 from __future__ import annotations
 
 import contextlib
 import math
 from collections.abc import Mapping
-from typing import Optional
+from typing import NamedTuple, Optional
 
 __all__ = ["DEFAULT_RULES", "NO_FSDP_RULES", "Spec", "spec_for",
            "param_shardings", "batch_spec", "kv_cache_spec",
-           "decode_state_shardings", "model_axis_size", "mesh_axes",
+           "decode_state_shardings", "KVBlock", "kv_cache_block",
+           "model_axis_size", "mesh_axes",
            "to_placements", "active_mesh", "use_mesh", "maybe_constraint",
            "replicate", "shard_stacked", "constrain_kv_cache"]
 
@@ -84,7 +87,10 @@ def shard_stacked(x, *, batch_dim=1, model_dim=None, seq_dim=None):
 
 
 def constrain_kv_cache(x, *, lead: int = 0):
-    """Identity: the reference pins a KV cache to `kv_cache_spec`."""
+    """Identity: the reference pins a KV cache to `kv_cache_spec`; the
+    port's cache is the rank's block of it by construction
+    (`kv_cache_block`), and its prefill and step write only that
+    block."""
     del lead
     return x
 
@@ -227,6 +233,42 @@ def kv_cache_spec(shape: tuple, mesh, *, lead: int = 0) -> Spec:
         elif nmax % tp == 0:
             entries[lead + 2] = "model"
     return Spec(*entries)
+
+
+class KVBlock(NamedTuple):
+    """The rank's block of a KV cache [B, Hkv, Nmax, ·] under
+    `kv_cache_spec` (its "model" entries; the batch rows are the
+    caller's): "heads" holds kv heads [r·h, (r+1)·h) whole along the
+    timeline, "sequence" every kv head's rows [row0, row0 + rows),
+    "whole" the cache whole over "model"."""
+    mode: str     # "heads", "sequence" or "whole"
+    heads: int    # the rank's kv heads
+    rows: int     # its rows of the timeline
+    row0: int     # the position of its first row
+    index: int    # its "model" index (0 on a mesh given as a mapping)
+    size: int     # the "model" size
+    nmax: int     # the whole cache's rows
+
+
+def kv_cache_block(hkv: int, nmax: int, mesh=None) -> KVBlock:
+    """The rank's block of a KV cache of `hkv` kv heads and `nmax` rows on
+    `mesh` (None: the active mesh, if any): kv heads over "model" where
+    they divide it, else the rows (the rank of "model" index r holds
+    [r·nmax/m, (r+1)·nmax/m)), else whole, as `kv_cache_spec` places
+    it."""
+    if mesh is None:
+        mesh = active_mesh()
+    sizes = {} if mesh is None else mesh_axes(mesh)
+    m = sizes.get("model", 1)
+    idx = 0 if m == 1 or isinstance(mesh, Mapping) \
+        else mesh.get_local_rank("model")
+    spec = kv_cache_spec((1, hkv, nmax, 1), sizes)
+    if spec[1] == "model":
+        return KVBlock("heads", hkv // m, nmax, 0, idx, m, nmax)
+    if spec[2] == "model":
+        return KVBlock("sequence", hkv, nmax // m, idx * (nmax // m), idx,
+                       m, nmax)
+    return KVBlock("whole", hkv, nmax, 0, idx, m, nmax)
 
 
 # base ndims of the Moments fields (batch, kv-heads leading): any extra
