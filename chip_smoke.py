@@ -256,7 +256,7 @@ and power limit, and the result line last):
                 differ from the off run's.
  23. shard    — the kernel plans (kernels/sharded.py) on two ranks of a
                 gloo group sharing the card (launch/ranks.py spawns them
-                after the parent's build; the two-rank phases 23-24c
+                after the parent's build; the two-rank phases 23-24d
                 share two spawns, `spawn_together`, one for those on
                 torch's own allocator and one for those on expandable
                 segments, and each phase then checks and prints its
@@ -312,6 +312,23 @@ and power limit, and the result line last):
                 one process's), no whole KV-cache leaf on a rank. Prefill
                 ms, decode ms per token, collective bytes and host ms a
                 decode step by kind, peaks printed.
+ 24d. placed hybrid serve — the moment decode states without a decode
+                kernel and the hybrid window as the rank's block of
+                decode_state_shardings on (data 1, model 2), two ranks,
+                float32, hybrid2-kernel, B=4, a prompt of 1024 tokens and
+                16 decode tokens: qwen3-1.7b cut to 4 layers (heads mode:
+                4 of 8 kv heads a rank in the moments and the window, the
+                hybrid kernel's prefill on them) and granite-20b cut to 2
+                (1 kv head, feature mode: m0, m1, m2 Dv 64 a rank with g
+                whole, the hybrid kernel's prefill on v's Dv slice; the
+                window's 64 rows 32 a rank), against one process's
+                generate(): tokens equal, each rank's moment and window
+                bytes the planned ones (m2 half one process's), no whole
+                leaf the plan splits, the hybrid kernel once a layer a
+                rank in the prefill (launch counts set to 0 before it).
+                The last-row logits' gap to one process, prefill ms,
+                decode ms per token, collectives a decode step by kind,
+                peaks printed.
  25. dryrun   — the dry run (launch/dryrun.py) against the real step: full-
                 width qwen3-1.7b, fastmax2-kernel, bf16, one device: the
                 train step as the train phase runs it (B=4, N=1024, remat
@@ -4571,6 +4588,337 @@ def placed_kv_serve_phase(smi: str) -> dict:
     return out
 
 
+# [placed hybrid serve]: the moment decode states without a decode kernel
+# as the rank's block of the reference's decode_state_shardings on (data
+# 1, model 2), two ranks, float32, hybrid2-kernel, B=4, a prompt of
+# PHY_PROMPT tokens and PHY_GEN - 1 decode tokens: qwen3-1.7b cut to 4
+# layers (8 kv heads: heads mode, the moments and the window 4 kv heads a
+# rank, the hybrid kernel's prefill on them) and granite-20b cut to 2 (1
+# kv head: feature mode, m0, m1, m2 Dv 64 a rank with the g moments
+# whole, the hybrid kernel's prefill on v's Dv slice; the window's W = 64
+# rows 32 a rank, the band's partials and the shift's boundary row in one
+# all-gather a layer), each against one process's generate() on the same
+# cut and backend
+PHY_MESH = (1, 2)
+PHY_CFGS = (("qwen3-1.7b", 4), ("granite-20b", 2))
+PHY_B, PHY_PROMPT, PHY_GEN = 4, 1024, 17
+PHY_MAX_LEN = PHY_PROMPT + PHY_GEN
+MOMENT_NAMES = ("m0", "m1", "m2", "g0", "g1", "g2")
+# the placed prefill's last logit row against one process's, by the rule
+# of MLA_F32_LOGIT_TOL: about four times the gap measured on an H100
+# (700 W), 1.631e-4 (qwen3) and 3.099e-5 (granite), the same in both
+# runs of the phase (alone, and in the whole script)
+PHY_LOGIT_TOL = {"qwen3-1.7b": 7e-4, "granite-20b": 1.3e-4}
+
+
+def placed_hybrid_cfgs() -> list:
+    """[(label, config)] of [placed hybrid serve]: float32,
+    hybrid2-kernel."""
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_config
+
+    return [(arch, get_config(arch, n_layers=n, param_dtype="float32",
+                              activ_dtype="float32",
+                              attn=AttentionSpec.parse("hybrid2-kernel")))
+            for arch, n in PHY_CFGS]
+
+
+def moment_leaves(node, spec=None):
+    """(name, leaf, its spec or None) of each moment and hybrid-window
+    leaf (k, v, mask) of a decode state's AttnStates."""
+    from repro_torch.attention.state import AttnState
+
+    if isinstance(node, AttnState):
+        yield from ((n, x, None if spec is None else s) for n, x, s in zip(
+            MOMENT_NAMES, node.moments, spec.moments if spec else
+            [None] * 6))
+        if node.kv is not None:
+            for n in ("k", "v", "mask"):
+                yield (n, getattr(node.kv, n),
+                       None if spec is None else getattr(spec.kv, n))
+    elif isinstance(node, dict):
+        for k, v in node.items():
+            yield from moment_leaves(v, None if spec is None else spec[k])
+
+
+def planned_moment_bytes(cfg, batch: int, max_len: int, mesh) -> tuple:
+    """({leaf name: rank 0's bytes placed by the reference's
+    `decode_state_shardings` on `mesh`}, {leaf name: one process's}, the
+    whole shapes of the leaves the placement splits over "model", in
+    `moment_leaves`' order, None for the others)."""
+    from repro_torch.launch.dryrun import _local_numel
+    from repro_torch.models import decode_state_specs
+    from repro_torch.sharding.rules import decode_state_shardings
+
+    whole = decode_state_specs(cfg, batch, max_len)
+    specs = decode_state_shardings(whole, mesh, batch=batch)
+    planned, one, split = {}, {}, []
+    for name, x, sp in moment_leaves(whole, specs):
+        size = x.element_size()
+        planned[name] = planned.get(name, 0) + _local_numel(
+            tuple(x.shape), sp, mesh, name) * size
+        one[name] = one.get(name, 0) + x.numel() * size
+        split.append(tuple(x.shape) if "model" in sp else None)
+    return planned, one, split
+
+
+def placed_hybrid_kernel_check(cfg, mesh, dev) -> dict:
+    """`kernels.sharded.hybrid_prefill_sharded` on the rank's shards at
+    the phase's shape (B, the prompt, no mask; the config's heads and
+    widths; the rank's kv heads in heads mode, v's Dv slice with q and k
+    whole in feature mode) against the hybrid kernel's plain version on
+    the same shards: o within o_tol, each of the six final moments
+    within TOL_MOMENTS, each of the rank's block's shape."""
+    from repro_torch.core.decode_state import init_fastmax_state
+    from repro_torch.core.ref import normalize_qk
+    from repro_torch.kernels import sharded as S
+    from repro_torch.kernels.hybrid_causal import hybrid_causal_ref
+    from repro_torch.sharding.rules import moments_block, use_mesh
+
+    spec = cfg.attn_spec
+    spec_r = spec.resolved()
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(35)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q = normalize_qk(rn(PHY_B, hq, PHY_PROMPT, d))
+    k = normalize_qk(rn(PHY_B, hkv, PHY_PROMPT, d))
+    v = rn(PHY_B, hkv, PHY_PROMPT, d)
+    with use_mesh(mesh):
+        blk = moments_block(hkv, d, mesh)
+        plan = S.plan_kernel_sharding(mesh, batch=PHY_B, hq=hq, hkv=hkv,
+                                      dv=d)
+        if plan.mode == "heads":
+            q, k, v = (S.model_slice(x, 1, plan) for x in (q, k, v))
+        else:
+            v = S.model_slice(v, -1, plan)
+        kw = dict(p=spec.p, window=spec_r.window,
+                  chunk_size=spec_r.chunk_size, denom_eps=spec.denom_eps)
+        o, st = S.hybrid_prefill_sharded(q, k, v, **kw, plan=plan)
+    ro, rst = hybrid_causal_ref(q, k, v, None, **kw, return_state=True)
+    torch.cuda.synchronize()
+    eo, o_ok = o_err(o, ro)
+    em = [moment_err(a, r) for a, r in zip(st, rst)]
+    shapes = [tuple(x.shape) for x in st]
+    block = [tuple(x.shape) for x in init_fastmax_state(
+        PHY_B, blk.heads, d, blk.dv, p=spec.p, device="meta")]
+    shapes_ok = shapes == block == [tuple(x.shape) for x in rst]
+    return {"plan": plan.mode, "q": list(q.shape), "v": list(v.shape),
+            "o_err": eo, "o_ok": o_ok, "moment_errs": em,
+            "moments_ok": max(em) <= TOL_MOMENTS,
+            "shapes": [list(x) for x in shapes], "shapes_ok": shapes_ok}
+
+
+def placed_hybrid_serve_rank(rank, world):
+    """A [placed hybrid serve] rank: per config, rank 0 first takes one
+    process's generate() and prefill logits alone, then both prefill
+    (`lm_prefill` placed, the first token from its last row) and decode
+    (the placed serve step) on (1, 2)."""
+    dev = _rank_setup()
+    import torch.distributed as dist
+
+    from repro_torch.core.hybrid import effective_window
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import init_decode_state, init_model
+    from repro_torch.models.transformer import lm_prefill
+    from repro_torch.sharding import placed as P
+    from repro_torch.sharding.rules import (kv_cache_block, moments_block,
+                                            use_mesh)
+
+    del world
+    mesh = make_test_mesh(PHY_MESH, ("data", "model"))
+    out = {"rank": rank, "configs": {}}
+    for label, cfg in placed_hybrid_cfgs():
+        gen = torch.Generator().manual_seed(0)
+        prompts = torch.randint(0, cfg.vocab_size, (PHY_B, PHY_PROMPT),
+                                generator=gen).to(dev)
+        params = init_model(cfg, seed=0, device=dev)
+        ref = ref_last = None
+        if rank == 0:
+            ref = generate(params, cfg, prompts, PHY_GEN,
+                           max_len=PHY_MAX_LEN).cpu()
+            with torch.no_grad():
+                lg, _ = lm_prefill(params, prompts, cfg, init_decode_state(
+                    cfg, PHY_B, PHY_MAX_LEN, device=dev))
+            ref_last = lg[:, -1].cpu()
+            del lg
+        dist.barrier()
+        placement = P.Placement(cfg, mesh)
+        placed = placement.place(params)
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with use_mesh(mesh):
+            state = init_decode_state(cfg, PHY_B, PHY_MAX_LEN, device=dev)
+        planned, one, split = planned_moment_bytes(cfg, PHY_B, PHY_MAX_LEN,
+                                                   mesh)
+        held = {}
+        whole_leaves = 0
+        for (name, x, _), shp in zip(moment_leaves(state), split):
+            held[name] = held.get(name, 0) + x.numel() * x.element_size()
+            whole_leaves += int(shp is not None and tuple(x.shape) == shp)
+        step = make_serve_step(cfg, mesh=mesh)
+        positions = PHY_PROMPT + torch.arange(PHY_GEN - 1, device=dev)
+        ops.reset_launch_counts()
+        P.reset_asked()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        with torch.no_grad(), use_mesh(mesh), placement.active():
+            lg, state = lm_prefill(placed, prompts, cfg, state)
+            last = P.gather_vocab(lg[:, -1], cfg.vocab_size)
+        tok = last.argmax(-1).to(torch.int32)
+        ev[1].record()
+        ev[1].synchronize()
+        del lg
+        prefill_launches = dict(ops.launch_counts())
+        prefill_coll = {k: (P.asked[k], P.asked_ms[k]) for k in P.asked}
+        P.reset_asked()
+        toks = [tok]
+        for i in range(PHY_GEN - 1):
+            tok, state = step(placed, state, tok, positions[i])
+            toks.append(tok)
+        ev[2].record()
+        ev[2].synchronize()
+        got = torch.stack(toks, 1).cpu()
+        n_dec = PHY_GEN - 1
+        hkv, dv = cfg.n_kv_heads, cfg.head_dim
+        spec = cfg.attn_spec
+        w = next(x for n, x, _ in moment_leaves(state) if n == "k")
+        out["configs"][label] = {
+            "equal": None if ref is None else bool(torch.equal(got, ref)),
+            "tokens": got.tolist(),
+            "logit_gap": None if ref_last is None else float(
+                (last.cpu() - ref_last).abs().max()),
+            "moments_mode": moments_block(hkv, dv, mesh).mode,
+            "window_mode": kv_cache_block(hkv, effective_window(
+                spec.window, spec.resolved().chunk_size), mesh).mode,
+            "m2_shape": list(next(x for n, x, _ in moment_leaves(state)
+                                  if n == "m2").shape),
+            "window_k_shape": list(w.shape),
+            "held": held, "planned": planned, "one": one,
+            "whole_leaves": whole_leaves,
+            "hybrid_launches_prefill": prefill_launches["hybrid_causal"],
+            "launches_prefill": prefill_launches,
+            "launches_decode": {k: v - prefill_launches[k] for k, v in
+                                ops.launch_counts().items()},
+            "prefill_ms": ev[0].elapsed_time(ev[1]),
+            "decode_ms_per_token": ev[1].elapsed_time(ev[2]) / n_dec,
+            "prefill_collectives": prefill_coll,
+            "decode_collectives_per_step": {
+                k: (P.asked[k] / n_dec, P.asked_ms[k] / n_dec)
+                for k in P.asked},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del placed, state
+        torch.cuda.empty_cache()
+        # after the counts are read: these launches are not the path's
+        out["configs"][label]["kernel"] = placed_hybrid_kernel_check(
+            cfg, mesh, dev)
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def placed_hybrid_serve_phase(smi: str) -> dict:
+    """[placed hybrid serve]: float32 hybrid2-kernel qwen3-1.7b (heads
+    mode) and granite-20b (feature mode, window rows) prefill and decode
+    on (data 1, model 2), each rank's moments and window the planned
+    block, against one process's generate()."""
+    _free_parent()
+    (r0, r1), secs = two_ranks(placed_hybrid_serve_rank, timeout=600)
+    out, ok = {"seconds": secs, "card": smi, "configs": {}}, True
+    for label, _ in placed_hybrid_cfgs():
+        a, b = r0["configs"][label], r1["configs"][label]
+        n_layers = dict(PHY_CFGS)[label]
+        tol = PHY_LOGIT_TOL[label]
+        kern = [r["kernel"] for r in (a, b)]
+        kern_ok = all(c["o_ok"] and c["moments_ok"] and c["shapes_ok"]
+                      and c["plan"] == a["moments_mode"] for c in kern)
+        good = (a["equal"] and b["tokens"] == a["tokens"]
+                and a["logit_gap"] <= tol and kern_ok
+                and a["held"] == b["held"] == a["planned"]
+                and 2 * a["held"]["m2"] == a["one"]["m2"]
+                and a["whole_leaves"] == b["whole_leaves"] == 0
+                and a["hybrid_launches_prefill"]
+                == b["hybrid_launches_prefill"] == n_layers)
+        ok = ok and good
+        out["configs"][label] = {
+            "batch": PHY_B, "prompt": PHY_PROMPT, "gen": PHY_GEN,
+            "max_len": PHY_MAX_LEN, "dtype": "float32",
+            "attn": "hybrid2-kernel", "layers": n_layers,
+            "tokens_equal": a["equal"], "logit_gap": a["logit_gap"],
+            "logit_tol": tol, "hybrid_sharded_vs_plain_ranks": kern,
+            "moments_mode": a["moments_mode"],
+            "window_mode": a["window_mode"],
+            "m2_shape_rank": a["m2_shape"],
+            "window_k_shape_rank": a["window_k_shape"],
+            "state_bytes_ranks": [a["held"], b["held"]],
+            "state_bytes_planned": a["planned"],
+            "state_bytes_one": a["one"],
+            "whole_leaves_ranks": [a["whole_leaves"], b["whole_leaves"]],
+            "hybrid_launches_prefill_ranks": [
+                a["hybrid_launches_prefill"], b["hybrid_launches_prefill"]],
+            "launches_prefill_ranks": [a["launches_prefill"],
+                                       b["launches_prefill"]],
+            "launches_decode_ranks": [a["launches_decode"],
+                                      b["launches_decode"]],
+            "prefill_ms_ranks": [a["prefill_ms"], b["prefill_ms"]],
+            "decode_ms_per_token_ranks": [a["decode_ms_per_token"],
+                                          b["decode_ms_per_token"]],
+            "prefill_collectives_ranks": [a["prefill_collectives"],
+                                          b["prefill_collectives"]],
+            "decode_collectives_per_step_ranks": [
+                a["decode_collectives_per_step"],
+                b["decode_collectives_per_step"]],
+            "peak_gb_ranks": [a["peak_gb"], b["peak_gb"]]}
+        coll_lines(f"{label} decode step", [a, b],
+                   "decode_collectives_per_step")
+        for r, c in enumerate(kern):
+            print(f"  {label} rank {r}: hybrid_prefill_sharded ({c['plan']}"
+                  f" plan, q {c['q']}, v {c['v']}) against its plain "
+                  f"version on the rank's shards: o max abs err "
+                  f"{c['o_err']:.3e} (tol {o_tol(torch.float32)}), moments "
+                  f"m0..g2 max rel err "
+                  f"{[float(f'{e:.3e}') for e in c['moment_errs']]} (tol "
+                  f"{TOL_MOMENTS:.0e}), moments {c['shapes'][2]} (m2) the "
+                  f"rank's block: {c['shapes_ok']}")
+        mb = {k: sum(r["held"].values()) / 1e6 for k, r in (("a", a),
+                                                             ("b", b))}
+        phase("placed hybrid serve", f"{label} cut to {n_layers} layers, "
+              f"float32, hybrid2-kernel, (data 1, model 2) on 2 ranks of "
+              f"the card ({smi}): B={PHY_B} prompt {PHY_PROMPT}, a prefill "
+              f"and {PHY_GEN - 1} decode tokens; greedy tokens equal one "
+              f"process's generate(): {a['equal']}; last-row logits "
+              f"{a['logit_gap']:.3e} from one process (tol {tol:.1e}); "
+              f"the sharded hybrid kernel against its plain version on "
+              f"each rank's shards: {kern_ok}; moments "
+              f"{a['moments_mode']} (m2 a rank {a['m2_shape']}), window "
+              f"{a['window_mode']} (k a rank {a['window_k_shape']}); "
+              f"moments and window MB a rank {[mb['a'], mb['b']]} (planned "
+              f"{sum(a['planned'].values()) / 1e6}, one process "
+              f"{sum(a['one'].values()) / 1e6}); hybrid-kernel launches a "
+              f"rank in the prefill "
+              f"{[a['hybrid_launches_prefill'], b['hybrid_launches_prefill']]}"
+              f"; prefill ms {out['configs'][label]['prefill_ms_ranks']}, "
+              f"decode ms/token "
+              f"{out['configs'][label]['decode_ms_per_token_ranks']}; peak "
+              f"GB {out['configs'][label]['peak_gb_ranks']}")
+    if not ok:
+        fail(f"placed hybrid serve: tokens differ from generate(), the "
+             f"last logit row is past its limit, the sharded hybrid "
+             f"kernel disagrees with its plain version on a rank's shards "
+             f"(o, a moment or a moment's shape), a "
+             f"rank's moments or window are not the planned bytes (m2 half "
+             f"one process's), a rank holds a whole leaf the plan splits, "
+             f"or the hybrid kernel did not launch once a layer a rank in "
+             f"the prefill: {out}")
+    return out
+
+
 # dryrun phase: the executed peak the meta count predicts (arguments + the
 # temp peak of live storages) against the card's max_memory_allocated() of
 # the same step; the rest (launches, kernel work, matmul flops, argument
@@ -5970,7 +6318,8 @@ def main() -> None:
     spawn_together("plain_alloc", (
         (shard_rank, (SHARD_CASES,)), (cp_train_rank, (CP_STEPS,)),
         (placed_train_rank, (PLACED_STEPS,)), (placed_serve_rank, ()),
-        (placed_kv_serve_rank, ())), timeout=3300)
+        (placed_kv_serve_rank, ()), (placed_hybrid_serve_rank, ())),
+        timeout=3300)
     shard = shard_phase()
     cp_train = cp_train_phase()
 
@@ -5997,6 +6346,10 @@ def main() -> None:
     # ---- the softmax KV cache placed by kv_cache_spec, two ranks ----
     torch.cuda.empty_cache()
     placed_kv_serve = placed_kv_serve_phase(smi)
+
+    # ---- the moment states and the hybrid window placed, two ranks ----
+    torch.cuda.empty_cache()
+    placed_hybrid_serve = placed_hybrid_serve_phase(smi)
 
     # ---- the dry run against the real step ----
     torch.cuda.empty_cache()
@@ -6095,7 +6448,11 @@ def main() -> None:
          "library_ms": None, "prefix_ms": hy_prefix_ms,
          "combine_ms": hy_combine_ms, "chunk": CHUNK,
          "workspace_bytes": hy_ws,
-         "launches_serve": hs_launches["hybrid_causal"]},
+         "launches_serve": hs_launches["hybrid_causal"],
+         # per rank, in each [placed hybrid serve] prefill
+         "launches_placed_prefill_ranks": {
+             label: c["hybrid_launches_prefill_ranks"] for label, c in
+             placed_hybrid_serve["configs"].items()}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps(sdpa_line))
@@ -6117,6 +6474,7 @@ def main() -> None:
     print(json.dumps({"placed_ssm_train": placed_ssm_train}))
     print(json.dumps({"placed_ssm_serve": placed_ssm_serve}))
     print(json.dumps({"placed_kv_serve": placed_kv_serve}))
+    print(json.dumps({"placed_hybrid_serve": placed_hybrid_serve}))
     print(json.dumps({"dryrun": dryrun}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,26 @@ one collective's latency a layer instead of two, and every model rank
 combines the same gathered partials in rank order (the same o on each).
 A state that is not the rank's block under the active mesh raises.
 
+The moments of every moment backend (fastmax chunked or kernel, both
+hybrid backends) are the rank's block of the reference's
+`_moments_shardings` (`sharding.rules.moments_block`): its Hkv/m kv heads
+where m divides Hkv, else (feature mode) its Dv/m columns of m0, m1 and
+m2 with g0, g1 and g2 whole, else whole. A prefill and a step run on the
+kernel plan's shards of q, k and v (`kernels.sharded.run_in_model_layout`:
+the rank's heads, or v's Dv slice with q and k whole), so o's slice is
+exact locally and every rank folds the same g-moments. The hybrid window
+is the rank's block of `kv_cache_spec` on its W rows: the kv heads with
+the moments', else (feature or whole moments) its rows [r·W/m, (r+1)·W/m)
+where m divides W, a `KVCacheRows` as the softmax cache's rows, else
+whole. A step's band correction over a rows window is each rank's
+(exp - f_p) partials of num and den over its rows, combined over
+"model"; the shift-append crosses the row blocks (rank r's row 0 becomes rank r-1's last row, the new token the
+last rank's), and the boundary rows travel in the partials' all-gather:
+one collective a layer. Row 0 of the whole window (rank 0's first) stays
+the out-of-band row, as in the reference. A resumed hybrid prefill
+gathers the rows first: the scan's previous-chunk buffer is the whole
+window.
+
 Unlike the functional reference, the port updates a layer's state IN
 PLACE: `prefill` copies the new carry, cache rows and window into the
 given tensors and `step` folds the token into them, so the state may be a
@@ -86,10 +106,10 @@ from repro_torch.core.softmax import (combine_partials, softmax_attention,
 from repro_torch.kernels.ops import note_route
 from repro_torch.kernels.ref import fastmax_decode_ref
 from repro_torch.sharding.rules import (active_mesh, kv_cache_block,
-                                        model_axis_size)
+                                        model_axis_size, moments_block)
 
-__all__ = ["KVCache", "KVCacheRows", "AttnState", "init_state", "prefill",
-           "step", "map_state", "state_leaves"]
+__all__ = ["KVCache", "KVCacheRows", "AttnState",
+           "init_state", "prefill", "step", "map_state", "state_leaves"]
 
 
 class KVCache(NamedTuple):
@@ -104,11 +124,11 @@ class KVCache(NamedTuple):
 
 
 class KVCacheRows(KVCache):
-    """A softmax `KVCache` that holds the rank's rows of a cache split over
-    "model" along its timeline (`kv_cache_spec`'s sequence mode): rows
-    [r·n, (r+1)·n) of m·n, r the rank's "model" index of m, n the rows
-    it holds. The type records the split, so views and copies made by
-    `map_state` keep it."""
+    """A `KVCache` (the softmax cache along its timeline, or the hybrid
+    window) that holds the rank's rows of a cache split over "model"
+    (`kv_cache_spec`'s sequence mode): rows [r·n, (r+1)·n) of m·n, r the
+    rank's "model" index of m, n the rows it holds. The type records the
+    split, so views and copies made by `map_state` keep it."""
     __slots__ = ()
 
 
@@ -185,34 +205,25 @@ def init_state(spec: AttentionSpec, *, batch: int, n_kv_heads: int,
             length=torch.zeros((), dtype=torch.int32, device=device),
             mask=torch.ones(*shape, dtype=torch.float32, device=device))
         return AttnState(kv=kv, moments=None)
-    if backend.caps.decode_kernel:
-        # under a mesh the kernel paths keep the moments in their plan's
-        # layout: the rank's kv heads, or its slice of Dv (heads mode
-        # needs Hq % tp too: Hq = G·Hkv, so Hkv stands in for it)
-        from repro_torch.kernels import sharded as S
-
-        mesh = S.nontrivial_mesh()
-        plan = None if mesh is None else S.plan_kernel_sharding(
-            mesh, batch=batch, hq=n_kv_heads, hkv=n_kv_heads,
-            dv=v_head_dim)
-        if plan is not None:
-            n_kv_heads, v_head_dim = S.local_kv_dims(plan, n_kv_heads,
-                                                     v_head_dim)
-    mom = init_fastmax_state(batch, n_kv_heads, q_head_dim, v_head_dim,
+    # under an active mesh the rank's block of _moments_shardings, the
+    # kernel plans' layout (heads mode needs Hq % m too: Hq = G·Hkv)
+    blk = moments_block(n_kv_heads, v_head_dim)
+    mom = init_fastmax_state(batch, blk.heads, q_head_dim, blk.dv,
                              p=spec.p,
                              dtype=torch.promote_types(dtype, torch.float32),
                              device=device)
     w = _window_slots(spec)
     if w == 0:
         return AttnState(kv=None, moments=mom)
-    kv = KVCache(
-        k=torch.zeros(batch, n_kv_heads, w, q_head_dim, dtype=dtype,
-                      device=device),
-        v=torch.zeros(batch, n_kv_heads, w, v_head_dim, dtype=dtype,
-                      device=device),
+    # and of kv_cache_spec on the window's W rows
+    wblk = kv_cache_block(n_kv_heads, w)
+    cls = KVCacheRows if wblk.mode == "sequence" else KVCache
+    shape = (batch, wblk.heads, wblk.rows)
+    kv = cls(
+        k=torch.zeros(*shape, q_head_dim, dtype=dtype, device=device),
+        v=torch.zeros(*shape, v_head_dim, dtype=dtype, device=device),
         length=torch.zeros((), dtype=torch.int32, device=device),
-        mask=torch.zeros(batch, n_kv_heads, w, dtype=torch.float32,
-                         device=device))
+        mask=torch.zeros(*shape, dtype=torch.float32, device=device))
     return AttnState(kv=kv, moments=mom)
 
 
@@ -231,10 +242,11 @@ def _set_length(length, off: int, n: int, kv_mask) -> None:
         length.copy_(off + (kv_mask[:, 0] > 0).sum(dim=-1))
 
 
-def _cache_block(kv: KVCache, k):
-    """The rank's block of the softmax cache `kv` under the active mesh,
-    for new keys `k` (the rank's kv heads inside `kernels.sharded.
-    local_heads()`, else whole); raises where `kv` is not that block."""
+def _cache_block(kv: KVCache, k, what: str = "KV cache"):
+    """The rank's block of the softmax cache (or, `what` "hybrid window",
+    the hybrid window) `kv` under the active mesh, for new keys `k` (the
+    rank's kv heads inside `kernels.sharded.local_heads()`, else whole);
+    raises where `kv` is not that block."""
     from repro_torch.kernels.sharded import in_local_heads
 
     seq = isinstance(kv, KVCacheRows)
@@ -245,12 +257,61 @@ def _cache_block(kv: KVCache, k):
             (blk.heads, blk.rows) != tuple(kv.k.shape[1:3]):
         kind = "the rows of a cache split" if seq else "a cache of"
         raise ValueError(
-            f"the KV cache {tuple(kv.k.shape)} ({kind} {kv.k.shape[1]} kv "
+            f"the {what} {tuple(kv.k.shape)} ({kind} {kv.k.shape[1]} kv "
             f"heads) is not the rank's block of a {hkv}-head cache on "
             f"'model' {m}: {blk.mode}, {blk.heads} kv heads x {blk.rows} "
             f"rows; make the decode state under the mesh it runs on "
             f"(rules.use_mesh)")
     return blk
+
+
+def _moment_block(mom: Moments, k, v):
+    """The rank's block of the moments `mom` under the active mesh, for
+    new keys `k` (as in `_cache_block`) and values `v` (whole); raises
+    where `mom` is not that block."""
+    from repro_torch.kernels.sharded import in_local_heads
+
+    m = model_axis_size(active_mesh())
+    hkv = k.shape[1] * (m if in_local_heads() else 1)
+    blk = moments_block(hkv, v.shape[-1])
+    held = (mom.m0.shape[-2], mom.m0.shape[-1], mom.g0.shape[-1])
+    if held != (blk.heads, blk.dv, blk.heads):
+        raise ValueError(
+            f"the moments of {held[0]} kv heads x {held[1]} value columns "
+            f"are not the rank's block of {hkv} kv heads x {v.shape[-1]} "
+            f"on 'model' {m}: {blk.mode}, {blk.heads} x {blk.dv}; make "
+            f"the decode state under the mesh it runs on (rules.use_mesh)")
+    return blk
+
+
+def _on_plan(plan, fn, q, k, v):
+    """fn(q, k, v) -> o on the kernel plan's shards of model-layout q, k,
+    v (o back in the model's layout), or on them as they are without a
+    plan."""
+    if plan is None:
+        return fn(q, k, v)
+    from repro_torch.kernels import sharded as S
+
+    with torch.no_grad():      # the decode-state paths run without autograd
+        return S.run_in_model_layout(plan, fn, q, k, v)
+
+
+def _plan_mask(kv_mask, plan):
+    """A [B, Hkv, N] kv_mask on the plan's kv heads: cut to the rank's
+    where a heads plan cuts whole heads, else as it is."""
+    from repro_torch.kernels import sharded as S
+
+    if (kv_mask is not None and kv_mask.shape[1] > 1 and plan is not None
+            and plan.mode == "heads" and plan.tp > 1
+            and not S.in_local_heads()):
+        return S.model_slice(kv_mask, 1, plan)
+    return kv_mask
+
+
+def _cut_heads(x, blk):
+    """The rank's kv heads of a tensor with whole heads (dim 1)."""
+    n = x.shape[1] // blk.size
+    return x.narrow(1, blk.index * n, n)
 
 
 def _on_cache_heads(blk, fn, q, k, v, kv_mask=None):
@@ -259,14 +320,10 @@ def _on_cache_heads(blk, fn, q, k, v, kv_mask=None):
     o all-gathered over "model"; anything else as it is."""
     if blk.mode != "heads" or k.shape[1] == blk.heads:
         return fn(q, k, v, kv_mask)
-
-    def cut(x):
-        n = x.shape[1] // blk.size
-        return x.narrow(1, blk.index * n, n)
-
     if kv_mask is not None and kv_mask.shape[1] > 1:
-        kv_mask = cut(kv_mask)
-    return _gather_model(fn(cut(q), cut(k), cut(v), kv_mask), 1, blk)
+        kv_mask = _cut_heads(kv_mask, blk)
+    return _gather_model(fn(*(_cut_heads(x, blk) for x in (q, k, v)),
+                            kv_mask), 1, blk)
 
 
 def _gather_model(x, dim: int, blk):
@@ -440,62 +497,113 @@ def prefill(q, k, v, spec: AttentionSpec, *, state: AttnState,
         note_route("plain prefill: softmax KV cache")
         o = _softmax_prefill(q, k, v, state.kv, kv_mask, offset)
         return o, state
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sharded as S
+
     spec_r = spec.resolved()
     qh = normalize_qk(q) if spec.normalize else q
     kh = normalize_qk(k) if spec.normalize else k
     init = None if offset is None else state.moments
-    w_slots = _window_slots(spec)
-    if w_slots > 0:
-        # one hybrid kernel call or plain hybrid scan gives the outputs and
-        # the final moments; the window is recompacted to the last <= W
-        # valid (normalized) keys. With `offset` the carried window seeds
-        # the scan's previous-chunk buffer and the carried moments its far
-        # field (the kernel takes neither)
-        kv = state.kv
-        win = None if offset is None else (kv.k, kv.v, kv.mask)
-        if offset is None and resolve(spec).caps.prefill_kernel:
-            from repro_torch.kernels import ops
-
-            o, final = ops.hybrid_prefill_kernel(
-                qh, kh, v, p=spec.p, window=spec_r.window,
-                chunk_size=spec_r.chunk_size, denom_eps=spec.denom_eps,
-                kv_mask=kv_mask)
-        else:
-            note_route("plain prefill: hybrid scan")
-            o, final = _hybrid_scan(qh, kh, v, p=spec.p,
-                                    window=spec_r.window,
-                                    chunk_size=spec_r.chunk_size,
-                                    kv_mask=kv_mask,
-                                    denom_eps=spec.denom_eps, init=init,
-                                    init_win=win)
-        m = (torch.ones(b, hkv, n, dtype=torch.float32, device=k.device)
-             if kv_mask is None else kv_mask.to(torch.float32))
-        window = roll_window(*(win or (None, None, None)), kh, v, m,
-                             w_slots)
-        _copy_into((kv.k, kv.v, kv.mask), window)
-        _set_length(kv.length, 0 if offset is None else int(offset), n,
-                    kv_mask)
+    # the moments' block under the active mesh and the plan that runs on
+    # it (the kernel plan of q, k, v: the rank's heads, or v's Dv slice)
+    mblk = _moment_block(state.moments, k, v)
+    _, plan = S.plan_call(q, k, v)
+    mask_p = _plan_mask(kv_mask, plan)
+    kw = dict(p=spec.p, chunk_size=spec_r.chunk_size,
+              denom_eps=spec.denom_eps, kv_mask=mask_p)
+    out = {}
+    if _window_slots(spec) > 0:
+        o, final = _hybrid_prefill(qh, kh, v, spec, state, kv_mask, offset,
+                                   mblk, plan)
     elif resolve(spec).caps.prefill_kernel:
-        from repro_torch.kernels import ops
-        from repro_torch.kernels import sharded as S
-
-        _, plan = S.plan_call(q, k, v)
         if plan is not None:
-            o, final = _prefill_sharded(qh, kh, v, spec, kv_mask, plan, init)
+            o, final = _prefill_sharded(qh, kh, v, kw, plan, init)
         else:
-            o, final = ops.fastmax_prefill_kernel(
-                qh, kh, v, p=spec.p, chunk_size=spec_r.chunk_size,
-                denom_eps=spec.denom_eps, kv_mask=kv_mask, init_state=init)
+            o, final = ops.fastmax_prefill_kernel(qh, kh, v, **kw,
+                                                  init_state=init)
     else:
         note_route("plain prefill: fastmax chunked scan")
-        o, final = _causal_scan(qh, kh, v, p=spec.p,
-                                chunk_size=spec_r.chunk_size, kv_mask=kv_mask,
-                                denom_eps=spec.denom_eps, init=init)
+
+        def fn(a, b, c):
+            o, out["final"] = _causal_scan(a, b, c, **kw, init=init)
+            return o
+
+        o, final = _on_plan(plan, fn, qh, kh, v), out["final"]
     _copy_into(state.moments, final)
     return o.to(q.dtype), state
 
 
-def _prefill_sharded(qh, kh, v, spec: AttentionSpec, kv_mask, plan, init):
+def _hybrid_prefill(qh, kh, v, spec: AttentionSpec, state: AttnState,
+                    kv_mask, offset, mblk, plan):
+    """A hybrid prefill on the plan's shards: one hybrid kernel call
+    (fresh, on a backend declaring `prefill_kernel`) or plain hybrid scan
+    gives o and the final moments in the rank's block; the window is
+    recompacted to the last <= W valid (normalized) keys and the rank's
+    heads or rows of it written. With `offset` the carried window (its
+    rows gathered whole over "model") seeds the scan's previous-chunk
+    buffer and the carried moments its far field (the kernel takes
+    neither)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sharded as S
+
+    spec_r = spec.resolved()
+    b, hkv, n = kh.shape[0], kh.shape[1], kh.shape[2]
+    kv = state.kv
+    wblk = _cache_block(kv, kh, "hybrid window")
+    win = None if offset is None else _whole_window(kv, wblk)
+    kw = dict(p=spec.p, window=spec_r.window, chunk_size=spec_r.chunk_size,
+              denom_eps=spec.denom_eps, kv_mask=_plan_mask(kv_mask, plan))
+    kernel = offset is None and resolve(spec).caps.prefill_kernel
+    out = {}
+
+    def fn(a, b_, c):
+        if kernel and plan is not None:
+            o, out["final"] = S.hybrid_prefill_sharded(a, b_, c, **kw,
+                                                       plan=plan)
+        elif kernel:
+            o, out["final"] = ops.hybrid_prefill_kernel(a, b_, c, **kw)
+        else:
+            note_route("plain prefill: hybrid scan")
+            w = win
+            if w is not None and mblk.mode == "feature":
+                # the scan runs on v's Dv slice: so does the window's v
+                w = (w[0], w[1].narrow(-1, mblk.index * mblk.dv, mblk.dv),
+                     w[2])
+            o, out["final"] = _hybrid_scan(
+                a, b_, c, **kw, init=None if offset is None else
+                state.moments, init_win=w)
+        return o
+
+    o = _on_plan(plan, fn, qh, kh, v)
+    m = (torch.ones(b, hkv, n, dtype=torch.float32, device=kh.device)
+         if kv_mask is None else kv_mask.to(torch.float32))
+    if wblk.mode == "heads" and hkv != wblk.heads:
+        kh, v, m = (_cut_heads(x, wblk) for x in (kh, v, m))
+    window = roll_window(*(win or (None, None, None)), kh, v, m,
+                         _window_slots(spec))
+    if wblk.mode == "sequence":
+        window = (x.narrow(2, wblk.row0, wblk.rows) for x in window)
+    _copy_into((kv.k, kv.v, kv.mask), window)
+    _set_length(kv.length, 0 if offset is None else int(offset), n,
+                kv_mask)
+    return o, out["final"]
+
+
+def _whole_window(kv: KVCache, wblk):
+    """(k, v, mask) of the whole window: a rows block's rows of every
+    model rank, gathered by one all-gather over "model" (k, v and the
+    mask, whose 0/1 every type holds exactly, in one tensor); any other
+    block as it is."""
+    if wblk.mode != "sequence":
+        return kv.k, kv.v, kv.mask
+    d = kv.k.shape[-1]
+    both = torch.cat([kv.k, kv.v, kv.mask[..., None].to(kv.k.dtype)], -1)
+    every = _gather_model(both, 2, wblk)
+    return (every[..., :d], every[..., d:-1],
+            every[..., -1].to(torch.float32))
+
+
+def _prefill_sharded(qh, kh, v, kw: dict, plan, init):
     """A kernel prefill under a plan: o in the model's layout and the
     final moments in the plan's (the state's layout under a mesh). A
     resumed one (`init`, the carried local moments) seeds the prefill
@@ -503,13 +611,7 @@ def _prefill_sharded(qh, kh, v, spec: AttentionSpec, kv_mask, plan, init):
     from repro_torch.kernels import ops
     from repro_torch.kernels import sharded as S
 
-    if (kv_mask is not None and kv_mask.shape[1] > 1 and plan.mode == "heads"
-            and plan.tp > 1 and not S.in_local_heads()):
-        kv_mask = S.model_slice(kv_mask, 1, plan)
     out = {}
-
-    kw = dict(p=spec.p, chunk_size=spec.resolved().chunk_size,
-              denom_eps=spec.denom_eps, kv_mask=kv_mask)
 
     def fn(a, b, c):
         if init is None:
@@ -521,77 +623,129 @@ def _prefill_sharded(qh, kh, v, spec: AttentionSpec, kv_mask, plan, init):
                     a, b, c, **kw, init_state=init)
         return o
 
-    with torch.no_grad():      # the decode-state paths run without autograd
-        o = S.run_in_model_layout(plan, fn, qh, kh, v)
-    return o, out["final"]
+    return _on_plan(plan, fn, qh, kh, v), out["final"]
 
 
-def _hybrid_step(state: AttnState, qh, kh, v, spec: AttentionSpec):
-    """One plain hybrid decode step on normalized q, k: the moment step,
-    plus the (exp - f_p) correction for the token itself (distance 0) and
-    window rows 1..W-1 (row r holds the token at distance W - r, so row 0
-    is just out of band); then the token is shift-appended at row W-1.
-    Updates the state in place; returns o [B,Hq,1,Dv]."""
+def _hybrid_step(state: AttnState, qh, kh, v, spec: AttentionSpec, mblk,
+                 plan):
+    """One plain hybrid decode step on normalized q, k, on the rank's
+    block of the state: a heads block on the plan's heads; else q and k
+    whole, the moment leg on the moments' columns of v (its Dv slice in
+    feature mode, o's slice gathered back) and the window leg over the
+    window's rows. Updates the state in place; returns o [B,Hq,1,Dv]."""
+    from repro_torch.kernels import sharded as S
+
+    wblk = _cache_block(state.kv, kh, "hybrid window")
+    if mblk.mode == "heads":
+        return _on_plan(plan, lambda a, b, c: _hybrid_step_block(
+            state, a, b, c, c, 0, spec, wblk), qh, kh, v)
+    if mblk.mode != "feature":
+        return _hybrid_step_block(state, qh, kh, v, v, 0, spec, wblk)
+    with torch.no_grad():
+        o = _hybrid_step_block(state, qh, kh, v, S.model_slice(v, -1, plan),
+                               mblk.index * mblk.dv, spec, wblk)
+        return S.model_gather(o, -1, plan)
+
+
+def _hybrid_step_block(state: AttnState, qh, kh, v, vs, col0: int,
+                       spec: AttentionSpec, wblk):
+    """`_hybrid_step` on one block: the moment step on `vs` (v's columns
+    [col0, col0 + vs.shape[-1]) that the moments hold), plus the (exp -
+    f_p) correction for the token itself (distance 0) and window rows
+    1..W-1 (row r holds the token at distance W - r, so row 0 is just out
+    of band) over the rows the rank holds, combined with the other model
+    ranks' where the window is split by rows; then the token is
+    shift-appended at row W-1. Returns o [B,Hq,1,vs's Dv]."""
     kv = state.kv
     b, hq, _, d = qh.shape
-    hkv, w_slots = kh.shape[1], kv.k.shape[2]
-    new = Moments(*state.moments) + compute_moments(kh, v, p=spec.p)
+    hkv = kh.shape[1]
+    new = Moments(*state.moments) + compute_moments(kh, vs, p=spec.p)
     qg = qh.reshape(b, hkv, hq // hkv, d)
     num, den = combine_with_queries(qg, new, p=spec.p)
     acc = torch.promote_types(qg.dtype, torch.float32)
     qf = qg.to(acc)
     s0 = torch.einsum("bhgd,bhtd->bhg", qf, kh.to(acc))
     c0 = torch.exp(s0) - poly_kernel(s0, spec.p)
-    num = num + c0[..., None] * v[:, :, 0].to(num.dtype)[:, :, None]
+    num = num + c0[..., None] * vs[:, :, 0].to(num.dtype)[:, :, None]
     den = den + c0
     sw = torch.einsum("bhgd,bhwd->bhgw", qf, kv.k.to(acc))
     cw = torch.exp(sw) - poly_kernel(sw, spec.p)
-    in_band = (torch.arange(w_slots, device=kh.device) >= 1).to(acc)
+    pos = wblk.row0 + torch.arange(kv.k.shape[2], device=kh.device)
+    in_band = (pos >= 1).to(acc)
     cw = cw * (in_band[None, None, None, :] * kv.mask[:, :, None, :])
-    num = num + torch.einsum("bhgw,bhwj->bhgj", cw,
-                             kv.v.to(acc)).to(num.dtype)
-    den = den + cw.sum(dim=-1)
+    pn = torch.einsum("bhgw,bhwj->bhgj", cw, kv.v.to(acc))
+    pd = cw.sum(dim=-1)
+    tail = (kh, v, torch.ones_like(kv.mask[:, :, :1]))
+    if wblk.mode == "sequence":
+        pn, pd, nxt = _exchange_rows(pn, pd, kv, wblk)
+        tail = tail if nxt is None else nxt
+    num = num + pn.narrow(-1, col0, vs.shape[-1]).to(num.dtype)
+    den = den + pd
     o = num / (den + spec.denom_eps)[..., None]
     _copy_into(state.moments, new)
     _copy_into((kv.k, kv.v, kv.mask), (
-        torch.cat([kv.k[:, :, 1:], kh.to(kv.k.dtype)], dim=2),
-        torch.cat([kv.v[:, :, 1:], v.to(kv.v.dtype)], dim=2),
-        torch.cat([kv.mask[:, :, 1:], torch.ones_like(kv.mask[:, :, :1])],
-                  dim=2)))
+        torch.cat([kv.k[:, :, 1:], tail[0].to(kv.k.dtype)], dim=2),
+        torch.cat([kv.v[:, :, 1:], tail[1].to(kv.v.dtype)], dim=2),
+        torch.cat([kv.mask[:, :, 1:], tail[2].to(kv.mask.dtype)], dim=2)))
     kv.length.add_(1)
     return o.reshape(b, hq, 1, -1)
+
+
+def _exchange_rows(pn, pd, kv: KVCache, wblk):
+    """One all-gather over "model" of each rank's band partials (pn
+    [B,Hkv,G,Dv], pd [B,Hkv,G]) and its window's row 0, packed in one
+    tensor of pn's type (the rows' values and 0/1 mask exact in it).
+    Returns (pn, pd summed over the ranks, the same on every rank; the
+    next rank's row 0 as (k, v, mask) [B,Hkv,1,*], None on the last
+    rank)."""
+    row = (kv.k[:, :, :1], kv.v[:, :, :1], kv.mask[:, :, :1])
+    parts = (pn, pd) + row
+    every = _gather_model(torch.cat([x.reshape(-1).to(pn.dtype)
+                                     for x in parts])[None], 0, wblk)
+    split = every.split([x.numel() for x in parts], dim=1)
+    total = [x.sum(dim=0) for x in split[:2]]
+    nxt = None
+    if wblk.index + 1 < wblk.size:
+        nxt = tuple(x[wblk.index + 1].reshape(y.shape)
+                    for x, y in zip(split[2:], row))
+    return total[0].reshape(pn.shape), total[1].reshape(pd.shape), nxt
 
 
 def step(state: AttnState, q, k, v, spec: AttentionSpec):
     """One-token decode. q [B,Hq,1,D], k/v [B,Hkv,1,*]. Appends (k, v) to
     the softmax cache, or folds them into the moments (and window), in
-    place, and returns (o [B,Hq,1,Dv], state)."""
+    place, and returns (o [B,Hq,1,Dv], state). Under a mesh on the
+    rank's block of the state (module docstring)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sharded as S
+
     _check_state(state, spec)
     if spec.family == "softmax":
         note_route("plain decode: softmax KV cache")
         return _softmax_step(state.kv, q, k, v), state
     qh = normalize_qk(q) if spec.normalize else q
     kh = normalize_qk(k) if spec.normalize else k
+    mblk = _moment_block(state.moments, k, v)
+    _, plan = S.plan_call(q, k, v)
     if _window_slots(spec) > 0:
         note_route("plain decode: hybrid two-leg step")
-        return _hybrid_step(state, qh, kh, v, spec).to(q.dtype), state
+        o = _hybrid_step(state, qh, kh, v, spec, mblk, plan)
+        return o.to(q.dtype), state
     if resolve(spec).caps.decode_kernel:
-        from repro_torch.kernels import ops
-        from repro_torch.kernels import sharded as S
-
-        _, plan = S.plan_call(q, k, v)
         if plan is None:
             o = ops.fastmax_decode(qh, kh, v, state.moments, p=spec.p,
                                    denom_eps=spec.denom_eps)
         else:
-            with torch.no_grad():
-                o = S.run_in_model_layout(
-                    plan, lambda a, b, c: S.fastmax_decode_sharded(
-                        a, b, c, state.moments, p=spec.p,
-                        denom_eps=spec.denom_eps, plan=plan)[0], qh, kh, v)
+            o = _on_plan(plan, lambda a, b, c: S.fastmax_decode_sharded(
+                a, b, c, state.moments, p=spec.p, denom_eps=spec.denom_eps,
+                plan=plan)[0], qh, kh, v)
         return o.to(q.dtype), state
     note_route("plain decode: fastmax moment step")
-    o, new = fastmax_decode_ref(qh, kh, v, tuple(state.moments), p=spec.p,
-                                denom_eps=spec.denom_eps)
-    _copy_into(state.moments, new)
-    return o.to(q.dtype), state
+
+    def fn(a, b, c):
+        o, new = fastmax_decode_ref(a, b, c, tuple(state.moments), p=spec.p,
+                                    denom_eps=spec.denom_eps)
+        _copy_into(state.moments, new)
+        return o
+
+    return _on_plan(plan, fn, qh, kh, v).to(q.dtype), state

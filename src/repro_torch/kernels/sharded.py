@@ -89,7 +89,8 @@ from repro_torch.sharding.rules import Spec, _batch_entry, mesh_axes
 
 __all__ = ["ShardPlan", "nontrivial_mesh", "plan_kernel_sharding",
            "fastmax_sharded", "fastmax_prefill_sharded",
-           "fastmax_decode_sharded", "hybrid_sharded", "pick_cp_exchange",
+           "fastmax_decode_sharded", "hybrid_sharded",
+           "hybrid_prefill_sharded", "pick_cp_exchange",
            "cp_carry_bytes", "cp_boundary_model"]
 
 # calls of each public wrapper (the routing's tests count them)
@@ -567,6 +568,24 @@ def fastmax_prefill_sharded(q, k, v, *, p: int, chunk_size: int,
         return kernel_ops.fastmax_prefill_kernel(
             q, k, v, p=p, chunk_size=chunk_size, denom_eps=denom_eps,
             kv_mask=kv_mask, schedule=schedule)
+
+
+def hybrid_prefill_sharded(q, k, v, *, p: int, window: int,
+                           chunk_size: int, denom_eps: float, kv_mask=None,
+                           plan: ShardPlan, schedule=None):
+    """Hybrid causal prefill on the rank's shards: (o, final moment
+    tuple), in the heads or feature layout, no collectives (feature: the
+    band's denominator comes from q, k whole, so each slice of o is
+    exact, and each rank keeps the identical g-moments). `kv_mask` as
+    `fastmax_prefill_sharded`'s."""
+    calls["hybrid_prefill_sharded"] += 1
+    if plan.mode not in ("heads", "feature"):
+        raise ValueError(f"hybrid prefill plans heads/feature modes, got "
+                         f"{plan.mode!r}")
+    with kernel_ops.under_plan(plan.describe()):
+        return kernel_ops.hybrid_prefill_kernel(
+            q, k, v, p=p, window=window, chunk_size=chunk_size,
+            denom_eps=denom_eps, kv_mask=kv_mask, schedule=schedule)
 
 
 def fastmax_decode_sharded(q, k, v, state, *, p: int, denom_eps: float,

@@ -23,8 +23,8 @@ count, as one rank of the production mesh runs it:
     "model", attention through the kernel plans of `kernels/sharded.py`
     under `use_mesh` — counted op by op: argument bytes (equal to the
     planned ones but where the decode state is held whole over an axis
-    the plan splits it on: the hybrid's window and moments over "model",
-    the batch-1 SSM states over "data", ROADMAP queue 1 item D), the temp
+    the plan splits it on: the batch-1 SSM states over "data", ROADMAP
+    queue 1 item D), the temp
     peak, matmul flops, the kernels' launches and work, HBM bytes and
     collective bytes by kind;
   * the reference's own fields where they mean the same (n_params,

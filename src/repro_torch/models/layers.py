@@ -23,12 +23,13 @@ Where the kv heads do not divide "model" (MQA, or 8 kv heads on 16) k and
 v are computed whole from x on every rank, q is gathered to whole heads,
 the attention runs in the model's layout (the kernels' feature plan, or
 the whole heads) and o is cut back to the rank's heads for wo. Serving
-keeps the softmax KV cache as the rank's block of `kv_cache_spec`
-(`attention.state`): its kv heads where they divide "model" (the layer
-attends on them), else its rows of the timeline (q gathered to whole
-heads, the partial softmaxes combined over "model", o cut back). A
-hybrid backend keeps its window and moments whole over "model", so its
-q, k and v are gathered to whole heads there. Under the training
+keeps every decode state as the rank's block of the reference's
+`decode_state_shardings` (`attention.state`): where the kv heads divide
+"model" the softmax KV cache, the moments and the hybrid window hold the
+rank's kv heads and the layer attends on them; else q is gathered to
+whole heads, the KV cache and the window hold rows of their timeline
+(the partials combined over "model"), the moments v's Dv slice, and o is
+cut back. Under the training
 forward's sequence split (`placed.sequence_split`) x is the rank's slice
 of the sequence: `tp_enter` gathers it and `tp_exit` reduce-scatters
 back to it, and k and v computed whole take x gathered whole.
@@ -379,17 +380,12 @@ def attention_decode(params, x_t, state: AttnState, cfg, *, position):
 
 def _tp_serve(params, x, cfg, positions, attend):
     """A prefill or decode step under tensor parallelism: on the rank's
-    heads where the kv heads are split and the state holds them (the
-    softmax KV cache's heads block, a decode kernel's moments in the
-    kernels' plan), else on whole heads (the cache's rows, or a hybrid
-    state whole over "model")."""
+    heads where the kv heads are split (every decode state then holds
+    them: the softmax KV cache's heads block, the moments' and the hybrid
+    window's), else on whole heads (the cache's or window's rows, the
+    moments' Dv slice)."""
     _, split_kv = _tp_split(params)
     q, k, v = _tp_qkv(params, x, cfg, positions, split_kv)
-    spec = cfg.attn_spec
-    if split_kv and not (spec.family == "softmax"
-                         or A.resolve(spec).caps.decode_kernel):
-        k, v = P.gather_model(k, 1), P.gather_model(v, 1)
-        split_kv = False
     o = _tp_attend(q, k, v, split_kv, attend)
     return P.tp_exit(_out_proj(o.to(x.dtype), params["wo"]))
 

@@ -322,9 +322,10 @@ def init_lm_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     the activation dtype, h float32), an xLSTM layer's an `MLSTMState` or
     `SLSTMState` (float32 but sLSTM's h). On the `meta` device it only
     describes the shapes (`core.decode_state.decode_state_bytes`). Under
-    an active mesh (`rules.use_mesh`) a fastmax kernel backend's moments
-    are its plan's and an SSM layer's state is the rank's slice of its
-    channels over "model" (`placed.ssm_model_size`)."""
+    an active mesh (`rules.use_mesh`) an attention layer's state is the
+    rank's block of `decode_state_shardings` (`attention.state`) and an
+    SSM layer's the rank's slice of its channels over "model"
+    (`placed.ssm_model_size`)."""
     _check_supported(cfg)
     dev = device if str(device) == "meta" else resolve_device(device)
 

@@ -31,8 +31,10 @@ helpers (`maybe_constraint`, `replicate`, `shard_stacked`,
 port runs SPMD over local shards: each rank's tensors already are its
 shard, and nothing lays them out afterwards, so the helpers are identity
 functions kept for the reference's call sites. `kv_cache_block` is the
-rank's block of a softmax KV cache under `kv_cache_spec`, which the
-decode state is made as (`attention.state.init_state`).
+rank's block of a KV cache under `kv_cache_spec` (the softmax cache, the
+hybrid's window) and `moments_block` that of a `Moments` state under
+`_moments_shardings`, which the decode state is made as
+(`attention.state.init_state`).
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ from typing import NamedTuple, Optional
 __all__ = ["DEFAULT_RULES", "NO_FSDP_RULES", "Spec", "spec_for",
            "param_shardings", "batch_spec", "kv_cache_spec",
            "decode_state_shardings", "KVBlock", "kv_cache_block",
-           "model_axis_size", "mesh_axes",
+           "MomentsBlock", "moments_block", "model_axis_size", "mesh_axes",
            "to_placements", "active_mesh", "use_mesh", "maybe_constraint",
            "replicate", "shard_stacked", "constrain_kv_cache"]
 
@@ -250,18 +252,25 @@ class KVBlock(NamedTuple):
     nmax: int     # the whole cache's rows
 
 
-def kv_cache_block(hkv: int, nmax: int, mesh=None) -> KVBlock:
-    """The rank's block of a KV cache of `hkv` kv heads and `nmax` rows on
-    `mesh` (None: the active mesh, if any): kv heads over "model" where
-    they divide it, else the rows (the rank of "model" index r holds
-    [r·nmax/m, (r+1)·nmax/m)), else whole, as `kv_cache_spec` places
-    it."""
+def _model_coord(mesh) -> tuple:
+    """({axis: size}, the "model" size, the rank's "model" index) of
+    `mesh` (None: the active mesh, if any; index 0 on a mapping)."""
     if mesh is None:
         mesh = active_mesh()
     sizes = {} if mesh is None else mesh_axes(mesh)
     m = sizes.get("model", 1)
     idx = 0 if m == 1 or isinstance(mesh, Mapping) \
         else mesh.get_local_rank("model")
+    return sizes, m, idx
+
+
+def kv_cache_block(hkv: int, nmax: int, mesh=None) -> KVBlock:
+    """The rank's block of a KV cache of `hkv` kv heads and `nmax` rows on
+    `mesh` (None: the active mesh, if any): kv heads over "model" where
+    they divide it, else the rows (the rank of "model" index r holds
+    [r·nmax/m, (r+1)·nmax/m)), else whole, as `kv_cache_spec` places
+    it."""
+    sizes, m, idx = _model_coord(mesh)
     spec = kv_cache_spec((1, hkv, nmax, 1), sizes)
     if spec[1] == "model":
         return KVBlock("heads", hkv // m, nmax, 0, idx, m, nmax)
@@ -276,18 +285,25 @@ def kv_cache_block(hkv: int, nmax: int, mesh=None) -> KVBlock:
 _MOMENT_NDIM = {"m0": 3, "m1": 4, "m2": 5, "g0": 2, "g1": 3, "g2": 4}
 
 
+def _moments_mode(hkv, dv, tp: int) -> str:
+    """"heads" (Hkv % tp == 0), else "feature" (Dv % tp == 0), else
+    "whole": how "model" of size tp splits a Moments state."""
+    if tp > 1 and hkv is not None and hkv % tp == 0:
+        return "heads"
+    if tp > 1 and dv is not None and dv % tp == 0:
+        return "feature"
+    return "whole"
+
+
 def _moments_shardings(mom, sizes: dict):
     """Specs of a Moments state, as the reference's sharded kernels place
     it: heads mode (Hkv % tp == 0) the kv-head dim over "model"; feature
     mode (else, Dv % tp == 0) the value dim of m0, m1, m2 over "model",
     the g moments replicated over it."""
-    tp = sizes.get("model", 1)
     lead = mom[0].ndim - _MOMENT_NDIM["m0"]
     hkv = mom[0].shape[lead + 1] if lead >= 0 else None
     dv = mom[0].shape[-1] if lead >= 0 else None
-    heads_mode = tp > 1 and hkv is not None and hkv % tp == 0
-    feat_mode = (not heads_mode and tp > 1 and dv is not None
-                 and dv % tp == 0)
+    mode = _moments_mode(hkv, dv, sizes.get("model", 1))
 
     def one(name, leaf):
         nd = _MOMENT_NDIM.get(name)
@@ -296,14 +312,37 @@ def _moments_shardings(mom, sizes: dict):
         ld = leaf.ndim - nd
         entries = [None] * leaf.ndim
         entries[ld], _ = _batch_entry(sizes, leaf.shape[ld])
-        if heads_mode:
+        if mode == "heads":
             entries[ld + 1] = "model"
-        elif feat_mode and name in ("m0", "m1", "m2"):
+        elif mode == "feature" and name in ("m0", "m1", "m2"):
             entries[-1] = "model"
         return Spec(*entries)
 
     return type(mom)(*(one(n, leaf) for n, leaf in zip(type(mom)._fields,
                                                         mom)))
+
+
+class MomentsBlock(NamedTuple):
+    """The rank's block of a Moments state [B, Hkv, ...] under
+    `_moments_shardings` (its "model" entries; the batch rows are the
+    caller's): "heads" holds kv heads [r·h, (r+1)·h), "feature" the value
+    columns [r·dv, (r+1)·dv) of m0, m1 and m2 with g0, g1 and g2 whole,
+    "whole" the state whole over "model"."""
+    mode: str     # "heads", "feature" or "whole"
+    heads: int    # the rank's kv heads
+    dv: int       # its value columns of m0, m1 and m2
+    index: int    # its "model" index (0 on a mesh given as a mapping)
+    size: int     # the "model" size
+
+
+def moments_block(hkv: int, dv: int, mesh=None) -> MomentsBlock:
+    """The rank's block of a Moments state of `hkv` kv heads and `dv`
+    value columns on `mesh` (None: the active mesh, if any), by the rule
+    of `_moments_shardings`."""
+    _, m, idx = _model_coord(mesh)
+    mode = _moments_mode(hkv, dv, m)
+    return MomentsBlock(mode, hkv // m if mode == "heads" else hkv,
+                        dv // m if mode == "feature" else dv, idx, m)
 
 
 def decode_state_shardings(state_shapes, mesh, *, batch: int):
