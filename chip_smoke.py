@@ -256,7 +256,7 @@ and power limit, and the result line last):
                 differ from the off run's.
  23. shard    — the kernel plans (kernels/sharded.py) on two ranks of a
                 gloo group sharing the card (launch/ranks.py spawns them
-                after the parent's build; the two-rank phases 23-24d
+                after the parent's build; the two-rank phases 23-24e
                 share two spawns, `spawn_together`, one for those on
                 torch's own allocator and one for those on expandable
                 segments, and each phase then checks and prints its
@@ -329,6 +329,22 @@ and power limit, and the result line last):
                 The last-row logits' gap to one process, prefill ms,
                 decode ms per token, collectives a decode step by kind,
                 peaks printed.
+ 24e. placed whisper — whisper-small's two towers tensor-parallel over
+                "model" on (data 1, model 2), two ranks, float32,
+                fastmax2-kernel: 6 of 12 heads of every self- and
+                cross-attention and 1536 of 3072 ff columns of every GELU
+                MLP a rank (the vocab whole). Full-width serving (12 + 12
+                layers, B=4, 1500 frames, prompt 128, 16 tokens) against
+                one process's encode and generate(): tokens equal, each
+                rank's launches one process's (encode and generate, the
+                counts set to 0 before each), every attention call on 6
+                heads and no whole attention or MLP leaf gathered
+                (`mixer_spy`), the last-row logits within PWH_LOGIT_TOL;
+                training cut to 2 + 2 layers, B=2, N=128, one AdamW step
+                against one process's (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL a
+                leaf, the same launches). Encode, prefill and decode ms,
+                step ms, peaks, collective bytes and host ms by kind
+                printed.
  25. dryrun   — the dry run (launch/dryrun.py) against the real step: full-
                 width qwen3-1.7b, fastmax2-kernel, bf16, one device: the
                 train step as the train phase runs it (B=4, N=1024, remat
@@ -3430,11 +3446,12 @@ def shard_sums(local, ref: dict, sizes: dict, count: bool = False) -> dict:
 
 
 @contextlib.contextmanager
-def mixer_spy(cfg):
+def mixer_spy(cfg, mlp: bool = False):
     """Inside, `placed.gather` and the attention entry points record into
     the dict yielded: "whole", the shapes of gathers over "model" that
-    return a whole attention leaf (wq, w_uk, w_uv, wo; GQA's wk, wv), and
-    "heads", the (q, k, v) heads of every attention call."""
+    return a whole attention leaf (wq, w_uk, w_uv, wo; GQA's wk, wv; with
+    `mlp`, the MLP's wi and wo too), and "heads", the (q, k, v) heads of
+    every attention call."""
     from repro_torch import attention as A
     from repro_torch.sharding import placed as P
 
@@ -3445,6 +3462,8 @@ def mixer_spy(cfg):
                  (cfg.kv_lora_rank, hq, hd), (hq, hd, d)}
     else:
         whole = {(d, hq, hd), (d, cfg.n_kv_heads, hd), (hq, hd, d)}
+    if mlp:
+        whole |= {(d, cfg.d_ff), (cfg.d_ff, d)}
     seen = {"whole": [], "heads": set()}
     gather = P.gather
     fns = {"attention": 0, "prefill": 0, "step": 1}    # where q sits
@@ -4919,6 +4938,351 @@ def placed_hybrid_serve_phase(smi: str) -> dict:
     return out
 
 
+# [placed whisper]: whisper-small's two towers tensor-parallel over
+# "model" on (data 1, model 2), two ranks, float32, fastmax2-kernel: each
+# rank holds 6 of the 12 heads of every self- and cross-attention and
+# 1536 of the 3072 ff columns of every GELU MLP (vocab 51865 divides no
+# "model": the embedding and the logits stay whole). Serving at full
+# width, 12 + 12 layers, B=4, 1500 frames, a prompt of 128 tokens and 16
+# generated; training cut to 2 + 2 layers, B=2, N=128, one AdamW step
+PWH_ARCH, PWH_MESH = "whisper-small", (1, 2)
+PWH_B, PWH_PROMPT, PWH_GEN = 4, 128, 16
+PWH_TRAIN_LAYERS, PWH_TRAIN_B, PWH_TRAIN_N = 2, 2, 128
+# the placed prefill's last logit row against one process's, by the rule
+# of MLA_F32_LOGIT_TOL: about four times the gap measured on an H100
+# (700 W), 4.888e-6 (max |logit| 4.775)
+PWH_LOGIT_TOL = 2e-5
+
+
+def placed_whisper_cfg(n_layers=None):
+    """Full-width whisper-small in float32 on fastmax2-kernel, both towers
+    cut to `n_layers` (None: uncut, 12 + 12)."""
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_config
+
+    cut = {} if n_layers is None else dict(n_layers=n_layers,
+                                           encoder_layers=n_layers)
+    return get_config(PWH_ARCH, param_dtype="float32", activ_dtype="float32",
+                      attn=AttentionSpec.parse("fastmax2-kernel"), **cut)
+
+
+def _launches() -> dict:
+    """The kernels launched since the counts were last set to 0."""
+    from repro_torch.kernels import ops
+
+    return {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def _asked() -> dict:
+    """{kind: (bytes the rank sent, host ms)} of the placed step's
+    collectives since `placed.reset_asked()`."""
+    from repro_torch.sharding import placed as P
+
+    return {k: (P.asked[k], P.asked_ms[k]) for k in P.asked}
+
+
+def placed_whisper_serve(rank, mesh, dev) -> dict:
+    """Rank 0 first takes one process's encode, generate() and prefill
+    logits alone; then both ranks encode, prefill and decode placed on
+    (1, 2) under `mixer_spy`, the launch counts and the collectives set
+    to 0 before the encode and before the prefill."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import init_decode_state, init_model
+    from repro_torch.models.encdec import encode
+    from repro_torch.models.transformer import lm_prefill
+    from repro_torch.sharding import placed as P
+    from repro_torch.sharding.rules import use_mesh
+
+    cfg = placed_whisper_cfg()
+    gen = torch.Generator().manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (PWH_B, PWH_PROMPT),
+                            generator=gen).to(dev)
+    frames = torch.randn(PWH_B, cfg.encoder_seq, cfg.d_model,
+                         generator=gen).to(dev)
+    max_len = PWH_PROMPT + PWH_GEN
+    params = init_model(cfg, seed=0, device=dev)
+    one = {}
+    if rank == 0:
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            enc = encode(params, frames, cfg)
+            one["encode"] = _launches()
+            ops.reset_launch_counts()
+            one["tokens"] = generate(params, cfg, prompts, PWH_GEN,
+                                     enc_out=enc, device=dev).cpu()
+            one["generate"] = _launches()
+            lg, _ = lm_prefill(params["decoder"], prompts, cfg,
+                               init_decode_state(cfg, PWH_B, max_len,
+                                                 device=dev), enc_out=enc)
+            one["last"] = lg[:, -1].cpu()
+            del enc, lg
+    dist.barrier()
+    placement = P.Placement(cfg, mesh)
+    placed = placement.place(params)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with use_mesh(mesh):
+        state = init_decode_state(cfg, PWH_B, max_len, device=dev)
+    step = make_serve_step(cfg, mesh=mesh)
+    positions = PWH_PROMPT + torch.arange(PWH_GEN - 1, device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    out = {}
+    with mixer_spy(cfg, mlp=True) as seen:
+        ops.reset_launch_counts()
+        P.reset_asked()
+        ev[0].record()
+        with torch.no_grad(), use_mesh(mesh), placement.active():
+            enc = encode(placed, frames, cfg)
+        ev[1].record()
+        ev[1].synchronize()
+        out.update(launches_encode=_launches(), coll_encode=_asked())
+        ops.reset_launch_counts()
+        P.reset_asked()
+        with torch.no_grad(), use_mesh(mesh), placement.active():
+            lg, state = lm_prefill(placed["decoder"], prompts, cfg, state,
+                                   enc_out=enc)
+            last = P.gather_vocab(lg[:, -1], cfg.vocab_size)
+        tok = last.argmax(-1).to(torch.int32)
+        ev[2].record()
+        ev[2].synchronize()
+        del lg
+        out["coll_prefill"] = _asked()
+        P.reset_asked()
+        toks = [tok]
+        for i in range(PWH_GEN - 1):
+            tok, state = step(placed, state, tok, positions[i], enc)
+            toks.append(tok)
+        ev[3].record()
+        ev[3].synchronize()
+    got = torch.stack(toks, 1).cpu()
+    n_dec = PWH_GEN - 1
+    out.update(
+        launches_generate=_launches(),
+        coll_decode_per_step={k: (b / n_dec, t / n_dec)
+                              for k, (b, t) in _asked().items()},
+        tokens=got.tolist(),
+        equal=bool(torch.equal(got, one["tokens"])) if one else None,
+        logit_gap=float((last.cpu() - one["last"]).abs().max())
+        if one else None,
+        logit_scale=float(one["last"].abs().max()) if one else None,
+        launches_one={k: one[k] for k in ("encode", "generate")}
+        if one else None,
+        heads=sorted(seen["heads"]), whole=seen["whole"],
+        enc_ok=tuple(enc.shape) == (PWH_B, cfg.encoder_seq, cfg.d_model)
+        and bool(enc.isfinite().all()),
+        encode_ms=ev[0].elapsed_time(ev[1]),
+        prefill_ms=ev[1].elapsed_time(ev[2]),
+        decode_ms_per_token=ev[2].elapsed_time(ev[3]) / n_dec,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del placed, state, enc
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def placed_whisper_train(rank, mesh, dev) -> dict:
+    """Each rank in turn first takes one process's AdamW step alone (the
+    reference, kept on the host), then both take the placed step on
+    (1, 2) from the same weights and batch: the loss, and the first
+    step's grads and the updated parameters held to the reference's
+    slices on each rank (`leaf_sums`, no gather)."""
+    import torch.distributed as dist
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import init_model
+    from repro_torch.models.param import count_params
+    from repro_torch.optim.grad_utils import leaves
+    from repro_torch.sharding import placed as P
+
+    cfg = placed_whisper_cfg(PWH_TRAIN_LAYERS)
+    raw = SyntheticLM(cfg.vocab_size, PWH_TRAIN_N, seed=0).batch(
+        0, PWH_TRAIN_B)
+    batch = {k: torch.as_tensor(raw[k], dtype=torch.int32, device=dev)
+             for k in ("tokens", "targets")}
+    batch["frames"] = torch.randn(
+        PWH_TRAIN_B, cfg.encoder_seq, cfg.d_model,
+        generator=torch.Generator().manual_seed(1)).to(dev)
+    first = {}
+    record_first_grads(first)
+
+    def run(placement=None, ref=None):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_model(cfg, seed=0, device=dev)
+        _, opt = ST.pick_optimizer(cfg, count_params(params), lr=3e-4,
+                                   total_steps=1)
+        b, m = batch, None
+        if placement is None:
+            state = opt[0](params)
+        else:
+            m = placement.mesh
+            params = placement.place(params)
+            state = placement.init_opt_state(opt[0], params)
+            b = P.shard_batch(batch, m)
+        step = ST.make_train_step(cfg, opt, mesh=m)
+        ops.reset_launch_counts()
+        P.reset_asked()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        params, state, metrics = step(params, state, b)
+        ev[1].record()
+        ev[1].synchronize()
+        out = dict(loss=first["loss"], step_ms=ev[0].elapsed_time(ev[1]),
+                   launches=_launches(), collectives=_asked(),
+                   finite=math.isfinite(metrics["loss"].item()),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if placement is None:
+            out.update(grads={n: x.detach().float().cpu()
+                              for n, x in leaves(first["grads"])},
+                       final={n: x.detach().float().cpu()
+                              for n, x in leaves(params)})
+        else:
+            with placement.active():
+                out.update(grad_sums=leaf_sums(first["grads"], ref["grads"]),
+                           param_sums=leaf_sums(params, ref["final"]))
+        first.clear()
+        del params, state
+        return out
+
+    ref = None
+    for r in range(2):          # one process at a time holds the card
+        if rank == r:
+            ref = run()
+        dist.barrier()
+    got = run(P.Placement(cfg, mesh), ref)
+    got.update({f"{k}_one": ref[k] for k in ("loss", "step_ms", "launches",
+                                             "peak_gb")})
+    return got
+
+
+def placed_whisper_rank(rank, world):
+    """A [placed whisper] rank: serving at full width, then training at
+    2 + 2 layers, on (data 1, model 2)."""
+    dev = _rank_setup()
+    from repro_torch.launch.mesh import make_test_mesh
+
+    del world
+    mesh = make_test_mesh(PWH_MESH, ("data", "model"))
+    return {"rank": rank, "serve": placed_whisper_serve(rank, mesh, dev),
+            "train": placed_whisper_train(rank, mesh, dev)}
+
+
+def placed_whisper_phase(smi: str) -> dict:
+    """[placed whisper]: whisper-small's towers tensor-parallel over
+    "model" on (data 1, model 2), float32, fastmax2-kernel: full-width
+    serving against one process's encode and generate(), and one AdamW
+    step of the 2 + 2-layer cut against one process's."""
+    _free_parent()
+    (r0, r1), secs = two_ranks(placed_whisper_rank, timeout=900)
+    cfg = placed_whisper_cfg()
+    h = cfg.n_heads // PWH_MESH[1]
+    a, b = r0["serve"], r1["serve"]
+    one = a["launches_one"]
+    want_e = {"fastmax_noncausal_moments": cfg.encoder_layers,
+              "fastmax_noncausal_combine": cfg.encoder_layers}
+    want_g = {"fastmax_causal": cfg.n_layers,
+              "fastmax_decode": cfg.n_layers * (PWH_GEN - 1),
+              "fastmax_noncausal_moments": cfg.n_layers * PWH_GEN,
+              "fastmax_noncausal_combine": cfg.n_layers * PWH_GEN}
+    serve_ok = (a["equal"] and b["tokens"] == a["tokens"]
+                and one == {"encode": want_e, "generate": want_g}
+                and all(r["launches_encode"] == want_e
+                        and r["launches_generate"] == want_g
+                        and [tuple(x) for x in r["heads"]] == [(h, h, h)]
+                        and not r["whole"]
+                        and r["enc_ok"] for r in (a, b))
+                and a["logit_gap"] <= PWH_LOGIT_TOL)
+    ta, tb = r0["train"], r1["train"]
+    gleaf, gerr = worst_sums([ta, tb], "grad_sums")
+    pleaf, perr = worst_sums([ta, tb], "param_sums")
+    loss_diff = abs(ta["loss"] - ta["loss_one"])
+    train_ok = (loss_diff <= TRAIN_LOSS_TOL and gerr <= TRAIN_GRAD_TOL
+                and perr <= TRAIN_GRAD_TOL and ta["finite"] and tb["finite"]
+                and ta["launches"] == tb["launches"] == ta["launches_one"])
+    out = {"arch": PWH_ARCH, "mesh": list(PWH_MESH), "dtype": "float32",
+           "attn": "fastmax2-kernel", "card": smi, "seconds": secs,
+           "heads_a_rank": h, "ff_a_rank": cfg.d_ff // PWH_MESH[1],
+           "serve": {
+               "layers": [cfg.encoder_layers, cfg.n_layers],
+               "batch": PWH_B, "frames": cfg.encoder_seq,
+               "prompt": PWH_PROMPT, "gen": PWH_GEN,
+               "tokens_equal": a["equal"], "logit_gap": a["logit_gap"],
+               "logit_scale": a["logit_scale"], "logit_tol": PWH_LOGIT_TOL,
+               "launches_one": one,
+               "launches_ranks": [{"encode": r["launches_encode"],
+                                   "generate": r["launches_generate"]}
+                                  for r in (a, b)],
+               "attention_heads_ranks": [a["heads"], b["heads"]],
+               "whole_leaves_ranks": [a["whole"], b["whole"]],
+               **{f"{k}_ranks": [a[k], b[k]] for k in (
+                   "encode_ms", "prefill_ms", "decode_ms_per_token",
+                   "peak_gb", "coll_encode", "coll_prefill",
+                   "coll_decode_per_step")}},
+           "train": {
+               "layers": [PWH_TRAIN_LAYERS, PWH_TRAIN_LAYERS],
+               "batch": PWH_TRAIN_B, "seq": PWH_TRAIN_N,
+               "loss": ta["loss"], "loss_one": ta["loss_one"],
+               "loss_diff": loss_diff, "worst_grad_leaf": gleaf,
+               "worst_grad_err": gerr, "worst_param_leaf": pleaf,
+               "worst_param_err": perr,
+               "launches_ranks": [ta["launches"], tb["launches"]],
+               "launches_one": ta["launches_one"],
+               "step_ms_ranks": [ta["step_ms"], tb["step_ms"]],
+               "step_ms_one": ta["step_ms_one"],
+               "peak_gb_ranks": [ta["peak_gb"], tb["peak_gb"]],
+               "peak_gb_one": ta["peak_gb_one"],
+               "collectives_ranks": [ta["collectives"],
+                                     tb["collectives"]]}}
+    sv, tr = out["serve"], out["train"]
+    for part in ("encode", "prefill"):
+        coll_lines(f"whisper {part}", [{"c": r[f"coll_{part}"]}
+                                       for r in (a, b)], "c")
+    coll_lines("whisper decode step", [a, b], "coll_decode_per_step")
+    coll_lines("whisper train step", [ta, tb], "collectives")
+    phase("placed whisper", f"{PWH_ARCH} serving, {cfg.encoder_layers} + "
+          f"{cfg.n_layers} layers, float32, "
+          f"fastmax2-kernel, (data 1, model 2) on 2 ranks of the card "
+          f"({smi}): {h} of {cfg.n_heads} heads and {cfg.d_ff // 2} of "
+          f"{cfg.d_ff} ff columns a rank; B={PWH_B}, {cfg.encoder_seq} "
+          f"frames, prompt {PWH_PROMPT}, {PWH_GEN} tokens; greedy tokens "
+          f"equal one process's: {a['equal']}; last-row logits "
+          f"{a['logit_gap']:.3e} from one process (tol {PWH_LOGIT_TOL:.1e}; "
+          f"max |one| {a['logit_scale']:.3f}); launches a rank (encode, "
+          f"generate) {sv['launches_ranks']} (one process {one}); "
+          f"attention (q, k, v) heads a rank {a['heads']}; whole leaves "
+          f"gathered {sv['whole_leaves_ranks']}; encode ms "
+          f"{sv['encode_ms_ranks']}, prefill ms {sv['prefill_ms_ranks']}, "
+          f"decode ms/token {sv['decode_ms_per_token_ranks']}; peak GB "
+          f"{sv['peak_gb_ranks']}")
+    phase("placed whisper", f"{PWH_ARCH} training cut to "
+          f"{PWH_TRAIN_LAYERS} + {PWH_TRAIN_LAYERS} layers, float32, AdamW "
+          f"B={PWH_TRAIN_B} N={PWH_TRAIN_N}, one step on (1, 2) against "
+          f"one process: loss |diff| {loss_diff:.3e} (tol "
+          f"{TRAIN_LOSS_TOL}); worst grad {gleaf} {gerr:.3e}, worst "
+          f"updated parameter {pleaf} {perr:.3e} (tol {TRAIN_GRAD_TOL}); "
+          f"launches a rank {tr['launches_ranks']} (one process "
+          f"{tr['launches_one']}); step ms {tr['step_ms_ranks']} (one "
+          f"process {tr['step_ms_one']:.1f}); peak GB "
+          f"{tr['peak_gb_ranks']} (one process {tr['peak_gb_one']:.3f}); "
+          f"phase {secs:.1f} s")
+    if not (serve_ok and train_ok):
+        fail(f"placed whisper: tokens differ from one process's, the "
+             f"last logit row is past its limit, a rank's launches are "
+             f"not one process's, an attention call is not on {h} heads, "
+             f"a rank gathered a whole attention or MLP leaf, or the "
+             f"training step's loss, grads or parameters disagree with "
+             f"one process's: {out}")
+    return out
+
+
 # dryrun phase: the executed peak the meta count predicts (arguments + the
 # temp peak of live storages) against the card's max_memory_allocated() of
 # the same step; the rest (launches, kernel work, matmul flops, argument
@@ -6318,7 +6682,8 @@ def main() -> None:
     spawn_together("plain_alloc", (
         (shard_rank, (SHARD_CASES,)), (cp_train_rank, (CP_STEPS,)),
         (placed_train_rank, (PLACED_STEPS,)), (placed_serve_rank, ()),
-        (placed_kv_serve_rank, ()), (placed_hybrid_serve_rank, ())),
+        (placed_kv_serve_rank, ()), (placed_hybrid_serve_rank, ()),
+        (placed_whisper_rank, ())),
         timeout=3300)
     shard = shard_phase()
     cp_train = cp_train_phase()
@@ -6350,6 +6715,10 @@ def main() -> None:
     # ---- the moment states and the hybrid window placed, two ranks ----
     torch.cuda.empty_cache()
     placed_hybrid_serve = placed_hybrid_serve_phase(smi)
+
+    # ---- whisper's towers tensor-parallel over "model", two ranks ----
+    torch.cuda.empty_cache()
+    placed_whisper = placed_whisper_phase(smi)
 
     # ---- the dry run against the real step ----
     torch.cuda.empty_cache()
@@ -6475,6 +6844,7 @@ def main() -> None:
     print(json.dumps({"placed_ssm_serve": placed_ssm_serve}))
     print(json.dumps({"placed_kv_serve": placed_kv_serve}))
     print(json.dumps({"placed_hybrid_serve": placed_hybrid_serve}))
+    print(json.dumps({"placed_whisper": placed_whisper}))
     print(json.dumps({"dryrun": dryrun}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

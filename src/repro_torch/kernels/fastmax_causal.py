@@ -22,7 +22,7 @@ from repro_torch.core.fastmax import Moments, _causal_scan
 
 __all__ = ["fastmax_causal_cuda", "fastmax_causal_ref", "prefill_call",
            "CHUNK", "COLS", "column_groups", "feature_rows", "segment_tokens",
-           "workspace_bytes", "check_kernel_inputs", "launches"]
+           "workspace_bytes", "check_kernel_inputs", "launches", "MAX_D"]
 
 # calls of `fastmax_causal_cuda` that launched the kernel (one per call,
 # though each call makes two CUDA launches: prefix moments, then combine)
@@ -37,6 +37,10 @@ COLS = 64
 _WORKSPACE_BUDGET = 2 << 30
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the widest D the prefill and hybrid kernels take (`dims_ok` in the
+# source: a feature row's code packs each index + 1 of its pair in 8 bits,
+# `feature_table.cuh`)
+MAX_D = 255
 
 
 def _lib():
@@ -117,11 +121,17 @@ def _check_inputs(q, k, v):
 
 def check_kernel_inputs(q, k, v, kv_mask, p: int, fn: str):
     """Check the inputs of a causal scan kernel (`fn`, for the messages):
-    q [B,Hq,N,D], k [B,Hkv,N,D], v [B,Hkv,N,Dv], float32 or bfloat16,
-    contiguous, on one CUDA device, D and Dv divisible by 4, p 1 or 2, and
-    `kv_mask` [B, Hkv|1, N] or None. Returns the kernel's key weights, a
-    contiguous float32 [B, Hkv, N] (ones without a mask)."""
+    q [B,Hq,N,D], k [B,Hkv,N,D], v [B,Hkv,N,Dv], D and Dv divisible by 4
+    with 4 <= D <= MAX_D (checked first, on any device), float32 or
+    bfloat16, contiguous, on one CUDA device, p 1 or 2, and `kv_mask`
+    [B, Hkv|1, N] or None. Returns the kernel's key weights, a contiguous
+    float32 [B, Hkv, N] (ones without a mask)."""
     _check_inputs(q, k, v)
+    d, dv = q.shape[-1], v.shape[-1]
+    if d % 4 or dv % 4 or not (4 <= d <= MAX_D and dv >= 4):
+        raise ValueError(f"{fn}: the kernel needs D and Dv divisible by 4, "
+                         f"4 <= D <= {MAX_D} and Dv >= 4, got D={d}, "
+                         f"Dv={dv}")
     if p not in (1, 2):
         raise ValueError(f"p must be 1 or 2, got {p}")
     dev = q.device
@@ -135,11 +145,8 @@ def check_kernel_inputs(q, k, v, kv_mask, p: int, fn: str):
             raise ValueError(f"{name} on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    b, _, n, d = q.shape
-    hkv, dv = k.shape[1], v.shape[-1]
-    if d % 4 or dv % 4:
-        raise ValueError(f"the kernel needs D and Dv divisible by 4, got "
-                         f"D={d}, Dv={dv}")
+    b, _, n, _ = q.shape
+    hkv = k.shape[1]
     if kv_mask is None:
         return torch.ones(b, hkv, n, dtype=torch.float32, device=dev)
     if kv_mask.dim() != 3 or kv_mask.shape[0] != b \

@@ -57,7 +57,11 @@ def init_encdec(cfg: ModelConfig, *, seed: int = 0,
 
 def encode(params, frames, cfg: ModelConfig):
     """frames [B, T_enc, d_model] (stub frontend output) -> the encoder's
-    final-normed hidden states, same shape."""
+    final-normed hidden states, same shape. Under an active placement
+    the tower is tensor-parallel over "model" as `forward_lm` places it
+    (its residual and sinusoidal positions on the rank's slice of the
+    frames where "model" divides them); the output is gathered whole
+    once, for every cross-attention of the decoder."""
     hidden, _ = forward_lm(params["encoder"], None, encoder_config(cfg),
                            causal=False, embeddings=frames,
                            return_hidden=True)

@@ -10,15 +10,19 @@ part only, its key part shared by every head), full-sequence attention
 prefill/decode steps over the `repro_torch.attention` state protocol.
 
 Under the placed step's tensor parallelism (`sharding.placed`: the dense
-decoders' leaves keep their "model" shards, as do the MoE configs' FFNs
-and attention mixers) the MLP and the attention split their compute by
-the shards the layer's leaves hold: the column-parallel products (wi,
-wq, and wk / wv where the kv heads divide "model") take `tp_enter(x)`,
-the row-parallel wo's output `tp_exit`. MLA's wq, w_uk, w_uv and wo all
-carry the heads and split together (k and v decompressed on the rank's
-heads: Hkv = Hq there too; a layer whose wq and w_uk / w_uv disagree
-raises); w_dkv is whole over "model", and the latent and the key's rope
-part it makes feed the rank's heads only, so its grad takes `sum_grad`.
+decoders' and whisper's towers' leaves keep their "model" shards, as do
+the MoE configs' FFNs and attention mixers) the MLP and the attention
+split their compute by the shards the layer's leaves hold: the
+column-parallel products (wi, wq, and wk / wv where the kv heads divide
+"model") take `tp_enter(x)`, the row-parallel wo's output `tp_exit`. A
+cross-attention's (whisper's decoder, in training, prefill and each
+decode step) q takes `tp_enter(x)` and its k and v the encoder's output,
+whole on every rank, its grad summed over "model" (`sum_grad`). MLA's
+wq, w_uk, w_uv and wo all carry the heads and split together (k and v
+decompressed on the rank's heads: Hkv = Hq there too; a layer whose wq
+and w_uk / w_uv disagree raises); w_dkv is whole over "model", and the
+latent and the key's rope part it makes feed the rank's heads only, so
+its grad takes `sum_grad`.
 Where the kv heads do not divide "model" (MQA, or 8 kv heads on 16) k and
 v are computed whole from x on every rank, q is gathered to whole heads,
 the attention runs in the model's layout (the kernels' feature plan, or
@@ -276,17 +280,26 @@ def _tp_split(params) -> tuple:
     return True, P.model_dim(params["wk"]) == 1
 
 
-def _tp_qkv(params, x, cfg, positions, split_kv: bool):
+def _tp_qkv(params, x, cfg, positions, split_kv: bool, kv_x=None):
     """q on the rank's heads; k and v on its kv heads (split_kv) or whole,
     computed from x itself: their grads are then whole on every rank.
     Under the sequence split x is the rank's slice: gathered by
     `tp_enter`, or (k and v whole) once for all three, its grad summed
-    over "model" where q takes it."""
-    if split_kv:
+    over "model" where q takes it. A cross-attention projects k and v
+    from `kv_x` (whole on every model rank) at positions arange(M): on
+    the rank's kv heads its grad is partial, summed over "model" once a
+    layer (`sum_grad`)."""
+    if kv_x is not None:
         xt = P.tp_enter(x)
+        src = P.sum_grad(kv_x) if split_kv else kv_x
+        kv_pos = torch.arange(kv_x.shape[1], dtype=torch.int32,
+                              device=x.device)
+    elif split_kv:
+        xt = src = P.tp_enter(x)
+        kv_pos = positions
     else:
-        x = P.seq_gather(x)
-        xt = P.sum_grad(x)
+        src = P.seq_gather(x)
+        xt, kv_pos = P.sum_grad(src), positions
     params = dict(params)
     if cfg.use_mla:
         # the latent and the key's rope part (x w_dkv) feed the rank's
@@ -298,7 +311,7 @@ def _tp_qkv(params, x, cfg, positions, split_kv: bool):
         if split_kv:
             params["k_norm_scale"] = P.sum_grad(params["k_norm_scale"])
     q = _project_q(params, xt, cfg, positions)
-    k, v = _project_kv(params, xt if split_kv else x, cfg, positions)
+    k, v = _project_kv(params, src, cfg, kv_pos)
     return q, k, v
 
 
@@ -319,9 +332,10 @@ def apply_attention(params, x, cfg, *, causal=True, kv_mask=None,
     """Full-sequence attention. x [B, N, d] at positions offset ..
     offset+N-1 (offset None: 0; a context-parallel rank's token shard
     starts past 0); `kv_x` [B, M, d] makes it cross-attention: q from x,
-    k/v from kv_x at positions arange(M)."""
-    split_q, split_kv = _tp_split(params)
-    tp = split_q and kv_x is None
+    k/v from kv_x at positions arange(M). Where the layer's leaves hold
+    their heads over "model" it runs on the rank's heads (`_tp_qkv`,
+    `_tp_attend`) between `tp_enter` and `tp_exit`."""
+    tp, split_kv = _tp_split(params)
     # a tensor-parallel layer under the sequence split takes the rank's
     # slice of the sequence; its q, k and v are whole
     n = P.seq_len(x.shape[1]) if tp else x.shape[1]
@@ -329,7 +343,7 @@ def apply_attention(params, x, cfg, *, causal=True, kv_mask=None,
     if offset is not None:
         positions = positions + offset
     if tp:
-        q, k, v = _tp_qkv(params, x, cfg, positions, split_kv)
+        q, k, v = _tp_qkv(params, x, cfg, positions, split_kv, kv_x)
         o = _tp_attend(q, k, v, split_kv, lambda a, b, c: A.attention(
             a, b, c, cfg.attn_spec, causal=causal, kv_mask=kv_mask))
         return P.tp_exit(_out_proj(o.to(x.dtype), params["wo"]))

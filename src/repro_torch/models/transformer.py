@@ -50,12 +50,14 @@ Under a placement whose "model" axis is larger than 1 and divides N,
 (`placed.sequence_split`): the embedding produces the slice, each block
 is checkpointed on it and runs its norms on it, a tensor-parallel layer
 gathers the sequence on entry and reduce-scatters on exit (`tp_enter`,
-`tp_exit`; the MoE configs' GQA and MLA and the SSM mixers are split so
-too), a layer computed whole on every model rank (whisper's towers, the
-cross-attention) is wrapped in a gather and a slice, the MoE gathers its
-rows before the router, and the sequence is gathered before the logits
-(or the returned hidden states). `lm_prefill` and `lm_decode_step` stay
-whole.
+`tp_exit`; the MoE configs' GQA and MLA, the SSM mixers and whisper's
+self- and cross-attention are split so too), a layer computed whole on
+every model rank (heads that do not divide "model") is wrapped in a
+gather and a slice, the MoE gathers its rows before the router, and the
+sequence is gathered before the logits (or the returned hidden states:
+an encoder's output, gathered once and fed whole to every
+cross-attention of the decoder tower). `lm_prefill` and
+`lm_decode_step` stay whole.
 
 A `kv_mask` with an SSM mixer (mamba, mlstm, slstm) raises: the SSM
 mixers take exact-length chunks (a padded token would enter their
@@ -369,10 +371,10 @@ def _norm(params, x, cfg: ModelConfig):
 
 def _layer(fn, params, h):
     """fn(params, h) on the residual's layout: a tensor-parallel layer
-    (attention, MLP, Mamba, xLSTM with their "model" shards) takes the
-    rank's slice of the sequence as it is (it gathers and reduce-scatters
-    itself), any other is computed on the whole sequence (nothing split
-    inside) and sliced back."""
+    (attention and cross-attention, MLP, Mamba, xLSTM with their "model"
+    shards) takes the rank's slice of the sequence as it is (it gathers
+    and reduce-scatters itself), any other is computed on the whole
+    sequence (nothing split inside) and sliced back."""
     if L.tensor_parallel(params) or not P.seq_split():
         return fn(params, h)
     h = P.seq_gather(h)
@@ -395,7 +397,8 @@ def _block(params_b, x, cfg: ModelConfig, mixer, enc_out=None, *,
     params_b = P.materialize({k: v for k, v in params_b.items()
                               if k not in ("ffn", "mixer")})
     # an attention mixer (GQA or MLA) splits its compute by its heads
-    # shards over "model", Mamba and xLSTM by their "ff" and "heads" ones
+    # shards over "model", Mamba and xLSTM by their "ff" and "heads" ones;
+    # a cross-attention keeps its heads shards under `tp` (Placement.leaf)
     params_b["mixer"] = P.materialize(mix, split=True)
     if ffn is not None:
         params_b["ffn"] = (MOE.materialize(ffn) if "router" in ffn

@@ -52,17 +52,20 @@ spans several "model" ranks the head's ranks form a group of their own
 (`head_group`) for the head's whole input (`gather_sum`) and its norm.
 
 Tensor parallelism over "model" (`Placement.tp`: the dense "attn:mlp"
-decoders) keeps the "model" shards that the spec gives and splits the
-compute by them (`models.layers`): column-parallel projections take
-`tp_enter(x)` (identity, all-reduce of the grad over "model"), the
-row-parallel output goes through `tp_exit` (all-reduce, identity grad),
-vocab-parallel embedding lookup (`embed_lookup`) and logits, and a
-vocab-parallel cross-entropy (`token_nll`) whose max and sums are
-all-reduced over "model": no rank builds a whole [B, N, vocab] row. A
-replicated leaf used on the rank's heads only (qk_norm's scales) takes
-`sum_grad`, so that every model rank ends with the same grad. Which
-leaves are split the layers read off the specs recorded on the gathered
-leaves (`model_dim`).
+decoders and both towers of whisper) keeps the "model" shards that the
+spec gives and splits the compute by them (`models.layers`):
+column-parallel projections take `tp_enter(x)` (identity, all-reduce of
+the grad over "model"), the row-parallel output goes through `tp_exit`
+(all-reduce, identity grad), vocab-parallel embedding lookup
+(`embed_lookup`) and logits, and a vocab-parallel cross-entropy
+(`token_nll`) whose max and sums are all-reduced over "model": no rank
+builds a whole [B, N, vocab] row. A replicated leaf or input used on the
+rank's heads only (qk_norm's scales; the encoder's output that a
+cross-attention's k and v are projected from) takes `sum_grad`, so that
+every model rank ends with the same grad. Which leaves are split the
+layers read off the specs recorded on the gathered leaves (`model_dim`):
+heads that do not divide "model" stay whole (whisper's 12 on 16), and
+such a layer is computed whole on every model rank.
 
 The residual stream between blocks (Megatron-style sequence
 parallelism, the reference's `maybe_constraint(x, ("pod", "data"),
@@ -168,14 +171,14 @@ def model_dim(t):
 
 def tensor_parallel(cfg) -> bool:
     """Whether the placed step splits all of `cfg`'s compute over "model":
-    the dense decoders, every block an "attn:mlp" of GQA attention. The
+    every block an "attn:mlp" of GQA attention — the dense decoders, and
+    both towers of an encoder-decoder model (whisper; its encoder's
+    `encoder_config` too), the decoder's cross-attention included. The
     MoE configs split their experts, FFNs, attention mixers and vocab
     (`expert_parallel`), the SSM configs their mixers and vocab
-    (`ssm_parallel`); encoder-decoder models compute whole (ROADMAP
-    queue 3)."""
+    (`ssm_parallel`)."""
     return (tuple(cfg.pattern) == ("attn:mlp",) and cfg.first_k_dense == 0
-            and not cfg.use_mla and not cfg.encoder_layers
-            and not cfg.cross_attention and not cfg.input_embeddings_only)
+            and not cfg.use_mla)
 
 
 def expert_parallel(cfg) -> bool:

@@ -755,12 +755,15 @@ def test_perfprobe(tmp_path, capsys):
 # the placed step's arguments: rank 0's shards, as planned
 # ---------------------------------------------------------------------------
 
-# each config's cheapest cell, and every shape of two dense configs; the
-# SSM configs' one-sequence cell too
+# each config's cheapest cell, and every shape of two dense configs and
+# of whisper-small (its towers tensor-parallel) but train_1M; the SSM
+# configs' one-sequence cell too
 _SSM_ARCHS = ("jamba-v0.1-52b", "xlstm-1.3b")
 _PLACED_CELLS = ([(arch, "decode_32k") for arch in ARCHS]
                  + [(arch, shape) for arch in ("qwen3-1.7b", "granite-20b")
                     for shape in SHAPES if shape != "decode_32k"]
+                 + [("whisper-small", shape) for shape in (
+                     "train_4k", "prefill_32k", "long_500k")]
                  + [(arch, "long_500k") for arch in _SSM_ARCHS])
 # the cells whose planned SSM state splits a feature dim over "data": one
 # sequence leaves the batch axes nothing to split, and the placed step
@@ -860,3 +863,29 @@ def test_ssm_state_layout_differs_at_the_same_bytes(arch, multi):
         assert seen == 2 * 7       # conv and h of 7 Mamba blocks
     else:
         assert seen == 2 * 7 + 4   # mLSTM's C, n; sLSTM's c, n, m, h
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["one-pod", "two-pod"])
+def test_placed_whisper_splits_its_mlps_over_model(multi):
+    """whisper-small's `prefill_32k` on the production mesh: its 12 heads
+    do not divide "model" 16, so every self- and cross-attention is
+    computed whole on each rank, and the vocab (51865) is whole; each
+    GELU MLP holds its 3072 / 16 ff columns. Rank 0's matmul flops are
+    exactly those of its rows (32 over the data axes) with the MLPs'
+    products at 1/16: per token and layer 2 (4 d² + 2 d²) (self-attention,
+    the cross-attention's q and o) + 2 · 2 d ff / 16, the logits' 2 d V a
+    token, the cross-attention's k and v 2 · 2 d² a frame and layer."""
+    cfg = get_config("whisper-small")
+    res = D.run_cell("whisper-small", "prefill_32k", multi_pod=multi,
+                     attn="fastmax2-kernel")
+    names, sizes = MESHES["multi" if multi else "single"]
+    m = dict(zip(names, sizes))["model"]
+    rows = SHAPES["prefill_32k"].global_batch // D._dp_size(
+        dict(zip(names, sizes)), SHAPES["prefill_32k"].global_batch)
+    d, ff, layers = cfg.d_model, cfg.d_ff, cfg.n_layers
+    token = layers * (12 * d * d + 4 * d * ff // m) + 2 * d * cfg.vocab_size
+    frame = layers * 4 * d * d
+    want = rows * (SHAPES["prefill_32k"].seq_len * token
+                   + cfg.encoder_seq * frame)
+    assert cfg.n_heads % m and cfg.d_ff % m == 0
+    assert res["ops"]["matmul_flops"] == want

@@ -150,6 +150,29 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         fastmax_decode_cuda(q32[:, :, :1], k32[:, :, :1], v32[:, :, :1], st)
 
 
+@pytest.mark.parametrize("d, dv", [(256, 64), (260, 128), (510, 64),
+                                   (64, 6)])
+def test_causal_and_hybrid_wrappers_name_the_width_limit(d, dv):
+    """D past 255 (the kernels' `dims_ok`), or a width not divisible by 4,
+    raises with the limit in the message on any device: the prefill
+    kernel's and the hybrid kernel's wrappers check the widths before the
+    device, so a CPU tensor reaches the check."""
+    from repro_torch.kernels.hybrid_causal import hybrid_causal_cuda
+
+    q = torch.zeros(1, 2, 8, d)
+    v = torch.zeros(1, 2, 8, dv)
+    limit = rf"4 <= D <= 255 and Dv >= 4, got D={d}, Dv={dv}"
+    with pytest.raises(ValueError, match="fastmax_causal_cuda: .*" + limit):
+        fastmax_causal_cuda(q, q, v)
+    with pytest.raises(ValueError, match="fastmax_causal_cuda: .*" + limit):
+        prefill_call(q, q, v)
+    with pytest.raises(ValueError, match="hybrid_causal_cuda: .*" + limit):
+        hybrid_causal_cuda(q, q, v, window=4, chunk_size=8)
+    q, v = torch.zeros(1, 2, 8, 252), torch.zeros(1, 2, 8, dv + dv % 4)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fastmax_causal_cuda(q, q, v)
+
+
 def test_asking_for_cuda_without_a_card_raises(monkeypatch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve

@@ -23,9 +23,14 @@ active mesh) against the reference on the CPU.
     whole cache's uniform average (a step and a resumed prefill), in
     sequence mode and, on "model" 2, heads mode through whole heads; a
     state that is not the rank's block raises;
-  - on (1, 2), the smoke whisper-small (towers whole over "model", its
-    decoder cache in heads mode: 2 of 4 kv heads a rank): tokens equal
-    JAX's.
+  - on (1, 2), the smoke whisper-small, both towers tensor-parallel over
+    "model" (2 of 4 heads, 64 of 128 ff columns a rank) with the decoder
+    cache in heads mode (softmax) and with the moments (fastmax2, heads
+    mode, each rank's bytes = planned): prefill and decode logits within
+    TOL of JAX's and tokens equal; every attention layer (encoder,
+    decoder prefill and decode, cross-attention) and MLP holds its
+    "model" shards, every attention call runs on the rank's heads, and
+    no leaf is gathered whole over "model" (`torch_placed_cases.tp_spy`).
 - The dry run (`launch/dryrun.py`, a fake world of 256 or 512 ranks on
   meta) of `--attn softmax` cells: the placed step's argument bytes on
   rank 0 equal the planned ones, part by part, at `decode_32k` and
@@ -60,6 +65,7 @@ B, PLEN, NDEC, MAX_LEN = 4, 14, 4, 32
 WORLDS = {"1x2": (1, 2), "1x4": (1, 4), "2x2": (2, 2)}
 ARCHS = ("qwen3-1.7b", "granite-20b")
 WHISPER = "whisper-small"
+WHISPER_ATTNS = ("softmax", "fastmax2")   # a KV cache, moments
 PAD = 8                  # rank 0's whole block on (1, 4)
 SPLIT = 6                # the resumed prefill's chunk: rows 6-13
 VALID = (14, 7, 10, 3)   # the [B] lane's tokens a row
@@ -88,10 +94,10 @@ def _frames():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_serve(arch, padded: bool):
+def _jax_serve(arch, padded: bool, attn: str = "softmax"):
     """JAX's prefill and greedy decode of the prompt (with the padded
     kv_mask, or whisper's frames through its encoder), float64 islands."""
-    jcfg = _jcfg(arch, "softmax")
+    jcfg = _jcfg(arch, attn)
     mask = jnp.asarray(_kv_mask()) if padded else None
     with _reference_in_float64():
         params = _jtree(_weights(arch))
@@ -140,9 +146,15 @@ def _cases(world):
                 dict(name=f"refusals-{hkv}", kind="refusals", hkv=hkv,
                      max_len=16)]
     if world == "1x2":
-        out.append(dict(name="serve-whisper", kind="serve", arch=WHISPER,
-                        params=_weights(WHISPER), max_len=MAX_LEN,
-                        n_dec=NDEC, tokens=_prompt(), frames=_frames()))
+        for attn in WHISPER_ATTNS:
+            out.append(dict(name=f"serve-whisper-{attn}", kind="serve",
+                            arch=WHISPER, attn=attn,
+                            params=_weights(WHISPER), max_len=MAX_LEN,
+                            n_dec=NDEC, tokens=_prompt(), frames=_frames(),
+                            spy=True))
+        out.append(dict(name="moments-whisper", kind="moments",
+                        arch=WHISPER, attn="fastmax2", batch_size=B,
+                        max_len=MAX_LEN))
     return out
 
 
@@ -198,7 +210,8 @@ def test_placed_kv_cache_equals_jax(world, tmp_path):
     refs = {(arch, padded): _jax_serve(arch, padded)
             for arch in ARCHS for padded in (False, True)}
     if world == "1x2":
-        refs[(WHISPER, False)] = _jax_serve(WHISPER, False)
+        for attn in WHISPER_ATTNS:
+            refs[(WHISPER, attn)] = _jax_serve(WHISPER, False, attn)
     t.join()
     assert got, "a rank failed"
     res, errors = got[0], []
@@ -227,12 +240,42 @@ def test_placed_kv_cache_equals_jax(world, tmp_path):
         if res[name]["raised"] != [True, True]:
             errors.append(f"{world} {name}: raised {res[name]}")
     if world == "1x2":
-        sv, ref = res["serve-whisper"], refs[(WHISPER, False)]
-        for key in ("greedy", "tokens"):
-            if not np.array_equal(sv[key], ref["tokens"]):
-                errors.append(f"whisper {key} {sv[key].tolist()} != "
-                              f"{ref['tokens'].tolist()}")
+        for attn in WHISPER_ATTNS:
+            sv = res[f"serve-whisper-{attn}"]
+            _check_serve(errors, f"whisper {attn}", sv,
+                         refs[(WHISPER, attn)])
+            _check_whisper_heads(errors, attn, sv["seen"])
+        _check_whisper_moments(errors, res["moments-whisper"])
     assert not errors, "\n".join(errors)
+
+
+def _check_whisper_heads(errors, attn, seen):
+    """Serving whisper on (1, 2): the encoder's self-attention, the
+    decoder's prefill and decode steps and its cross-attention each hold
+    wq, wk, wv and wo on the rank's 2 of 4 heads, the GELU MLPs wi and wo
+    on 64 of 128 ff columns, every attention call runs on 2 heads, and
+    no leaf is gathered whole over "model"."""
+    cfg = KC.C.config(WHISPER, attn)
+    d, h, hd, ff = cfg.d_model, cfg.n_heads // 2, cfg.head_dim, cfg.d_ff // 2
+    proj = ((d, h, hd),) * 3 + ((h, hd, d),)
+    want = {
+        "attention": {(site,) + proj for site in (
+            "noncausal", "cross", "prefill", "decode")},
+        "mlp": {((d, ff), (ff, d))},
+        "heads": {(entry, h, h, h) for entry in ("attention", "prefill",
+                                                 "step")},
+        "whole": []}
+    for key, value in want.items():
+        if seen[key] != value:
+            errors.append(f"whisper {attn} {key}: {seen[key]} != {value}")
+
+
+def _check_whisper_moments(errors, st):
+    """Whisper's decoder moments (fastmax2) on (1, 2): heads mode, each
+    rank's m0..g2 the block of 2 of 4 kv heads, bytes = planned."""
+    if st["modes"] != ["heads", None] or not st["shapes_ok"] \
+            or st["whole_split"] or st["held"] != [st["planned"]] * 2:
+        errors.append(f"whisper moments: {st}")
 
 
 # ---------------------------------------------------------------------------

@@ -19,10 +19,17 @@ the kernel plans), remat "full", B = 4:
 - N = 30: "model" 4 does not divide it, so the rows stay whole (the
   whole sequence's bytes saved, the forward's all-reduces as before the
   split); "model" 2 divides it. Both equal JAX within TOL.
-- The smoke whisper-small (fastmax2), both towers computed whole on every
-  model rank around the split residual, the encoder's output gathered
-  whole for the cross-attention: its 16 frames and N = 32 tokens split on
-  both worlds, loss and grads against JAX's `encdec_loss` within TOL.
+- The smoke whisper-small (fastmax2), both towers tensor-parallel over
+  "model" (4 heads and d_ff 128 over 2 and 4) around the split residual:
+  its 16 frames and N = 32 tokens split on both worlds, loss and grads
+  against JAX's `encdec_loss` within TOL. Each rank's self-attention
+  (both towers), cross-attention and GELU MLP hold their heads / ff
+  shards and attend on the rank's heads, and no leaf is gathered whole
+  over "model" (`torch_placed_cases.tp_spy`). On (1, 2) the forward's
+  collectives are one all-gather and one reduce-scatter per
+  tensor-parallel region (two a layer in the encoder, three in the
+  decoder), the encoder's output gathered once for the decoder tower,
+  and no all-reduce.
 """
 import functools
 
@@ -43,11 +50,12 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp  # noqa: E402
 
 ARCH, ATTN, B = "qwen3-1.7b", "fastmax2-kernel", 4
+WHISPER = "whisper-small"
 SEQS = (32, 30)
 WORLDS = {"1x2": (1, 2), "1x4": (1, 4)}
 # name -> (arch, attention, N)
 CASES = {**{f"n{n}": (ARCH, ATTN, n) for n in SEQS},
-         "whisper": ("whisper-small", "fastmax2", 32)}
+         "whisper": (WHISPER, "fastmax2", 32)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,7 +72,7 @@ def _batch(arch, n):
 
 def _cases():
     return [dict(name=name, arch=arch, attn=attn, params=_weights(arch),
-                 batch=_batch(arch, n))
+                 batch=_batch(arch, n), spy=arch == WHISPER)
             for name, (arch, attn, n) in CASES.items()]
 
 
@@ -156,3 +164,46 @@ def test_indivisible_sequence_keeps_the_rows_whole(ranks):
     assert "reduce-scatter" not in kinds
     assert fwd.count(("all-reduce", (B, 30, cfg.d_model))) \
         == 2 * cfg.n_layers + 1
+
+
+@pytest.mark.parametrize("world", list(WORLDS))
+def test_whisper_towers_keep_their_model_shards(world, ranks):
+    """Every attention layer of both towers (the encoder's noncausal
+    self-attention, the decoder's causal one and its cross-attention)
+    holds wq, wk, wv and wo on the rank's 4/model heads, every GELU MLP
+    wi and wo on its 128/model ff columns, each attention call runs on
+    those heads, and no leaf is gathered whole over "model"."""
+    model = WORLDS[world][1]
+    cfg = C.config(WHISPER, "fastmax2")
+    seen = ranks(world)["whisper"]["seen"]
+    d, h, hd = cfg.d_model, cfg.n_heads // model, cfg.head_dim
+    ff = cfg.d_ff // model
+    proj = ((d, h, hd),) * 3 + ((h, hd, d),)
+    assert seen["attention"] == {(site,) + proj for site in (
+        "noncausal", "causal", "cross")}, seen["attention"]
+    assert seen["mlp"] == {((d, ff), (ff, d))}, seen["mlp"]
+    assert seen["heads"] == {("attention", h, h, h)}, seen["heads"]
+    assert seen["whole"] == [], seen["whole"]
+
+
+def test_whisper_forward_asks_no_all_reduce(ranks):
+    """(1, 2), 16 frames and N = 32 tokens: the encoder's two regions a
+    layer on its [B, 8, d] slices, its output all-gathered once for the
+    whole decoder tower, the decoder's vocab-parallel embedding
+    reduce-scattered, three regions a layer (self-attention,
+    cross-attention, MLP), the logits' all-gather; no all-reduce of
+    activations over "model"."""
+    cfg = C.config(WHISPER, "fastmax2")
+    fwd = ranks("1x2")["whisper"]["forward"]
+    n, m, d = CASES["whisper"][2], cfg.encoder_seq, cfg.d_model
+
+    def region(seq):
+        return [("all-gather", (seq // 2, B, d)),
+                ("reduce-scatter", (seq, B, d))]
+
+    want = (region(m) * 2 * cfg.encoder_layers
+            + [("all-gather", (m // 2, B, d)),
+               ("reduce-scatter", (n, B, d))]
+            + region(n) * 3 * cfg.n_layers
+            + [("all-gather", (n // 2, B, d))])
+    assert fwd == want, fwd

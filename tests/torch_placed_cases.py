@@ -214,6 +214,70 @@ def elastic_ckpt(rank, world, case, ckpt_dir):
     return out if rank == 0 else None
 
 
+@contextlib.contextmanager
+def tp_spy():
+    """Inside, the model's attention and MLP layers record into the dict
+    yielded: "attention", the set of (site, wq, wk, wv, wo shapes) of
+    every attention layer's call (site "noncausal", "causal", "cross",
+    "prefill" or "decode"); "mlp", the set of (wi, wo shapes) of every
+    GELU MLP's call; "heads", the set of (entry point, q, k, v heads) of
+    every call of the attention API; "whole", the shapes of the leaves a
+    gather over "model" made whole (none under tensor parallelism)."""
+    from repro_torch import attention as A
+    from repro_torch.models import layers as L
+
+    seen = {"attention": set(), "mlp": set(), "heads": set(), "whole": []}
+    saved = {(L, n): getattr(L, n) for n in (
+        "apply_attention", "attention_prefill", "attention_decode",
+        "apply_mlp")}
+    saved.update({(A, n): getattr(A, n) for n in ("attention", "prefill",
+                                                   "step")})
+    saved[(P, "gather")] = P.gather
+
+    def shapes(p, names):
+        return tuple(tuple(p[n].shape) for n in names)
+
+    def layer(name):
+        def call(params, x, *a, **kw):
+            if name == "apply_mlp":
+                seen["mlp"].add(shapes(params, ("wi", "wo")))
+            else:
+                site = {"attention_prefill": "prefill",
+                        "attention_decode": "decode"}.get(name)
+                if site is None:
+                    site = ("cross" if kw.get("kv_x") is not None else
+                            "causal" if kw.get("causal", True)
+                            else "noncausal")
+                seen["attention"].add((site,) + shapes(
+                    params, ("wq", "wk", "wv", "wo")))
+            return saved[(L, name)](params, x, *a, **kw)
+        return call
+
+    def api(name):
+        at = 1 if name == "step" else 0          # where q sits
+
+        def call(*args, **kw):
+            q, k, v = args[at:at + 3]
+            seen["heads"].add((name, q.shape[1], k.shape[1], v.shape[1]))
+            return saved[(A, name)](*args, **kw)
+        return call
+
+    def gather(leaf, over, mesh, *, sum_over=()):
+        out = saved[(P, "gather")](leaf, over, mesh, sum_over=sum_over)
+        if "model" in over and "model" in P.split_axes(P.spec_of(leaf)):
+            seen["whole"].append(tuple(out.shape))
+        return out
+
+    for (mod, name) in saved:
+        setattr(mod, name, gather if mod is P else
+                layer(name) if mod is L else api(name))
+    try:
+        yield seen
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
 def as_numpy_tree(tree):
     """A torch tree as numpy arrays (the form the ranks take weights in)."""
     if isinstance(tree, dict):

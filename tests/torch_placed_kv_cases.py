@@ -13,6 +13,7 @@ import torch
 import torch.distributed as dist
 
 import torch_placed_cases as C
+import torch_placed_hybrid_cases as HC
 from repro_torch import attention as A
 from repro_torch.attention import AttentionSpec
 from repro_torch.attention.state import KVCache
@@ -80,7 +81,7 @@ def _state(case, mesh):
 
 def _setup(case, mesh, whole: bool = False):
     """(cfg, the placement, placed params, the whole params if `whole`)."""
-    cfg = C.config(case["arch"], "softmax")
+    cfg = C.config(case["arch"], case.get("attn", "softmax"))
     placement = P.Placement(cfg, mesh)
     params = from_jax_params(case["params"], cfg, "cpu")
     return cfg, placement, placement.place(params), \
@@ -107,12 +108,14 @@ def _serve(case, mesh):
     """lm_prefill (with the case's kv_mask, if any) then greedy
     lm_decode_steps on the placed model: the logits gathered whole over
     the vocab and "data", the greedy tokens; without a kv_mask also the
-    tokens of the placed prefill and serve steps."""
+    tokens of the placed prefill and serve steps; with the case's "spy"
+    what the layers held and saw throughout (`C.tp_spy`)."""
     cfg, placement, params, _ = _setup(case, mesh)
     tokens = _rows(case, "tokens", mesh)
     mask = _rows(case, "kv_mask", mesh) if "kv_mask" in case else None
     b, plen = tokens.shape
-    with torch.no_grad():
+    spy = C.tp_spy() if case.get("spy") else C.contextlib.nullcontext()
+    with torch.no_grad(), spy as seen:
         enc = _enc_out(case, cfg, params, mesh, placement)
         dec = params["decoder"] if cfg.encoder_layers else params
         with use_mesh(mesh):
@@ -147,6 +150,8 @@ def _serve(case, mesh):
                 tok, st = serve(params, st, tok, plen + i, enc)
                 toks.append(tok)
             out["tokens"] = C._rows(torch.stack(toks, 1), mesh).numpy()
+    if seen is not None:
+        out["seen"] = seen
     return out
 
 
@@ -309,7 +314,8 @@ def _refusals(case, mesh):
 
 
 KINDS = {"state": _state, "serve": _serve, "resume": _resume,
-         "lanes": _lanes, "uniform": _uniform, "refusals": _refusals}
+         "lanes": _lanes, "uniform": _uniform, "refusals": _refusals,
+         "moments": HC._state}
 
 
 def kv_cases(rank, world, shape, cases):

@@ -46,8 +46,9 @@ def _collectives(log: list, marks: list):
 def split_cases(rank, world, shape, cases):
     """Each case's placed grad fn on a (data, model) mesh of `shape`, its
     weights and batch the case's, under `SavedBytes`: the loss and the
-    grads gathered whole, the saved bytes, and the collectives of the
-    forward. Rank 0 returns {name: results}."""
+    grads gathered whole, the saved bytes, the collectives of the
+    forward, and with the case's "spy" what its layers held and saw
+    (`torch_placed_cases.tp_spy`). Rank 0 returns {name: results}."""
     del world
     C.lift_islands()
     mesh = make_test_mesh(shape, ("data", "model"))
@@ -59,11 +60,12 @@ def split_cases(rank, world, shape, cases):
         batch = P.shard_batch({k: torch.as_tensor(v)
                                for k, v in case["batch"].items()}, mesh)
         log, marks = [], []
-        with _collectives(log, marks), SavedBytes() as saved:
+        spy = C.tp_spy() if case.get("spy") else contextlib.nullcontext()
+        with _collectives(log, marks), SavedBytes() as saved, spy as seen:
             loss, _, grads = make_grad_fn(cfg, mesh=mesh)(params, batch)
         out[case["name"]] = {
             "loss": float(loss), "grads": C._np(P.full(grads, mesh)),
             "saved_bytes": saved.total,
             "block_input_bytes": saved.block_inputs,
-            "forward": log[:marks[0]]}
+            "forward": log[:marks[0]], "seen": seen}
     return out if rank == 0 else None
