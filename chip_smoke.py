@@ -282,11 +282,24 @@ and power limit, and the result line last):
                 the same readings of the plain fastmax2-chunked path
                 against --cp 1 (a control), exactly 2 prefill and 2 backward
                 launches per rank per step, step ms, global tokens/s, peak
-                memory per rank, the carry bytes per boundary per layer;
-                then `torch.distributed.run --nproc-per-node 2 -m
-                repro_torch.launch.train --cp 2` on the smoke model, two
-                steps, loss printed. Two ranks share one card: no time
-                here is a multi-card speedup.
+                memory per rank, the carry bytes per boundary per layer.
+                The mixers without a seq plan, their sequence gathered
+                over "seq" (placed.cp_enter / cp_exit), each against
+                --cp 1 at TRAIN_LOSS_TOL and TRAIN_GRAD_TOL a leaf: (a)
+                the same cut on hybrid2-kernel, 2 AdamW steps, the hybrid
+                kernel once a layer a rank in each forward on N = 2048
+                whole; (b) on softmax, the seeded weights' loss and
+                grads; in the expandable spawn (c) jamba's first two
+                layers (mamba:mlp, mamba:moe: 16 experts, top 2, d_ff
+                14336), B=1, N=256, and (d) xlstm-1.3b as an mLSTM and
+                an sLSTM layer, B=1, N=256, loss and grads; each with
+                step (or grad fn) ms, peak GB per rank and at --cp 1,
+                launches per rank and the bytes a rank sends a gather.
+                Then (e) `torch.distributed.run --nproc-per-node 2 -m
+                repro_torch.launch.train --cp 2` on the smoke model
+                (fastmax2-kernel) and on smoke jamba, two steps each,
+                loss printed. Two ranks share one card: no time here is
+                a multi-card speedup.
  24b. placed ssm train / serve — after the placed qwen3 and deepseek-v2
                 phases, the SSM mixers split over "model" on (data 1,
                 model 2), two ranks: xlstm-1.3b cut to 2 layers (an
@@ -2772,6 +2785,280 @@ def shard_phase() -> dict:
     return summary
 
 
+# [cp train]'s gathered mixers, each against --cp 1 in one process: (a)
+# the hybrid (hybrid2-kernel, CP_STEPS AdamW steps) and (b) softmax (the
+# seeded weights' loss and grads) at CP_ARCH's cut in cp_train_rank; (c)
+# jamba's first two layers (a Mamba block with an MLP, one with the MoE:
+# 16 experts, top 2, d_ff 14336) and (d) xlstm-1.3b as an mLSTM and an
+# sLSTM layer, float32, the seeded weights' loss and grads, in
+# cp_gathered_rank (the expandable spawn). (c) holds 14.96 GB of weights
+# and as much of grads a rank; at N = 1024 the Mamba scan's saved chunk
+# states (≈ 10 GB in the recompute of the MoE's block) and the experts'
+# grads before they are stacked (15 GB) took the two ranks past the card's
+# 80 GB, so N is cut to 256 (the widths stay)
+CPG_JAMBA = ("mamba:mlp", "mamba:moe")
+CPG_JAMBA_B, CPG_JAMBA_N = 1, 256
+CPG_XLSTM_B, CPG_XLSTM_N = 1, 256
+
+
+@contextlib.contextmanager
+def cp_spy():
+    """Inside, the gathers over "seq" (`placed.cp_enter` under a "seq"
+    axis) and the token count of each hybrid kernel wrapper call
+    (`ops.hybrid`) are recorded into the dict yielded."""
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import placed as P
+
+    seen = {"gathers": 0, "hybrid_tokens": []}
+    enter, hybrid = P.cp_enter, ops.hybrid
+
+    def counted_enter(x):
+        seen["gathers"] += P.cp_size() > 1
+        return enter(x)
+
+    def counted_hybrid(q, *a, **kw):
+        seen["hybrid_tokens"].append(q.shape[2])
+        return hybrid(q, *a, **kw)
+
+    P.cp_enter, ops.hybrid = counted_enter, counted_hybrid
+    try:
+        yield seen
+    finally:
+        P.cp_enter, ops.hybrid = enter, hybrid
+
+
+def cp_leaf_errors(grads: dict, ref: dict, dev) -> dict:
+    """{leaf: (Σ(g - r)², Σr², numel)} of the card's grads against the
+    host's reference, one leaf on the card at a time."""
+    out = {}
+    for name, r in ref.items():
+        r = r.to(dev)
+        g = grads[name].float()
+        out[name] = ((g - r.float()).square().sum().item(),
+                     r.float().square().sum().item(), r.numel())
+        del r
+    return out
+
+
+def cp_worst(errs: dict) -> tuple:
+    """(leaf, |g - r| / |r|) of the leaf that differs most; the
+    input-gate biases' grads (PSSM_VANISHING) floored at PSSM_GRAD_FLOOR
+    of the largest leaf's RMS grad, as [placed ssm train] holds them."""
+    floor2 = PSSM_GRAD_FLOOR ** 2 * max(r2 / n for _, r2, n in errs.values())
+    e = {name: math.sqrt(d2 / max(r2, floor2 * n if name.endswith(
+        PSSM_VANISHING) else 0.0, 1e-60)) for name, (d2, r2, n)
+        in errs.items()}
+    worst = max(e, key=e.get)
+    return worst, e[worst]
+
+
+def cp_gathered(rank, dev, mesh, cases) -> dict:
+    """[cp train]'s gathered-mixer cases on this rank: for each (label,
+    cfg, batches, n_steps), rank 0 alone takes --cp 1 (the seeded
+    weights' loss and grads, the grads kept on the host, then n_steps
+    AdamW steps), then both ranks --cp 2 on `mesh`; rank 0 holds each
+    leaf against --cp 1. {label: readings}."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (make_grad_fn, make_train_step,
+                                          pick_optimizer)
+    from repro_torch.models import init_model
+    from repro_torch.models.param import count_params
+    from repro_torch.optim.grad_utils import leaves
+    from repro_torch.sharding import placed as P
+
+    def timed(fn):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        ops.reset_launch_counts()
+        e0.record()
+        res = fn()
+        e1.record()
+        e1.synchronize()
+        return res, e0.elapsed_time(e1), ops.launch_counts()
+
+    def run(cfg, batches, n_steps, mesh_):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_model(cfg, seed=0, device=dev)
+        rows = batches
+        if mesh_ is not None:
+            params = P.Placement(cfg, mesh_).place(params)
+            rows = [P.shard_batch(b, mesh_) for b in batches]
+        P.reset_asked()
+        with cp_spy() as seen:
+            (loss, _, grads), ms, launches = timed(
+                lambda: make_grad_fn(cfg, mesh=mesh_)(params, rows[0]))
+            res = {"loss": loss.item(), "grad_ms": ms,
+                   "grad_launches": launches, "gathers": seen["gathers"],
+                   "gathered_bytes": P.asked["all-gather"],
+                   "grad_hybrid_tokens": list(seen["hybrid_tokens"])}
+            grads = dict(leaves(grads if mesh_ is None
+                                else P.full(grads, mesh_)))
+            if mesh_ is None:
+                grads = {n: g.cpu() for n, g in grads.items()}
+            losses, ms, launches, tokens = [], [], [], []
+            if n_steps:
+                _, opt = pick_optimizer(cfg, count_params(params), lr=3e-4,
+                                        total_steps=n_steps)
+                state = (opt[0](params) if mesh_ is None else
+                         P.Placement(cfg, mesh_).init_opt_state(opt[0],
+                                                                params))
+                step = make_train_step(cfg, opt, mesh=mesh_)
+                for i in range(n_steps):
+                    del seen["hybrid_tokens"][:]
+                    (params, state, m), t, c = timed(
+                        lambda: step(params, state, rows[i]))
+                    losses.append(m["loss"].item())
+                    ms.append(t)
+                    launches.append(c)
+                    tokens.append(list(seen["hybrid_tokens"]))
+                del state
+        res.update(losses=losses, step_ms=ms, step_launches=launches,
+                   step_hybrid_tokens=tokens,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del params
+        return res, grads
+
+    out = {}
+    for label, cfg, batches, n_steps in cases:
+        t0 = time.monotonic()
+        one = ref = None
+        if rank == 0:
+            one, ref = run(cfg, batches, n_steps, None)
+        dist.barrier()
+        got, grads = run(cfg, batches, n_steps, mesh)
+        if rank == 0:
+            got["errs"] = cp_leaf_errors(grads, ref, dev)
+            got["one"] = one
+        del grads, ref
+        torch.cuda.empty_cache()
+        dist.barrier()
+        got["seconds"] = time.monotonic() - t0
+        out[label] = got
+    return out
+
+
+def cp_gathered_rank(rank, world):
+    """A [cp train] rank of the expandable spawn: (c) jamba's first two
+    layers and (d) xlstm-1.3b cut to an mLSTM and an sLSTM layer on
+    (data 1, seq 2), the seeded weights' loss and grads against --cp 1."""
+    dev = _moe_rank_setup()
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_test_mesh
+
+    del world
+    f32 = dict(param_dtype="float32", activ_dtype="float32")
+    jamba = get_config("jamba-v0.1-52b", pattern=CPG_JAMBA,
+                       n_layers=len(CPG_JAMBA), **f32)
+    xlstm = get_config("xlstm-1.3b", pattern=PSSM_XLSTM,
+                       n_layers=len(PSSM_XLSTM), **f32)
+    cases = []
+    for label, cfg, b, n in (("jamba-v0.1-52b", jamba, CPG_JAMBA_B,
+                              CPG_JAMBA_N),
+                             ("xlstm-1.3b", xlstm, CPG_XLSTM_B,
+                              CPG_XLSTM_N)):
+        cases.append((label, cfg, [SyntheticLM(cfg.vocab_size, n, seed=0)
+                                   .batch(0, b)], 0))
+    return cp_gathered(rank, dev, make_test_mesh((1, 2), ("data", "seq")),
+                       cases)
+
+
+def cp_case_summary(label, r0, r1, cfg, b, n, want: dict) -> tuple:
+    """(readings, ok) of one gathered-mixer case of [cp train] from its
+    two ranks' results: every loss within TRAIN_LOSS_TOL of --cp 1, the
+    worst leaf within TRAIN_GRAD_TOL, launches a rank `want` in the grad
+    fn and each step, every hybrid kernel call on the whole sequence."""
+    one = r0["one"]
+    leaf, gerr = cp_worst(r0["errs"])
+    diffs = [abs(r0["loss"] - one["loss"])] + [
+        abs(a - c) for a, c in zip(r0["losses"], one["losses"])]
+    hyb = want.get("hybrid_causal", 0)
+    tokens_ok = all(r["grad_hybrid_tokens"] == [n] * hyb
+                    and all(t == [n] * hyb for t in r["step_hybrid_tokens"])
+                    for r in (r0, r1))
+    launches_ok = all(c == want for r in (r0, r1) for c in
+                      [r["grad_launches"]] + r["step_launches"])
+    ok = (max(diffs) <= TRAIN_LOSS_TOL and gerr <= TRAIN_GRAD_TOL
+          and len(r0["losses"]) == len(one["losses"])
+          and all(math.isfinite(x) for x in [r0["loss"]] + r0["losses"])
+          and launches_ok and tokens_ok and r0["gathers"] > 0)
+    # bytes each rank sends in one gather: its token shard [b, n/2, d]
+    shard = b * (n // 2) * cfg.d_model * 4
+    out = {"arch": cfg.name, "attn": str(cfg.attn), "n_layers": cfg.n_layers,
+           "pattern": list(cfg.pattern), "batch": b, "seq": n,
+           "dtype": "float32", "remat": cfg.remat,
+           "steps": len(r0["losses"]), "loss_diffs": diffs,
+           "worst_leaf": leaf, "worst_grad_err": gerr,
+           "grad_ms_ranks": [r0["grad_ms"], r1["grad_ms"]],
+           "grad_ms_cp1": one["grad_ms"],
+           "step_ms_ranks": [r0["step_ms"], r1["step_ms"]],
+           "step_ms_cp1": one["step_ms"],
+           "peak_gb_ranks": [r0["peak_gb"], r1["peak_gb"]],
+           "peak_gb_cp1": one["peak_gb"],
+           "launches_per_rank_grad_fn": r0["grad_launches"],
+           "launches_per_rank_step": r0["step_launches"][-1:] or None,
+           "launches_ok": launches_ok, "hybrid_tokens_ok": tokens_ok,
+           "gathers_per_grad_fn": r0["gathers"],
+           "gathered_bytes_per_grad_fn": r0["gathered_bytes"],
+           "gathered_bytes_per_gather": (r0["gathered_bytes"]
+                                         / max(r0["gathers"], 1)),
+           "gathered_bytes_per_gather_planned": shard,
+           "seconds": [r0["seconds"], r1["seconds"]],
+           "ranks_on_one_card": 2}
+    ok = ok and out["gathered_bytes_per_gather"] == shard
+    what = (f"cut to {cfg.n_layers} layers, {cfg.attn}"
+            if cfg.pattern == ("attn:mlp",) else
+            f"cut to {'+'.join(cfg.pattern)}")
+    phase("cp train", f"({label}) {cfg.name} {what}, float32, B={b} "
+          f"N={n}, remat {cfg.remat}: --cp 2 "
+          f"on 2 ranks of the card against --cp 1: loss |diff| "
+          f"{', '.join(f'{d:.3e}' for d in diffs)} (tol {TRAIN_LOSS_TOL}); "
+          f"worst leaf {leaf} {gerr:.3e} (tol {TRAIN_GRAD_TOL}); grad fn ms "
+          f"per rank {r0['grad_ms']:.1f} / {r1['grad_ms']:.1f} against "
+          f"{one['grad_ms']:.1f}"
+          + (f"; step ms per rank {r0['step_ms']} / {r1['step_ms']} against "
+             f"{one['step_ms']}" if r0["step_ms"] else "")
+          + f"; peak GB per rank {r0['peak_gb']:.2f}, {r1['peak_gb']:.2f} "
+          f"({one['peak_gb']:.2f} at --cp 1); launches per rank "
+          f"{r0['grad_launches']} a grad fn"
+          + (f", {r0['step_launches'][-1]} a step" if r0["step_launches"]
+             else "")
+          + f"; {r0['gathers']} gathers over 'seq' a grad fn, "
+          f"{out['gathered_bytes_per_gather'] / 1e6:.2f} MB sent a rank a "
+          f"gather (planned {shard / 1e6:.2f}); hybrid calls on N = "
+          f"{sorted(set(r0['grad_hybrid_tokens'])) or 'none'} "
+          f"(two ranks share the card: not a multi-card speedup)")
+    return out, ok
+
+
+def cp_gathered_phase() -> dict:
+    """[cp train] (c) and (d): jamba's Mamba and MoE layers and xlstm's
+    mLSTM and sLSTM on (data 1, seq 2), their sequence gathered."""
+    from repro_torch.configs import get_config
+
+    _free_parent()
+    (r0, r1), secs = two_ranks(cp_gathered_rank, timeout=900)
+    zero = {"fastmax_causal": 0, "fastmax_causal_bwd": 0,
+            "fastmax_decode": 0, "fastmax_noncausal_moments": 0,
+            "fastmax_noncausal_combine": 0, "hybrid_causal": 0}
+    out, ok = {"seconds_c_d": secs}, True
+    for tag, label, pattern, b, n in (
+            ("c", "jamba-v0.1-52b", CPG_JAMBA, CPG_JAMBA_B, CPG_JAMBA_N),
+            ("d", "xlstm-1.3b", PSSM_XLSTM, CPG_XLSTM_B, CPG_XLSTM_N)):
+        cfg = get_config(label, pattern=pattern, n_layers=len(pattern))
+        out[label], good = cp_case_summary(tag, r0[label], r1[label], cfg,
+                                           b, n, zero)
+        ok = ok and good
+    if not ok:
+        fail(f"cp train: a gathered SSM or MoE mixer's --cp 2 disagrees "
+             f"with --cp 1: {out}")
+    return out
+
+
 def cp_train_rank(rank, world, n_steps):
     """A [cp train] rank: rank 0 first takes the --cp 1 references alone
     (one loss and grad, then n_steps AdamW steps, on the kernel path and
@@ -2868,6 +3155,15 @@ def cp_train_rank(rank, world, n_steps):
             carry_bytes=S.cp_carry_bytes(b=CP_B, hkv=cfg.n_kv_heads,
                                          d=cfg.head_dim, dv=cfg.head_dim,
                                          p=2))
+    del grads, ref, plain
+    torch.cuda.empty_cache()
+    # (a) the hybrid, (b) softmax: their sequence gathered over "seq"
+    out["gathered"] = cp_gathered(rank, dev, mesh, [
+        ("hybrid2-kernel", dataclasses.replace(
+            cfg, attn=AttentionSpec.parse("hybrid2-kernel")), batches,
+         n_steps),
+        ("softmax", dataclasses.replace(
+            cfg, attn=AttentionSpec.parse("softmax")), batches[:1], 0)])
     return out
 
 
@@ -2929,28 +3225,51 @@ def cp_train_phase() -> dict:
     if not ok:
         fail(f"cp train: --cp 2 disagrees with --cp 1, or its launches per "
              f"step are not one prefill and one backward per layer: {out}")
-    # the CLI, as a user starts it
-    t0 = time.monotonic()
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
-           "--cp", "2", "--smoke", "--attn", "fastmax2-kernel", "--steps",
-           "2", "--batch", "2", "--seq", "256", "--log-every", "1"]
+    # (a) the hybrid kernel once a layer a rank in each forward, on the
+    # whole gathered sequence; (b) softmax, no launch
+    from repro_torch.attention import AttentionSpec
+    from repro_torch.configs import get_config
+
+    zero = {k: 0 for k in r0["launches"]}
+    out["gathered"] = {}
+    for tag, attn in (("a", "hybrid2-kernel"), ("b", "softmax")):
+        want = dict(zero, hybrid_causal=CP_LAYERS if tag == "a" else 0)
+        cfg = get_config(CP_ARCH, n_layers=CP_LAYERS, remat="none",
+                         attn=AttentionSpec.parse(attn))
+        out["gathered"][attn], good = cp_case_summary(
+            tag, r0["gathered"][attn], r1["gathered"][attn], cfg, CP_B,
+            CP_N, want)
+        if not good:
+            fail(f"cp train: gathered {attn} --cp 2 disagrees with --cp 1, "
+                 f"or its launches or hybrid calls are not one a layer on "
+                 f"the whole sequence: {out['gathered'][attn]}")
+    # (e) the CLI, as a user starts it: the kernel path and jamba's mixers
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
                                           / "src"))
-    cli = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                         timeout=300)
-    lines = [ln for ln in cli.stdout.splitlines()
-             if ln.startswith(("context parallelism", "step", "final"))]
-    for ln in lines:
-        print(f"  torchrun: {ln}")
-    if cli.returncode != 0 or not any(ln.startswith("final loss")
-                                      for ln in lines):
-        print(cli.stdout[-4000:], cli.stderr[-4000:])
-        fail("cp train: torchrun --nproc-per-node 2 ... --cp 2 failed")
-    out["cli_seconds"] = time.monotonic() - t0
-    phase("cp train", f"torchrun --nproc-per-node 2 -m "
-          f"repro_torch.launch.train --cp 2 --smoke: 2 steps, loss printed "
-          f"({out['cli_seconds']:.1f} s)")
+    out["cli_seconds"] = {}
+    for model in (["--attn", "fastmax2-kernel"],
+                  ["--arch", "jamba-v0.1-52b"]):
+        t0 = time.monotonic()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+               "--cp", "2", "--smoke", *model, "--steps", "2", "--batch",
+               "2", "--seq", "256", "--log-every", "1"]
+        cli = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             timeout=300)
+        lines = [ln for ln in cli.stdout.splitlines() if ln.startswith(
+            ("context parallelism", "arch", "step", "final"))]
+        for ln in lines:
+            print(f"  torchrun: {ln}")
+        if cli.returncode != 0 or not any(ln.startswith("final loss")
+                                          for ln in lines):
+            print(cli.stdout[-4000:], cli.stderr[-4000:])
+            fail(f"cp train: torchrun --nproc-per-node 2 ... --cp 2 "
+                 f"{' '.join(model)} failed")
+        secs = time.monotonic() - t0
+        out["cli_seconds"][" ".join(model)] = secs
+        phase("cp train", f"torchrun --nproc-per-node 2 -m "
+              f"repro_torch.launch.train --cp 2 --smoke {' '.join(model)}: "
+              f"2 steps, loss printed ({secs:.1f} s)")
     return out
 
 
@@ -6698,10 +7017,12 @@ def main() -> None:
     _free_parent()
     spawn_together("expandable", (
         (placed_moe_train_rank, ()), (placed_moe_serve_rank, ()),
-        (placed_ssm_train_rank, ()), (placed_ssm_serve_rank, ())),
+        (placed_ssm_train_rank, ()), (placed_ssm_serve_rank, ()),
+        (cp_gathered_rank, ())),
         timeout=3300)
     placed_moe_train = placed_moe_train_phase()
     placed_moe_serve = placed_moe_serve_phase()
+    cp_train["gathered"].update(cp_gathered_phase())
 
     # ---- the SSM mixers split over "model": xlstm and jamba, two ranks ----
     torch.cuda.empty_cache()
@@ -6818,6 +7139,9 @@ def main() -> None:
          "combine_ms": hy_combine_ms, "chunk": CHUNK,
          "workspace_bytes": hy_ws,
          "launches_serve": hs_launches["hybrid_causal"],
+         # per rank per step of [cp train] (a): the gathered sequence
+         "launches_cp_train_rank_step": cp_train["gathered"][
+             "hybrid2-kernel"]["launches_per_rank_step"][0]["hybrid_causal"],
          # per rank, in each [placed hybrid serve] prefill
          "launches_placed_prefill_ranks": {
              label: c["hybrid_launches_prefill_ranks"] for label, c in

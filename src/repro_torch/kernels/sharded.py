@@ -91,7 +91,13 @@ __all__ = ["ShardPlan", "nontrivial_mesh", "plan_kernel_sharding",
            "fastmax_sharded", "fastmax_prefill_sharded",
            "fastmax_decode_sharded", "hybrid_sharded",
            "hybrid_prefill_sharded", "pick_cp_exchange",
-           "cp_carry_bytes", "cp_boundary_model"]
+           "cp_carry_bytes", "cp_boundary_model", "SEQ_PLAN_BACKENDS"]
+
+# the attention backends that offer a causal training call seq mode
+# (`plan_call(..., seq=True)`): under "seq" they run on the rank's token
+# shard, and the model gathers the sequence around every other mixer
+# (`models.transformer.takes_token_shard`)
+SEQ_PLAN_BACKENDS = ("fastmax-chunked", "fastmax-kernel")
 
 # calls of each public wrapper (the routing's tests count them)
 calls: collections.Counter = collections.Counter()

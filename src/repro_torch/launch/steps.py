@@ -15,16 +15,18 @@ use, the dense decoders split their compute over "model", and the grads
 come out in the placement (reduce-scattered over the data axes, summed
 over the batch axes a leaf is not split on). A train step takes the
 rank's rows of the global batch (`placed.shard_batch`: dim 0 over "pod"
-and "data"); under "seq" each rank keeps its token shard of them, builds
-its targets and loss mask on the whole rows first, and its embeddings
-and RoPE start at the shard's offset (the attention's seq plan,
-`kernels.sharded`). The loss is the global token mean: each rank's sum
+and "data"); under "seq" each rank keeps its token shard of them and
+builds its targets and loss mask on the whole rows first. A mixer with
+a seq plan (causal Fastmax on its kernel and chunked backends,
+`kernels.sharded`) runs on the shard, its RoPE at the shard's offset;
+every other mixer and the MoE take the sequence gathered over "seq" and
+keep their rows of the output (`models.transformer`,
+`placed.cp_enter`). The loss is the global token mean: each rank's sum
 of nll·mask over the count all-reduced over the batch axes; an MoE
 layer's router statistics and capacity are the whole batch's
 (`models.moe`), its aux the rank's share, summed with the loss. Refused
 with the reason: AdamW's int8 m, a mesh axis the rules do not know, and
-under "seq" the mixers whose plan cannot take a token shard
-(`check_cp`).
+under "seq" an encoder-decoder model (`check_cp`).
 """
 from __future__ import annotations
 
@@ -53,30 +55,14 @@ def pick_optimizer(cfg: ModelConfig, n_params: int, *, lr=3e-4,
 
 
 def check_cp(cfg: ModelConfig) -> None:
-    """Raise unless every layer of `cfg` can train on a token shard: the
-    seq plan covers Fastmax attention on its kernel and chunked backends;
-    softmax, hybrid, Mamba, xLSTM and MoE layers (whose router statistics
-    are per batch) need the whole sequence on one rank."""
-    from repro_torch.attention.registry import resolve
-
-    remedy = "train it with --cp 1"
+    """Raise if `cfg` cannot train under context parallelism: an
+    encoder-decoder model (the reference's CLI feeds it no encoder input
+    either). Every decoder mixer trains: one with a seq plan on the
+    rank's token shard, every other, and the MoE, on the sequence
+    gathered over "seq" (module docstring)."""
     if cfg.encoder_layers or cfg.cross_attention:
         raise ValueError(f"--cp: {cfg.name} is an encoder-decoder model; "
-                         f"{remedy}")
-    for kind in cfg.pattern:
-        mixer, ffn = kind.split(":")
-        if mixer != "attn":
-            raise ValueError(f"--cp: {cfg.name}'s {mixer} mixer needs the "
-                             f"whole sequence on one rank; {remedy}")
-        if ffn == "moe" and cfg.n_layers_scanned:
-            raise ValueError(f"--cp: {cfg.name}'s MoE layers route on "
-                             f"statistics of the whole batch; {remedy}")
-    backend = resolve(cfg.attn_spec).name
-    if backend not in ("fastmax-kernel", "fastmax-chunked"):
-        raise ValueError(
-            f"--cp: the {backend} attention backend needs the whole "
-            f"sequence on one rank; use --attn fastmax2-kernel (or "
-            f"fastmax2-chunked), or {remedy}")
+                         f"train it with --cp 1")
 
 
 def _local_rows(batch: dict, placement, dev):
@@ -114,7 +100,8 @@ def make_grad_fn(cfg: ModelConfig, *, mesh=None, global_batch=None):
     docstring): `params` the rank's shards, `batch` its rows (of a global
     batch of `global_batch` rows, split as `batch_spec` splits it; None:
     over every data axis), the grads its shards, the loss the global
-    token mean."""
+    token mean. Under "seq" > 1 an encoder-decoder model raises
+    (`check_cp`) before anything is placed."""
     if mesh is None:
         def local_loss(params, batch, dev):
             batch = {k: torch.as_tensor(v, device=dev)

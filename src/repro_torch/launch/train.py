@@ -19,8 +19,12 @@ Context parallelism (`--cp C`, one process per rank under `torchrun
 `_cp_mesh_context`, and the placed step on it (`launch/steps.py`,
 `sharding.placed`): each rank holds its shard of the parameters and the
 optimizer state over "data" (the reference's cp mesh keeps `embed` on
-"data"), trains on its rows and token shard, and its attention exchanges
-one moment carry per boundary (`kernels/sharded.py`). `--cp 1` is the
+"data") and trains on its rows and token shard. Fastmax attention on its
+kernel and chunked backends runs on the shard and exchanges one moment
+carry per boundary (`kernels/sharded.py`); every other mixer (softmax,
+hybrid, rowwise, oracle, Mamba, mLSTM, sLSTM) and the MoE take the
+sequence gathered over "seq", as the reference's GSPMD gathers it. An
+encoder-decoder model is refused. `--cp 1` is the
 single-process run. Each rank's device is cuda:(LOCAL_RANK % the device
 count), so W ranks may share one card; the group is gloo (NCCL refuses
 two ranks on one card). Only rank 0 prints; every rank takes part in a
@@ -132,8 +136,11 @@ def main(argv=None):
     ap.add_argument("--cp", type=int, default=1,
                     help="context-parallel degree: train under a "
                          "(data=world/cp, seq=cp) mesh, Fastmax attention "
-                         "sharding the sequence over 'seq' with one moment "
-                         "exchange per shard boundary")
+                         "(kernel, chunked) sharding the sequence over "
+                         "'seq' with one moment exchange per shard "
+                         "boundary, every other mixer and the MoE on the "
+                         "sequence gathered over 'seq'; not for "
+                         "encoder-decoder models")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50,

@@ -56,6 +56,13 @@ load. Under the training forward's sequence split
 gathered whole before the router (every pair's position needs the rank's
 rows whole, in row order), and the summed output is reduce-scattered back
 to the slice (`tp_exit`), or sliced where nothing of it is partial.
+Under context parallelism ("seq" > 1) x is the rank's token shard: the
+MoE takes its sequence gathered over "seq" (`placed.cp_enter`), routes
+its data rank's whole rows, in the reference's flat token order, and
+keeps its shard's rows of y (`placed.cp_exit`). The counts then go over
+the data axes only (`Placement.expert_rows`), and the aux, computed whole
+on every seq rank and summed over "seq" with the loss, is divided by the
+"seq" size.
 """
 from __future__ import annotations
 
@@ -141,11 +148,11 @@ class _Load(NamedTuple):
 
 def _load(flat_e, t: int, k: int, e: int, pl) -> _Load:
     """The load of the rank's pairs `flat_e` [t·k], and of the whole
-    batch: under a placement whose batch is split, each rank's counts
+    batch: under a placement whose rows are split, each rank's counts
     all-gathered in the order of its rows (one read-back); on `meta` the
     balanced load of the whole batch, each expert's share split evenly
-    over the batch ranks in rank order."""
-    dp = 1 if pl is None else pl.dp_ranks()
+    over the row ranks in rank order ("seq" ranks hold the same rows)."""
+    dp = 1 if pl is None else pl.row_ranks()
     dev = flat_e.device
     if dev.type == "meta":
         counts = torch.empty(e, dtype=torch.int64, device=dev)
@@ -251,8 +258,10 @@ def apply_moe(params, x, cfg, *, full_capacity: bool = False
     it); the rank runs its own experts and the routed output is summed
     over "model"; its aux is its tokens' share, which the step sums over
     the batch axes. Under the sequence split x and y are the rank's
-    slice of the sequence, the routing the whole rows'."""
-    x = P.seq_gather(x)
+    slice of the sequence, the routing the whole rows'; under context
+    parallelism they are its token shard, and its aux is divided by the
+    "seq" size (module docstring)."""
+    x = P.cp_enter(P.seq_gather(x))
     b, n, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     t = b * n
@@ -322,4 +331,4 @@ def apply_moe(params, x, cfg, *, full_capacity: bool = False
     me = probs.mean(dim=0) if load.t == t else probs.sum(dim=0) / load.t
     ce = load.counts.to(_F32) / (load.t * k)
     aux = e * torch.sum(me * ce) * cfg.router_aux_weight
-    return y.to(x.dtype), aux
+    return P.cp_exit(y.to(x.dtype)), aux / P.cp_size()

@@ -59,6 +59,18 @@ an encoder's output, gathered once and fed whole to every
 cross-attention of the decoder tower). `lm_prefill` and
 `lm_decode_step` stay whole.
 
+Under context parallelism (a placement with "seq" > 1, the training
+forward of `launch/train.py --cp`) x is the rank's token shard from the
+embedding to the logits. A mixer with a seq plan (`takes_token_shard`:
+causal Fastmax on its chunked and kernel backends) runs on the shard at
+the shard's offset; every other mixer (softmax, the oracle, rowwise and
+both hybrid backends, GQA or MLA; Mamba, mLSTM, sLSTM) takes the
+sequence gathered over "seq", runs on the whole of it at positions
+0..N-1 and keeps its rows of the output (`_layer`, `placed.cp_enter`,
+`cp_exit`), as the reference's GSPMD gathers it; so does the MoE
+(`models.moe`). The MLPs and the norms are tokenwise: they run on the
+shard.
+
 A `kv_mask` with an SSM mixer (mamba, mlstm, slstm) raises: the SSM
 mixers take exact-length chunks (a padded token would enter their
 recurrent state). The reference drops the mask there silently; its
@@ -88,7 +100,8 @@ from repro_torch.sharding import placed as P
 _F32 = torch.float32
 
 __all__ = ["ModelConfig", "init_lm", "forward_lm", "lm_loss",
-           "init_lm_decode_state", "lm_prefill", "lm_decode_step"]
+           "init_lm_decode_state", "lm_prefill", "lm_decode_step",
+           "takes_token_shard"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -369,12 +382,30 @@ def _norm(params, x, cfg: ModelConfig):
                         eps=cfg.norm_eps)
 
 
-def _layer(fn, params, h):
+def takes_token_shard(mixer: str, cfg: ModelConfig, causal=True) -> bool:
+    """Whether a training mixer runs on a context-parallel rank's token
+    shard: causal attention on a backend with a seq plan
+    (`kernels.sharded.SEQ_PLAN_BACKENDS`). Every other takes the sequence
+    gathered over "seq" (`_layer`)."""
+    from repro_torch.attention.registry import resolve
+    from repro_torch.kernels.sharded import SEQ_PLAN_BACKENDS
+
+    return (mixer == "attn" and causal
+            and resolve(cfg.attn_spec).name in SEQ_PLAN_BACKENDS)
+
+
+def _layer(fn, params, h, whole_seq: bool = False):
     """fn(params, h) on the residual's layout: a tensor-parallel layer
     (attention and cross-attention, MLP, Mamba, xLSTM with their "model"
     shards) takes the rank's slice of the sequence as it is (it gathers
     and reduce-scatters itself), any other is computed on the whole
-    sequence (nothing split inside) and sliced back."""
+    sequence (nothing split inside) and sliced back. Under context
+    parallelism h is the rank's token shard: a mixer without a seq plan
+    (`whole_seq`, `takes_token_shard` false) takes the sequence gathered
+    over "seq" and keeps its shard's rows of the output; any other layer
+    runs on the shard."""
+    if whole_seq:
+        return P.cp_exit(fn(params, P.cp_enter(h)))
     if L.tensor_parallel(params) or not P.seq_split():
         return fn(params, h)
     h = P.seq_gather(h)
@@ -384,8 +415,9 @@ def _layer(fn, params, h):
 
 
 def _block(params_b, x, cfg: ModelConfig, mixer, enc_out=None, *,
-           full_capacity: bool = False):
-    """One block, its mixer the callable `mixer(params, h)`; returns (x,
+           full_capacity: bool = False, whole_seq: bool = False):
+    """One block, its mixer the callable `mixer(params, h)` (`whole_seq`:
+    it takes the sequence gathered over "seq", `_layer`); returns (x,
     the MoE's aux or None). A block whose ffn has no router runs the MLP
     (the `dense_i` blocks of an "attn:moe" pattern, as in the reference);
     a block without an ffn ("none") has no second norm. Placed leaves are
@@ -404,7 +436,7 @@ def _block(params_b, x, cfg: ModelConfig, mixer, enc_out=None, *,
         params_b["ffn"] = (MOE.materialize(ffn) if "router" in ffn
                            else P.materialize(ffn, split=True))
     h = _norm(params_b["norm1"], x, cfg)
-    x = x + _layer(mixer, params_b["mixer"], h)
+    x = x + _layer(mixer, params_b["mixer"], h, whole_seq)
     if "cross" in params_b and enc_out is not None:
         h = _norm(params_b["norm_x"], x, cfg)
         x = x + _layer(lambda p, t: L.apply_attention(
@@ -467,11 +499,15 @@ _SAVE_DOTS = functools.partial(create_selective_checkpoint_contexts,
 
 def _train_block(params_b, x, cfg: ModelConfig, mixer: str, causal, kv_mask,
                  enc_out, offset=None, split: bool = False):
-    # `split` is entered here so that remat's recompute sees it too
+    # `split` is entered here so that remat's recompute sees it too; under
+    # context parallelism a gathered mixer sees positions 0..N-1, one with
+    # a seq plan its shard's (`offset`)
+    gather = P.cp_size() > 1 and not takes_token_shard(mixer, cfg, causal)
     with P.sequence_split(split):
         return _block(params_b, x, cfg,
-                      _train_mixer(mixer, cfg, causal, kv_mask, offset),
-                      enc_out=enc_out)
+                      _train_mixer(mixer, cfg, causal, kv_mask,
+                                   None if gather else offset),
+                      enc_out=enc_out, whole_seq=gather)
 
 
 def _lookup(params, tokens, cfg: ModelConfig):

@@ -86,6 +86,24 @@ every model rank, take the slice of a whole tensor (`seq_slice`:
 replicated leaf used on the slice (the norms' scales) takes `on_slice`:
 its partial grad summed over "model".
 
+Context parallelism ("seq" > 1, `launch/train.py --cp`): each rank holds
+its token shard of its rows, and "seq" is one of the batch axes, so
+every leaf's grad is summed over it (`reduce_grads`, and `gather`'s
+reduce-scatter over the data axes beside it). A mixer with a seq plan
+(`kernels.sharded`) runs on the shard; every other one, and the MoE,
+needs the whole sequence, as the reference's GSPMD gathers it there:
+`cp_enter` all-gathers the sequence (dim 1) over "seq" in rank order and
+reduce-scatters the grad, `cp_exit` keeps the rank's rows of the output
+and zero-pads their grad. The layer between them is computed whole on
+every seq rank, but its output's grad is the rank's rows' only, so each
+rank's parameter grads are its rows' share and the sum over "seq" makes
+them whole. (The "model" split's `seq_gather` / `seq_slice` pair keeps
+the slice's grad and gathers the slices' grads: there every rank's grads
+would be whole, and the sum over "seq" would count them `cp` times.)
+Under remat the recompute gathers again: every gather, its backward's
+reduce-scatter and the recompute's gather go through `_collective` and
+are counted in `asked`.
+
 Every collective goes through `_collective`, which adds the bytes the
 rank sends to `asked[kind]` and the host time to `asked_ms[kind]` by the
 kind the step asked for. On gloo (ranks sharing one card, or the CPU)
@@ -117,6 +135,7 @@ __all__ = ["Placement", "place", "full", "gather", "spec_of", "tag",
            "gather_vocab", "gather_model", "slice_model", "global_norm",
            "splits_sequence", "sequence_split", "seq_split", "seq_gather",
            "seq_slice", "seq_len", "seq_start", "on_slice",
+           "cp_size", "cp_enter", "cp_exit",
            "asked", "asked_ms", "reset_asked"]
 
 _F32 = torch.float32
@@ -483,6 +502,24 @@ class _GatherSum(torch.autograd.Function):
         return _scatter_dim(g, dim, group), None, None
 
 
+class _SeqShard(torch.autograd.Function):
+    """The whole sequence (dim 1) -> the rank's token shard `idx` of `n`;
+    the backward zero-pads the shard's grad to the whole sequence (the
+    exit of a layer computed whole on every "seq" rank)."""
+
+    @staticmethod
+    def forward(ctx, y, idx, n):
+        ctx.cfg = (idx, y.shape[1])
+        return _slice_dim(y, 1, idx, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, whole = ctx.cfg
+        out = g.new_zeros(g.shape[:1] + (whole,) + g.shape[2:])
+        out.narrow(1, idx * g.shape[1], g.shape[1]).copy_(g)
+        return out, None, None
+
+
 class _Psum(torch.autograd.Function):
     """A partial sum -> the whole sum over `group`, for consumers split
     over the group: the backward sums their partial grads too."""
@@ -595,8 +632,13 @@ class Placement:
                     tag(x, spec_of(ref))
         return state
 
-    def dp_ranks(self) -> int:
-        return math.prod(self.sizes[a] for a in self.batch_axes)
+    def row_axes(self) -> tuple:
+        """The batch axes that split the rows: `batch_axes` but "seq"."""
+        return tuple(a for a in self.batch_axes if a != "seq")
+
+    def row_ranks(self) -> int:
+        """The number of rank groups holding distinct rows."""
+        return math.prod(self.sizes[a] for a in self.row_axes())
 
     # -- around a layer ----------------------------------------------------
 
@@ -640,24 +682,25 @@ class Placement:
     def expert_rows(self, counts):
         """([R, E] each batch rank's `counts` [E] in the order of its rows
         of the global batch, this rank's index in it): one all-gather
-        over the batch axes, minor axis first (`shard_batch`'s order). The
-        MoE's tokens are whole sequences ("seq" never splits them:
-        `launch.steps.check_cp`)."""
-        if "seq" in self.batch_axes:
-            raise ValueError("an MoE layer's tokens cannot be split over "
-                             "'seq': its router's positions follow the "
-                             "global token order")
+        over the axes that split the rows (`row_axes`), minor axis first
+        (`shard_batch`'s order). The MoE's tokens are whole sequences:
+        under "seq" it gathers its input's sequence (`cp_enter`), so every
+        seq rank of a data rank holds that data rank's rows, and "seq" is
+        left out."""
+        axes = self.row_axes()
         x, r = counts[None], 0
-        for a in reversed(self.batch_axes):
+        for a in reversed(axes):
             x = _gather_dim(x, 0, self.mesh.get_group(a))
-        for a in self.batch_axes:
+        for a in axes:
             r = r * self.sizes[a] + self.mesh.get_local_rank(a)
         return x, r
 
     def reduce_grads(self, grads) -> None:
         """All-reduce, in place, each leaf's grad over the axes the batch
-        is split on and the leaf is not: one flat buffer per (axis,
-        dtype)."""
+        is split on and the leaf is not: flat buffers of at most
+        `REDUCE_BUCKET` bytes per (axis, dtype), a larger leaf cut into
+        pieces of that size (a whole-model buffer would double the
+        grads' memory: 15 GB for jamba's first two layers under "seq")."""
         from torch._utils import (_flatten_dense_tensors,
                                   _unflatten_dense_tensors)
 
@@ -667,10 +710,13 @@ class Placement:
                 if a not in split_axes(spec_of(g) or ()):
                     by_dtype.setdefault(g.dtype, []).append(g)
             for xs in by_dtype.values():
-                flat = _collective("all-reduce", _flatten_dense_tensors(xs),
-                                   self.mesh.get_group(a))
-                for x, y in zip(xs, _unflatten_dense_tensors(flat, xs)):
-                    x.copy_(y)
+                for bucket in _buckets(xs, REDUCE_BUCKET):
+                    flat = _collective("all-reduce",
+                                       _flatten_dense_tensors(bucket),
+                                       self.mesh.get_group(a))
+                    for x, y in zip(bucket,
+                                    _unflatten_dense_tensors(flat, bucket)):
+                        x.copy_(y)
 
     def sum_over_batch(self, x):
         """x summed over the axes the batch is split on."""
@@ -701,6 +747,28 @@ class Placement:
                 if me in row:
                     made[k] = g
         return made[k], self.mesh.get_local_rank("model") % k
+
+
+# bytes of one all-reduce of `Placement.reduce_grads`
+REDUCE_BUCKET = 256 * 1024 * 1024
+
+
+def _buckets(xs, limit: int) -> list:
+    """`xs` (tensors of one dtype) in lists of at most `limit` bytes, in
+    order; a contiguous tensor larger than that cut into views of it."""
+    out, cur, size = [], [], 0
+    for x in xs:
+        pieces = [x]
+        if x.numel() * x.element_size() > limit and x.is_contiguous():
+            pieces = list(x.view(-1).split(max(1, limit // x.element_size())))
+        for piece in pieces:
+            b = piece.numel() * piece.element_size()
+            if cur and size + b > limit:
+                out.append(cur)
+                cur, size = [], 0
+            cur.append(piece)
+            size += b
+    return out + [cur] if cur else out
 
 
 def _place(tree, specs, mesh, shard_local):
@@ -852,6 +920,32 @@ def on_slice(tree):
     if not seq_split():
         return tree
     return tree_map(sum_grad, tree)
+
+
+def cp_size() -> int:
+    """The "seq" size of the active placement (context parallelism); 1
+    without one."""
+    pl = active()
+    return 1 if pl is None else pl.sizes.get("seq", 1)
+
+
+def cp_enter(x):
+    """Under context parallelism, the rank's token shard (dim 1) -> the
+    whole sequence, all-gathered over "seq" in rank order; the backward
+    reduce-scatters the rank's partial grad (module docstring). Else x."""
+    if cp_size() == 1:
+        return x
+    return _GatherSum.apply(x, 1, active().mesh.get_group("seq"))
+
+
+def cp_exit(y):
+    """Under context parallelism, the whole sequence (dim 1) -> the
+    rank's token shard; the backward zero-pads its grad (module
+    docstring). Else y."""
+    if cp_size() == 1:
+        return y
+    pl = active()
+    return _SeqShard.apply(y, pl.mesh.get_local_rank("seq"), pl.sizes["seq"])
 
 
 def tp_enter(x):

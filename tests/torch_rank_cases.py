@@ -216,7 +216,8 @@ def cp_train(rank, world, argv_runs, grad_args):
 
 def cp_grads(grad_args):
     """(loss, {path: grad}) of the smoke model's CP grad fn: the placed
-    step on a (data, seq) mesh, its grads gathered whole."""
+    step on a (data, seq) mesh, its grads gathered whole. `grad_args`:
+    "arch", "attn" (None: the config's own), "cp", "batch"."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
@@ -225,8 +226,10 @@ def cp_grads(grad_args):
     from repro_torch.optim.grad_utils import leaves
     from repro_torch.sharding import placed
 
-    cfg = dataclasses.replace(get_smoke_config(grad_args["arch"]),
-                              attn=A.AttentionSpec.parse(grad_args["attn"]))
+    cfg = get_smoke_config(grad_args["arch"])
+    if grad_args.get("attn"):
+        cfg = dataclasses.replace(
+            cfg, attn=A.AttentionSpec.parse(grad_args["attn"]))
     mesh = None
     params = init_model(cfg, seed=0, device="cpu")
     batch = grad_args["batch"]
@@ -240,3 +243,63 @@ def cp_grads(grad_args):
     if mesh is not None:
         grads = placed.full(grads, mesh)
     return float(loss), {n: g.numpy() for n, g in leaves(grads)}
+
+
+def _model_split_pair():
+    """`placed.cp_enter` / `cp_exit` with the "model" split's backward
+    over "seq" (`GatherModel` keeps the slice's grad, `SliceModel`
+    gathers the slices' grads): the wrong pair for a layer computed whole
+    on every seq rank."""
+    from repro_torch.sharding import placed
+
+    def args():
+        pl = placed.active()
+        return (1, pl.mesh.get_group("seq"), pl.mesh.get_local_rank("seq"),
+                pl.sizes["seq"])
+
+    def enter(x):
+        return x if placed.cp_size() == 1 else placed.GatherModel.apply(
+            x, *args())
+
+    def exit_(y):
+        return y if placed.cp_size() == 1 else placed.SliceModel.apply(
+            y, *args())
+
+    return enter, exit_
+
+
+# the token counts of the hybrid kernel wrapper's calls in this rank
+hybrid_tokens: list = []
+
+
+def cp_mixers(rank, world, cases):
+    """Each case ({"name", "grad_args"} and "model_backward": the
+    entry/exit pair with the "model" split's backward) through `cp_grads`
+    on a (world / cp, cp) mesh, with the sharded and single-device kernel
+    wrappers' calls it made and the token count of each hybrid kernel
+    wrapper call; rank 0 returns {name: (loss, grads, calls, tokens)}."""
+    from repro_torch.sharding import placed
+
+    del world
+    _count_kernel_calls()
+    hybrid = K.hybrid
+    if not getattr(hybrid, "_tokens", False):
+        def tokens(q, *a, _fn=hybrid, **kw):
+            hybrid_tokens.append(q.shape[2])
+            return _fn(q, *a, **kw)
+
+        tokens._tokens = True
+        K.hybrid = tokens
+    out = {}
+    for case in cases:
+        pair = placed.cp_enter, placed.cp_exit
+        if case.get("model_backward"):
+            placed.cp_enter, placed.cp_exit = _model_split_pair()
+        del hybrid_tokens[:]
+        try:
+            res, counts = _calls_during(
+                lambda: cp_grads(case["grad_args"]))
+        finally:
+            placed.cp_enter, placed.cp_exit = pair
+        out[case["name"]] = (*res, counts, list(hybrid_tokens))
+    return out if rank == 0 else None
